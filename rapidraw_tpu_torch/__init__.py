@@ -1,0 +1,26 @@
+"""rapidraw_tpu_torch — the PyTorch / CUDA port of rapidraw_tpu for one
+NVIDIA H100.
+
+The develop main path: one adjustment document applied to planar
+(3, H, W) float32 images, then quantized on the device. On CUDA tensors it
+runs two hand-written Hopper kernels (csrc/blur.cu for the blur pyramid,
+csrc/grade.cu for the whole per-pixel grade chain); on CPU tensors it runs
+their plain PyTorch versions. The JAX package `rapidraw_tpu` stays the
+reference; this package never imports it or JAX.
+"""
+
+__version__ = "0.1.0"
+
+from rapidraw_tpu_torch.params.parse import (  # noqa: F401
+    DevelopConfig,
+    DevelopParams,
+    merge_configs,
+    parse_adjustments,
+)
+from rapidraw_tpu_torch.pipeline.batch import develop_batch, stack_params  # noqa: F401
+from rapidraw_tpu_torch.pipeline.develop import develop  # noqa: F401
+from rapidraw_tpu_torch.pipeline.export import (  # noqa: F401
+    develop_single,
+    device_u8,
+    device_u16,
+)

@@ -1,0 +1,839 @@
+// The develop grade chain as one per-pixel CUDA kernel for Hopper (sm_90a).
+//
+// Replaces the TPU megakernel B3 (rapidraw_tpu/pipeline/fused.py
+// `develop_fused`, body `_make_dev_kernel`) and its batched form B4
+// (`develop_fused_batch`): grade_chain + finish_chain of
+// rapidraw_tpu/pipeline/grade.py, for documents without masks, flare, CA,
+// NR or a LUT. Every device function below transcribes the plain PyTorch
+// op of the same name in rapidraw_tpu_torch/ops (itself a port of the JAX
+// op) in the same operation order; the file is built with --fmad=false so
+// each product and sum rounds on its own, as the plain chain does.
+//
+// Inputs: the image (B, 3, H, W) and up to four blur levels (B, 3, H, W),
+// all in input space (sRGB for LDR, linear for RAW) — both are linearized
+// here, in registers, as the TPU kernel does in VMEM (fused.py:243); a
+// (B, K) f32 param matrix whose offsets come from the generated
+// grade_gen.h (pipeline/fused.py LAYOUT). DevelopConfig arrives as a
+// warp-uniform runtime bitmask plus curve_segments and the HSL band mask:
+// the reference shader gates stages the same way (`if (param != 0)`), every
+// gated stage is an exact identity when skipped, and one build serves
+// every document.
+//
+// What bounds it on the card: HBM traffic. At 24 MP each pixel reads
+// 3 + 3*levels floats and writes 3 (0.6-1.5 GB per frame) against a few
+// hundred flops, so the design makes exactly one pass over device memory:
+// one thread per pixel, all intermediates in registers, the batch on the
+// grid's z axis (one launch for any B), params read through the read-only
+// cache (uniform across the warp, so each is one broadcast load).
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "grade_gen.h"
+
+namespace {
+
+// A Python float constant as the plain chain sees it: the exact double,
+// rounded once to f32.
+#define FC(x) ((float)(x))
+
+struct F3 {
+  float r, g, b;
+};
+
+__device__ __forceinline__ F3 f3(float r, float g, float b) { return {r, g, b}; }
+__device__ __forceinline__ F3 splat(float v) { return {v, v, v}; }
+__device__ __forceinline__ F3 add(F3 a, F3 b) { return {a.r + b.r, a.g + b.g, a.b + b.b}; }
+__device__ __forceinline__ F3 sub(F3 a, F3 b) { return {a.r - b.r, a.g - b.g, a.b - b.b}; }
+__device__ __forceinline__ F3 mul(F3 a, F3 b) { return {a.r * b.r, a.g * b.g, a.b * b.b}; }
+__device__ __forceinline__ F3 divv(F3 a, float s) { return {a.r / s, a.g / s, a.b / s}; }
+__device__ __forceinline__ F3 divv(F3 a, F3 s) { return {a.r / s.r, a.g / s.g, a.b / s.b}; }
+__device__ __forceinline__ F3 scl(F3 a, float s) { return {a.r * s, a.g * s, a.b * s}; }
+__device__ __forceinline__ F3 addc(F3 a, float s) { return {a.r + s, a.g + s, a.b + s}; }
+__device__ __forceinline__ F3 max0(F3 a) {
+  return {fmaxf(a.r, 0.0f), fmaxf(a.g, 0.0f), fmaxf(a.b, 0.0f)};
+}
+__device__ __forceinline__ float max3(F3 a) { return fmaxf(a.r, fmaxf(a.g, a.b)); }
+__device__ __forceinline__ float min3(F3 a) { return fminf(a.r, fminf(a.g, a.b)); }
+
+__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+__device__ __forceinline__ float sgnf(float x) {
+  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
+}
+__device__ __forceinline__ float fract(float x) { return x - floorf(x); }
+// x divided by a constant that the plain chain holds as a Python scalar.
+// PyTorch's CUDA division by a CPU scalar multiplies by the reciprocal
+// taken in double and rounded to f32 (measured bit-exact on the H100), so
+// the kernel does the same and the on-card comparison is like for like; on
+// the CPU both PyTorch and JAX divide, which differs by at most 1 ulp.
+// The runtime divisors (W, H, the resolution scale) arrive as reciprocals
+// taken the same way on the host.
+#define divs(x, c) ((x) * (float)(1.0 / (c)))
+
+// ---- ops/common.py --------------------------------------------------------
+
+__device__ __forceinline__ float luma(F3 c) {
+  return c.r * FC(0.2126) + c.g * FC(0.7152) + c.b * FC(0.0722);
+}
+__device__ __forceinline__ float mix(float a, float b, float t) {
+  return a * (1.0f - t) + b * t;
+}
+__device__ __forceinline__ F3 mix3(F3 a, F3 b, float t) {
+  return {mix(a.r, b.r, t), mix(a.g, b.g, t), mix(a.b, b.b, t)};
+}
+// smoothstep with static edges: the reciprocal folds on the host side in
+// the plain chain, so it is the double 1/(e1-e0) rounded once
+__device__ __forceinline__ float ss(double e0, double e1, float x) {
+  const float inv = (float)(1.0 / (e1 - e0));
+  const float t = clampf((x - (float)e0) * inv, 0.0f, 1.0f);
+  return t * t * (3.0f - 2.0f * t);
+}
+// smoothstep with runtime edges (step fallback when e0 == e1)
+__device__ __forceinline__ float ssd(float e0, float e1, float x) {
+  float d = e1 - e0;
+  d = d == 0.0f ? FC(1e-20) : d;
+  const float t = clampf((x - e0) / d, 0.0f, 1.0f);
+  return t * t * (3.0f - 2.0f * t);
+}
+__device__ __forceinline__ float fpow(float x, float y) {
+  const float safe = fmaxf(x, FC(1e-37));
+  float l = log2f(safe);
+  const float e = exp2f(l);
+  l = l + (safe - e) / (e * FC(0.6931471805599453));
+  return exp2f(y * l);
+}
+__device__ __forceinline__ float fpow_lt1(float x, float y) {
+  return exp2f(y * log2f(fmaxf(x, FC(1e-37))));
+}
+// x^2.4 and x^2.2 as fpow_static: x^frac * x * x
+__device__ __forceinline__ float pow_2p4(float x) {
+  float acc = fpow_lt1(x, FC(2.4 - 2.0));
+  acc = acc * x;
+  return acc * x;
+}
+__device__ __forceinline__ float pow_2p2(float x) {
+  float acc = fpow_lt1(x, FC(2.2 - 2.0));
+  acc = acc * x;
+  return acc * x;
+}
+
+// ---- ops/colorspace.py ----------------------------------------------------
+
+__device__ __forceinline__ float srgb_to_linear(float c) {
+  const float higher = pow_2p4(divs(fabsf(c + FC(0.055)), 1.055));
+  const float lower = divs(c, 12.92);
+  return c <= FC(0.04045) ? lower : higher;
+}
+__device__ __forceinline__ F3 srgb_to_linear3(F3 c) {
+  return {srgb_to_linear(c.r), srgb_to_linear(c.g), srgb_to_linear(c.b)};
+}
+__device__ __forceinline__ float linear_to_srgb(float c) {
+  c = clampf(c, 0.0f, 1.0f);
+  const float higher = FC(1.055) * fpow_lt1(c, FC(1.0 / 2.4)) - FC(0.055);
+  const float lower = c * FC(12.92);
+  return c <= FC(0.0031308) ? lower : higher;
+}
+__device__ __forceinline__ float linear_to_srgb_ext(float c) {
+  c = fmaxf(c, 0.0f);
+  const float higher = FC(1.055) * fpow_lt1(c, FC(1.0 / 2.4)) - FC(0.055);
+  const float lower = c * FC(12.92);
+  return c <= FC(0.0031308) ? lower : higher;
+}
+
+__device__ __forceinline__ void rgb_to_hsv(F3 c, float& h, float& s, float& v) {
+  const float c_max = fmaxf(c.r, fmaxf(c.g, c.b));
+  const float c_min = fminf(c.r, fminf(c.g, c.b));
+  const float delta = c_max - c_min;
+  const float safe_delta = delta > 0.0f ? delta : 1.0f;
+  const float inv_delta = 1.0f / safe_delta;
+  const float h_r = 60.0f * ((c.g - c.b) * inv_delta);
+  const float h_g = 60.0f * ((c.b - c.r) * inv_delta + 2.0f);
+  const float h_b = 60.0f * ((c.r - c.g) * inv_delta + 4.0f);
+  float hh = c_max == c.r ? h_r : (c_max == c.g ? h_g : h_b);
+  hh = delta > 0.0f ? hh : 0.0f;
+  h = hh < 0.0f ? hh + 360.0f : hh;
+  s = c_max > 0.0f ? delta / c_max : 0.0f;
+  v = c_max;
+}
+
+__device__ __forceinline__ F3 hsv_to_rgb(float h, float s, float v) {
+  const float c = v * s;
+  const float u = h * FC(1.0 / 60.0);
+  const float x = c * (1.0f - fabsf(u - 2.0f * floorf(u * 0.5f) - 1.0f));
+  const float z = 0.0f;
+  F3 p;
+  if (h < 60.0f) p = f3(c, x, z);
+  else if (h >= 60.0f && h < 120.0f) p = f3(x, c, z);
+  else if (h >= 120.0f && h < 180.0f) p = f3(z, c, x);
+  else if (h >= 180.0f && h < 240.0f) p = f3(z, x, c);
+  else if (h >= 240.0f && h < 300.0f) p = f3(x, z, c);
+  else p = f3(c, z, x);
+  const float m = v - c;
+  return addc(p, m);
+}
+
+// ---- ops/tone.py ----------------------------------------------------------
+
+__device__ __forceinline__ F3 linear_exposure(F3 c, float e) {
+  return e == 0.0f ? c : scl(c, exp2f(e));
+}
+
+__device__ F3 filmic_exposure(F3 c, float br) {
+  const float ol = luma(c);
+  const float direct_adj = br * FC(1.0 - 0.95);
+  const float rational_adj = br * FC(0.95);
+  const float scale = exp2f(direct_adj);
+  const float k = exp2f(-rational_adj * FC(1.2));
+  const float la = fabsf(ol);
+  const float lf = floorf(divs(la, 1.06)) * FC(1.06);
+  const float ln = divs(la - lf, 1.06);
+  const float sn = ln / (ln + (1.0f - ln) * k);
+  const float sla = lf + sn * FC(1.06);
+  const float nl = sgnf(ol) * sla * scale;
+  const F3 chroma = addc(c, -ol);
+  const float safe_orig = fabsf(ol) < FC(1e-20) ? 1.0f : ol;
+  const float tls = nl / safe_orig;
+  const float lw = clampf(nl, 0.0f, 2.0f) * 0.5f;
+  const float dyn = mix(FC(0.95), FC(0.65), lw);
+  const float bcs = fpow_lt1(fmaxf(tls, 0.0f), dyn);
+  const float hr = 1.0f / (1.0f + fmaxf(nl - FC(0.9), 0.0f) * 2.0f);
+  const float cs = bcs * hr;
+  const F3 out = addc(scl(chroma, cs), nl);
+  const bool skip = br == 0.0f || fabsf(ol) < FC(0.00001);
+  return skip ? c : out;
+}
+
+__device__ __forceinline__ float shadow_mult(float l, float sh, float bl) {
+  const float sl = fmaxf(l, FC(0.0001));
+  float mult = 1.0f;
+  float x = divs(sl, 0.05);
+  float m = (1.0f - x) * (1.0f - x);
+  float factor = fminf(exp2f(bl * FC(0.75)), FC(3.9));
+  const float bl_mult = mix(1.0f, factor, m);
+  mult = mult * ((bl != 0.0f && sl < FC(0.05)) ? bl_mult : 1.0f);
+  x = divs(sl, 0.1);
+  m = (1.0f - x) * (1.0f - x);
+  factor = fminf(exp2f(sh * FC(1.5)), FC(3.9));
+  const float sh_mult = mix(1.0f, factor, m);
+  mult = mult * ((sh != 0.0f && sl < FC(0.1)) ? sh_mult : 1.0f);
+  return mult;
+}
+
+__device__ __forceinline__ float contrast_channel(float c, float strength) {
+  const float safe = fmaxf(c, 0.0f);
+  const float perceptual = fpow_lt1(safe, FC(1.0 / 2.2));
+  const float cp = clampf(perceptual, 0.0f, 1.0f);
+  const bool lo = cp < 0.5f;
+  const float base = lo ? 2.0f * cp : 2.0f * (1.0f - cp);
+  const float powed = 0.5f * fpow(base, strength);
+  const float curved = lo ? powed : 1.0f - powed;
+  const float adjusted = pow_2p2(curved);
+  const float mf = ss(1.0, 1.01, safe);
+  return mix(adjusted, c, mf);
+}
+
+__device__ F3 tonal_adjustments(F3 c, F3 blur, bool shadow_path, float con, float sh,
+                                float wh, float bl) {
+  const float white_level = 1.0f - wh * FC(0.25);
+  const float w_mult = 1.0f / fmaxf(white_level, FC(0.01));
+  const bool w_on = wh != 0.0f;
+  if (w_on) c = scl(c, w_mult);
+  if (shadow_path) {
+    if (w_on) blur = scl(blur, w_mult);
+    const float spl = fmaxf(luma(max0(c)), FC(0.0001));
+    const float sbl = fmaxf(luma(max0(blur)), FC(0.0001));
+    const float halo = ss(0.05, 0.25, fabsf(sqrtf(spl) - sqrtf(sbl)));
+    const float spatial = shadow_mult(sbl, sh, bl);
+    const float pixel = shadow_mult(spl, sh, bl);
+    const float fm = mix(spatial, pixel, halo);
+    if (sh != 0.0f || bl != 0.0f) c = scl(c, fm);
+  }
+  if (con != 0.0f) {
+    const float strength = exp2f(con * FC(1.25));
+    c = f3(contrast_channel(c.r, strength), contrast_channel(c.g, strength),
+           contrast_channel(c.b, strength));
+  }
+  return c;
+}
+
+__device__ F3 highlights(F3 c, float h) {
+  const float pl = luma(max0(c));
+  const float spl = fmaxf(pl, FC(0.0001));
+  const float hm = ss(0.3, 0.95, tanhf(spl * FC(1.5)));
+  if (h == 0.0f || hm < FC(0.001)) return c;
+  F3 adjusted;
+  if (h < 0.0f) {
+    const float l = pl;
+    const float gamma = 1.0f - h * FC(1.75);
+    const float nll = fpow(fmaxf(l, 0.0f), gamma);
+    const float le = l - 1.0f;
+    const float cstr = -h * FC(6.0);
+    const float ce = le / (1.0f + fmaxf(le, 0.0f) * cstr);
+    const float nlh = 1.0f + ce;
+    const float nl = l <= 1.0f ? nll : nlh;
+    const F3 ta = scl(c, nl / fmaxf(l, FC(0.0001)));
+    const float desat = ss(1.0, 10.0, l);
+    adjusted = mix3(ta, splat(nl), desat);
+  } else {
+    adjusted = scl(c, exp2f(h * FC(1.75)));
+  }
+  return mix3(c, adjusted, hm);
+}
+
+__device__ __forceinline__ float horner(float u, const float* coef) {
+  float acc = coef[AGX_NCOEF - 1];
+#pragma unroll
+  for (int i = AGX_NCOEF - 2; i >= 0; --i) acc = acc * u + coef[i];
+  return acc;
+}
+
+__device__ __forceinline__ float agx_curve(float x) {
+  float r;
+  if (x < AGX_TX) {
+    r = horner((clampf(x, AGX_M0, AGX_TX) - AGX_T_MID) * AGX_T_INV_HALF, AGX_TOE_COEF);
+  } else {
+    r = horner((clampf(x, AGX_TX, AGX_M1) - AGX_S_MID) * AGX_S_INV_HALF, AGX_SHOULDER_COEF);
+  }
+  return clampf(r, 0.0f, 1.0f);
+}
+
+__device__ __forceinline__ F3 mat3(const float* m, F3 c) {
+  return {__ldg(m + 0) * c.r + __ldg(m + 1) * c.g + __ldg(m + 2) * c.b,
+          __ldg(m + 3) * c.r + __ldg(m + 4) * c.g + __ldg(m + 5) * c.b,
+          __ldg(m + 6) * c.r + __ldg(m + 7) * c.g + __ldg(m + 8) * c.b};
+}
+
+__device__ __forceinline__ float agx_channel(float v) {
+  const float x_rel = fmaxf(divs(v, 0.18), AGX_EPSILON);
+  const float le = divs(log2f(x_rel) - AGX_MIN_EV, AGX_RANGE_EV);
+  const float curved = agx_curve(clampf(le, 0.0f, 1.0f));
+  return pow_2p4(fmaxf(curved, 0.0f));
+}
+
+__device__ F3 agx_tonemap(F3 c, const float* p2r, const float* r2p) {
+  const float min_c = min3(c);
+  const F3 comp = min_c < 0.0f ? addc(c, -min_c) : c;
+  const F3 in = mat3(p2r, comp);
+  return mat3(r2p, f3(agx_channel(in.r), agx_channel(in.g), agx_channel(in.b)));
+}
+
+__device__ __forceinline__ float raw_emulation(float c) {
+  float s = linear_to_srgb(c);
+  s = fpow_lt1(fmaxf(s, 0.0f), FC(1.0 / 1.1));
+  const float cc = s * s * (3.0f - 2.0f * s);
+  return mix(s, cc, 0.75f);
+}
+
+// ---- ops/color.py ---------------------------------------------------------
+
+__device__ __forceinline__ F3 white_balance(F3 c, float t, float n) {
+  return {c.r * ((1.0f + t * FC(0.2)) * (1.0f + n * FC(0.25))),
+          c.g * ((1.0f + t * FC(0.05)) * (1.0f - n * FC(0.25))),
+          c.b * ((1.0f - t * FC(0.2)) * (1.0f + n * FC(0.25)))};
+}
+
+__device__ F3 creative_color(F3 c, float sat, float vib) {
+  const float l = luma(c);
+  const F3 processed = sat != 0.0f ? mix3(splat(l), c, 1.0f + sat) : c;
+  const float c_max = max3(processed);
+  const float c_min = min3(processed);
+  const float delta = c_max - c_min;
+  if (vib == 0.0f || delta < FC(0.02)) return processed;
+  const float cur_sat = delta / fmaxf(c_max, FC(0.001));
+  float amount;
+  if (vib > 0.0f) {
+    const float sat_mask = 1.0f - ss(0.4, 0.9, cur_sat);
+    float h, s, v;
+    rgb_to_hsv(processed, h, s, v);
+    const float hue_dist = fminf(fabsf(h - 25.0f), 360.0f - fabsf(h - 25.0f));
+    const float is_skin = ss(35.0, 10.0, hue_dist);
+    const float skin_dampener = mix(1.0f, FC(0.6), is_skin);
+    amount = vib * sat_mask * skin_dampener * 3.0f;
+  } else {
+    amount = vib * (1.0f - ss(0.2, 0.8, cur_sat));
+  }
+  return mix3(splat(l), processed, 1.0f + amount);
+}
+
+__device__ F3 hue_shift(F3 c, float shift) {
+  if (fabsf(shift) < FC(0.01)) return c;
+  const F3 srgb = f3(linear_to_srgb_ext(c.r), linear_to_srgb_ext(c.g), linear_to_srgb_ext(c.b));
+  float h, s, v;
+  rgb_to_hsv(srgb, h, s, v);
+  const float sh = fmodf(h + shift + 360.0f, 360.0f);
+  return srgb_to_linear3(hsv_to_rgb(sh, s, v));
+}
+
+__constant__ float HSL_CENTER[8] = {358.0f, 25.0f, 60.0f, 115.0f, 180.0f, 225.0f, 280.0f, 330.0f};
+__constant__ float HSL_INV_HALF_WIDTH[8] = {
+    FC(2.0 / 35.0), FC(2.0 / 45.0), FC(2.0 / 40.0), FC(2.0 / 90.0),
+    FC(2.0 / 60.0), FC(2.0 / 60.0), FC(2.0 / 55.0), FC(2.0 / 50.0)};
+
+__device__ F3 hsl_panel(F3 c, const float* hsl, unsigned bands) {
+  const F3 safe = max0(c);
+  float h, s, v;
+  rgb_to_hsv(safe, h, s, v);
+  const float ol = luma(safe);
+  const float sat_mask = ss(0.05, 0.20, s);
+  const float lum_weight = ss(0.0, 1.0, s);
+  const bool gray = fabsf(safe.r - safe.g) < FC(0.001) && fabsf(safe.g - safe.b) < FC(0.001);
+  const bool zero_w = sat_mask < FC(0.001) && lum_weight < FC(0.001);
+  if (gray || zero_w) return safe;
+
+  float inf[8];
+  float total = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float d = fabsf(h - HSL_CENTER[i]);
+    const float dist = fminf(d, 360.0f - d);
+    const float f = dist * HSL_INV_HALF_WIDTH[i];
+    inf[i] = expf(-1.5f * f * f);
+    total = i == 0 ? inf[i] : total + inf[i];
+  }
+  const float inv_total = 1.0f / total;
+  float th = 0.0f, ts = 0.0f, tl = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    if (!(bands & (1u << i))) continue;
+    const float ni = inf[i] * inv_total;
+    th = th + __ldg(hsl + 3 * i + 0) * 2.0f * ni;
+    ts = ts + __ldg(hsl + 3 * i + 1) * ni;
+    tl = tl + __ldg(hsl + 3 * i + 2) * ni;
+  }
+  const float total_hue = th * sat_mask;
+  const float total_sat = ts * sat_mask;
+  const float total_lum = tl * lum_weight;
+
+  const float new_sat_raw = s * (1.0f + total_sat);
+  const float desat_val = ol * (1.0f + total_lum);
+  if (new_sat_raw < FC(0.0001)) return splat(desat_val);
+  const float new_h = fmodf(h + total_hue + 360.0f, 360.0f);
+  const float new_s = clampf(new_sat_raw, 0.0f, 1.0f);
+  const F3 hs = hsv_to_rgb(new_h, new_s, v);
+  const float nl = luma(hs);
+  const float target = ol * (1.0f + total_lum);
+  if (nl < FC(0.0001)) return splat(fmaxf(target, 0.0f));
+  return scl(hs, target / nl);
+}
+
+__device__ F3 color_grading(F3 c, const float* cg, float blending, float balance) {
+  const float l = luma(max0(c));
+  const float sc = FC(0.1) + fmaxf(-balance, 0.0f) * 0.5f;
+  const float hc = 0.5f - fmaxf(balance, 0.0f) * 0.5f;
+  const float feather = FC(0.2) * blending;
+  const float fsc = fminf(sc, hc - FC(0.01));
+  const float shadow = 1.0f - ssd(fsc - feather, fsc + feather, l);
+  const float high = ssd(hc - feather, hc + feather, l);
+  const float mid = fmaxf(1.0f - shadow - high, 0.0f);
+  const float masks[4] = {shadow, mid, high, 1.0f};
+  const float sat_str[4] = {FC(0.3), FC(0.6), FC(0.8), 1.0f};
+  const float lum_str[4] = {0.5f, FC(0.8), 1.0f, 1.0f};
+  F3 graded = c;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float hue = __ldg(cg + 3 * i), sat = __ldg(cg + 3 * i + 1), lum = __ldg(cg + 3 * i + 2);
+    const float m = masks[i];
+    if (sat > FC(0.001)) {
+      const F3 t = hsv_to_rgb(hue, 1.0f, 1.0f);
+      const float amt = (sat * sat_str[i]) * m;
+      graded = add(graded, f3((t.r - 0.5f) * amt, (t.g - 0.5f) * amt, (t.b - 0.5f) * amt));
+    }
+    graded = addc(graded, (lum * lum_str[i]) * m);
+  }
+  return graded;
+}
+
+__device__ F3 color_calibration(F3 c, const float* cal) {
+  const float st = __ldg(cal + 0), h_r = __ldg(cal + 1), s_r = __ldg(cal + 2);
+  const float h_g = __ldg(cal + 3), s_g = __ldg(cal + 4), h_b = __ldg(cal + 5),
+              s_b = __ldg(cal + 6);
+  const float rp0 = 1.0f - fabsf(h_r), rp1 = fmaxf(0.0f, h_r), rp2 = fmaxf(0.0f, -h_r);
+  const float gp0 = fmaxf(0.0f, -h_g), gp1 = 1.0f - fabsf(h_g), gp2 = fmaxf(0.0f, h_g);
+  const float bp0 = fmaxf(0.0f, h_b), bp1 = fmaxf(0.0f, -h_b), bp2 = 1.0f - fabsf(h_b);
+  F3 o = f3(rp0 * c.r + gp0 * c.g + bp0 * c.b, rp1 * c.r + gp1 * c.g + bp1 * c.b,
+            rp2 * c.r + gp2 * c.g + bp2 * c.b);
+  const float l = luma(max0(o));
+  const F3 sat_vector = addc(o, -l);
+  const float color_sum = o.r + o.g + o.b;
+  F3 masks = splat(0.0f);
+  if (color_sum > FC(0.001)) masks = divv(o, color_sum == 0.0f ? 1.0f : color_sum);
+  const float total = masks.r * s_r + masks.g * s_g + masks.b * s_b;
+  o = add(o, scl(sat_vector, total));
+  if (fabsf(st) > FC(0.001)) {
+    const float m = 1.0f - ss(0.0, 0.3, luma(max0(o)));
+    o = f3(mix(o.r, o.r * (1.0f + st * FC(0.25)), m), mix(o.g, o.g * (1.0f - st * FC(0.25)), m),
+           mix(o.b, o.b * (1.0f + st * FC(0.25)), m));
+  }
+  return o;
+}
+
+// ---- ops/local.py ---------------------------------------------------------
+
+__device__ F3 local_contrast(F3 c, F3 blur, float amount, bool is_raw, int mode,
+                             float threshold) {
+  if (amount == 0.0f) return c;
+  if (amount < 0.0f) {
+    const float blur_amount = mode == 0 ? -amount * 0.5f : -amount * 1.0f;
+    return mix3(c, blur, blur_amount);
+  }
+  const float center_luma = luma(c);
+  const float shadow_protection =
+      is_raw ? ss(0.0, 0.1, center_luma) : ss(0.0, 0.03, center_luma);
+  const float highlight_protection = 1.0f - ss(0.9, 1.0, center_luma);
+  const float midtone_mask = shadow_protection * highlight_protection;
+  if (midtone_mask < FC(0.001)) return c;
+  const float safe_center = fmaxf(center_luma, FC(0.0001));
+  const float safe_blurred = fmaxf(luma(blur), FC(0.0001));
+  const float log_ratio = log2f(safe_center / safe_blurred);
+  float eff;
+  if (mode == 0) {
+    const float edge = fabsf(log_ratio);
+    const float ne = clampf(divs(edge, 3.0), 0.0f, 1.0f);
+    const float dampener = 1.0f - sqrtf(ne);
+    const float edge_mask = ssd(threshold * 0.5f, threshold * 1.5f, edge);
+    eff = amount * dampener * edge_mask * FC(0.8);
+  } else {
+    eff = amount * 1.0f;
+  }
+  const float cf = exp2f(log_ratio * eff);
+  return mix3(c, scl(c, cf), midtone_mask);
+}
+
+__device__ __forceinline__ float centre_mask(float x, float y, float inv_w, float inv_h,
+                                             float aspect) {
+  const float un = (x * inv_w - 0.5f) * 2.0f;
+  const float vn = (y * inv_h - 0.5f) * 2.0f;
+  const float va = vn * aspect;
+  const float d = sqrtf(un * un + va * va) * 0.5f;
+  return 1.0f - ss(0.4 - 0.375, 0.4 + 0.375, d);
+}
+
+__device__ F3 centre_local_contrast(F3 c, float amount, F3 clarity, bool is_raw, float cm) {
+  if (amount == 0.0f) return c;
+  const float strength = amount * (2.0f * cm - 1.0f) * FC(0.9);
+  if (!(fabsf(strength) > FC(0.001))) return c;
+  return local_contrast(c, clarity, strength, is_raw, 1, 0.0f);
+}
+
+__device__ F3 centre_tonal_and_color(F3 c, float amount, float cm) {
+  if (amount == 0.0f) return c;
+  F3 out = filmic_exposure(c, cm * amount * 0.5f);
+  const float vib = cm * amount * FC(0.4);
+  const float sat_centre = cm * amount * FC(0.3);
+  const float sat_edge = -(1.0f - cm) * amount * FC(0.8);
+  return creative_color(out, sat_centre + sat_edge, vib);
+}
+
+__device__ F3 dehaze(F3 c, F3 blur, float amount) {
+  if (amount == 0.0f) return c;
+  const F3 atm = f3(FC(0.95), FC(0.97), 1.0f);
+  const float regional_dark = min3(blur);
+  if (amount > 0.0f) {
+    const float pixel_dark = min3(c);
+    const float pl = luma(max0(c));
+    const float bl = luma(max0(blur));
+    const float edge = fabsf(sqrtf(fmaxf(pl, 0.0f)) - sqrtf(fmaxf(bl, 0.0f)));
+    const float halo = ss(0.02, 0.15, edge);
+    const float spatial_dark = mix(regional_dark, pixel_dark, halo);
+    const float safe_dark = fmaxf(spatial_dark - FC(0.02), 0.0f);
+    const float mapped = safe_dark / (safe_dark + FC(0.2));
+    const float t = fmaxf(1.0f - amount * mapped * FC(0.85), FC(0.15));
+    F3 rec = add(divv(sub(c, atm), t), atm);
+    const float lift = ss(0.1, 0.0, luma(max0(rec))) * (1.0f - t) * FC(0.15);
+    rec = addc(rec, lift);
+    const float sat_boost = (1.0f - t) * 0.5f;
+    rec = mix3(splat(luma(max0(rec))), rec, 1.0f + sat_boost);
+    return max0(rec);
+  }
+  const float sdn = fmaxf(regional_dark - FC(0.02), 0.0f);
+  const float depth = mix(FC(0.4), 1.0f, sdn / (sdn + FC(0.2)));
+  return mix3(c, atm, fabsf(amount) * FC(0.7) * depth);
+}
+
+__device__ __forceinline__ float perceptual_luma(float l) {
+  return l <= 1.0f ? fpow_lt1(fmaxf(l, 0.0f), FC(1.0 / 2.2))
+                   : 1.0f + fpow_lt1(fmaxf(l - 1.0f, 0.0f), FC(1.0 / 2.2));
+}
+
+// glow/halation source: the level through exposure, brightness and whites
+// (the tonal stage with contrast = shadows = blacks = 0 is the white gain)
+__device__ F3 graded_blur(F3 blur, float exp, float bright, float wh) {
+  blur = linear_exposure(blur, exp);
+  blur = filmic_exposure(blur, bright);
+  if (wh != 0.0f) blur = scl(blur, 1.0f / fmaxf(1.0f - wh * FC(0.25), FC(0.01)));
+  return blur;
+}
+
+__device__ F3 glow_bloom(F3 c, F3 blur, float amount, float exp, float bright, float wh) {
+  if (amount <= 0.0f) return c;
+  const F3 b = graded_blur(blur, exp, bright, wh);
+  const float ll = luma(max0(b));
+  const float pl = perceptual_luma(ll);
+  const float cutoff = mix(FC(0.75), FC(0.08), clampf(amount, 0.0f, 1.0f));
+  const float fade = ssd(cutoff, cutoff + FC(0.15), pl);
+  const float excess = fmaxf(pl - cutoff, 0.0f);
+  const float intensity = fpow_lt1(ss(0.0, 1.0, divs(excess, 5.5)), FC(0.45));
+  F3 bloom = ll > FC(0.01) ? mul(divv(b, ll), f3(FC(1.03), 1.0f, FC(0.97)))
+                           : f3(1.0f, FC(0.99), FC(0.98));
+  const float luma_factor = fpow_lt1(fmaxf(ll, 0.0f), FC(0.6));
+  const float black_gate = sqrtf(ss(0.0, 0.5, ll));
+  bloom = scl(bloom, intensity * luma_factor * fade * black_gate);
+  const float protection = 1.0f - ss(1.0, 2.2, luma(max0(c)));
+  return add(c, scl(bloom, amount * FC(3.8) * protection));
+}
+
+__device__ F3 halation(F3 c, F3 blur, float amount, float exp, float bright, float wh) {
+  if (amount <= 0.0f) return c;
+  const F3 b = graded_blur(blur, exp, bright, wh);
+  const float ll = luma(max0(b));
+  const float pl = perceptual_luma(ll);
+  const float cutoff = mix(FC(0.85), FC(0.1), clampf(amount, 0.0f, 1.0f));
+  if (pl <= cutoff) return c;
+  const float excess = pl - cutoff;
+  const float rng = fmaxf(1.5f - cutoff, FC(0.1));
+  const float hm = ssd(0.0f, rng * FC(0.6), excess);
+  const float blend = ss(0.0, 0.7, hm);
+  const F3 tint = mix3(f3(1.0f, FC(0.32), FC(0.10)), f3(1.0f, FC(0.15), FC(0.03)), blend);
+  const F3 glow = scl(tint, hm * ll);
+  const float cl = luma(max0(c));
+  const F3 affected = mix3(c, splat(cl), hm * FC(0.12));
+  const F3 reduced = mix3(splat(0.5f), affected, 1.0f - hm * FC(0.06));
+  return add(reduced, scl(scl(glow, amount), 2.5f));
+}
+
+// ---- pipeline/grade.py: vignette ------------------------------------------
+
+__device__ F3 vignette(F3 c, float x, float y, float inv_w, float inv_h, float aspect,
+                       float amount,
+                       float midpoint, float roundness, float feather) {
+  const float v_round = 1.0f - roundness;
+  const float v_feather = feather * 0.5f;
+  const float un = (x * inv_w - 0.5f) * 2.0f;
+  const float vn = (y * inv_h - 0.5f) * 2.0f;
+  const float ux = sgnf(un) * fpow(fabsf(un), v_round);
+  const float uy = sgnf(vn) * fpow(fabsf(vn), v_round);
+  const float ua = uy * aspect;
+  const float d = sqrtf(ux * ux + ua * ua) * 0.5f;
+  const float vm = ssd(midpoint - v_feather, midpoint + v_feather, d);
+  if (amount < 0.0f) return scl(c, 1.0f + amount * vm);
+  return mix3(c, splat(1.0f), amount * vm);
+}
+
+// ---- ops/curves.py --------------------------------------------------------
+
+__device__ float eval_curve(float val, const float* seg, const float* ends, float enabled,
+                            int nseg) {
+  if (!(enabled > 0.0f)) return val;
+  const float x = val * 255.0f;
+  float seg_val = 0.0f;
+  bool any_seg = false;
+  for (int i = 0; i < nseg; ++i) {
+    const float* s = seg + 7 * i;
+    const float x0 = __ldg(s), x1 = __ldg(s + 1);
+    if (x > x0 && x <= x1) {
+      const float t = (x - x0) * __ldg(s + 2);
+      seg_val = clampf(((__ldg(s + 6) * t + __ldg(s + 5)) * t + __ldg(s + 4)) * t + __ldg(s + 3),
+                       0.0f, 1.0f);
+      any_seg = true;
+    }
+  }
+  const float last = divs(__ldg(ends + 3), 255.0);
+  float out = any_seg ? seg_val : last;
+  if (x >= __ldg(ends + 2)) out = last;
+  if (x <= __ldg(ends + 0)) out = divs(__ldg(ends + 1), 255.0);
+  return out;
+}
+
+__device__ F3 apply_curves(F3 c, const float* p, int nseg, bool rgb_maybe) {
+  const float* seg = p + P_CURVES_SEG;
+  const float* ends = p + P_CURVES_ENDS;
+  const float* en = p + P_CURVES_ENABLED;
+  const int cs = MAX_SEGMENTS * 7;
+  const float en0 = __ldg(en);
+  const F3 luma_path = f3(eval_curve(c.r, seg, ends, en0, nseg),
+                          eval_curve(c.g, seg, ends, en0, nseg),
+                          eval_curve(c.b, seg, ends, en0, nseg));
+  if (!rgb_maybe || !(__ldg(p + P_CURVES_RGB_ACTIVE) > 0.0f)) return luma_path;
+  const F3 graded = f3(eval_curve(c.r, seg + cs, ends + 4, __ldg(en + 1), nseg),
+                       eval_curve(c.g, seg + 2 * cs, ends + 8, __ldg(en + 2), nseg),
+                       eval_curve(c.b, seg + 3 * cs, ends + 12, __ldg(en + 3), nseg));
+  const float target = eval_curve(luma(c), seg, ends, en0, nseg);
+  const float lg = luma(graded);
+  F3 rp = lg > FC(0.001) ? scl(graded, target / lg) : splat(target);
+  const float mc = max3(rp);
+  if (mc > 1.0f) rp = divv(rp, mc);
+  return rp;
+}
+
+// ---- ops/grain.py ---------------------------------------------------------
+
+__device__ __forceinline__ float hash2(float px, float py) {
+  float p3x = fract(px * FC(0.1031));
+  float p3y = fract(py * FC(0.1031));
+  float p3z = fract(px * FC(0.1031));
+  const float d = p3x * (p3y + FC(33.33)) + p3y * (p3z + FC(33.33)) + p3z * (p3x + FC(33.33));
+  p3x = p3x + d;
+  p3y = p3y + d;
+  p3z = p3z + d;
+  return fract((p3x + p3y) * p3z);
+}
+
+__device__ __forceinline__ float grad_dot(float ix, float iy, float fx, float fy, float ox,
+                                          float oy) {
+  const float gx = hash2(ix + ox, iy + oy) * 2.0f - 1.0f;
+  const float gy = hash2(ix + ox + 11.0f, iy + oy + 37.0f) * 2.0f - 1.0f;
+  return gx * (fx - ox) + gy * (fy - oy);
+}
+
+__device__ float gradient_noise(float px, float py) {
+  const float ix = floorf(px), iy = floorf(py);
+  const float fx = px - ix, fy = py - iy;
+  const float ux = fx * fx * fx * (fx * (fx * 6.0f - 15.0f) + 10.0f);
+  const float uy = fy * fy * fy * (fy * (fy * 6.0f - 15.0f) + 10.0f);
+  const float d00 = grad_dot(ix, iy, fx, fy, 0.0f, 0.0f);
+  const float d10 = grad_dot(ix, iy, fx, fy, 1.0f, 0.0f);
+  const float d01 = grad_dot(ix, iy, fx, fy, 0.0f, 1.0f);
+  const float d11 = grad_dot(ix, iy, fx, fy, 1.0f, 1.0f);
+  return mix(mix(d00, d10, ux), mix(d01, d11, ux), uy);
+}
+
+__device__ F3 grain(F3 c, float x, float y, float amount, float size, float roughness,
+                    float inv_scale) {
+  const float amt = amount * 0.5f;
+  const float freq = (1.0f / fmaxf(size, FC(0.1))) * inv_scale;
+  const float l = fmaxf(luma(c), 0.0f);
+  const float lm = ss(0.0, 0.15, l) * (1.0f - ss(0.6, 1.0, l));
+  const float nb = gradient_noise(x * freq, y * freq);
+  const float nr = gradient_noise(x * freq * FC(0.6) + FC(5.2), y * freq * FC(0.6) + FC(1.3));
+  const float nv = mix(nb, nr, roughness);
+  return addc(c, nv * amt * lm);
+}
+
+// ---- the kernel -----------------------------------------------------------
+
+constexpr int BX = 32;
+constexpr int BY = 8;
+
+__device__ __forceinline__ F3 load3(const float* __restrict__ t, size_t i, size_t plane) {
+  return f3(__ldg(t + i), __ldg(t + i + plane), __ldg(t + i + 2 * plane));
+}
+
+__global__ void __launch_bounds__(BX* BY)
+    grade_kernel(const float* __restrict__ img, const float* __restrict__ l_sharp,
+                 const float* __restrict__ l_tonal, const float* __restrict__ l_clarity,
+                 const float* __restrict__ l_structure, const float* __restrict__ params,
+                 float* __restrict__ out, unsigned flags, int nseg, unsigned bands, int H,
+                 int W, float inv_w, float inv_h, float inv_scale, float aspect) {
+  const int x = blockIdx.x * BX + threadIdx.x;
+  const int y = blockIdx.y * BY + threadIdx.y;
+  if (x >= W || y >= H) return;
+  const size_t plane = (size_t)H * W;
+  const size_t i = (size_t)blockIdx.z * 3 * plane + (size_t)y * W + x;
+  const float* p = params + (size_t)blockIdx.z * P_K;
+#define PV(name) __ldg(p + (name))
+#define ON(f) ((flags & (f)) != 0u)
+  const bool is_raw = ON(F_IS_RAW);
+  const float xs = (float)x, ys = (float)y;
+
+  F3 c = load3(img, i, plane);
+  if (!is_raw) c = srgb_to_linear3(c);
+  F3 b_sharp = {}, b_tonal = {}, b_clarity = {}, b_structure = {};
+  if (l_sharp) b_sharp = load3(l_sharp, i, plane);
+  if (l_tonal) b_tonal = load3(l_tonal, i, plane);
+  if (l_clarity) b_clarity = load3(l_clarity, i, plane);
+  if (l_structure) b_structure = load3(l_structure, i, plane);
+  if (!is_raw) {
+    if (l_sharp) b_sharp = srgb_to_linear3(b_sharp);
+    if (l_tonal) b_tonal = srgb_to_linear3(b_tonal);
+    if (l_clarity) b_clarity = srgb_to_linear3(b_clarity);
+    if (l_structure) b_structure = srgb_to_linear3(b_structure);
+  }
+
+  float cm = 0.0f;
+  if (ON(F_CENTRE_ACTIVE)) cm = centre_mask(xs, ys, inv_w, inv_h, aspect);
+
+  // local contrast chain (shader.wgsl:1555-1580)
+  if (ON(F_SHARPNESS_ACTIVE))
+    c = local_contrast(c, b_sharp, PV(P_SHARPNESS), is_raw, 0, PV(P_SHARPNESS_THRESHOLD));
+  if (ON(F_CLARITY_ACTIVE)) c = local_contrast(c, b_clarity, PV(P_CLARITY), is_raw, 1, 0.0f);
+  if (ON(F_STRUCTURE_ACTIVE))
+    c = local_contrast(c, b_structure, PV(P_STRUCTURE), is_raw, 1, 0.0f);
+  if (ON(F_CENTRE_ACTIVE)) c = centre_local_contrast(c, PV(P_CENTRE), b_clarity, is_raw, cm);
+
+  // exposure + atmosphere (shader.wgsl:1582-1613)
+  const float exposure = PV(P_EXPOSURE), brightness = PV(P_BRIGHTNESS), whites = PV(P_WHITES);
+  if (ON(F_EXPOSURE_ACTIVE)) c = linear_exposure(c, exposure);
+  if (ON(F_GLOW_ACTIVE)) c = glow_bloom(c, b_structure, PV(P_GLOW), exposure, brightness, whites);
+  if (ON(F_HALATION_ACTIVE))
+    c = halation(c, b_clarity, PV(P_HALATION), exposure, brightness, whites);
+  if (ON(F_DEHAZE_ACTIVE)) c = dehaze(c, b_structure, PV(P_DEHAZE));
+  if (ON(F_CENTRE_ACTIVE)) c = centre_tonal_and_color(c, PV(P_CENTRE), cm);
+
+  // global grade (shader.wgsl:1614-1631)
+  if (ON(F_WB_ACTIVE)) c = white_balance(c, PV(P_TEMPERATURE), PV(P_TINT));
+  if (ON(F_BRIGHTNESS_ACTIVE)) c = filmic_exposure(c, brightness);
+  if (ON(F_TONAL_ACTIVE)) {
+    const bool shadow_path = l_tonal != nullptr;
+    c = tonal_adjustments(c, shadow_path ? b_tonal : c, shadow_path, PV(P_CONTRAST),
+                          PV(P_SHADOWS), whites, PV(P_BLACKS));
+  }
+  if (ON(F_HIGHLIGHTS_ACTIVE)) c = highlights(c, PV(P_HIGHLIGHTS));
+  if (ON(F_CALIBRATION_ACTIVE)) c = color_calibration(c, p + P_CALIBRATION);
+  if (ON(F_HSL_ACTIVE)) c = hsl_panel(c, p + P_HSL, bands);
+  if (ON(F_HUE_ACTIVE)) c = hue_shift(c, PV(P_HUE));
+  if (ON(F_CREATIVE_ACTIVE)) c = creative_color(c, PV(P_SATURATION), PV(P_VIBRANCE));
+  if (ON(F_CG_ACTIVE)) c = color_grading(c, p + P_CG, PV(P_CG_BLENDING), PV(P_CG_BALANCE));
+
+  // vignette (shader.wgsl:1645-1662)
+  if (ON(F_VIGNETTE_ACTIVE))
+    c = vignette(c, xs, ys, inv_w, inv_h, aspect, PV(P_VIGNETTE_AMOUNT), PV(P_VIGNETTE_MIDPOINT),
+                 PV(P_VIGNETTE_ROUNDNESS), PV(P_VIGNETTE_FEATHER));
+
+  // tonemap (shader.wgsl:1664-1676)
+  if (ON(F_TONEMAPPER_AGX)) c = agx_tonemap(c, p + P_AGX_P2R, p + P_AGX_R2P);
+  else if (is_raw) c = f3(raw_emulation(c.r), raw_emulation(c.g), raw_emulation(c.b));
+  else c = f3(linear_to_srgb(c.r), linear_to_srgb(c.g), linear_to_srgb(c.b));
+
+  // point curves (shader.wgsl:1678-1697)
+  if (ON(F_CURVES_ACTIVE)) c = apply_curves(c, p, nseg, ON(F_RGB_CURVES_MAYBE_ACTIVE));
+
+  // finish: grain -> clipping -> dither -> clamp (shader.wgsl:1699-1734)
+  if (ON(F_GRAIN_ACTIVE))
+    c = grain(c, xs, ys, PV(P_GRAIN_AMOUNT), PV(P_GRAIN_SIZE), PV(P_GRAIN_ROUGHNESS), inv_scale);
+  if (ON(F_SHOW_CLIPPING)) {
+    const bool hi = c.r > FC(0.998) || c.g > FC(0.998) || c.b > FC(0.998);
+    const bool lo = c.r < FC(0.002) || c.g < FC(0.002) || c.b < FC(0.002);
+    if (hi) c = f3(1.0f, 0.0f, 0.0f);
+    else if (lo) c = f3(0.0f, 0.0f, 1.0f);
+  }
+  if (ON(F_DITHER_ACTIVE)) c = addc(c, (hash2(xs, ys) - 0.5f) * FC(1.0 / 255.0));
+#undef PV
+#undef ON
+  out[i] = clampf(c.r, 0.0f, 1.0f);
+  out[i + plane] = clampf(c.g, 0.0f, 1.0f);
+  out[i + 2 * plane] = clampf(c.b, 0.0f, 1.0f);
+}
+
+}  // namespace
+
+extern "C" const char* rr_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+// Grade a (B, 3, H, W) batch. Absent blur levels are null pointers; the
+// config flags tell the kernel which stages read which level.
+extern "C" int rr_grade(const float* img, const float* l_sharp, const float* l_tonal,
+                        const float* l_clarity, const float* l_structure, const float* params,
+                        float* out, unsigned flags, int nseg, unsigned bands, int B, int H,
+                        int W, float inv_w, float inv_h, float inv_scale, float aspect,
+                        void* stream) {
+  dim3 block(BX, BY);
+  dim3 grid((W + BX - 1) / BX, (H + BY - 1) / BY, B);
+  grade_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+      img, l_sharp, l_tonal, l_clarity, l_structure, params, out, flags, nseg, bands, H, W,
+      inv_w, inv_h, inv_scale, aspect);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,145 @@
+"""The whole slice, adjustment JSON -> develop_batch -> device_u8, against
+the JAX package's develop_batch + _device_u8, for B = 1 and B = 2.
+
+Float output with dither off: max |d| <= 1e-3 (ROADMAP's parity bar).
+u8 with dither on (the real export path): at most 1 LSB, on at most 0.1%
+of the values — the dither hash is fract() of large products, and the
+jitted JAX graph rounds some of them differently.
+Also: importing the port leaves JAX out, and chip_smoke.py refuses to run
+without a GPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+import chip_smoke
+from rapidraw_tpu.params.parse import parse_adjustments as jparse
+from rapidraw_tpu.pipeline.batch import develop_batch as jdevelop_batch
+from rapidraw_tpu.pipeline.batch import stack_params as jstack
+from rapidraw_tpu.pipeline.export import _device_u8
+import rapidraw_tpu_torch as rt
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parent.parent
+H, W = 128, 192
+
+
+def batch(seed=11, b=2):
+    rng = np.random.default_rng(seed)
+    return rng.random((b, 3, H, W), dtype=np.float32)
+
+
+def jax_run(docs, x, dither: bool):
+    parsed = [jparse(d) for d in docs]
+    p, c = jstack([q for q, _ in parsed], [k for _, k in parsed])
+    c = dataclasses.replace(c, dither_active=dither)
+    out = jax.jit(lambda im, q: jdevelop_batch(im, q, c))(jnp.asarray(x), p)
+    return np.asarray(out), np.asarray(_device_u8(out))
+
+
+def port_run(docs, x, dither: bool):
+    parsed = [rt.parse_adjustments(d) for d in docs]
+    p, c = rt.stack_params([q for q, _ in parsed], [k for _, k in parsed])
+    c = dataclasses.replace(c, dither_active=dither)
+    out = rt.develop_batch(torch.from_numpy(x), p, c)
+    return out.numpy(), rt.device_u8(out).numpy()
+
+
+@pytest.mark.parametrize("name", ["config1", "config3", "full"])
+def test_slice_float_matches_jax(name):
+    doc, _ = chip_smoke.DOCS[name]
+    docs = [doc, dict(doc, exposure=-0.3)]
+    x = batch()
+    want, _ = jax_run(docs, x, dither=False)
+    got2, _ = port_run(docs, x, dither=False)
+    got1, _ = port_run(docs[:1], x[:1], dither=False)
+    assert got2.shape == want.shape == x.shape
+    np.testing.assert_allclose(got2, want, atol=1e-3)
+    np.testing.assert_allclose(got1[0], want[0], atol=1e-3)
+    assert np.array_equal(got1[0], got2[0])  # batch size changes nothing per image
+
+
+def test_slice_u8_matches_jax():
+    docs = [chip_smoke.CONFIG3_DOC, dict(chip_smoke.CONFIG3_DOC, exposure=-0.3)]
+    x = batch(seed=12)
+    _, want = jax_run(docs, x, dither=True)
+    _, got2 = port_run(docs, x, dither=True)
+    _, got1 = port_run(docs[:1], x[:1], dither=True)
+    assert got2.dtype == np.uint8 and got2.shape == x.shape
+    for got, ref in ((got2, want), (got1, want[:1])):
+        d = np.abs(got.astype(np.int16) - ref.astype(np.int16))
+        assert d.max() <= 1
+        assert (d > 0).mean() <= 1e-3
+
+
+def test_develop_single_is_the_batch_of_one():
+    doc = chip_smoke.CONFIG1_DOC
+    x = batch(seed=13, b=1)
+    p, c = rt.parse_adjustments(doc)
+    single = rt.develop_single(torch.from_numpy(x[0]), p, c)
+    sp, sc = rt.stack_params([p], [c])
+    assert torch.equal(single, rt.develop_batch(torch.from_numpy(x), sp, sc)[0])
+    assert torch.equal(single, rt.develop(torch.from_numpy(x[0]), p, c))
+
+
+def test_device_quantizers_round_like_jax():
+    y = np.linspace(-0.1, 1.1, 4001, dtype=np.float32)
+    assert np.array_equal(rt.device_u8(torch.from_numpy(y)).numpy(),
+                          np.asarray(_device_u8(jnp.asarray(y))))
+    u16 = rt.device_u16(torch.from_numpy(y))
+    want = (np.clip(y, 0.0, 1.0) * 65535.0 + 0.5).astype(np.uint16)
+    assert np.array_equal(u16.to(torch.int32).numpy(), want.astype(np.int32))
+
+
+def test_develop_rejects_interleaved_images():
+    p, c = rt.parse_adjustments({})
+    with pytest.raises(ValueError, match="PLANAR"):
+        rt.develop(torch.zeros((8, 8, 3)), p, c)
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys; import rapidraw_tpu_torch, rapidraw_tpu_torch.pipeline.export, "
+        "rapidraw_tpu_torch.ops.blur, rapidraw_tpu_torch.pipeline.fused\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'rapidraw_tpu' or m.startswith('rapidraw_tpu.')]\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_port_sources_never_import_jax():
+    bad = re.compile(r"^\s*(import|from)\s+(jax|rapidraw_tpu)\b")
+    for path in (REPO / "rapidraw_tpu_torch").rglob("*.py"):
+        for line in path.read_text().splitlines():
+            assert not bad.match(line), f"{path}: {line}"
+
+
+def test_chip_smoke_fails_without_a_gpu(tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True,
+                          text=True, timeout=300, env=env)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+    # alone in a directory, without the package beside it
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, capture_output=True,
+                          text=True, timeout=300, env=dict(env, PYTHONPATH=""))
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
