@@ -1,23 +1,34 @@
-"""Drive the PyTorch port's develop main path once on one NVIDIA GPU.
+"""Drive the PyTorch port's main paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--quick] [--out DIR] [--profile]
 
-Phases: (1) the card's name and power limit; (2) build both CUDA kernels
-from rapidraw_tpu_torch/csrc; (3) the blur kernel against its plain
-PyTorch version at 24 MP; (4) the grade kernel against its plain version
-at 24 MP, B = 1 and 2, on five documents; (5) end to end: adjustment JSON
--> stack_params -> develop_batch -> device_u8 -> host numpy, with the
-kernels' launch counters reset just before and read just after, plus a
-small-input check against the plain CPU path. It prints a kernels JSON
-line, then as its last line {"ok": true, "device": {...}}. Any failed
-check raises, so the process exits non-zero; without a CUDA device it
-exits non-zero before printing any result.
+Phases: (1) the card's name and power limit; (2) build the four CUDA
+kernels from rapidraw_tpu_torch/csrc, one nvcc each, all started together;
+(3) the blur kernel against its plain PyTorch version at 24 MP, with a
+case at each main path's shapes; (4) the grade kernel against its plain
+version at 24 MP, B = 1 and 2, on six documents; (5) the develop path end
+to end: adjustment JSON -> stack_params -> develop_batch -> device_u8 ->
+host numpy (configs 1 and 3), with the kernels' launch counters reset just
+before and read just after, plus a small-input check against the plain CPU
+path; (6) the NR kernel against its plain version on a 24 MP B = 2 batch,
+as config 5 runs it; (7) the resample kernel against its plain version on
+the 24 MP config-5 and TCA plans; (8) the stencil export path end to end
+(config 5): JSON + geometry -> plan_warp -> warp_with_plan ->
+develop_batch -> device_u8 -> host numpy, counters reset and read around
+it, plus its small-input check. Each kernel line carries its time, its
+plain version's time and its bound (bytes over the HBM rate or operations
+over the float32 peak, whichever is larger). It prints a kernels JSON line
+(each kernel's numbers at the config-5 path's shapes, and per main path
+its launch count and that path's case), then as its last line {"ok": true,
+"device": {...}}.
+Any failed check raises, so the process exits non-zero; without a CUDA
+device it exits non-zero before printing any result.
 
---quick runs phases 3-5 at 1024x1536 with fewer repetitions (a first
+--quick runs phases 3-8 at 1024x1536 with fewer repetitions (a first
 check of a new kernel). --out DIR writes the nvcc/ptxas logs there.
---profile adds a torch.profiler pass over the config-3 main path: kernel
-time by name and the device busy share (and a chrome trace in --out).
-Imports torch, numpy and rapidraw_tpu_torch only.
+--profile adds a torch.profiler pass over the config-3 and config-5 main
+paths: kernel time by name and the device busy share (and chrome traces
+in --out). Imports torch, numpy and rapidraw_tpu_torch only.
 """
 
 from __future__ import annotations
@@ -104,6 +115,31 @@ GRAIN_DOC = {
 # Scene-linear RAW input through the RAW sRGB emulation tonemap.
 RAW_DOC = dict(FULL_DOC, toneMapper="basic")
 
+# BASELINE config 5: the stencil-heavy batch-export document — sharpen +
+# luma/chroma NR + CA, rendered after a lens-distortion + rotation warp.
+CONFIG5_DOC = {
+    "exposure": 0.2,
+    "sharpness": 40,
+    "lumaNoiseReduction": 30,
+    "colorNoiseReduction": 25,
+    "chromaticAberrationRedCyan": 12,
+    "chromaticAberrationBlueYellow": -8,
+    "toneMapper": "agx",
+}
+CONFIG5_GEOMETRY = {
+    "transformRotate": 1.5,
+    "lensDistortionParams": {"k1": -0.08, "k2": 0.02, "model": 0, "vig_k1": -0.3},
+    "lensDistortionAmount": 100.0,
+    "lensVignetteAmount": 100.0,
+}
+# TCA + rotation: three clamp-mode channel sets, six resample launches.
+TCA_GEOMETRY = {
+    "transformRotate": 2.0,
+    "lensDistortionParams": {"k1": -0.05, "tca_vr": 1.002, "tca_vb": 0.998},
+}
+# NR strong enough to reach the largest tap offsets at 24 MP.
+NR_STRONG = (0.8, 0.6)
+
 DOCS = {"config1": (CONFIG1_DOC, False), "config3": (CONFIG3_DOC, False),
         "full": (FULL_DOC, False), "grain": (GRAIN_DOC, False), "raw": (RAW_DOC, True)}
 
@@ -112,6 +148,13 @@ GRADE_TOL = 2e-4         # dither off: the JAX fused-vs-XLA bound (test_fused.py
 # dither on: a last-ulp difference in the hash's fract can move one dither
 # value by up to 1/255, so the bound adds one quantization step
 GRADE_DITHER_TOL = 2e-4 + 1.0 / 255.0
+NR_TOL = 2e-4            # the JAX kernel-vs-XLA bound; a gate can flip on one ulp
+RESAMPLE_TOL = 1e-6      # the same lerp of the same two rows
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and dense float32 FLOP/s
+# outside the tensor cores, at the full 700 W power limit
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
 
 
 def log(msg: str) -> None:
@@ -142,18 +185,58 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def profile_main_path(doc, images, out_dir, card) -> None:
-    """Kernel time by name and the device busy share over three e2e runs."""
+# aten ops that only move, view or make data: not counted as operations
+_MOVES = ("view", "_unsafe_view", "reshape", "expand", "permute", "transpose", "t", "select",
+          "slice", "unsqueeze", "squeeze", "as_strided", "alias", "detach", "clone", "copy_",
+          "_to_copy", "contiguous", "empty", "empty_like", "empty_strided", "zeros",
+          "zeros_like", "ones", "ones_like", "full", "full_like", "fill_", "arange", "stack",
+          "cat", "constant_pad_nd", "replication_pad2d", "pad", "index", "index_select",
+          "gather", "repeat_interleave", "lift_fresh", "_local_scalar_dense", "unbind",
+          "split", "flip", "rot90", "lift_fresh_copy", "scalar_tensor", "_reshape_alias")
+
+
+def count_ops(fn):
+    """(result, operations) of a plain PyTorch version: the output elements
+    of every arithmetic aten op it runs on these inputs (a comparison, a
+    select and an exp each count as one), and 2 * taps per output of a
+    convolution. Data movement (views, copies, pads, gathers) counts zero."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    total = [0]
+
+    class Counter(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.__name__.split(".")[0]
+            if name in ("convolution", "conv2d", "cudnn_convolution"):
+                taps = args[1].shape[2] * args[1].shape[3]
+                total[0] += 2 * out.numel() * taps
+            elif name in ("amin", "amax", "sum", "min", "max", "any", "all") and args:
+                total[0] += args[0].numel()
+            elif name not in _MOVES and isinstance(out, torch.Tensor):
+                total[0] += out.numel()
+            return out
+
+    with Counter():
+        res = fn()
+    return res, total[0]
+
+
+def bound(nbytes: int, ops: int) -> tuple[float, str]:
+    """The least time the card could take: bytes over the HBM rate or
+    operations over the float32 peak, whichever is larger (ms, name)."""
+    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def profile_run(label, run, out_dir, card) -> None:
+    """Kernel time by name and the device busy share over three runs."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from rapidraw_tpu_torch import develop_batch, device_u8, parse_adjustments, stack_params
-
-    def run():
-        parsed = [parse_adjustments(doc) for _ in range(images.shape[0])]
-        sp, cfg = stack_params([q for q, _ in parsed], [c for _, c in parsed],
-                               device=images.device)
-        device_u8(develop_batch(images, sp, cfg)).cpu()
 
     run()
     torch.cuda.synchronize()
@@ -174,15 +257,15 @@ def profile_main_path(doc, images, out_dir, card) -> None:
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     copies = sum(r[0] for r in rows if r[1].startswith(("Memcpy", "Memset")))
-    log(f"[profile] config3 B={images.shape[0]} x3: wall {wall_us / 1e3:.2f} ms, device busy "
+    log(f"[profile] {label} x3: wall {wall_us / 1e3:.2f} ms, device busy "
         f"{busy / 1e3:.2f} ms ({100.0 * busy / wall_us:.1f}%), of which copies "
         f"{copies / 1e3:.2f} ms, kernels {(busy - copies) / 1e3:.2f} ms "
         f"({100.0 * (busy - copies) / wall_us:.1f}%) [{card}]")
-    for dev_us, key, count in rows[:8]:
+    for dev_us, key, count in rows[:10]:
         log(f"[profile]   {dev_us / 1e3:9.3f} ms  x{count:<3d} {key[:90]}")
     if out_dir:
         Path(out_dir).mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(Path(out_dir) / "trace_config3.json"))
+        prof.export_chrome_trace(str(Path(out_dir) / f"trace_{label.split()[0]}.json"))
 
 
 def main() -> int:
@@ -190,14 +273,18 @@ def main() -> int:
     ap.add_argument("--quick", action="store_true", help="1024x1536, fewer repetitions")
     ap.add_argument("--out", default=None, help="directory for the nvcc/ptxas logs")
     ap.add_argument("--profile", action="store_true",
-                    help="torch.profiler over the config-3 B=2 main path")
+                    help="torch.profiler over the config-3 and config-5 B=2 main paths")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
 
     from rapidraw_tpu_torch import develop_batch, device_u8, parse_adjustments, stack_params
-    from rapidraw_tpu_torch.ops import blur
+    from rapidraw_tpu_torch.geometry import warp_fast
+    from rapidraw_tpu_torch.geometry.params import geometry_params_from_json
+    from rapidraw_tpu_torch.ops import blur, nr
+    from rapidraw_tpu_torch.ops.colorspace import srgb_to_linear
+    from rapidraw_tpu_torch.params import scales
     from rapidraw_tpu_torch.pipeline import fused
 
     torch.backends.cudnn.allow_tf32 = False
@@ -205,6 +292,13 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     h, w = (1024, 1536) if args.quick else (H, W)
     reps = 3 if args.quick else 5
+    t_start = time.perf_counter()
+    t_phase = [t_start]
+
+    def phase_done(name: str) -> None:
+        now = time.perf_counter()
+        log(f"[time] {name}: {now - t_phase[0]:.1f} s (total {now - t_start:.1f} s)")
+        t_phase[0] = now
 
     # ---- 1. device ---------------------------------------------------------
     card = gpu_line()
@@ -212,53 +306,84 @@ def main() -> int:
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    # ---- 2. build ------------------------------------------------------------
-    for name, kl in (("blur", blur._KERNEL), ("grade", fused._KERNEL)):
-        t0 = time.perf_counter()
-        kl.lib()
-        log(f"[build] {name}: {time.perf_counter() - t0:.1f} s (nvcc {kl.build_seconds:.1f} s)")
+    # ---- 2. build: one nvcc per source, all started together ---------------------
+    from concurrent.futures import ThreadPoolExecutor
+
+    libs = {"blur": blur._KERNEL, "grade": fused._KERNEL, "nr": nr._KERNEL,
+            "resample": warp_fast._KERNEL}
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda kl: kl.lib(), libs.values()))
+    for name, kl in libs.items():
+        log(f"[build] {name}: nvcc {kl.build_seconds:.1f} s")
         if args.out:
             Path(args.out).mkdir(parents=True, exist_ok=True)
             (Path(args.out) / f"nvcc_{name}.log").write_text(kl.build_log)
         for line in kl.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name} ptxas: {line.strip()}")
+    phase_done("build")
 
     gen = torch.Generator(device=dev).manual_seed(0)
+    # (kernel name, main path) -> the numbers of the case at that path's shape
+    report = {}
+
+    def path_radii(doc) -> tuple:
+        return tuple(fused.blur_radii(parse_adjustments(doc)[1], w, h).values())
 
     # ---- 3. blur kernel vs plain ----------------------------------------------
-    blur_err, blur_main = 0.0, None
-    for label, c, radii in (("B1 r=14", 3, (14,)), ("B2 radii 4/14/31/152", 3, (4, 14, 31, 152)),
-                            ("batched C=6 r=14", 6, (14,))):
+    blur_err = 0.0
+    r3, r5 = path_radii(CONFIG3_DOC), path_radii(CONFIG5_DOC)
+    for label, c, radii, path in (
+            ("B1 r=14", 3, (14,), None), ("B2 radii 4/14/31/152", 3, (4, 14, 31, 152), None),
+            (f"config3 B=2 C=6 r={r3}", 6, r3, "config3"),
+            (f"config5 B=2 C=6 r={r5}", 6, r5, "config5")):
         x = torch.rand((c, h, w), generator=gen, device=dev)
         got = blur.gaussian_blur_multi(x, radii)
-        ref = blur.gaussian_blur_multi_plain(x, radii)
+        ref, ops = count_ops(lambda: blur.gaussian_blur_multi_plain(x, radii))
         torch.cuda.synchronize()
         err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
         blur_err = max(blur_err, err)
         ms = time_ms(lambda: blur.gaussian_blur_multi(x, radii), reps)
         pms = time_ms(lambda: blur.gaussian_blur_multi_plain(x, radii), reps)
+        bms, bby = bound(nbytes(x) * (1 + len(radii)), ops)
         log(f"[blur] {label} ({c},{h},{w}): max|d| {err:.3e} (bound {BLUR_TOL:g}) "
-            f"kernel {ms:.3f} ms plain {pms:.3f} ms [{card}]")
+            f"kernel {ms:.3f} ms plain {pms:.3f} ms bound {bms:.3f} ms ({bby}) [{card}]")
         if err > BLUR_TOL:
             raise AssertionError(f"blur {label}: max|d| {err} > {BLUR_TOL}")
-        if label.startswith("batched"):
-            blur_main = (ms, pms)
+        if path is not None:
+            # the library yardstick: one cuDNN depthwise convolution with the
+            # 2-D Gaussian on the edge-padded input (the same function)
+            import torch.nn.functional as F
+
+            (r,) = radii
+            k1 = torch.from_numpy(blur._gauss_weights(r)).to(dev)
+            k2 = (k1[:, None] * k1[None, :]).expand(c, 1, 2 * r + 1, 2 * r + 1).contiguous()
+            xp = F.pad(x[None], (r, r, r, r), mode="replicate")
+            lms = time_ms(lambda: F.conv2d(xp, k2, groups=c), reps)
+            report["blur", path] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                                        library_ms=lms, max_abs_err=err)
+            log(f"[blur] library: one depthwise 2-D conv2d {lms:.3f} ms [{card}]")
+            del xp, k2
         del x, got, ref
+    log(f"[blur] max|d| over every case {blur_err:.3e}")
+    phase_done("blur")
 
     # ---- 4. grade kernel vs plain ---------------------------------------------
-    grade_err, grade_main = 0.0, None
+    grade_err = 0.0
+    grade_docs = dict(DOCS, config5_linear=(CONFIG5_DOC, False))
     for b in (1, 2):
         images = torch.rand((b, 3, h, w), generator=gen, device=dev)
-        for name, (doc, is_raw) in DOCS.items():
+        for name, (doc, is_raw) in grade_docs.items():
             p, cfg = parse_adjustments(doc, is_raw=is_raw)
             sp, cfg = stack_params([p] * b, [cfg] * b, device=dev)
             pmat = fused.pack_rows(sp["glob"])
             levels = fused.blur_levels(images, cfg)
+            # config 5's image reaches the grade already linear (NR ran first)
+            lin = name == "config5_linear"
             for dither in (False, True):
                 c = dataclasses.replace(cfg, dither_active=dither)
-                got = fused.grade(images, levels, pmat, c)
-                ref = fused.grade_plain(images, levels, pmat, c)
+                got = fused.grade(images, levels, pmat, c, image_linear=lin)
+                ref, ops = count_ops(lambda: fused.grade_plain(images, levels, pmat, c, lin))
                 torch.cuda.synchronize()
                 d = (got - ref).abs()
                 err, share = float(d.max()), float((d > GRADE_TOL).float().mean())
@@ -266,11 +391,16 @@ def main() -> int:
                 line = (f"[grade] B={b} {name} dither={'on' if dither else 'off'}: "
                         f"max|d| {err:.3e} (bound {tol:.3e}), share>{GRADE_TOL:g} {share:.2e}")
                 if not dither:
-                    ms = time_ms(lambda: fused.grade(images, levels, pmat, c), reps)
-                    pms = time_ms(lambda: fused.grade_plain(images, levels, pmat, c), reps)
-                    line += f" kernel {ms:.3f} ms plain {pms:.3f} ms [{card}]"
-                    if b == 2 and name == "config3":
-                        grade_main = (ms, pms)
+                    ms = time_ms(lambda: fused.grade(images, levels, pmat, c, lin), reps)
+                    pms = time_ms(lambda: fused.grade_plain(images, levels, pmat, c, lin), reps)
+                    bms, bby = bound(nbytes(images, pmat, *levels.values()) + nbytes(images), ops)
+                    line += (f" kernel {ms:.3f} ms plain {pms:.3f} ms bound {bms:.3f} ms "
+                             f"({bby}) [{card}]")
+                    path = {"config3": "config3", "config5_linear": "config5"}.get(name)
+                    if b == 2 and path is not None:
+                        report["grade", path] = dict(ms=ms, plain_ms=pms, bound_ms=bms,
+                                                     bound_by=bby, library_ms=None,
+                                                     max_abs_err=err)
                 log(line)
                 if not bool(torch.isfinite(got).all()):
                     raise AssertionError(f"grade {name}: non-finite output")
@@ -280,23 +410,34 @@ def main() -> int:
                 del got, ref
             del levels
         del images
+    log(f"[grade] max|d| over every dither-off case {grade_err:.3e}")
+    phase_done("grade")
 
-    # ---- 5. end to end ----------------------------------------------------------
+    # ---- 5. end to end, the develop main path (configs 1 and 3) -------------------
     def run_e2e(doc, b, images):
         parsed = [parse_adjustments(doc) for _ in range(b)]
         sp, cfg = stack_params([q for q, _ in parsed], [c for _, c in parsed], device=images.device)
         out = develop_batch(images, sp, cfg)
         return out, device_u8(out).cpu().numpy()
 
+    def reset_counts() -> None:
+        blur.gaussian_blur_multi.launches = 0
+        fused.grade.launches = 0
+        nr.nr_static.launches = 0
+        warp_fast.resample_rows.launches = 0
+
+    def read_counts() -> dict:
+        return {"blur": blur.gaussian_blur_multi.launches, "grade": fused.grade.launches,
+                "nr": nr.nr_static.launches, "resample": warp_fast.resample_rows.launches}
+
     img2 = torch.rand((2, 3, h, w), generator=gen, device=dev)
-    blur.gaussian_blur_multi.launches = 0
-    fused.grade.launches = 0
+    reset_counts()
     out, u8 = run_e2e(CONFIG3_DOC, 2, img2)
     torch.cuda.synchronize()
-    launches = {"blur": blur.gaussian_blur_multi.launches, "grade": fused.grade.launches}
-    log(f"[e2e] config3 B=2 launches {launches} u8 {u8.shape} {u8.dtype}")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    launches3 = read_counts()
+    log(f"[e2e] config3 B=2 launches {launches3} u8 {u8.shape} {u8.dtype}")
+    if min(launches3["blur"], launches3["grade"]) < 1:
+        raise AssertionError(f"a kernel of the develop main path never launched: {launches3}")
     if not bool(torch.isfinite(out).all()) or u8.shape != (2, 3, h, w) or u8.min() == u8.max():
         raise AssertionError("e2e output is non-finite, misshapen or constant")
 
@@ -335,17 +476,204 @@ def main() -> int:
                 f"{b * h * w / dt / 1e6:.1f} MPix/s (JSON->u8 on host); device part "
                 f"{dev_ms / b:.2f} ms/image ({b * h * w / dev_ms / 1e3:.1f} MPix/s), "
                 f"u8 readback {statistics.median(readback) * 1e3 / b:.2f} ms/image [{card}]")
+    del out, u8, small
+    phase_done("e2e configs 1 and 3")
+
+    # ---- 6. NR kernel vs plain ---------------------------------------------------
+    scale = scales.resolution_scale(w, h)
+    nr_err = 0.0
+    # config 5 hands NR the whole B = 2 batch in one launch
+    center = srgb_to_linear(img2).contiguous()
+    planes = nr.nr_planes(img2, False).contiguous()
+    p5, _ = parse_adjustments(CONFIG5_DOC)
+    nr5 = (float(p5["glob"]["luma_nr"]), float(p5["glob"]["color_nr"]))
+    for label, (la, ca) in (("config5", nr5), ("strong", NR_STRONG)):
+        got = nr.nr_static(center, planes, la, ca, scale)
+        ref, ops = count_ops(lambda: nr.nr_static_plain(center, planes, la, ca, scale))
+        torch.cuda.synchronize()
+        d = (got - ref).abs()
+        err, share = float(d.max()), float((d > 1e-6).float().mean())
+        nr_err = max(nr_err, err)
+        ms = time_ms(lambda: nr.nr_static(center, planes, la, ca, scale), reps)
+        pms = time_ms(lambda: nr.nr_static_plain(center, planes, la, ca, scale), reps)
+        bms, bby = bound(nbytes(center, planes) + nbytes(center), ops)
+        log(f"[nr] {label} amounts {la:.2f}/{ca:.2f} B=2 (2,3,{h},{w}) max offset "
+            f"{nr._consts(la, ca, scale)['max_off']}: max|d| {err:.3e} (bound {NR_TOL:g}), "
+            f"share>1e-6 {share:.2e}, kernel {ms:.3f} ms plain {pms:.3f} ms bound {bms:.3f} ms "
+            f"({bby}, {ops / 1e9:.1f} G ops) [{card}]")
+        if not bool(torch.isfinite(got).all()) or err > NR_TOL:
+            raise AssertionError(f"nr {label}: max|d| {err} > {NR_TOL} or non-finite")
+        if label == "config5":
+            report["nr", "config5"] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                                           library_ms=None, max_abs_err=err)
+        del got, ref
+    log(f"[nr] max|d| over both documents {nr_err:.3e}")
+    del center, planes
+    phase_done("nr")
+
+    # ---- 7. resample kernel vs plain ------------------------------------------
+    rs_err = {}  # plan -> max|d| over its passes
+    for gname, geom in (("config5", CONFIG5_GEOMETRY), ("tca_rotate", TCA_GEOMETRY)):
+        plan = warp_fast.plan_warp(geometry_params_from_json(geom), h, w, device=dev)
+        if plan is None:
+            raise AssertionError(f"the planner refused the {gname} geometry")
+        st = plan.static
+        x = torch.nn.functional.pad(img2, (0, st.wp - w, 0, st.hp - h))
+        for si, (channels, vstat, hstat) in enumerate(st.modes):
+            part = x[:, list(channels)].reshape(-1, st.hp, st.wp).contiguous()
+            tmp = warp_fast.resample_rows(part, plan.arrays[f"ev{si}"], plan.arrays[f"bv{si}"],
+                                          vstat)
+            tr_ms = time_ms(lambda: tmp.transpose(1, 2).contiguous(), reps)
+            tmp_t = tmp.transpose(1, 2).contiguous()
+            for pname, src, key, stat in (("v", part, "v", vstat), ("h", tmp_t, "h", hstat)):
+                e_arr, bases = plan.arrays[f"e{key}{si}"], plan.arrays[f"b{key}{si}"]
+                got = warp_fast.resample_rows(src, e_arr, bases, stat)
+                ref, ops = count_ops(lambda: warp_fast.resample_rows_plain(src, e_arr, bases,
+                                                                           stat))
+                torch.cuda.synchronize()
+                err = float((got - ref).abs().max())
+                rs_err[gname] = max(rs_err.get(gname, 0.0), err)
+                ms = time_ms(lambda: warp_fast.resample_rows(src, e_arr, bases, stat), reps)
+                pms = time_ms(lambda: warp_fast.resample_rows_plain(src, e_arr, bases, stat),
+                              reps)
+                bms, bby = bound(nbytes(src, e_arr, bases, got), ops)
+                log(f"[resample] {gname} set {si} {channels} pass {pname} "
+                    f"({src.shape[0]},{src.shape[1]},{src.shape[2]}) span {stat.span}: "
+                    f"max|d| {err:.3e} (bound {RESAMPLE_TOL:g}) kernel {ms:.3f} ms plain "
+                    f"{pms:.3f} ms bound {bms:.3f} ms ({bby}) [{card}]")
+                if err > RESAMPLE_TOL:
+                    raise AssertionError(f"resample {gname} {pname}: max|d| {err}")
+                if gname == "config5" and pname == "v":
+                    # the library yardstick: one bilinear grid_sample of the
+                    # same rows at the same (column, row + e) points
+                    import torch.nn.functional as F
+
+                    rr = torch.arange(st.hp, device=dev)[:, None]
+                    base = (bases.to(torch.int64).reshape(stat.nty, -1) * 8 - stat.pad_lo)
+                    base = base.repeat_interleave(warp_fast.TH, 0).repeat_interleave(
+                        warp_fast.TWH, 1)
+                    row = (base + rr % warp_fast.TH).to(torch.float32) + e_arr
+                    col = torch.arange(st.wp, device=dev, dtype=torch.float32)[None].expand_as(row)
+                    grid = torch.stack([col * (2.0 / (st.wp - 1)) - 1.0,
+                                        row * (2.0 / (src.shape[1] - 1)) - 1.0], -1)[None]
+                    lms = time_ms(lambda: F.grid_sample(src[None], grid, mode="bilinear",
+                                                        padding_mode="zeros",
+                                                        align_corners=True), reps)
+                    report["resample", "config5"] = dict(ms=ms, plain_ms=pms, bound_ms=bms,
+                                                         bound_by=bby, library_ms=lms)
+                    log(f"[resample] library: one grid_sample {lms:.3f} ms [{card}]")
+                    del grid, row, col, base
+                del got, ref
+            log(f"[resample] {gname} set {si}: transpose of the intermediate "
+                f"{tr_ms:.3f} ms (x2 per set) [{card}]")
+            del part, tmp, tmp_t
+        del x, plan
+    report["resample", "config5"]["max_abs_err"] = rs_err["config5"]
+    log(f"[resample] max|d| over every pass {max(rs_err.values()):.3e}")
+    phase_done("resample")
+
+    # ---- 8. end to end, the stencil export path (config 5) ------------------------
+    gp = geometry_params_from_json(CONFIG5_GEOMETRY)
+
+    def run5(images, plan=None):
+        if plan is None:
+            plan = warp_fast.plan_warp(gp, images.shape[2], images.shape[3], device=images.device)
+            if plan is None:
+                raise AssertionError("the planner sent config 5 to the exact path")
+        parsed = [parse_adjustments(CONFIG5_DOC) for _ in range(images.shape[0])]
+        sp, cfg = stack_params([q for q, _ in parsed], [c for _, c in parsed],
+                               device=images.device)
+        warped = warp_fast.warp_with_plan(images, plan.arrays, plan.static)
+        out = develop_batch(warped, sp, cfg)
+        return out, device_u8(out).cpu().numpy()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan5 = warp_fast.plan_warp(gp, h, w, device=dev)
+    torch.cuda.synchronize()
+    plan_cold = time.perf_counter() - t0
+    if plan5 is None:
+        raise AssertionError("the planner sent config 5 to the exact path")
+    warp_fast._cached_plan.cache_clear()
+    warp_fast._cached_plan(gp, h, w, str(dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cached = warp_fast._cached_plan(gp, h, w, str(dev))
+    plan_cached = time.perf_counter() - t0
+    assert cached is not None
+
+    reset_counts()
+    out5, u85 = run5(img2)
+    torch.cuda.synchronize()
+    launches5 = read_counts()
+    log(f"[e2e5] config5 B=2 launches {launches5} u8 {u85.shape} {u85.dtype}")
+    if min(launches5["blur"], launches5["grade"], launches5["nr"]) < 1 \
+            or launches5["resample"] < 2:
+        raise AssertionError(f"a kernel of the stencil path never launched: {launches5}")
+    if not bool(torch.isfinite(out5).all()) or u85.shape != (2, 3, h, w) \
+            or u85.min() == u85.max():
+        raise AssertionError("config-5 e2e output is non-finite, misshapen or constant")
+    del out5, u85
+
+    small = torch.rand((2, 3, 256, 1024), generator=gen, device=dev)
+    _, u8_gpu = run5(small)
+    _, u8_cpu = run5(small.cpu())
+    du = np.abs(u8_gpu.astype(np.int16) - u8_cpu.astype(np.int16))
+    log(f"[e2e5] small 2x3x256x1024 CUDA vs plain CPU u8: max {int(du.max())} LSB, "
+        f"share>0 {float((du > 0).mean()):.2e}")
+    if du.max() > 1 or (du > 0).mean() > 1e-3:
+        raise AssertionError("config-5 CUDA output disagrees with the plain CPU path")
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run5(img2, warp_fast._cached_plan(gp, h, w, str(dev)))
+        times.append(time.perf_counter() - t0)
+    dt = statistics.median(times)
+    parsed = [parse_adjustments(CONFIG5_DOC) for _ in range(2)]
+    sp5, cfg5 = stack_params([q for q, _ in parsed], [c for _, c in parsed], device=dev)
+    dev_ms = time_ms(lambda: device_u8(develop_batch(
+        warp_fast.warp_with_plan(img2, plan5.arrays, plan5.static), sp5, cfg5)), reps)
+    warp_ms = time_ms(lambda: warp_fast.warp_with_plan(img2, plan5.arrays, plan5.static),
+                      reps)
+    q = device_u8(develop_batch(img2, sp5, cfg5))
+    readback = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q.cpu()
+        readback.append(time.perf_counter() - t0)
+    log(f"[e2e5] config5 B=2: {dt * 1e3 / 2:.2f} ms/image, {2 * h * w / dt / 1e6:.1f} MPix/s "
+        f"(JSON + cached plan -> u8 on host); device part {dev_ms / 2:.2f} ms/image "
+        f"({2 * h * w / dev_ms / 1e3:.1f} MPix/s), of which the warp {warp_ms / 2:.2f} "
+        f"ms/image; u8 readback {statistics.median(readback) * 1e3 / 2:.2f} ms/image; "
+        f"planner {plan_cold * 1e3:.1f} ms cold, {plan_cached * 1e3:.3f} ms cached [{card}]")
+    phase_done("e2e config 5")
 
     if args.profile:
-        profile_main_path(CONFIG3_DOC, img2, args.out, card)
+        profile_run("config3 B=2", lambda: run_e2e(CONFIG3_DOC, 2, img2), args.out, card)
+        profile_run("config5 B=2", lambda: run5(img2, plan5), args.out, card)
+        phase_done("profile")
 
+    sources = {
+        "blur": ("rapidraw_tpu_torch/csrc/blur.cu", "rapidraw_tpu/ops/blur.py:242"),
+        "grade": ("rapidraw_tpu_torch/csrc/grade.cu", "rapidraw_tpu/pipeline/fused.py:298"),
+        "nr": ("rapidraw_tpu_torch/csrc/nr.cu", "rapidraw_tpu/ops/nr.py:1005"),
+        "resample": ("rapidraw_tpu_torch/csrc/resample.cu",
+                     "rapidraw_tpu/geometry/warp_fast.py:473"),
+    }
+    # top level: the config-5 path, which runs all four kernels; "paths": each
+    # main path's own launch count and, where it runs the kernel, the numbers
+    # of the case at that path's shapes
+    fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    counts = {"config3": launches3, "config5": launches5}
     kernels = {"kernels": [
-        {"name": "blur", "route": "cuda", "source": "rapidraw_tpu_torch/csrc/blur.cu",
-         "replaces": "rapidraw_tpu/ops/blur.py:242", "launches": launches["blur"],
-         "max_abs_err": blur_err, "ms": blur_main[0], "plain_ms": blur_main[1]},
-        {"name": "grade", "route": "cuda", "source": "rapidraw_tpu_torch/csrc/grade.cu",
-         "replaces": "rapidraw_tpu/pipeline/fused.py:298", "launches": launches["grade"],
-         "max_abs_err": grade_err, "ms": grade_main[0], "plain_ms": grade_main[1]},
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches5[name], **{k: report[name, "config5"][k] for k in fields},
+         "paths": {path: {"launches": n[name], **report.get((name, path), {})}
+                   for path, n in counts.items()}}
+        for name, (src, rep) in sources.items()
     ]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,15 +3,17 @@
 // Replaces the TPU megakernel B3 (rapidraw_tpu/pipeline/fused.py
 // `develop_fused`, body `_make_dev_kernel`) and its batched form B4
 // (`develop_fused_batch`): grade_chain + finish_chain of
-// rapidraw_tpu/pipeline/grade.py, for documents without masks, flare, CA,
-// NR or a LUT. Every device function below transcribes the plain PyTorch
-// op of the same name in rapidraw_tpu_torch/ops (itself a port of the JAX
-// op) in the same operation order; the file is built with --fmad=false so
-// each product and sum rounds on its own, as the plain chain does.
+// rapidraw_tpu/pipeline/grade.py, for documents without masks, flare or a
+// LUT (CA and NR run before it). Every device function below transcribes
+// the plain PyTorch op of the same name in rapidraw_tpu_torch/ops (itself
+// a port of the JAX op) in the same operation order; the file is built
+// with --fmad=false so each product and sum rounds on its own, as the
+// plain chain does.
 //
 // Inputs: the image (B, 3, H, W) and up to four blur levels (B, 3, H, W),
 // all in input space (sRGB for LDR, linear for RAW) — both are linearized
-// here, in registers, as the TPU kernel does in VMEM (fused.py:243); a
+// here, in registers, as the TPU kernel does in VMEM (fused.py:243), except
+// an image that NR already made linear (flag bit F_IMAGE_LINEAR); a
 // (B, K) f32 param matrix whose offsets come from the generated
 // grade_gen.h (pipeline/fused.py LAYOUT). DevelopConfig arrives as a
 // warp-uniform runtime bitmask plus curve_segments and the HSL band mask:
@@ -739,7 +741,7 @@ __global__ void __launch_bounds__(BX* BY)
   const float xs = (float)x, ys = (float)y;
 
   F3 c = load3(img, i, plane);
-  if (!is_raw) c = srgb_to_linear3(c);
+  if (!is_raw && !ON(F_IMAGE_LINEAR)) c = srgb_to_linear3(c);
   F3 b_sharp = {}, b_tonal = {}, b_clarity = {}, b_structure = {};
   if (l_sharp) b_sharp = load3(l_sharp, i, plane);
   if (l_tonal) b_tonal = load3(l_tonal, i, plane);

@@ -17,6 +17,13 @@ def as_t(v, ref: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.float32, device=ref.device)
 
 
+def coord_maps(h: int, w: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pixel-coordinate maps (xs, ys), each (H, W) float32."""
+    ys = torch.arange(h, dtype=torch.float32, device=device)[:, None].expand(h, w)
+    xs = torch.arange(w, dtype=torch.float32, device=device)[None, :].expand(h, w)
+    return xs, ys
+
+
 def luma(rgb: torch.Tensor) -> torch.Tensor:
     """dot(c, LUMA_COEFF) (shader.wgsl:216-218). rgb: (3, ...) -> (...)."""
     return rgb[0] * LUMA_COEFF[0] + rgb[1] * LUMA_COEFF[1] + rgb[2] * LUMA_COEFF[2]

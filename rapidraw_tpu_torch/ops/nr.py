@@ -1,0 +1,305 @@
+"""Noise reduction on the document-static tap grid (PyTorch + csrc/nr.cu).
+
+Port of the static branch of `rapidraw_tpu/ops/nr.py:apply_noise_reduction`
+(shader.wgsl:889-1075): a 5x5 sampling window whose stride grows with the
+amount and the resolution; a two-pass robust (bisquare) weighted luma mean;
+a joint spatial/luma/chroma bilateral filter on the R-Y / B-Y planes. With
+document-constant amounts (every real document) the tap offsets are fixed,
+so each tap is an edge-clamped shift.
+
+The centre value is the CA-corrected, linearized pixel, while the neighbour
+taps read the *original* input, linearized (shader.wgsl:951, 1040):
+`nr_planes` makes those three neighbour planes (luma, R-Y, B-Y).
+
+`nr_static` is the kernel wrapper: a CPU tensor runs `nr_static_plain`, a
+CUDA tensor launches csrc/nr.cu, which replaces the TPU kernel B5
+(`_apply_nr_static_pallas`). `nr_static_plain` follows that Pallas kernel
+body at float32 (not the XLA formulation `_apply_nr_static`): the
+equal/not-equal edge-gate select, the hoisted smoothstep reciprocal, gates
+pre-masked at 1e-4 for the robust pass, the centre tap's gate g_eq, one exp
+per chroma tap. The kernel repeats its operations in the same order.
+
+Masked (per-pixel) amounts and the exact-jitter mode are later slices.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from rapidraw_tpu_torch.native import KernelLibrary
+from rapidraw_tpu_torch.ops import colorspace as cs
+from rapidraw_tpu_torch.ops.common import LUMA_COEFF, luma, mix, smoothstep
+
+_OFFSETS = [(dx, dy) for dy in range(-2, 3) for dx in range(-2, 3) if not (dx == 0 and dy == 0)]
+NTAPS = len(_OFFSETS)
+NR_HALO = 16  # the largest tap offset the kernel's shared-memory tile holds
+
+# --fmad=false: every product and sum rounds on its own, as in the plain
+# version — the knife-edge gates (w > 1e-4, w_b > 0.01, the edge side)
+# flip a whole pixel on a last-ulp difference
+_KERNEL = KernelLibrary("nr", extra_flags=("--fmad=false",))
+
+
+def _smoothstep_f(e0: float, e1: float, x: float) -> float:
+    t = min(max((x - e0) / (e1 - e0), 0.0), 1.0)
+    return t * t * (3.0 - 2.0 * t)
+
+
+def nr_static_meta(luma_a: float, color_a: float, scale: float) -> dict:
+    """Static tap grids and gate constants (JAX `_nr_static_meta`):
+    24 (dx, dy, spatial weight) luma taps and 24 chroma taps."""
+    res_factor = float(min(max(scale**0.5, 0.5), 2.0))
+    l_curve = math.sqrt(luma_a)
+    stride_f = (1.0 + _smoothstep_f(0.45, 0.95, luma_a)) * res_factor
+    extra = min(max(stride_f - 1.0, 0.0), 1.0)
+    c_curve = math.sqrt(color_a)
+    c_stride = (2.0 + 1.5 * c_curve) * res_factor
+    luma_taps = []
+    for dx, dy in _OFFSETS:
+        ring = max(abs(dx), abs(dy))
+        grow = 1.0 + extra * (1.0 if ring == 2 else 0.5)
+        l_spatial = 1.0 + 0.5 * l_curve
+        l_spat_n = -1.0 / max(2.0 * l_spatial * l_spatial, 1e-6)
+        luma_taps.append(
+            (int(round(dx * grow)), int(round(dy * grow)),
+             math.exp(float(dx * dx + dy * dy) * l_spat_n))
+        )
+    chroma_taps = []
+    c_spatial = 2.0 + 1.5 * c_curve
+    c_spat_n = -1.0 / max(2.0 * c_spatial * c_spatial, 1e-6)
+    for dx, dy in _OFFSETS:
+        chroma_taps.append(
+            (int(round(dx * c_stride)), int(round(dy * c_stride)),
+             math.exp(float(dx * dx + dy * dy) * c_spat_n))
+        )
+    return {
+        "l_curve": l_curve,
+        "c_curve": c_curve,
+        "luma_taps": luma_taps,
+        "chroma_taps": chroma_taps,
+    }
+
+
+def _consts(luma_a: float, color_a: float, scale: float) -> dict:
+    """Clipped amounts, tap tables, the largest offset and the scalar
+    constants both versions use (Python doubles; float32 where JAX holds a
+    float32 value)."""
+    luma_a = min(max(float(luma_a), 0.0), 1.0)
+    color_a = min(max(float(color_a), 0.0), 1.0)
+    meta = nr_static_meta(luma_a, color_a, scale)
+    luma_on, color_on = luma_a > 0.001, color_a > 0.001
+    offs = []
+    if luma_on:
+        offs += [abs(o) for t in meta["luma_taps"] for o in t[:2]]
+    if color_on:
+        offs += [abs(o) for t in meta["chroma_taps"] for o in t[:2]]
+    max_off = max(offs) if offs else 0
+    assert max_off <= NR_HALO, f"NR tap offset {max_off} exceeds halo {NR_HALO}"
+    l_curve, c_curve = meta["l_curve"], meta["c_curve"]
+    luma_tol = 0.12 + (0.04 - 0.12) * c_curve
+    chroma_tol = 0.20 + (0.08 - 0.20) * c_curve
+    ca32 = np.float32(color_a)
+    return dict(
+        meta, luma_a=luma_a, color_a=color_a, luma_on=luma_on, color_on=color_on,
+        max_off=max_off,
+        tol_flat=mix(0.025, 0.075, l_curve), tol_edge=mix(0.010, 0.025, l_curve),
+        luma_n=-1.0 / max(2.0 * luma_tol * luma_tol, 1e-6),
+        chroma_n=-1.0 / max(2.0 * chroma_tol * chroma_tol, 1e-6),
+        # JAX mixes with color_a as a float32 array: 1 - ca rounds in f32
+        ca32=float(ca32), one_minus_ca32=float(np.float32(1.0) - ca32),
+    )
+
+
+def nr_planes(input_rgb: torch.Tensor, is_raw: bool) -> torch.Tensor:
+    """(..., 3, H, W) neighbour planes: luma, R-Y and B-Y of the linearized
+    original input (JAX nr.py:771-775)."""
+    lin = input_rgb if is_raw else cs.srgb_to_linear(input_rgb)
+    lin = lin.movedim(-3, 0)
+    n_luma = luma(torch.clamp_min(lin, 0.0))
+    return torch.stack([n_luma, lin[0] - n_luma, lin[2] - n_luma], dim=-3)
+
+
+def _nr_one(center: torch.Tensor, planes: torch.Tensor, k: dict) -> torch.Tensor:
+    """The Pallas kernel body at float32 on one (3, H, W) image."""
+    _, h, w = center.shape
+    pad = max(k["max_off"], 1)
+    padded = F.pad(planes[None], (pad, pad, pad, pad), mode="replicate")[0]
+
+    def tap(plane: int, dx: int, dy: int) -> torch.Tensor:
+        return padded[plane, pad + dy : pad + dy + h, pad + dx : pad + dx + w]
+
+    center_luma = luma(torch.clamp_min(center, 0.0))
+    new_luma = center_luma
+    if k["luma_on"]:
+        lt = k["luma_taps"]
+        lmin = center_luma
+        lmax = center_luma
+        for dx, dy, _spat in lt:
+            s = tap(0, dx, dy)
+            lmin = torch.minimum(lmin, s)
+            lmax = torch.maximum(lmax, s)
+        edge_strength = smoothstep(0.04, 0.20, lmax - lmin)
+        edge_midpoint = (lmin + lmax) * 0.5
+        center_side = center_luma > edge_midpoint
+        l_range_tol = mix(k["tol_flat"], k["tol_edge"], edge_strength)
+        g_e0 = l_range_tol * 0.6
+        g_inv = torch.reciprocal(l_range_tol * 0.4)
+        # mix(1, side_eq, es) is (1 - es) + g * es: select between the two
+        g_ne = 1.0 - edge_strength
+        g_eq = g_ne + edge_strength
+
+        # pass A: gated mean; each tap's gate, pre-masked at 1e-4, is kept
+        # for pass B (the centre tap's gate is exactly g_eq)
+        sum_a = center_luma * g_eq
+        w_a = g_eq
+        gates = []
+        for dx, dy, spat in lt:
+            s = tap(0, dx, dy)
+            diff = torch.abs(s - center_luma)
+            t = torch.clamp((diff - g_e0) * g_inv, 0.0, 1.0)
+            g_range = 1.0 - t * t * (3.0 - 2.0 * t)
+            g_edge = torch.where((s > edge_midpoint) == center_side, g_eq, g_ne)
+            wgt = spat * g_range * g_edge
+            gates.append(torch.where(wgt > 0.0001, wgt, 0.0))
+            sum_a = sum_a + s * wgt
+            w_a = w_a + wgt
+        initial_mean = sum_a / torch.clamp_min(w_a, 1e-4)
+
+        # pass B: bisquare-robust mean around the gated mean
+        inv_outlier = torch.reciprocal(mix(0.07, 0.025, edge_strength))
+
+        def bisq2(s):
+            r = torch.abs(s - initial_mean) * inv_outlier
+            bisq = torch.clamp_min(1.0 - r * r, 0.0)
+            return bisq * bisq
+
+        w_c0 = torch.where(g_eq > 0.0001, g_eq, 0.0) * bisq2(center_luma)
+        sum_b = center_luma * w_c0
+        w_b = w_c0
+        for (dx, dy, _spat), gate in zip(lt, gates):
+            s = tap(0, dx, dy)
+            wgt = gate * bisq2(s)
+            sum_b = sum_b + s * wgt
+            w_b = w_b + wgt
+        robust = torch.where(w_b > 0.01, sum_b / torch.clamp_min(w_b, 1e-6), initial_mean)
+        strength = k["luma_a"] * mix(1.0, 0.6, edge_strength)
+        new_luma = mix(center_luma, robust, strength)
+
+    cr = center[0] - center_luma
+    cg = center[1] - center_luma
+    cb = center[2] - center_luma
+    if k["color_on"]:
+        ln, cn = k["luma_n"], k["chroma_n"]
+        sum_r = cr
+        sum_bv = cb
+        w_sum = torch.ones_like(cr)
+        for dx, dy, w_s in k["chroma_taps"]:
+            s_luma, s_r_y, s_b_y = tap(0, dx, dy), tap(1, dx, dy), tap(2, dx, dy)
+            dl = s_luma - center_luma
+            dr = s_r_y - cr
+            db = s_b_y - cb
+            # one exp for both gates: exp(a) * exp(b) == exp(a + b)
+            wgt = w_s * torch.exp(dl * dl * ln + (dr * dr + db * db) * cn)
+            sum_r = sum_r + s_r_y * wgt
+            sum_bv = sum_bv + s_b_y * wgt
+            w_sum = w_sum + wgt
+        inv_w = torch.reciprocal(torch.clamp_min(w_sum, 1e-6))
+        cr = cr * k["one_minus_ca32"] + (sum_r * inv_w) * k["ca32"]
+        cb = cb * k["one_minus_ca32"] + (sum_bv * inv_w) * k["ca32"]
+        cg = -(LUMA_COEFF[0] * cr + LUMA_COEFF[2] * cb) / LUMA_COEFF[1]
+    return torch.stack([new_luma + cr, new_luma + cg, new_luma + cb])
+
+
+def _check(center: torch.Tensor, planes: torch.Tensor) -> None:
+    if center.ndim not in (3, 4) or center.shape[-3] != 3:
+        raise ValueError(f"NR takes (3, H, W) or (B, 3, H, W) images, got {tuple(center.shape)}")
+    if planes.shape != center.shape:
+        raise ValueError(f"NR planes shape {tuple(planes.shape)} != image {tuple(center.shape)}")
+    if center.dtype != torch.float32 or planes.dtype != torch.float32:
+        raise ValueError("NR takes float32 tensors")
+
+
+def nr_static_plain(center: torch.Tensor, planes: torch.Tensor, luma_a: float,
+                    color_a: float, scale: float) -> torch.Tensor:
+    """Plain version of the NR kernel: center (..., 3, H, W) linear pixels,
+    planes (..., 3, H, W) from `nr_planes`."""
+    _check(center, planes)
+    k = _consts(luma_a, color_a, scale)
+    if center.ndim == 3:
+        return _nr_one(center, planes, k)
+    return torch.stack([_nr_one(c, p, k) for c, p in zip(center, planes)])
+
+
+class _Taps(ctypes.Structure):
+    _fields_ = [(n, t * NTAPS) for n, t in (
+        ("ldx", ctypes.c_int), ("ldy", ctypes.c_int), ("lsp", ctypes.c_float),
+        ("cdx", ctypes.c_int), ("cdy", ctypes.c_int), ("csp", ctypes.c_float))]
+
+
+def _nr_cuda(center: torch.Tensor, planes: torch.Tensor, k: dict) -> torch.Tensor:
+    for name, t in (("image", center), ("planes", planes)):
+        if not t.is_contiguous():
+            raise ValueError(f"NR kernel: {name} must be contiguous")
+        if t.device != center.device:
+            raise ValueError(f"NR kernel: {name} must be on {center.device}")
+    b = center.shape[0] if center.ndim == 4 else 1
+    h, w = center.shape[-2:]
+    out = torch.empty_like(center)
+    taps = _Taps()
+    for i, ((ldx, ldy, lsp), (cdx, cdy, csp)) in enumerate(zip(k["luma_taps"], k["chroma_taps"])):
+        taps.ldx[i], taps.ldy[i], taps.lsp[i] = ldx, ldy, lsp
+        taps.cdx[i], taps.cdy[i], taps.csp[i] = cdx, cdy, csp
+    fn = _KERNEL.lib().rr_nr_static
+    fn.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.POINTER(_Taps)] + [ctypes.c_int] * 6
+        + [ctypes.c_float] * 7 + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(center.device).cuda_stream
+    status = fn(
+        center.data_ptr(), planes.data_ptr(), out.data_ptr(), ctypes.byref(taps),
+        int(k["luma_on"]), int(k["color_on"]), max(k["max_off"], 1), b, h, w,
+        k["luma_a"], k["tol_flat"], k["tol_edge"], k["luma_n"], k["chroma_n"],
+        k["ca32"], k["one_minus_ca32"], stream,
+    )
+    _KERNEL.check(status, "rr_nr_static")
+    nr_static.launches += 1
+    return out
+
+
+def nr_static(center: torch.Tensor, planes: torch.Tensor, luma_a: float,
+              color_a: float, scale: float) -> torch.Tensor:
+    """Static-grid NR of (3, H, W) or (B, 3, H, W): the kernel wrapper.
+
+    CPU tensor -> `nr_static_plain`; CUDA tensor -> one launch of
+    csrc/nr.cu for the whole batch.
+    """
+    _check(center, planes)
+    if center.device.type == "cpu":
+        return nr_static_plain(center, planes, luma_a, color_a, scale)
+    if center.device.type != "cuda":
+        raise ValueError(f"NR runs on CPU or CUDA tensors, got {center.device}")
+    return _nr_cuda(center, planes, _consts(luma_a, color_a, scale))
+
+
+# launch count of the NR kernel: one per rr_nr_static call
+nr_static.launches = 0
+
+
+def apply_noise_reduction(center_linear: torch.Tensor, input_rgb: torch.Tensor,
+                          scale: float, is_raw: bool, static_luma: float | None,
+                          static_color: float | None) -> torch.Tensor:
+    """NR of (..., 3, H, W) linear pixels, neighbours from the input-space
+    `input_rgb`. Only document-static amounts are ported: per-pixel
+    (masked) amounts raise NotImplementedError."""
+    if static_luma is None or static_color is None:
+        raise NotImplementedError(
+            "the PyTorch port does not run noise reduction with per-pixel (masked) "
+            "amounts yet (slice A.8)")
+    return nr_static(center_linear.contiguous(), nr_planes(input_rgb, is_raw).contiguous(),
+                     static_luma, static_color, scale)

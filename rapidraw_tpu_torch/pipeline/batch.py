@@ -1,9 +1,9 @@
 """Batch develop: per-image params stacked along a leading batch axis.
 
-Port of `rapidraw_tpu/pipeline/batch.py`. Every B goes through one blur
-launch for the whole pyramid and one grade launch with the batch on the
-grid; on a CPU batch the two wrappers run their plain versions instead.
-No switch sends a CUDA batch down a plain path.
+Port of `rapidraw_tpu/pipeline/batch.py`. Every B goes through one launch
+of each kernel its document needs — NR, the blur pyramid, the grade with
+the batch on the grid; on a CPU batch the wrappers run their plain
+versions instead. No switch sends a CUDA batch down a plain path.
 """
 
 from __future__ import annotations
@@ -31,14 +31,15 @@ def stack_params(
     """Stack per-image params into batched tensors + the merged config.
 
     `cfg` overrides the merge (an export bucket merges once). `device`
-    places the stacked leaves (default CPU): a batch that is developed many
-    times keeps its params resident there and packs them without a host
-    copy per call.
+    places the stacked leaves: the CUDA device unless the caller asks for
+    another (the CPU for a CPU batch). A batch that is developed many times
+    keeps its params resident there and packs them without a host copy per
+    call.
     """
     if cfg is None:
         cfg = merge_configs(configs)
     check_supported(cfg)
-    stacked = {"glob": _stack([p["glob"] for p in params_list], device or "cpu"), "mask": None}
+    stacked = {"glob": _stack([p["glob"] for p in params_list], device or "cuda"), "mask": None}
     return stacked, cfg
 
 

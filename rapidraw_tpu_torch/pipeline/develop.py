@@ -1,15 +1,15 @@
 """The develop entry for one image.
 
-Port of `rapidraw_tpu/pipeline/develop.py` for this slice: linearize ->
-blur pyramid -> grade chain -> grain -> clipping -> dither. CA, NR, flare,
-masks and the LUT are later slices and raise NotImplementedError.
+Port of `rapidraw_tpu/pipeline/develop.py` for this slice: CA -> linearize
+-> NR -> blur pyramid -> grade chain -> grain -> clipping -> dither.
+Flare, masks and the LUT are later slices and raise NotImplementedError.
 
 The port has one path: the JAX package's XLA chain and its megakernel are
-two implementations, but here the blur and grade wrappers already choose
-between the CUDA kernels and their plain PyTorch versions by the tensor's
-device, so `develop` is the batched path with B = 1 (the JAX
-`prepare_inputs` work — blur levels in input space, linearized in the
-grade step — lives in pipeline/fused.py).
+two implementations, but here the blur, NR and grade wrappers already
+choose between the CUDA kernels and their plain PyTorch versions by the
+tensor's device, so `develop` is the batched path with B = 1 (the JAX
+`prepare_inputs` work — CA and NR, blur levels in input space — lives in
+pipeline/fused.py).
 """
 
 from __future__ import annotations

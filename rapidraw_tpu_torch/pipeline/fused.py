@@ -28,6 +28,9 @@ import torch
 from rapidraw_tpu_torch.native import KernelLibrary
 from rapidraw_tpu_torch.ops import colorspace as cs
 from rapidraw_tpu_torch.ops.blur import gaussian_blur_multi
+from rapidraw_tpu_torch.ops.ca import apply_ca_correction
+from rapidraw_tpu_torch.ops.common import coord_maps
+from rapidraw_tpu_torch.ops.nr import apply_noise_reduction
 from rapidraw_tpu_torch.params import agx as agx_c
 from rapidraw_tpu_torch.params import scales
 from rapidraw_tpu_torch.params.curves import MAX_SEGMENTS
@@ -76,6 +79,10 @@ FLAGS = (
     "cg_active", "vignette_active", "curves_active",
     "rgb_curves_maybe_active", "grain_active", "dither_active",
 )
+# Not a DevelopConfig field: the wrapper sets it when the image it hands
+# the kernel is already linear (NR ran first), so the kernel skips the
+# sRGB linearization of the image (JAX fused.py:243-249).
+IMAGE_LINEAR_BIT = 1 << len(FLAGS)
 
 
 def _leaf(tree: dict, path: str):
@@ -111,8 +118,9 @@ def unpack_row(row: torch.Tensor) -> dict:
     return g
 
 
-def flag_bits(cfg: DevelopConfig) -> int:
-    return sum(1 << i for i, name in enumerate(FLAGS) if getattr(cfg, name))
+def flag_bits(cfg: DevelopConfig, image_linear: bool = False) -> int:
+    bits = sum(1 << i for i, name in enumerate(FLAGS) if getattr(cfg, name))
+    return bits | (IMAGE_LINEAR_BIT if image_linear else 0)
 
 
 def _c_float(v: float) -> str:
@@ -129,6 +137,7 @@ def generated_header() -> str:
     lines.append(f"#define MAX_SEGMENTS {MAX_SEGMENTS}")
     for i, name in enumerate(FLAGS):
         lines.append(f"#define F_{name.upper()} (1u << {i})")
+    lines.append(f"#define F_IMAGE_LINEAR (1u << {len(FLAGS)})")
     t_coef, t_mid, t_inv = agx_c.AGX_TOE_POLY
     s_coef, s_mid, s_inv = agx_c.AGX_SHOULDER_POLY
     consts = {
@@ -160,8 +169,8 @@ def check_supported(cfg: DevelopConfig) -> None:
     later = (
         (cfg.mask_count > 0, "local masks (slice A.6)"),
         (cfg.has_lut, "the 3D LUT (slice A.8)"),
-        (cfg.ca_active, "chromatic aberration correction (slice A.8)"),
-        (cfg.nr_active, "noise reduction (slice A.8)"),
+        (cfg.nr_active and (cfg.nr_static_luma is None or cfg.nr_static_color is None),
+         "noise reduction with per-pixel amounts (slice A.8)"),
         (cfg.flare_active, "lens flare (slice A.8)"),
     )
     for hit, what in later:
@@ -181,19 +190,13 @@ def blur_radii(cfg: DevelopConfig, w: int, h: int) -> dict:
     return {k: scales.blur_radius(base, scale) for k, flag, base in need if flag}
 
 
-def coord_maps(h: int, w: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """Absolute pixel-coordinate maps (xs, ys), each (H, W) float32."""
-    ys = torch.arange(h, dtype=torch.float32, device=device)[:, None].expand(h, w)
-    xs = torch.arange(w, dtype=torch.float32, device=device)[None, :].expand(h, w)
-    return xs, ys
-
-
 def grade_plain(images: torch.Tensor, levels: dict, pmat: torch.Tensor,
-                cfg: DevelopConfig) -> torch.Tensor:
+                cfg: DevelopConfig, image_linear: bool = False) -> torch.Tensor:
     """Plain version of the grade kernel, on the kernel's own inputs.
 
-    images: (B, 3, H, W) in input space (sRGB, or linear when RAW);
-    levels: {key: (B, 3, H, W)} blur levels in input space; pmat: (B, K).
+    images: (B, 3, H, W) in input space (sRGB, or linear when RAW), or
+    linear when `image_linear`; levels: {key: (B, 3, H, W)} blur levels in
+    input space; pmat: (B, K).
     """
     b, _, h, w = images.shape
     scale = scales.resolution_scale(w, h)
@@ -206,8 +209,9 @@ def grade_plain(images: torch.Tensor, levels: dict, pmat: torch.Tensor,
     for i in range(b):
         g = unpack_row(pmat[i])
         blurs = {k: lin(levels[k][i]) if k in levels else None for k in BLUR_KEYS}
+        image = images[i] if image_linear else lin(images[i])
         final = grade_chain(
-            lin(images[i]), blurs["sharp"], blurs["tonal"], blurs["clarity"],
+            image, blurs["sharp"], blurs["tonal"], blurs["clarity"],
             blurs["structure"], g, cfg, xs, ys, w, h,
         )
         outs.append(finish_chain(final, g, cfg, xs, ys, scale))
@@ -215,7 +219,7 @@ def grade_plain(images: torch.Tensor, levels: dict, pmat: torch.Tensor,
 
 
 def _grade_cuda(images: torch.Tensor, levels: dict, pmat: torch.Tensor,
-                cfg: DevelopConfig) -> torch.Tensor:
+                cfg: DevelopConfig, image_linear: bool) -> torch.Tensor:
     b, c, h, w = images.shape
     for name, t in [("images", images), ("params", pmat), *levels.items()]:
         if not t.is_contiguous():
@@ -243,7 +247,7 @@ def _grade_cuda(images: torch.Tensor, levels: dict, pmat: torch.Tensor,
     stream = torch.cuda.current_stream(images.device).cuda_stream
     status = fn(
         images.data_ptr(), *ptrs, pmat.data_ptr(), out.data_ptr(),
-        flag_bits(cfg), max(cfg.curve_segments, 1), band_bits,
+        flag_bits(cfg, image_linear), max(cfg.curve_segments, 1), band_bits,
         # reciprocals taken in double, as PyTorch's CUDA division by a Python
         # scalar does in the plain chain
         b, h, w, 1.0 / w, 1.0 / h, 1.0 / scales.resolution_scale(w, h), h / w, stream,
@@ -254,11 +258,12 @@ def _grade_cuda(images: torch.Tensor, levels: dict, pmat: torch.Tensor,
 
 
 def grade(images: torch.Tensor, levels: dict, pmat: torch.Tensor,
-          cfg: DevelopConfig) -> torch.Tensor:
+          cfg: DevelopConfig, image_linear: bool = False) -> torch.Tensor:
     """Grade + finish chain of a (B, 3, H, W) batch: the kernel wrapper.
 
     CPU tensor -> `grade_plain`; CUDA tensor -> one launch of
-    csrc/grade.cu with the batch on the grid.
+    csrc/grade.cu with the batch on the grid. `image_linear`: the image is
+    already linear (NR ran first); the blur levels stay in input space.
     """
     check_supported(cfg)
     if images.ndim != 4 or images.shape[1] != 3:
@@ -267,10 +272,10 @@ def grade(images: torch.Tensor, levels: dict, pmat: torch.Tensor,
     if set(levels) != want:
         raise ValueError(f"grade: config reads blur levels {sorted(want)}, got {sorted(levels)}")
     if images.device.type == "cpu":
-        return grade_plain(images, levels, pmat, cfg)
+        return grade_plain(images, levels, pmat, cfg, image_linear)
     if images.device.type != "cuda":
         raise ValueError(f"grade runs on CPU or CUDA tensors, got {images.device}")
-    return _grade_cuda(images, levels, pmat, cfg)
+    return _grade_cuda(images, levels, pmat, cfg, image_linear)
 
 
 # launch count of the grade kernel: one per rr_grade call
@@ -289,14 +294,44 @@ def blur_levels(images: torch.Tensor, cfg: DevelopConfig) -> dict:
     return {k: lv.reshape(b, c, h, w) for k, lv in zip(radii, out)}
 
 
+def prepare_inputs(images: torch.Tensor, cfg: DevelopConfig) -> tuple[torch.Tensor, bool]:
+    """Front half of the chain for a (B, 3, H, W) batch in input space:
+    CA, then linearize and NR when NR is active (JAX develop.py:101-141).
+
+    Returns (image, image_linear). Without NR the image stays in input
+    space and the grade step linearizes it, as the JAX megakernel does; with
+    NR it is the linear, noise-reduced image. NR's neighbour taps read the
+    original `images` (linearized), its centre the CA-corrected pixel. The
+    blur levels (`blur_levels`) are taken from the original `images` too,
+    not from this result.
+    """
+    h, w = images.shape[-2:]
+    image = images
+    if cfg.ca_active:
+        image = apply_ca_correction(image, cfg.ca_static_rc, cfg.ca_static_by)
+    if not cfg.nr_active:
+        return image, False
+    linear = image if cfg.is_raw else cs.srgb_to_linear(image)
+    nr = apply_noise_reduction(
+        linear, images, scales.resolution_scale(w, h), cfg.is_raw,
+        cfg.nr_static_luma, cfg.nr_static_color,
+    )
+    return nr, True
+
+
 def develop_fused_batch(images: torch.Tensor, params: dict, cfg: DevelopConfig) -> torch.Tensor:
-    """Develop a (B, 3, H, W) batch: blur pyramid + one grade launch.
+    """Develop a (B, 3, H, W) batch: CA and NR (`prepare_inputs`), the
+    blur pyramid of the original images, one grade launch.
 
     params: stacked params (stack_params), leaves with a leading B axis.
+    The JAX package develops a CA or NR batch image by image
+    (`fusable_batched`); the params are per row here, so one launch of
+    each kernel serves the whole batch with the same per-image results.
     """
     check_supported(cfg)
     pmat = pack_rows(params["glob"]).to(images.device)
-    return grade(images, blur_levels(images, cfg), pmat, cfg)
+    image, linear = prepare_inputs(images, cfg)
+    return grade(image, blur_levels(images, cfg), pmat, cfg, image_linear=linear)
 
 
 def develop_fused(image: torch.Tensor, params: dict, cfg: DevelopConfig) -> torch.Tensor:

@@ -67,7 +67,7 @@ def test_plain_grade_matches_pallas_b4(name):
     x = images(2, 256, 512, seed=4, hi=1.6 if is_raw else 1.0)
     tparsed = [tparse(d, is_raw=is_raw) for d in docs]
     jparsed = [jparse(d, is_raw=is_raw) for d in docs]
-    tp, tc = tstack([p for p, _ in tparsed], [c for _, c in tparsed])
+    tp, tc = tstack([p for p, _ in tparsed], [c for _, c in tparsed], device="cpu")
     jp, jc = jstack([p for p, _ in jparsed], [c for _, c in jparsed])
     got = tfused.develop_fused_batch(torch.from_numpy(x), tp, nodither(tc)).numpy()
     want = np.asarray(jfused_batch(jnp.asarray(x), jp, nodither(jc)))
@@ -111,7 +111,7 @@ def test_plain_grade_takes_the_kernel_inputs():
     doc, _ = chip_smoke.DOCS["full"]
     x = torch.from_numpy(images(2, 40, 64, seed=6))
     p, c = tparse(doc)
-    sp, c = tstack([p, p], [c, c])
+    sp, c = tstack([p, p], [c, c], device="cpu")
     pmat = tfused.pack_rows(sp["glob"])
     levels = tfused.blur_levels(x, c)
     assert sorted(levels) == ["clarity", "sharp", "structure", "tonal"]
@@ -124,25 +124,43 @@ def test_plain_grade_takes_the_kernel_inputs():
         tfused.grade(x, {k: v for k, v in levels.items() if k != "tonal"}, pmat, c)
 
 
+# Each case: the batch's documents, then the error and the text it names.
+# CA and static NR are developed since the stencil slice; what stays
+# outside is a batch of mixed CA amounts (one compile cannot hold two, as
+# in JAX) and mixed NR amounts (JAX's per-pixel gather path, slice A.8).
 UNSUPPORTED = {
-    "masks (slice A.6)": {"masks": [{"visible": True, "adjustments": {"exposure": 1.0}}]},
-    "LUT (slice A.8)": {"lutPath": "x.cube"},
-    "chromatic aberration (slice A.8)": {"chromaticAberrationRedCyan": 10},
-    "noise reduction (slice A.8)": {"lumaNoiseReduction": 20},
-    "flare (slice A.8)": {"flareAmount": 20},
+    "masks (slice A.6)": (
+        [{"masks": [{"visible": True, "adjustments": {"exposure": 1.0}}]}],
+        NotImplementedError, "slice A.6"),
+    "LUT (slice A.8)": ([{"lutPath": "x.cube"}], NotImplementedError, "slice A.8"),
+    "chromatic aberration (slice A.8)": (
+        [{"chromaticAberrationRedCyan": 10}, {"chromaticAberrationRedCyan": 20}],
+        ValueError, "chromatic-aberration"),
+    "noise reduction (slice A.8)": (
+        [{"lumaNoiseReduction": 20}, {"lumaNoiseReduction": 40}],
+        NotImplementedError, "per-pixel amounts \\(slice A.8\\)"),
+    "flare (slice A.8)": ([{"flareAmount": 20}], NotImplementedError, "slice A.8"),
 }
 
 
 @pytest.mark.parametrize("what", sorted(UNSUPPORTED))
 def test_documents_outside_the_slice_raise(what):
-    from rapidraw_tpu_torch import develop, develop_batch
+    from rapidraw_tpu_torch import develop, develop_batch, merge_configs
 
-    p, c = tparse(UNSUPPORTED[what])
-    x = torch.zeros((3, 8, 8))
-    slice_name = what.split("(")[1].rstrip(")")
-    with pytest.raises(NotImplementedError, match=slice_name):
-        develop(x, p, c)
-    with pytest.raises(NotImplementedError, match=slice_name):
-        develop_batch(x[None], {"glob": p["glob"], "mask": None}, c)
-    with pytest.raises(NotImplementedError, match=slice_name):
-        tfused.check_supported(c)
+    docs, exc, match = UNSUPPORTED[what]
+    parsed = [tparse(d) for d in docs]
+    x = torch.zeros((len(docs), 3, 8, 8))
+    with pytest.raises(exc, match=match):
+        tstack([p for p, _ in parsed], [c for _, c in parsed], device="cpu")
+    if len(docs) == 1:
+        p, c = parsed[0]
+        with pytest.raises(exc, match=match):
+            develop(x[0], p, c)
+        with pytest.raises(exc, match=match):
+            develop_batch(x, {"glob": p["glob"], "mask": None}, c)
+        with pytest.raises(exc, match=match):
+            tfused.check_supported(c)
+    elif exc is NotImplementedError:
+        c = merge_configs([c for _, c in parsed])
+        with pytest.raises(exc, match=match):
+            tfused.check_supported(c)

@@ -53,7 +53,7 @@ def jax_run(docs, x, dither: bool):
 
 def port_run(docs, x, dither: bool):
     parsed = [rt.parse_adjustments(d) for d in docs]
-    p, c = rt.stack_params([q for q, _ in parsed], [k for _, k in parsed])
+    p, c = rt.stack_params([q for q, _ in parsed], [k for _, k in parsed], device="cpu")
     c = dataclasses.replace(c, dither_active=dither)
     out = rt.develop_batch(torch.from_numpy(x), p, c)
     return out.numpy(), rt.device_u8(out).numpy()
@@ -91,9 +91,28 @@ def test_develop_single_is_the_batch_of_one():
     x = batch(seed=13, b=1)
     p, c = rt.parse_adjustments(doc)
     single = rt.develop_single(torch.from_numpy(x[0]), p, c)
-    sp, sc = rt.stack_params([p], [c])
+    sp, sc = rt.stack_params([p], [c], device="cpu")
     assert torch.equal(single, rt.develop_batch(torch.from_numpy(x), sp, sc)[0])
     assert torch.equal(single, rt.develop(torch.from_numpy(x[0]), p, c))
+
+
+def test_stack_params_defaults_to_the_card():
+    """The CPU only on request: without `device=`, params go to CUDA (on a
+    machine without a card, that refuses rather than falling back)."""
+    from rapidraw_tpu_torch.geometry.params import GeometryParams
+    from rapidraw_tpu_torch.geometry.warp_fast import plan_warp
+
+    p, c = rt.parse_adjustments({})
+    if torch.cuda.is_available():
+        sp, _ = rt.stack_params([p], [c])
+        assert sp["glob"]["exposure"].device.type == "cuda"
+        return
+    with pytest.raises((AssertionError, RuntimeError)):
+        rt.stack_params([p], [c])
+    with pytest.raises((AssertionError, RuntimeError)):
+        plan_warp(GeometryParams(rotate=1.0), 64, 256)
+    sp, _ = rt.stack_params([p], [c], device="cpu")
+    assert sp["glob"]["exposure"].device.type == "cpu"
 
 
 def test_device_quantizers_round_like_jax():
@@ -114,7 +133,9 @@ def test_develop_rejects_interleaved_images():
 def test_import_leaves_jax_out():
     code = (
         "import sys; import rapidraw_tpu_torch, rapidraw_tpu_torch.pipeline.export, "
-        "rapidraw_tpu_torch.ops.blur, rapidraw_tpu_torch.pipeline.fused\n"
+        "rapidraw_tpu_torch.ops.blur, rapidraw_tpu_torch.pipeline.fused, "
+        "rapidraw_tpu_torch.ops.nr, rapidraw_tpu_torch.ops.ca, "
+        "rapidraw_tpu_torch.geometry.transforms, rapidraw_tpu_torch.geometry.warp_fast\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'rapidraw_tpu' or m.startswith('rapidraw_tpu.')]\n"
         "assert not bad, bad\n"
