@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--quick] [--out DIR] [--profile]
 
-Phases: (1) the card's name and power limit; (2) build the four CUDA
+Phases: (1) the card's name and power limit; (2) build the six CUDA
 kernels from rapidraw_tpu_torch/csrc, one nvcc each, all started together;
 (3) the blur kernel against its plain PyTorch version at 24 MP, with a
 case at each main path's shapes; (4) the grade kernel against its plain
@@ -15,12 +15,18 @@ as config 5 runs it; (7) the resample kernel against its plain version on
 the 24 MP config-5 and TCA plans; (8) the stencil export path end to end
 (config 5): JSON + geometry -> plan_warp -> warp_with_plan ->
 develop_batch -> device_u8 -> host numpy, counters reset and read around
-it, plus its small-input check. Each kernel line carries its time, its
-plain version's time and its bound (bytes over the HBM rate or operations
-over the float32 peak, whichever is larger). It prints a kernels JSON line
-(each kernel's numbers at the config-5 path's shapes, and per main path
-its launch count and that path's case), then as its last line {"ok": true,
-"device": {...}}.
+it, plus its small-input check; (9) the profiling probes P1 and P2
+(rapidraw_tpu_torch/tools): their entry points' main() at 24 MP, counters
+reset just before and read just after; each times its variants (P1 at 1,
+8, 16, 32 and 64 rows per thread, P2 at 32x8 and 32x32 tiles; each the
+median of 5 chained measurements), holds them against its plain version
+and raises on a mismatch. Each kernel line
+carries its time, its plain version's time and its bound (bytes over the
+HBM rate or operations over the float32 peak, whichever is larger). It
+prints a kernels JSON line (top level: each kernel's numbers on the path
+that runs it, config 5 for the four kernels of the develop paths, the
+probes for the probes' two; per path its launch count and that path's
+case), then as its last line {"ok": true, "device": {...}}.
 Any failed check raises, so the process exits non-zero; without a CUDA
 device it exits non-zero before printing any result.
 
@@ -37,7 +43,6 @@ import argparse
 import dataclasses
 import json
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -151,11 +156,6 @@ GRADE_DITHER_TOL = 2e-4 + 1.0 / 255.0
 NR_TOL = 2e-4            # the JAX kernel-vs-XLA bound; a gate can flip on one ulp
 RESAMPLE_TOL = 1e-6      # the same lerp of the same two rows
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and dense float32 FLOP/s
-# outside the tensor cores, at the full 700 W power limit
-PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
-
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -175,14 +175,6 @@ def time_ms(fn, reps: int) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
-
-
-def gpu_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 # aten ops that only move, view or make data: not counted as operations
@@ -220,13 +212,6 @@ def count_ops(fn):
     with Counter():
         res = fn()
     return res, total[0]
-
-
-def bound(nbytes: int, ops: int) -> tuple[float, str]:
-    """The least time the card could take: bytes over the HBM rate or
-    operations over the float32 peak, whichever is larger (ms, name)."""
-    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def nbytes(*tensors) -> int:
@@ -286,6 +271,7 @@ def main() -> int:
     from rapidraw_tpu_torch.ops.colorspace import srgb_to_linear
     from rapidraw_tpu_torch.params import scales
     from rapidraw_tpu_torch.pipeline import fused
+    from rapidraw_tpu_torch.tools import bound_ms, card_line, prof_chunked, prof_nr_slices
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -301,7 +287,7 @@ def main() -> int:
         t_phase[0] = now
 
     # ---- 1. device ---------------------------------------------------------
-    card = gpu_line()
+    card = card_line()
     log(card)
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -310,7 +296,8 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     libs = {"blur": blur._KERNEL, "grade": fused._KERNEL, "nr": nr._KERNEL,
-            "resample": warp_fast._KERNEL}
+            "resample": warp_fast._KERNEL, "chunked": prof_chunked._KERNEL,
+            "nr_slices": prof_nr_slices._KERNEL}
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda kl: kl.lib(), libs.values()))
     for name, kl in libs.items():
@@ -345,12 +332,12 @@ def main() -> int:
         blur_err = max(blur_err, err)
         ms = time_ms(lambda: blur.gaussian_blur_multi(x, radii), reps)
         pms = time_ms(lambda: blur.gaussian_blur_multi_plain(x, radii), reps)
-        bms, bby = bound(nbytes(x) * (1 + len(radii)), ops)
+        bms, bby = bound_ms(nbytes(x) * (1 + len(radii)), ops)
         log(f"[blur] {label} ({c},{h},{w}): max|d| {err:.3e} (bound {BLUR_TOL:g}) "
             f"kernel {ms:.3f} ms plain {pms:.3f} ms bound {bms:.3f} ms ({bby}) [{card}]")
         if err > BLUR_TOL:
             raise AssertionError(f"blur {label}: max|d| {err} > {BLUR_TOL}")
-        if path is not None:
+        if len(radii) == 1:
             # the library yardstick: one cuDNN depthwise convolution with the
             # 2-D Gaussian on the edge-padded input (the same function)
             import torch.nn.functional as F
@@ -360,8 +347,9 @@ def main() -> int:
             k2 = (k1[:, None] * k1[None, :]).expand(c, 1, 2 * r + 1, 2 * r + 1).contiguous()
             xp = F.pad(x[None], (r, r, r, r), mode="replicate")
             lms = time_ms(lambda: F.conv2d(xp, k2, groups=c), reps)
-            report["blur", path] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
-                                        library_ms=lms, max_abs_err=err)
+            if path is not None:
+                report["blur", path] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                                            library_ms=lms, max_abs_err=err)
             log(f"[blur] library: one depthwise 2-D conv2d {lms:.3f} ms [{card}]")
             del xp, k2
         del x, got, ref
@@ -393,7 +381,7 @@ def main() -> int:
                 if not dither:
                     ms = time_ms(lambda: fused.grade(images, levels, pmat, c, lin), reps)
                     pms = time_ms(lambda: fused.grade_plain(images, levels, pmat, c, lin), reps)
-                    bms, bby = bound(nbytes(images, pmat, *levels.values()) + nbytes(images), ops)
+                    bms, bby = bound_ms(nbytes(images, pmat, *levels.values()) + nbytes(images), ops)
                     line += (f" kernel {ms:.3f} ms plain {pms:.3f} ms bound {bms:.3f} ms "
                              f"({bby}) [{card}]")
                     path = {"config3": "config3", "config5_linear": "config5"}.get(name)
@@ -425,10 +413,14 @@ def main() -> int:
         fused.grade.launches = 0
         nr.nr_static.launches = 0
         warp_fast.resample_rows.launches = 0
+        prof_chunked.chain.launches = 0
+        prof_nr_slices.slices.launches = 0
 
     def read_counts() -> dict:
         return {"blur": blur.gaussian_blur_multi.launches, "grade": fused.grade.launches,
-                "nr": nr.nr_static.launches, "resample": warp_fast.resample_rows.launches}
+                "nr": nr.nr_static.launches, "resample": warp_fast.resample_rows.launches,
+                "chunked": prof_chunked.chain.launches,
+                "nr_slices": prof_nr_slices.slices.launches}
 
     img2 = torch.rand((2, 3, h, w), generator=gen, device=dev)
     reset_counts()
@@ -496,7 +488,7 @@ def main() -> int:
         nr_err = max(nr_err, err)
         ms = time_ms(lambda: nr.nr_static(center, planes, la, ca, scale), reps)
         pms = time_ms(lambda: nr.nr_static_plain(center, planes, la, ca, scale), reps)
-        bms, bby = bound(nbytes(center, planes) + nbytes(center), ops)
+        bms, bby = bound_ms(nbytes(center, planes) + nbytes(center), ops)
         log(f"[nr] {label} amounts {la:.2f}/{ca:.2f} B=2 (2,3,{h},{w}) max offset "
             f"{nr._consts(la, ca, scale)['max_off']}: max|d| {err:.3e} (bound {NR_TOL:g}), "
             f"share>1e-6 {share:.2e}, kernel {ms:.3f} ms plain {pms:.3f} ms bound {bms:.3f} ms "
@@ -536,7 +528,7 @@ def main() -> int:
                 ms = time_ms(lambda: warp_fast.resample_rows(src, e_arr, bases, stat), reps)
                 pms = time_ms(lambda: warp_fast.resample_rows_plain(src, e_arr, bases, stat),
                               reps)
-                bms, bby = bound(nbytes(src, e_arr, bases, got), ops)
+                bms, bby = bound_ms(nbytes(src, e_arr, bases, got), ops)
                 log(f"[resample] {gname} set {si} {channels} pass {pname} "
                     f"({src.shape[0]},{src.shape[1]},{src.shape[2]}) span {stat.span}: "
                     f"max|d| {err:.3e} (bound {RESAMPLE_TOL:g}) kernel {ms:.3f} ms plain "
@@ -656,24 +648,49 @@ def main() -> int:
         profile_run("config5 B=2", lambda: run5(img2, plan5), args.out, card)
         phase_done("profile")
 
-    sources = {
-        "blur": ("rapidraw_tpu_torch/csrc/blur.cu", "rapidraw_tpu/ops/blur.py:242"),
-        "grade": ("rapidraw_tpu_torch/csrc/grade.cu", "rapidraw_tpu/pipeline/fused.py:298"),
-        "nr": ("rapidraw_tpu_torch/csrc/nr.cu", "rapidraw_tpu/ops/nr.py:1005"),
+    # ---- 9. the profiling probes P1 and P2 -------------------------------------------
+    # their entry points, as a user runs them (python -m ...), always at
+    # 24 MP: each times its variants, holds each against its plain version
+    # (raising on a mismatch) and prints each line with the card's name
+    reset_counts()
+    probe_rows = {"chunked": prof_chunked.main(), "nr_slices": prof_nr_slices.main()}
+    torch.cuda.synchronize()
+    launches_probes = read_counts()
+    log(f"[probes] launches {launches_probes}")
+    if min(launches_probes["chunked"], launches_probes["nr_slices"]) < 1:
+        raise AssertionError(f"a probe kernel never launched: {launches_probes}")
+    for name, rows in probe_rows.items():
+        report[name, "probes"] = dict(
+            min(rows, key=lambda r: r["ms"]),
+            variants=[{k: r[k] for k in ("variant", "ms", "ms_range", "max_abs_err")}
+                      for r in rows])
+    phase_done("probes")
+
+    sources = {  # name -> (source, the TPU kernel it replaces, the path that runs it)
+        "blur": ("rapidraw_tpu_torch/csrc/blur.cu", "rapidraw_tpu/ops/blur.py:242", "config5"),
+        "grade": ("rapidraw_tpu_torch/csrc/grade.cu", "rapidraw_tpu/pipeline/fused.py:298",
+                  "config5"),
+        "nr": ("rapidraw_tpu_torch/csrc/nr.cu", "rapidraw_tpu/ops/nr.py:1005", "config5"),
         "resample": ("rapidraw_tpu_torch/csrc/resample.cu",
-                     "rapidraw_tpu/geometry/warp_fast.py:473"),
+                     "rapidraw_tpu/geometry/warp_fast.py:473", "config5"),
+        "chunked": ("rapidraw_tpu_torch/csrc/chunked.cu", "tools/prof_chunked.py:60", "probes"),
+        "nr_slices": ("rapidraw_tpu_torch/csrc/nr_slices.cu", "tools/prof_nr_slices.py:68",
+                      "probes"),
     }
-    # top level: the config-5 path, which runs all four kernels; "paths": each
-    # main path's own launch count and, where it runs the kernel, the numbers
-    # of the case at that path's shapes
+    # top level: the path that runs the kernel (config 5 runs the develop
+    # paths' four; a probe's variant with the lowest median is named, and
+    # every variant's median and range is under paths.probes); "paths": each path's
+    # own launch count and, where it runs the kernel, the numbers of the case
+    # at that path's shapes
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    counts = {"config3": launches3, "config5": launches5}
+    counts = {"config3": launches3, "config5": launches5, "probes": launches_probes}
     kernels = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches5[name], **{k: report[name, "config5"][k] for k in fields},
+         "launches": counts[top][name], **{k: report[name, top][k] for k in fields},
+         **({"variant": report[name, top]["variant"]} if top == "probes" else {}),
          "paths": {path: {"launches": n[name], **report.get((name, path), {})}
                    for path, n in counts.items()}}
-        for name, (src, rep) in sources.items()
+        for name, (src, rep, top) in sources.items()
     ]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
