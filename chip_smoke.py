@@ -6,12 +6,13 @@ Phases: (1) the card's name and power limit; (2) build the six CUDA
 kernels from rapidraw_tpu_torch/csrc, one nvcc each, all started together;
 (3) the blur kernel against its plain PyTorch version at 24 MP, with a
 case at each main path's shapes; (4) the grade kernel against its plain
-version at 24 MP, B = 1 and 2, on six documents; (5) the develop path end
+version at 24 MP, B = 1 and 2, on six documents, and at a ragged size
+(1000 x 1503, a multiple of neither kernel's tile), B = 2; (5) the develop path end
 to end: adjustment JSON -> stack_params -> develop_batch -> device_u8 ->
 host numpy (configs 1 and 3), with the kernels' launch counters reset just
 before and read just after, plus a small-input check against the plain CPU
 path; (6) the NR kernel against its plain version on a 24 MP B = 2 batch,
-as config 5 runs it; (7) the resample kernel against its plain version on
+as config 5 runs it, and at the ragged size; (7) the resample kernel against its plain version on
 the 24 MP config-5 and TCA plans; (8) the stencil export path end to end
 (config 5): JSON + geometry -> plan_warp -> warp_with_plan ->
 develop_batch -> device_u8 -> host numpy, counters reset and read around
@@ -26,7 +27,8 @@ HBM rate or operations over the float32 peak, whichever is larger). It
 prints a kernels JSON line (top level: each kernel's numbers on the path
 that runs it, config 5 for the four kernels of the develop paths, the
 probes for the probes' two; per path its launch count and that path's
-case), then as its last line {"ok": true, "device": {...}}.
+case; with each source's registers and spill bytes from ptxas), then as
+its last line {"ok": true, "device": {...}}.
 Any failed check raises, so the process exits non-zero; without a CUDA
 device it exits non-zero before printing any result.
 
@@ -42,6 +44,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import statistics
 import sys
 import time
@@ -51,6 +54,7 @@ import numpy as np
 import torch
 
 H, W = 4096, 6144  # 24 MP, the repo's canonical develop shape
+RAGGED = (1000, 1503)  # a multiple of neither the grade nor the NR tile
 
 # BASELINE config 1: sRGB develop — exposure + contrast + saturation + curve.
 CONFIG1_DOC = {
@@ -214,6 +218,14 @@ def count_ops(fn):
     return res, total[0]
 
 
+def ptxas_usage(log: str) -> tuple:
+    """(registers, spill bytes) of one source from nvcc -Xptxas -v: the most
+    registers any of its kernels uses, and their spill stores and loads summed."""
+    regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
+    return max(regs, default=None), sum(int(a) + int(b) for a, b in spills)
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -300,8 +312,10 @@ def main() -> int:
             "nr_slices": prof_nr_slices._KERNEL}
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda kl: kl.lib(), libs.values()))
+    usage = {name: ptxas_usage(kl.build_log) for name, kl in libs.items()}
     for name, kl in libs.items():
-        log(f"[build] {name}: nvcc {kl.build_seconds:.1f} s")
+        log(f"[build] {name}: nvcc {kl.build_seconds:.1f} s, registers {usage[name][0]}, "
+            f"spill bytes {usage[name][1]}")
         if args.out:
             Path(args.out).mkdir(parents=True, exist_ok=True)
             (Path(args.out) / f"nvcc_{name}.log").write_text(kl.build_log)
@@ -398,6 +412,29 @@ def main() -> int:
                 del got, ref
             del levels
         del images
+    # a size that is a multiple of neither tile: every edge block is partial
+    images = torch.rand((2, 3, *RAGGED), generator=gen, device=dev)
+    for name, (doc, is_raw) in grade_docs.items():
+        p, cfg = parse_adjustments(doc, is_raw=is_raw)
+        sp, cfg = stack_params([p] * 2, [cfg] * 2, device=dev)
+        pmat = fused.pack_rows(sp["glob"])
+        levels = fused.blur_levels(images, cfg)
+        lin = name == "config5_linear"
+        for dither in (False, True):
+            c = dataclasses.replace(cfg, dither_active=dither)
+            got = fused.grade(images, levels, pmat, c, image_linear=lin)
+            ref = fused.grade_plain(images, levels, pmat, c, lin)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            tol = GRADE_DITHER_TOL if dither else GRADE_TOL
+            log(f"[grade] ragged B=2 {RAGGED[0]}x{RAGGED[1]} {name} "
+                f"dither={'on' if dither else 'off'}: max|d| {err:.3e} (bound {tol:.3e})")
+            if not bool(torch.isfinite(got).all()) or err > tol:
+                raise AssertionError(f"grade ragged {name}: max|d| {err} > {tol} or non-finite")
+            grade_err = max(grade_err, err if not dither else 0.0)
+            del got, ref
+        del levels
+    del images
     log(f"[grade] max|d| over every dither-off case {grade_err:.3e}")
     phase_done("grade")
 
@@ -499,8 +536,24 @@ def main() -> int:
             report["nr", "config5"] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
                                            library_ms=None, max_abs_err=err)
         del got, ref
-    log(f"[nr] max|d| over both documents {nr_err:.3e}")
     del center, planes
+    ragged = torch.rand((2, 3, *RAGGED), generator=gen, device=dev)
+    center = srgb_to_linear(ragged).contiguous()
+    planes = nr.nr_planes(ragged, False).contiguous()
+    rscale = scales.resolution_scale(RAGGED[1], RAGGED[0])
+    for label, (la, ca) in (("config5", nr5), ("strong", NR_STRONG)):
+        got = nr.nr_static(center, planes, la, ca, rscale)
+        ref = nr.nr_static_plain(center, planes, la, ca, rscale)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        nr_err = max(nr_err, err)
+        log(f"[nr] ragged B=2 {RAGGED[0]}x{RAGGED[1]} {label} max offset "
+            f"{nr._consts(la, ca, rscale)['max_off']}: max|d| {err:.3e} (bound {NR_TOL:g})")
+        if not bool(torch.isfinite(got).all()) or err > NR_TOL:
+            raise AssertionError(f"nr ragged {label}: max|d| {err} > {NR_TOL} or non-finite")
+        del got, ref
+    log(f"[nr] max|d| over both documents and both sizes {nr_err:.3e}")
+    del center, planes, ragged
     phase_done("nr")
 
     # ---- 7. resample kernel vs plain ------------------------------------------
@@ -687,6 +740,7 @@ def main() -> int:
     kernels = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[top][name], **{k: report[name, top][k] for k in fields},
+         "regs": usage[name][0], "spills": usage[name][1],
          **({"variant": report[name, top]["variant"]} if top == "probes" else {}),
          "paths": {path: {"launches": n[name], **report.get((name, path), {})}
                    for path, n in counts.items()}}

@@ -21,12 +21,35 @@
 // gated stage is an exact identity when skipped, and one build serves
 // every document.
 //
-// What bounds it on the card: HBM traffic. At 24 MP each pixel reads
-// 3 + 3*levels floats and writes 3 (0.6-1.5 GB per frame) against a few
-// hundred flops, so the design makes exactly one pass over device memory:
-// one thread per pixel, all intermediates in registers, the batch on the
-// grid's z axis (one launch for any B), params read through the read-only
-// cache (uniform across the warp, so each is one broadcast load).
+// What bounds it on the card: instruction issue. At 24 MP each pixel reads
+// 3 + 3*levels floats and writes 3, but the chain runs ~1,300 float32
+// operations per pixel (config 3), many of them accurate log2/exp2, IEEE
+// divides and square roots that expand to tens of instructions (a log2f is
+// a ~25-instruction polynomial), each multiply and add issued alone (no
+// contraction). A one-thread-per-pixel kernel of this chain needs only 40
+// registers (PERF.md), so the design cuts instructions and keeps registers
+// low rather than raising occupancy:
+// - a block of 32 x 8 threads owns a tile of 32 columns and 8 * rows rows;
+//   a thread computes `rows` pixels of one column, 8 rows apart (a warp is
+//   32 neighbouring columns: coalesced), the batch on the grid's z axis
+//   (one launch for any B); the block's threads meet at a barrier before
+//   each row step, so its warps run the long chain in step;
+// - once per block, before the pixels, the block stages its image's (K,)
+//   param row in shared memory (read there per pixel, so the compiler does
+//   not hoist the whole row into registers) and computes there every value
+//   that does not depend on the pixel (the exposure gain, the shadow and
+//   contrast factors, the highlight gains, the white-balance multipliers,
+//   ...: `Uniforms`) and every term that depends on x alone or y alone (the
+//   vignette's sgn(u) |u|^round per column and per row, the centre mask's
+//   coordinates), with the same device functions, so each such value is
+//   bit for bit what the per-pixel expression gave;
+// - the hue wrap `fmodf(h, 360)` takes exact subtractions on [0, 1080)
+//   (`mod360`);
+// - two register budgets: a long chain (many stages on) takes the build
+//   for 4 blocks per SM (up to 64 registers), a short one the build for 6
+//   (40 registers, more warps to cover memory latency).
+// Every expression keeps the plain chain's operation order, so the kernel
+// stays bit-identical to `grade_plain` on the card.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -39,6 +62,12 @@ namespace {
 // A Python float constant as the plain chain sees it: the exact double,
 // rounded once to f32.
 #define FC(x) ((float)(x))
+
+constexpr int BX = 32;        // threads (and tile columns) across
+constexpr int BY = 8;         // thread rows; a tile is BY * rows rows tall
+constexpr int MAX_ROWS = 16;  // rows per thread the row tables hold
+constexpr int MAX_TILE_H = BY * MAX_ROWS;
+
 
 struct F3 {
   float r, g, b;
@@ -74,6 +103,20 @@ __device__ __forceinline__ float fract(float x) { return x - floorf(x); }
 // The runtime divisors (W, H, the resolution scale) arrive as reciprocals
 // taken the same way on the host.
 #define divs(x, c) ((x) * (float)(1.0 / (c)))
+
+// The values of one image that do not depend on the pixel, computed once
+// per block (`uniforms`) by the same expressions the per-pixel chain used.
+struct Uniforms {
+  float exp_gain;          // exp2f(exposure)
+  float br_scale, br_k;    // filmic_exposure's gains at the document's brightness
+  float w_mult;            // the white gain 1 / max(1 - whites / 4, 0.01)
+  float con_strength;      // exp2f(contrast * 1.25)
+  float sh_factor, bl_factor;  // the shadow and black lifts of shadow_mult
+  float hl_gamma, hl_cstr, hl_gain;  // highlights' gamma, compression, gain
+  float wb_r, wb_g, wb_b;  // white-balance multipliers
+  float v_e0, v_e1;        // the vignette's smoothstep edges
+  float grain_freq;        // grain's base frequency
+};
 
 // ---- ops/common.py --------------------------------------------------------
 
@@ -179,16 +222,21 @@ __device__ __forceinline__ F3 hsv_to_rgb(float h, float s, float v) {
 
 // ---- ops/tone.py ----------------------------------------------------------
 
-__device__ __forceinline__ F3 linear_exposure(F3 c, float e) {
-  return e == 0.0f ? c : scl(c, exp2f(e));
+// gain = exp2f(e), taken once per block (Uniforms)
+__device__ __forceinline__ F3 linear_exposure(F3 c, float e, float gain) {
+  return e == 0.0f ? c : scl(c, gain);
 }
 
-__device__ F3 filmic_exposure(F3 c, float br) {
-  const float ol = luma(c);
+// the two gains of filmic_exposure that depend on br alone
+__device__ __forceinline__ void filmic_gains(float br, float& scale, float& k) {
   const float direct_adj = br * FC(1.0 - 0.95);
   const float rational_adj = br * FC(0.95);
-  const float scale = exp2f(direct_adj);
-  const float k = exp2f(-rational_adj * FC(1.2));
+  scale = exp2f(direct_adj);
+  k = exp2f(-rational_adj * FC(1.2));
+}
+
+__device__ F3 filmic_exposure(F3 c, float br, float scale, float k) {
+  const float ol = luma(c);
   const float la = fabsf(ol);
   const float lf = floorf(divs(la, 1.06)) * FC(1.06);
   const float ln = divs(la - lf, 1.06);
@@ -208,18 +256,19 @@ __device__ F3 filmic_exposure(F3 c, float br) {
   return skip ? c : out;
 }
 
-__device__ __forceinline__ float shadow_mult(float l, float sh, float bl) {
+// bl_factor = fminf(exp2f(bl * 0.75), 3.9), sh_factor = fminf(exp2f(sh *
+// 1.5), 3.9), taken once per block
+__device__ __forceinline__ float shadow_mult(float l, float sh, float bl, float bl_factor,
+                                             float sh_factor) {
   const float sl = fmaxf(l, FC(0.0001));
   float mult = 1.0f;
   float x = divs(sl, 0.05);
   float m = (1.0f - x) * (1.0f - x);
-  float factor = fminf(exp2f(bl * FC(0.75)), FC(3.9));
-  const float bl_mult = mix(1.0f, factor, m);
+  const float bl_mult = mix(1.0f, bl_factor, m);
   mult = mult * ((bl != 0.0f && sl < FC(0.05)) ? bl_mult : 1.0f);
   x = divs(sl, 0.1);
   m = (1.0f - x) * (1.0f - x);
-  factor = fminf(exp2f(sh * FC(1.5)), FC(3.9));
-  const float sh_mult = mix(1.0f, factor, m);
+  const float sh_mult = mix(1.0f, sh_factor, m);
   mult = mult * ((sh != 0.0f && sl < FC(0.1)) ? sh_mult : 1.0f);
   return mult;
 }
@@ -238,30 +287,28 @@ __device__ __forceinline__ float contrast_channel(float c, float strength) {
 }
 
 __device__ F3 tonal_adjustments(F3 c, F3 blur, bool shadow_path, float con, float sh,
-                                float wh, float bl) {
-  const float white_level = 1.0f - wh * FC(0.25);
-  const float w_mult = 1.0f / fmaxf(white_level, FC(0.01));
+                                float wh, float bl, const Uniforms& u) {
   const bool w_on = wh != 0.0f;
-  if (w_on) c = scl(c, w_mult);
+  if (w_on) c = scl(c, u.w_mult);
   if (shadow_path) {
-    if (w_on) blur = scl(blur, w_mult);
+    if (w_on) blur = scl(blur, u.w_mult);
     const float spl = fmaxf(luma(max0(c)), FC(0.0001));
     const float sbl = fmaxf(luma(max0(blur)), FC(0.0001));
     const float halo = ss(0.05, 0.25, fabsf(sqrtf(spl) - sqrtf(sbl)));
-    const float spatial = shadow_mult(sbl, sh, bl);
-    const float pixel = shadow_mult(spl, sh, bl);
+    const float spatial = shadow_mult(sbl, sh, bl, u.bl_factor, u.sh_factor);
+    const float pixel = shadow_mult(spl, sh, bl, u.bl_factor, u.sh_factor);
     const float fm = mix(spatial, pixel, halo);
     if (sh != 0.0f || bl != 0.0f) c = scl(c, fm);
   }
   if (con != 0.0f) {
-    const float strength = exp2f(con * FC(1.25));
+    const float strength = u.con_strength;
     c = f3(contrast_channel(c.r, strength), contrast_channel(c.g, strength),
            contrast_channel(c.b, strength));
   }
   return c;
 }
 
-__device__ F3 highlights(F3 c, float h) {
+__device__ F3 highlights(F3 c, float h, const Uniforms& u) {
   const float pl = luma(max0(c));
   const float spl = fmaxf(pl, FC(0.0001));
   const float hm = ss(0.3, 0.95, tanhf(spl * FC(1.5)));
@@ -269,18 +316,16 @@ __device__ F3 highlights(F3 c, float h) {
   F3 adjusted;
   if (h < 0.0f) {
     const float l = pl;
-    const float gamma = 1.0f - h * FC(1.75);
-    const float nll = fpow(fmaxf(l, 0.0f), gamma);
+    const float nll = fpow(fmaxf(l, 0.0f), u.hl_gamma);
     const float le = l - 1.0f;
-    const float cstr = -h * FC(6.0);
-    const float ce = le / (1.0f + fmaxf(le, 0.0f) * cstr);
+    const float ce = le / (1.0f + fmaxf(le, 0.0f) * u.hl_cstr);
     const float nlh = 1.0f + ce;
     const float nl = l <= 1.0f ? nll : nlh;
     const F3 ta = scl(c, nl / fmaxf(l, FC(0.0001)));
     const float desat = ss(1.0, 10.0, l);
     adjusted = mix3(ta, splat(nl), desat);
   } else {
-    adjusted = scl(c, exp2f(h * FC(1.75)));
+    adjusted = scl(c, u.hl_gain);
   }
   return mix3(c, adjusted, hm);
 }
@@ -303,9 +348,8 @@ __device__ __forceinline__ float agx_curve(float x) {
 }
 
 __device__ __forceinline__ F3 mat3(const float* m, F3 c) {
-  return {__ldg(m + 0) * c.r + __ldg(m + 1) * c.g + __ldg(m + 2) * c.b,
-          __ldg(m + 3) * c.r + __ldg(m + 4) * c.g + __ldg(m + 5) * c.b,
-          __ldg(m + 6) * c.r + __ldg(m + 7) * c.g + __ldg(m + 8) * c.b};
+  return {m[0] * c.r + m[1] * c.g + m[2] * c.b, m[3] * c.r + m[4] * c.g + m[5] * c.b,
+          m[6] * c.r + m[7] * c.g + m[8] * c.b};
 }
 
 __device__ __forceinline__ float agx_channel(float v) {
@@ -331,10 +375,8 @@ __device__ __forceinline__ float raw_emulation(float c) {
 
 // ---- ops/color.py ---------------------------------------------------------
 
-__device__ __forceinline__ F3 white_balance(F3 c, float t, float n) {
-  return {c.r * ((1.0f + t * FC(0.2)) * (1.0f + n * FC(0.25))),
-          c.g * ((1.0f + t * FC(0.05)) * (1.0f - n * FC(0.25))),
-          c.b * ((1.0f - t * FC(0.2)) * (1.0f + n * FC(0.25)))};
+__device__ __forceinline__ F3 white_balance(F3 c, const Uniforms& u) {
+  return {c.r * u.wb_r, c.g * u.wb_g, c.b * u.wb_b};
 }
 
 __device__ F3 creative_color(F3 c, float sat, float vib) {
@@ -360,12 +402,22 @@ __device__ F3 creative_color(F3 c, float sat, float vib) {
   return mix3(splat(l), processed, 1.0f + amount);
 }
 
+// fmodf(x, 360) without the libm call where it is a plain subtraction: on
+// [0, 1080) the result is x, x - 360 or x - 720, and each subtraction is
+// exact (Sterbenz: 360 <= x <= 720 and 720 <= x <= 1440), as fmod is.
+// Elsewhere (a hue parameter past 720 degrees, a NaN) it is fmodf itself.
+// Both callers pass h + shift + 360 with h in [0, 360].
+__device__ __forceinline__ float mod360(float x) {
+  if (x >= 0.0f && x < 1080.0f) return x >= 720.0f ? x - 720.0f : (x >= 360.0f ? x - 360.0f : x);
+  return fmodf(x, 360.0f);
+}
+
 __device__ F3 hue_shift(F3 c, float shift) {
   if (fabsf(shift) < FC(0.01)) return c;
   const F3 srgb = f3(linear_to_srgb_ext(c.r), linear_to_srgb_ext(c.g), linear_to_srgb_ext(c.b));
   float h, s, v;
   rgb_to_hsv(srgb, h, s, v);
-  const float sh = fmodf(h + shift + 360.0f, 360.0f);
+  const float sh = mod360(h + shift + 360.0f);
   return srgb_to_linear3(hsv_to_rgb(sh, s, v));
 }
 
@@ -401,9 +453,9 @@ __device__ F3 hsl_panel(F3 c, const float* hsl, unsigned bands) {
   for (int i = 0; i < 8; ++i) {
     if (!(bands & (1u << i))) continue;
     const float ni = inf[i] * inv_total;
-    th = th + __ldg(hsl + 3 * i + 0) * 2.0f * ni;
-    ts = ts + __ldg(hsl + 3 * i + 1) * ni;
-    tl = tl + __ldg(hsl + 3 * i + 2) * ni;
+    th = th + hsl[3 * i + 0] * 2.0f * ni;
+    ts = ts + hsl[3 * i + 1] * ni;
+    tl = tl + hsl[3 * i + 2] * ni;
   }
   const float total_hue = th * sat_mask;
   const float total_sat = ts * sat_mask;
@@ -412,7 +464,7 @@ __device__ F3 hsl_panel(F3 c, const float* hsl, unsigned bands) {
   const float new_sat_raw = s * (1.0f + total_sat);
   const float desat_val = ol * (1.0f + total_lum);
   if (new_sat_raw < FC(0.0001)) return splat(desat_val);
-  const float new_h = fmodf(h + total_hue + 360.0f, 360.0f);
+  const float new_h = mod360(h + total_hue + 360.0f);
   const float new_s = clampf(new_sat_raw, 0.0f, 1.0f);
   const F3 hs = hsv_to_rgb(new_h, new_s, v);
   const float nl = luma(hs);
@@ -436,7 +488,7 @@ __device__ F3 color_grading(F3 c, const float* cg, float blending, float balance
   F3 graded = c;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float hue = __ldg(cg + 3 * i), sat = __ldg(cg + 3 * i + 1), lum = __ldg(cg + 3 * i + 2);
+    const float hue = cg[3 * i], sat = cg[3 * i + 1], lum = cg[3 * i + 2];
     const float m = masks[i];
     if (sat > FC(0.001)) {
       const F3 t = hsv_to_rgb(hue, 1.0f, 1.0f);
@@ -449,9 +501,8 @@ __device__ F3 color_grading(F3 c, const float* cg, float blending, float balance
 }
 
 __device__ F3 color_calibration(F3 c, const float* cal) {
-  const float st = __ldg(cal + 0), h_r = __ldg(cal + 1), s_r = __ldg(cal + 2);
-  const float h_g = __ldg(cal + 3), s_g = __ldg(cal + 4), h_b = __ldg(cal + 5),
-              s_b = __ldg(cal + 6);
+  const float st = cal[0], h_r = cal[1], s_r = cal[2];
+  const float h_g = cal[3], s_g = cal[4], h_b = cal[5], s_b = cal[6];
   const float rp0 = 1.0f - fabsf(h_r), rp1 = fmaxf(0.0f, h_r), rp2 = fmaxf(0.0f, -h_r);
   const float gp0 = fmaxf(0.0f, -h_g), gp1 = 1.0f - fabsf(h_g), gp2 = fmaxf(0.0f, h_g);
   const float bp0 = fmaxf(0.0f, h_b), bp1 = fmaxf(0.0f, -h_b), bp2 = 1.0f - fabsf(h_b);
@@ -504,11 +555,9 @@ __device__ F3 local_contrast(F3 c, F3 blur, float amount, bool is_raw, int mode,
   return mix3(c, scl(c, cf), midtone_mask);
 }
 
-__device__ __forceinline__ float centre_mask(float x, float y, float inv_w, float inv_h,
-                                             float aspect) {
-  const float un = (x * inv_w - 0.5f) * 2.0f;
-  const float vn = (y * inv_h - 0.5f) * 2.0f;
-  const float va = vn * aspect;
+// un = (x / W - 0.5) * 2 of the column, va = (y / H - 0.5) * 2 * aspect of
+// the row: both from the block's tables
+__device__ __forceinline__ float centre_mask(float un, float va) {
   const float d = sqrtf(un * un + va * va) * 0.5f;
   return 1.0f - ss(0.4 - 0.375, 0.4 + 0.375, d);
 }
@@ -522,7 +571,10 @@ __device__ F3 centre_local_contrast(F3 c, float amount, F3 clarity, bool is_raw,
 
 __device__ F3 centre_tonal_and_color(F3 c, float amount, float cm) {
   if (amount == 0.0f) return c;
-  F3 out = filmic_exposure(c, cm * amount * 0.5f);
+  const float br = cm * amount * 0.5f;
+  float scale, k;
+  filmic_gains(br, scale, k);
+  F3 out = filmic_exposure(c, br, scale, k);
   const float vib = cm * amount * FC(0.4);
   const float sat_centre = cm * amount * FC(0.3);
   const float sat_edge = -(1.0f - cm) * amount * FC(0.8);
@@ -562,16 +614,17 @@ __device__ __forceinline__ float perceptual_luma(float l) {
 
 // glow/halation source: the level through exposure, brightness and whites
 // (the tonal stage with contrast = shadows = blacks = 0 is the white gain)
-__device__ F3 graded_blur(F3 blur, float exp, float bright, float wh) {
-  blur = linear_exposure(blur, exp);
-  blur = filmic_exposure(blur, bright);
-  if (wh != 0.0f) blur = scl(blur, 1.0f / fmaxf(1.0f - wh * FC(0.25), FC(0.01)));
+__device__ F3 graded_blur(F3 blur, float exp, float bright, float wh, const Uniforms& u) {
+  blur = linear_exposure(blur, exp, u.exp_gain);
+  blur = filmic_exposure(blur, bright, u.br_scale, u.br_k);
+  if (wh != 0.0f) blur = scl(blur, u.w_mult);
   return blur;
 }
 
-__device__ F3 glow_bloom(F3 c, F3 blur, float amount, float exp, float bright, float wh) {
+__device__ F3 glow_bloom(F3 c, F3 blur, float amount, float exp, float bright, float wh,
+                         const Uniforms& u) {
   if (amount <= 0.0f) return c;
-  const F3 b = graded_blur(blur, exp, bright, wh);
+  const F3 b = graded_blur(blur, exp, bright, wh, u);
   const float ll = luma(max0(b));
   const float pl = perceptual_luma(ll);
   const float cutoff = mix(FC(0.75), FC(0.08), clampf(amount, 0.0f, 1.0f));
@@ -587,9 +640,10 @@ __device__ F3 glow_bloom(F3 c, F3 blur, float amount, float exp, float bright, f
   return add(c, scl(bloom, amount * FC(3.8) * protection));
 }
 
-__device__ F3 halation(F3 c, F3 blur, float amount, float exp, float bright, float wh) {
+__device__ F3 halation(F3 c, F3 blur, float amount, float exp, float bright, float wh,
+                       const Uniforms& u) {
   if (amount <= 0.0f) return c;
-  const F3 b = graded_blur(blur, exp, bright, wh);
+  const F3 b = graded_blur(blur, exp, bright, wh, u);
   const float ll = luma(max0(b));
   const float pl = perceptual_luma(ll);
   const float cutoff = mix(FC(0.85), FC(0.1), clampf(amount, 0.0f, 1.0f));
@@ -608,18 +662,16 @@ __device__ F3 halation(F3 c, F3 blur, float amount, float exp, float bright, flo
 
 // ---- pipeline/grade.py: vignette ------------------------------------------
 
-__device__ F3 vignette(F3 c, float x, float y, float inv_w, float inv_h, float aspect,
-                       float amount,
-                       float midpoint, float roundness, float feather) {
-  const float v_round = 1.0f - roundness;
-  const float v_feather = feather * 0.5f;
-  const float un = (x * inv_w - 0.5f) * 2.0f;
-  const float vn = (y * inv_h - 0.5f) * 2.0f;
-  const float ux = sgnf(un) * fpow(fabsf(un), v_round);
-  const float uy = sgnf(vn) * fpow(fabsf(vn), v_round);
-  const float ua = uy * aspect;
+// sgn(u) |u|^round of one coordinate, u = (coord / size - 0.5) * 2: the
+// vignette's term of a column (ux) or, times the aspect, of a row (ua)
+__device__ __forceinline__ float vignette_u(float coord, float inv_size, float v_round) {
+  const float un = (coord * inv_size - 0.5f) * 2.0f;
+  return sgnf(un) * fpow(fabsf(un), v_round);
+}
+
+__device__ F3 vignette(F3 c, float ux, float ua, float amount, float e0, float e1) {
   const float d = sqrtf(ux * ux + ua * ua) * 0.5f;
-  const float vm = ssd(midpoint - v_feather, midpoint + v_feather, d);
+  const float vm = ssd(e0, e1, d);
   if (amount < 0.0f) return scl(c, 1.0f + amount * vm);
   return mix3(c, splat(1.0f), amount * vm);
 }
@@ -634,18 +686,17 @@ __device__ float eval_curve(float val, const float* seg, const float* ends, floa
   bool any_seg = false;
   for (int i = 0; i < nseg; ++i) {
     const float* s = seg + 7 * i;
-    const float x0 = __ldg(s), x1 = __ldg(s + 1);
+    const float x0 = s[0], x1 = s[1];
     if (x > x0 && x <= x1) {
-      const float t = (x - x0) * __ldg(s + 2);
-      seg_val = clampf(((__ldg(s + 6) * t + __ldg(s + 5)) * t + __ldg(s + 4)) * t + __ldg(s + 3),
-                       0.0f, 1.0f);
+      const float t = (x - x0) * s[2];
+      seg_val = clampf(((s[6] * t + s[5]) * t + s[4]) * t + s[3], 0.0f, 1.0f);
       any_seg = true;
     }
   }
-  const float last = divs(__ldg(ends + 3), 255.0);
+  const float last = divs(ends[3], 255.0);
   float out = any_seg ? seg_val : last;
-  if (x >= __ldg(ends + 2)) out = last;
-  if (x <= __ldg(ends + 0)) out = divs(__ldg(ends + 1), 255.0);
+  if (x >= ends[2]) out = last;
+  if (x <= ends[0]) out = divs(ends[1], 255.0);
   return out;
 }
 
@@ -654,14 +705,14 @@ __device__ F3 apply_curves(F3 c, const float* p, int nseg, bool rgb_maybe) {
   const float* ends = p + P_CURVES_ENDS;
   const float* en = p + P_CURVES_ENABLED;
   const int cs = MAX_SEGMENTS * 7;
-  const float en0 = __ldg(en);
+  const float en0 = en[0];
   const F3 luma_path = f3(eval_curve(c.r, seg, ends, en0, nseg),
                           eval_curve(c.g, seg, ends, en0, nseg),
                           eval_curve(c.b, seg, ends, en0, nseg));
-  if (!rgb_maybe || !(__ldg(p + P_CURVES_RGB_ACTIVE) > 0.0f)) return luma_path;
-  const F3 graded = f3(eval_curve(c.r, seg + cs, ends + 4, __ldg(en + 1), nseg),
-                       eval_curve(c.g, seg + 2 * cs, ends + 8, __ldg(en + 2), nseg),
-                       eval_curve(c.b, seg + 3 * cs, ends + 12, __ldg(en + 3), nseg));
+  if (!rgb_maybe || !(p[P_CURVES_RGB_ACTIVE] > 0.0f)) return luma_path;
+  const F3 graded = f3(eval_curve(c.r, seg + cs, ends + 4, en[1], nseg),
+                       eval_curve(c.g, seg + 2 * cs, ends + 8, en[2], nseg),
+                       eval_curve(c.b, seg + 3 * cs, ends + 12, en[3], nseg));
   const float target = eval_curve(luma(c), seg, ends, en0, nseg);
   const float lg = luma(graded);
   F3 rp = lg > FC(0.001) ? scl(graded, target / lg) : splat(target);
@@ -702,10 +753,9 @@ __device__ float gradient_noise(float px, float py) {
   return mix(mix(d00, d10, ux), mix(d01, d11, ux), uy);
 }
 
-__device__ F3 grain(F3 c, float x, float y, float amount, float size, float roughness,
-                    float inv_scale) {
+// freq = (1 / max(size, 0.1)) / scale, taken once per block
+__device__ F3 grain(F3 c, float x, float y, float amount, float roughness, float freq) {
   const float amt = amount * 0.5f;
-  const float freq = (1.0f / fmaxf(size, FC(0.1))) * inv_scale;
   const float l = fmaxf(luma(c), 0.0f);
   const float lm = ss(0.0, 0.15, l) * (1.0f - ss(0.6, 1.0, l));
   const float nb = gradient_noise(x * freq, y * freq);
@@ -716,107 +766,174 @@ __device__ F3 grain(F3 c, float x, float y, float amount, float size, float roug
 
 // ---- the kernel -----------------------------------------------------------
 
-constexpr int BX = 32;
-constexpr int BY = 8;
-
 __device__ __forceinline__ F3 load3(const float* __restrict__ t, size_t i, size_t plane) {
   return f3(__ldg(t + i), __ldg(t + i + plane), __ldg(t + i + 2 * plane));
 }
 
-__global__ void __launch_bounds__(BX* BY)
+// Every value of one image that does not depend on the pixel, from its
+// param row, by the expressions the stages used per pixel before.
+__device__ void uniforms(const float* __restrict__ p, float inv_scale, Uniforms& u) {
+  const float exposure = __ldg(p + P_EXPOSURE), brightness = __ldg(p + P_BRIGHTNESS);
+  const float whites = __ldg(p + P_WHITES), h = __ldg(p + P_HIGHLIGHTS);
+  const float t = __ldg(p + P_TEMPERATURE), n = __ldg(p + P_TINT);
+  u.exp_gain = exp2f(exposure);
+  filmic_gains(brightness, u.br_scale, u.br_k);
+  const float white_level = 1.0f - whites * FC(0.25);
+  u.w_mult = 1.0f / fmaxf(white_level, FC(0.01));
+  u.con_strength = exp2f(__ldg(p + P_CONTRAST) * FC(1.25));
+  u.bl_factor = fminf(exp2f(__ldg(p + P_BLACKS) * FC(0.75)), FC(3.9));
+  u.sh_factor = fminf(exp2f(__ldg(p + P_SHADOWS) * FC(1.5)), FC(3.9));
+  u.hl_gamma = 1.0f - h * FC(1.75);
+  u.hl_cstr = -h * FC(6.0);
+  u.hl_gain = exp2f(h * FC(1.75));
+  u.wb_r = (1.0f + t * FC(0.2)) * (1.0f + n * FC(0.25));
+  u.wb_g = (1.0f + t * FC(0.05)) * (1.0f - n * FC(0.25));
+  u.wb_b = (1.0f - t * FC(0.2)) * (1.0f + n * FC(0.25));
+  const float midpoint = __ldg(p + P_VIGNETTE_MIDPOINT);
+  const float v_feather = __ldg(p + P_VIGNETTE_FEATHER) * 0.5f;
+  u.v_e0 = midpoint - v_feather;
+  u.v_e1 = midpoint + v_feather;
+  u.grain_freq = (1.0f / fmaxf(__ldg(p + P_GRAIN_SIZE), FC(0.1))) * inv_scale;
+}
+
+// The kernel is built for two register budgets (`__launch_bounds__`'s
+// blocks per SM): 4 blocks, up to 64 registers, for a long chain, which is
+// issue-bound and gains from the registers; 6 blocks, 40 registers and 48
+// warps resident, for a short chain, which waits on memory and gains from
+// the warps. The wrapper's launch plan picks one by the document's stage
+// count (`grade_launch_plan`).
+template <int MIN_BLOCKS>
+__global__ void __launch_bounds__(BX* BY, MIN_BLOCKS)
     grade_kernel(const float* __restrict__ img, const float* __restrict__ l_sharp,
                  const float* __restrict__ l_tonal, const float* __restrict__ l_clarity,
                  const float* __restrict__ l_structure, const float* __restrict__ params,
-                 float* __restrict__ out, unsigned flags, int nseg, unsigned bands, int H,
-                 int W, float inv_w, float inv_h, float inv_scale, float aspect) {
-  const int x = blockIdx.x * BX + threadIdx.x;
-  const int y = blockIdx.y * BY + threadIdx.y;
-  if (x >= W || y >= H) return;
-  const size_t plane = (size_t)H * W;
-  const size_t i = (size_t)blockIdx.z * 3 * plane + (size_t)y * W + x;
-  const float* p = params + (size_t)blockIdx.z * P_K;
-#define PV(name) __ldg(p + (name))
+                 float* __restrict__ out, unsigned flags, int nseg, unsigned bands, int rows,
+                 int H, int W, float inv_w, float inv_h, float inv_scale, float aspect) {
+  // per block: the image's param row and Uniforms, and the x-only and
+  // y-only terms of the tile's columns and rows
+  __shared__ float prm[P_K];
+  __shared__ Uniforms u;
+  __shared__ float vig_x[BX], cen_x[BX];
+  __shared__ float vig_y[MAX_TILE_H], cen_y[MAX_TILE_H];
 #define ON(f) ((flags & (f)) != 0u)
+#define PV(name) prm[name]
+  const int tile_h = BY * rows;
+  const int tid = threadIdx.y * BX + threadIdx.x;
+  const float* __restrict__ p = params + (size_t)blockIdx.z * P_K;
+  for (int k = tid; k < P_K; k += BX * BY) prm[k] = __ldg(p + k);
+  const float v_round = 1.0f - __ldg(p + P_VIGNETTE_ROUNDNESS);
+  if (tid < BX) {
+    const float xs = (float)(blockIdx.x * BX + tid);
+    if (ON(F_VIGNETTE_ACTIVE)) vig_x[tid] = vignette_u(xs, inv_w, v_round);
+    if (ON(F_CENTRE_ACTIVE)) cen_x[tid] = (xs * inv_w - 0.5f) * 2.0f;
+  }
+  if (tid < tile_h) {
+    const float ys = (float)(blockIdx.y * tile_h + tid);
+    if (ON(F_VIGNETTE_ACTIVE)) vig_y[tid] = vignette_u(ys, inv_h, v_round) * aspect;
+    if (ON(F_CENTRE_ACTIVE)) cen_y[tid] = ((ys * inv_h - 0.5f) * 2.0f) * aspect;
+  }
+  if (tid == BX * BY - 1) uniforms(p, inv_scale, u);
+  __syncthreads();
+
+  const int x = blockIdx.x * BX + threadIdx.x;
+  const size_t plane = (size_t)H * W;
+  const size_t base = (size_t)blockIdx.z * 3 * plane + x;
   const bool is_raw = ON(F_IS_RAW);
-  const float xs = (float)x, ys = (float)y;
+  const float xs = (float)x;
+  const float ux = ON(F_VIGNETTE_ACTIVE) ? vig_x[threadIdx.x] : 0.0f;
+  const float un = ON(F_CENTRE_ACTIVE) ? cen_x[threadIdx.x] : 0.0f;
 
-  F3 c = load3(img, i, plane);
-  if (!is_raw && !ON(F_IMAGE_LINEAR)) c = srgb_to_linear3(c);
-  F3 b_sharp = {}, b_tonal = {}, b_clarity = {}, b_structure = {};
-  if (l_sharp) b_sharp = load3(l_sharp, i, plane);
-  if (l_tonal) b_tonal = load3(l_tonal, i, plane);
-  if (l_clarity) b_clarity = load3(l_clarity, i, plane);
-  if (l_structure) b_structure = load3(l_structure, i, plane);
-  if (!is_raw) {
-    if (l_sharp) b_sharp = srgb_to_linear3(b_sharp);
-    if (l_tonal) b_tonal = srgb_to_linear3(b_tonal);
-    if (l_clarity) b_clarity = srgb_to_linear3(b_clarity);
-    if (l_structure) b_structure = srgb_to_linear3(b_structure);
+#pragma unroll 1
+  for (int r = 0; r < rows; ++r) {
+    // every thread of the block takes part in each row step, so the barrier
+    // starts the block's 8 warps on a row together: they run the chain's
+    // long code in step (measured: with 4 rows per thread this is 5% faster
+    // on config 3 than letting the warps drift apart)
+    if (r > 0) __syncthreads();
+    const int ty = threadIdx.y + r * BY;
+    const int y = blockIdx.y * tile_h + ty;
+    if (x >= W || y >= H) continue;
+    const size_t i = base + (size_t)y * W;
+    const float ys = (float)y;
+
+    F3 c = load3(img, i, plane);
+    F3 b_sharp = {}, b_tonal = {}, b_clarity = {}, b_structure = {};
+    if (l_sharp) b_sharp = load3(l_sharp, i, plane);
+    if (l_tonal) b_tonal = load3(l_tonal, i, plane);
+    if (l_clarity) b_clarity = load3(l_clarity, i, plane);
+    if (l_structure) b_structure = load3(l_structure, i, plane);
+    if (!is_raw && !ON(F_IMAGE_LINEAR)) c = srgb_to_linear3(c);
+    if (!is_raw) {
+      if (l_sharp) b_sharp = srgb_to_linear3(b_sharp);
+      if (l_tonal) b_tonal = srgb_to_linear3(b_tonal);
+      if (l_clarity) b_clarity = srgb_to_linear3(b_clarity);
+      if (l_structure) b_structure = srgb_to_linear3(b_structure);
+    }
+
+    float cm = 0.0f;
+    if (ON(F_CENTRE_ACTIVE)) cm = centre_mask(un, cen_y[ty]);
+
+    // local contrast chain (shader.wgsl:1555-1580)
+    if (ON(F_SHARPNESS_ACTIVE))
+      c = local_contrast(c, b_sharp, PV(P_SHARPNESS), is_raw, 0, PV(P_SHARPNESS_THRESHOLD));
+    if (ON(F_CLARITY_ACTIVE)) c = local_contrast(c, b_clarity, PV(P_CLARITY), is_raw, 1, 0.0f);
+    if (ON(F_STRUCTURE_ACTIVE))
+      c = local_contrast(c, b_structure, PV(P_STRUCTURE), is_raw, 1, 0.0f);
+    if (ON(F_CENTRE_ACTIVE)) c = centre_local_contrast(c, PV(P_CENTRE), b_clarity, is_raw, cm);
+
+    // exposure + atmosphere (shader.wgsl:1582-1613)
+    const float exposure = PV(P_EXPOSURE), brightness = PV(P_BRIGHTNESS), whites = PV(P_WHITES);
+    if (ON(F_EXPOSURE_ACTIVE)) c = linear_exposure(c, exposure, u.exp_gain);
+    if (ON(F_GLOW_ACTIVE))
+      c = glow_bloom(c, b_structure, PV(P_GLOW), exposure, brightness, whites, u);
+    if (ON(F_HALATION_ACTIVE))
+      c = halation(c, b_clarity, PV(P_HALATION), exposure, brightness, whites, u);
+    if (ON(F_DEHAZE_ACTIVE)) c = dehaze(c, b_structure, PV(P_DEHAZE));
+    if (ON(F_CENTRE_ACTIVE)) c = centre_tonal_and_color(c, PV(P_CENTRE), cm);
+
+    // global grade (shader.wgsl:1614-1631)
+    if (ON(F_WB_ACTIVE)) c = white_balance(c, u);
+    if (ON(F_BRIGHTNESS_ACTIVE)) c = filmic_exposure(c, brightness, u.br_scale, u.br_k);
+    if (ON(F_TONAL_ACTIVE)) {
+      const bool shadow_path = l_tonal != nullptr;
+      c = tonal_adjustments(c, shadow_path ? b_tonal : c, shadow_path, PV(P_CONTRAST),
+                            PV(P_SHADOWS), whites, PV(P_BLACKS), u);
+    }
+    if (ON(F_HIGHLIGHTS_ACTIVE)) c = highlights(c, PV(P_HIGHLIGHTS), u);
+    if (ON(F_CALIBRATION_ACTIVE)) c = color_calibration(c, prm + P_CALIBRATION);
+    if (ON(F_HSL_ACTIVE)) c = hsl_panel(c, prm + P_HSL, bands);
+    if (ON(F_HUE_ACTIVE)) c = hue_shift(c, PV(P_HUE));
+    if (ON(F_CREATIVE_ACTIVE)) c = creative_color(c, PV(P_SATURATION), PV(P_VIBRANCE));
+    if (ON(F_CG_ACTIVE)) c = color_grading(c, prm + P_CG, PV(P_CG_BLENDING), PV(P_CG_BALANCE));
+
+    // vignette (shader.wgsl:1645-1662)
+    if (ON(F_VIGNETTE_ACTIVE))
+      c = vignette(c, ux, vig_y[ty], PV(P_VIGNETTE_AMOUNT), u.v_e0, u.v_e1);
+
+    // tonemap (shader.wgsl:1664-1676)
+    if (ON(F_TONEMAPPER_AGX)) c = agx_tonemap(c, prm + P_AGX_P2R, prm + P_AGX_R2P);
+    else if (is_raw) c = f3(raw_emulation(c.r), raw_emulation(c.g), raw_emulation(c.b));
+    else c = f3(linear_to_srgb(c.r), linear_to_srgb(c.g), linear_to_srgb(c.b));
+
+    // point curves (shader.wgsl:1678-1697)
+    if (ON(F_CURVES_ACTIVE)) c = apply_curves(c, prm, nseg, ON(F_RGB_CURVES_MAYBE_ACTIVE));
+
+    // finish: grain -> clipping -> dither -> clamp (shader.wgsl:1699-1734)
+    if (ON(F_GRAIN_ACTIVE))
+      c = grain(c, xs, ys, PV(P_GRAIN_AMOUNT), PV(P_GRAIN_ROUGHNESS), u.grain_freq);
+    if (ON(F_SHOW_CLIPPING)) {
+      const bool hi = c.r > FC(0.998) || c.g > FC(0.998) || c.b > FC(0.998);
+      const bool lo = c.r < FC(0.002) || c.g < FC(0.002) || c.b < FC(0.002);
+      if (hi) c = f3(1.0f, 0.0f, 0.0f);
+      else if (lo) c = f3(0.0f, 0.0f, 1.0f);
+    }
+    if (ON(F_DITHER_ACTIVE)) c = addc(c, (hash2(xs, ys) - 0.5f) * FC(1.0 / 255.0));
+    out[i] = clampf(c.r, 0.0f, 1.0f);
+    out[i + plane] = clampf(c.g, 0.0f, 1.0f);
+    out[i + 2 * plane] = clampf(c.b, 0.0f, 1.0f);
   }
-
-  float cm = 0.0f;
-  if (ON(F_CENTRE_ACTIVE)) cm = centre_mask(xs, ys, inv_w, inv_h, aspect);
-
-  // local contrast chain (shader.wgsl:1555-1580)
-  if (ON(F_SHARPNESS_ACTIVE))
-    c = local_contrast(c, b_sharp, PV(P_SHARPNESS), is_raw, 0, PV(P_SHARPNESS_THRESHOLD));
-  if (ON(F_CLARITY_ACTIVE)) c = local_contrast(c, b_clarity, PV(P_CLARITY), is_raw, 1, 0.0f);
-  if (ON(F_STRUCTURE_ACTIVE))
-    c = local_contrast(c, b_structure, PV(P_STRUCTURE), is_raw, 1, 0.0f);
-  if (ON(F_CENTRE_ACTIVE)) c = centre_local_contrast(c, PV(P_CENTRE), b_clarity, is_raw, cm);
-
-  // exposure + atmosphere (shader.wgsl:1582-1613)
-  const float exposure = PV(P_EXPOSURE), brightness = PV(P_BRIGHTNESS), whites = PV(P_WHITES);
-  if (ON(F_EXPOSURE_ACTIVE)) c = linear_exposure(c, exposure);
-  if (ON(F_GLOW_ACTIVE)) c = glow_bloom(c, b_structure, PV(P_GLOW), exposure, brightness, whites);
-  if (ON(F_HALATION_ACTIVE))
-    c = halation(c, b_clarity, PV(P_HALATION), exposure, brightness, whites);
-  if (ON(F_DEHAZE_ACTIVE)) c = dehaze(c, b_structure, PV(P_DEHAZE));
-  if (ON(F_CENTRE_ACTIVE)) c = centre_tonal_and_color(c, PV(P_CENTRE), cm);
-
-  // global grade (shader.wgsl:1614-1631)
-  if (ON(F_WB_ACTIVE)) c = white_balance(c, PV(P_TEMPERATURE), PV(P_TINT));
-  if (ON(F_BRIGHTNESS_ACTIVE)) c = filmic_exposure(c, brightness);
-  if (ON(F_TONAL_ACTIVE)) {
-    const bool shadow_path = l_tonal != nullptr;
-    c = tonal_adjustments(c, shadow_path ? b_tonal : c, shadow_path, PV(P_CONTRAST),
-                          PV(P_SHADOWS), whites, PV(P_BLACKS));
-  }
-  if (ON(F_HIGHLIGHTS_ACTIVE)) c = highlights(c, PV(P_HIGHLIGHTS));
-  if (ON(F_CALIBRATION_ACTIVE)) c = color_calibration(c, p + P_CALIBRATION);
-  if (ON(F_HSL_ACTIVE)) c = hsl_panel(c, p + P_HSL, bands);
-  if (ON(F_HUE_ACTIVE)) c = hue_shift(c, PV(P_HUE));
-  if (ON(F_CREATIVE_ACTIVE)) c = creative_color(c, PV(P_SATURATION), PV(P_VIBRANCE));
-  if (ON(F_CG_ACTIVE)) c = color_grading(c, p + P_CG, PV(P_CG_BLENDING), PV(P_CG_BALANCE));
-
-  // vignette (shader.wgsl:1645-1662)
-  if (ON(F_VIGNETTE_ACTIVE))
-    c = vignette(c, xs, ys, inv_w, inv_h, aspect, PV(P_VIGNETTE_AMOUNT), PV(P_VIGNETTE_MIDPOINT),
-                 PV(P_VIGNETTE_ROUNDNESS), PV(P_VIGNETTE_FEATHER));
-
-  // tonemap (shader.wgsl:1664-1676)
-  if (ON(F_TONEMAPPER_AGX)) c = agx_tonemap(c, p + P_AGX_P2R, p + P_AGX_R2P);
-  else if (is_raw) c = f3(raw_emulation(c.r), raw_emulation(c.g), raw_emulation(c.b));
-  else c = f3(linear_to_srgb(c.r), linear_to_srgb(c.g), linear_to_srgb(c.b));
-
-  // point curves (shader.wgsl:1678-1697)
-  if (ON(F_CURVES_ACTIVE)) c = apply_curves(c, p, nseg, ON(F_RGB_CURVES_MAYBE_ACTIVE));
-
-  // finish: grain -> clipping -> dither -> clamp (shader.wgsl:1699-1734)
-  if (ON(F_GRAIN_ACTIVE))
-    c = grain(c, xs, ys, PV(P_GRAIN_AMOUNT), PV(P_GRAIN_SIZE), PV(P_GRAIN_ROUGHNESS), inv_scale);
-  if (ON(F_SHOW_CLIPPING)) {
-    const bool hi = c.r > FC(0.998) || c.g > FC(0.998) || c.b > FC(0.998);
-    const bool lo = c.r < FC(0.002) || c.g < FC(0.002) || c.b < FC(0.002);
-    if (hi) c = f3(1.0f, 0.0f, 0.0f);
-    else if (lo) c = f3(0.0f, 0.0f, 1.0f);
-  }
-  if (ON(F_DITHER_ACTIVE)) c = addc(c, (hash2(xs, ys) - 0.5f) * FC(1.0 / 255.0));
 #undef PV
 #undef ON
-  out[i] = clampf(c.r, 0.0f, 1.0f);
-  out[i + plane] = clampf(c.g, 0.0f, 1.0f);
-  out[i + 2 * plane] = clampf(c.b, 0.0f, 1.0f);
 }
 
 }  // namespace
@@ -825,17 +942,28 @@ extern "C" const char* rr_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Grade a (B, 3, H, W) batch. Absent blur levels are null pointers; the
-// config flags tell the kernel which stages read which level.
+// Grade a (B, 3, H, W) batch on the wrapper's launch plan
+// (`grade_launch_plan` in pipeline/fused.py): the build for `min_blocks`
+// blocks per SM (4 or 6), `rows` rows per thread, a grid_x x grid_y x B
+// grid of 32 x 8 blocks. Absent blur levels are null pointers; the config
+// flags tell the kernel which stages read which level. A plan that leaves a
+// pixel uncovered, or names another build, is refused before launch.
 extern "C" int rr_grade(const float* img, const float* l_sharp, const float* l_tonal,
                         const float* l_clarity, const float* l_structure, const float* params,
-                        float* out, unsigned flags, int nseg, unsigned bands, int B, int H,
-                        int W, float inv_w, float inv_h, float inv_scale, float aspect,
-                        void* stream) {
+                        float* out, unsigned flags, int nseg, unsigned bands,
+                        int min_blocks, int rows, int grid_x, int grid_y, int B, int H, int W,
+                        float inv_w, float inv_h,
+                        float inv_scale, float aspect, void* stream) {
+  if (rows < 1 || rows > MAX_ROWS || (min_blocks != 4 && min_blocks != 6))
+    return (int)cudaErrorInvalidValue;
+  if ((size_t)grid_x * BX < (size_t)W || (size_t)grid_y * BY * rows < (size_t)H ||
+      grid_y > 65535 || B > 65535)
+    return (int)cudaErrorInvalidValue;
   dim3 block(BX, BY);
-  dim3 grid((W + BX - 1) / BX, (H + BY - 1) / BY, B);
-  grade_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      img, l_sharp, l_tonal, l_clarity, l_structure, params, out, flags, nseg, bands, H, W,
-      inv_w, inv_h, inv_scale, aspect);
+  dim3 grid(grid_x, grid_y, B);
+  auto kernel = min_blocks == 4 ? grade_kernel<4> : grade_kernel<6>;
+  kernel<<<grid, block, 0, (cudaStream_t)stream>>>(img, l_sharp, l_tonal, l_clarity, l_structure,
+                                                   params, out, flags, nseg, bands, rows, H, W,
+                                                   inv_w, inv_h, inv_scale, aspect);
   return (int)cudaGetLastError();
 }

@@ -5,6 +5,8 @@ with a plain C interface, at first use, into `_build/` beside this file
 (listed in .gitignore). The library name carries a hash of the source and
 of any generated header, so an edited kernel or param layout rebuilds and
 a stale library is never loaded. Build failures raise; nothing falls back.
+nvcc's output (with ptxas's registers and spills per kernel) is kept beside
+the library as `<library>.log` and read back when a built library is reused.
 """
 
 from __future__ import annotations
@@ -59,7 +61,9 @@ class KernelLibrary:
         tag = h.hexdigest()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         out = BUILD_DIR / f"lib{self.name}_{tag}.so"
+        log = out.with_suffix(".log")
         if out.exists():
+            self.build_log = log.read_text() if log.exists() else ""
             return out
         inc = BUILD_DIR / f"inc_{self.name}_{tag}"
         inc.mkdir(exist_ok=True)
@@ -82,6 +86,7 @@ class KernelLibrary:
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             raise KernelBuildError(f"nvcc failed on {src.name}:\n{proc.stderr[-4000:]}")
+        log.write_text(proc.stderr)
         os.replace(tmp, out)
         return out
 

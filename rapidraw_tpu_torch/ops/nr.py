@@ -235,10 +235,32 @@ def nr_static_plain(center: torch.Tensor, planes: torch.Tensor, luma_a: float,
     return torch.stack([_nr_one(c, p, k) for c, p in zip(center, planes)])
 
 
+# The kernel's launch shape (csrc/nr.cu): 32 x 8 threads per block, each
+# thread `NR_ROWS` output rows of one column, so a block owns a 32 x 32 tile.
+NR_BLOCK = (32, 8)
+NR_ROWS = 4
+NR_SMEM_LIMIT = 48 * 1024  # the default dynamic shared-memory limit
+
+
+def nr_launch_plan(b: int, h: int, w: int, halo: int) -> dict:
+    """The NR kernel's launch on a (b, 3, h, w) batch: grid, rows per
+    thread, tile, staged tile (tile plus `halo` on every side, three planes)
+    and its shared-memory bytes. rr_nr_static refuses a plan whose grid
+    leaves a pixel out or whose staged tile passes `NR_SMEM_LIMIT`."""
+    bx, by = NR_BLOCK
+    tile_h, tile_w = by * NR_ROWS, bx
+    stage_h, stage_w = tile_h + 2 * halo, tile_w + 2 * halo
+    return {
+        "block": NR_BLOCK, "rows": NR_ROWS, "tile": (tile_h, tile_w), "halo": halo,
+        "stage": (stage_h, stage_w), "smem": 3 * stage_h * stage_w * 4,
+        "grid": (-(-w // tile_w), -(-h // tile_h), b),
+    }
+
+
 class _Taps(ctypes.Structure):
     _fields_ = [(n, t * NTAPS) for n, t in (
-        ("ldx", ctypes.c_int), ("ldy", ctypes.c_int), ("lsp", ctypes.c_float),
-        ("cdx", ctypes.c_int), ("cdy", ctypes.c_int), ("csp", ctypes.c_float))]
+        ("loff", ctypes.c_int), ("lsp", ctypes.c_float),
+        ("coff", ctypes.c_int), ("csp", ctypes.c_float))]
 
 
 def _nr_cuda(center: torch.Tensor, planes: torch.Tensor, k: dict) -> torch.Tensor:
@@ -249,21 +271,25 @@ def _nr_cuda(center: torch.Tensor, planes: torch.Tensor, k: dict) -> torch.Tenso
             raise ValueError(f"NR kernel: {name} must be on {center.device}")
     b = center.shape[0] if center.ndim == 4 else 1
     h, w = center.shape[-2:]
+    plan = nr_launch_plan(b, h, w, max(k["max_off"], 1))
+    sw = plan["stage"][1]
     out = torch.empty_like(center)
     taps = _Taps()
     for i, ((ldx, ldy, lsp), (cdx, cdy, csp)) in enumerate(zip(k["luma_taps"], k["chroma_taps"])):
-        taps.ldx[i], taps.ldy[i], taps.lsp[i] = ldx, ldy, lsp
-        taps.cdx[i], taps.cdy[i], taps.csp[i] = cdx, cdy, csp
+        taps.loff[i], taps.lsp[i] = ldy * sw + ldx, lsp
+        taps.coff[i], taps.csp[i] = cdy * sw + cdx, csp
     fn = _KERNEL.lib().rr_nr_static
     fn.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.POINTER(_Taps)] + [ctypes.c_int] * 6
-        + [ctypes.c_float] * 7 + [ctypes.c_void_p]
+        + [ctypes.c_size_t] + [ctypes.c_int] * 3 + [ctypes.c_float] * 7 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(center.device).cuda_stream
+    gx, gy, _ = plan["grid"]
     status = fn(
         center.data_ptr(), planes.data_ptr(), out.data_ptr(), ctypes.byref(taps),
-        int(k["luma_on"]), int(k["color_on"]), max(k["max_off"], 1), b, h, w,
+        int(k["luma_on"]), int(k["color_on"]), plan["halo"], plan["rows"], gx, gy,
+        plan["smem"], b, h, w,
         k["luma_a"], k["tol_flat"], k["tol_edge"], k["luma_n"], k["chroma_n"],
         k["ca32"], k["one_minus_ca32"], stream,
     )

@@ -2,9 +2,9 @@
 
 Port of `rapidraw_tpu/pipeline/fused.py`. The CUDA kernel csrc/grade.cu
 replaces the TPU megakernel B3 (`develop_fused`, `_make_dev_kernel`) and
-its batched form B4 (`develop_fused_batch`): one thread per pixel, the
-batch on the grid's z axis, each image's params in one row of a (B, K)
-float32 matrix.
+its batched form B4 (`develop_fused_batch`): a thread computes 4 or 8
+pixels of one column (`grade_launch_plan`), the batch on the grid's z axis,
+each image's params in one row of a (B, K) float32 matrix.
 
 Param layout: JAX packs the param pytree by sorted dict keys and trimmed
 curve shapes, which the CUDA side cannot know. Here one FIXED layout
@@ -164,6 +164,38 @@ def generated_header() -> str:
 _KERNEL = KernelLibrary("grade", header=generated_header(), extra_flags=("--fmad=false",))
 
 
+# The kernel's launch shape (csrc/grade.cu): 32 x 8 threads per block, each
+# thread `rows` rows of one column, 8 rows apart. A document with at least
+# LONG_CHAIN stages on is issue-bound: it takes the build for 4 blocks per SM
+# (up to 64 registers) and 4 rows per thread. A shorter chain waits on
+# memory: it takes the build for 6 blocks per SM (40 registers, more warps)
+# and 8 rows per thread. Measured on an H100 (PERF.md): config 3
+# (9 stages) 4.99 ms at 64 registers vs 5.31 at 40; config 5's linear image
+# (2 stages) 1.47 ms at 40 registers vs 1.59 at 64.
+GRADE_BLOCK = (32, 8)
+LONG_CHAIN = 6
+# DevelopConfig flags that are not stages of the chain
+_NOT_STAGES = ("is_raw", "tonemapper_agx", "show_clipping", "rgb_curves_maybe_active",
+               "dither_active")
+
+
+def grade_stages(cfg: DevelopConfig) -> int:
+    """How many stages of the grade chain the document turns on."""
+    return sum(bool(getattr(cfg, f)) for f in FLAGS if f not in _NOT_STAGES)
+
+
+def grade_launch_plan(b: int, h: int, w: int, cfg: DevelopConfig) -> dict:
+    """The grade kernel's launch on a (b, 3, h, w) batch: the build (blocks
+    per SM), grid, rows per thread and the tile a block owns. rr_grade
+    refuses a grid that leaves a pixel out."""
+    bx, by = GRADE_BLOCK
+    long_chain = grade_stages(cfg) >= LONG_CHAIN
+    rows = 4 if long_chain else 8
+    tile_h = by * rows
+    return {"block": GRADE_BLOCK, "min_blocks": 4 if long_chain else 6, "rows": rows,
+            "tile": (tile_h, bx), "grid": (-(-w // bx), -(-h // tile_h), b)}
+
+
 def check_supported(cfg: DevelopConfig) -> None:
     """Raise NotImplementedError for documents outside this slice."""
     later = (
@@ -238,16 +270,19 @@ def _grade_cuda(images: torch.Tensor, levels: dict, pmat: torch.Tensor,
     fn.argtypes = (
         [ctypes.c_void_p] * 7
         + [ctypes.c_uint, ctypes.c_int, ctypes.c_uint]
-        + [ctypes.c_int] * 3
+        + [ctypes.c_int] * 7
         + [ctypes.c_float] * 4
         + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     band_bits = sum(1 << i for i, on in enumerate(cfg.hsl_band_active) if on)
+    plan = grade_launch_plan(b, h, w, cfg)
+    gx, gy, _ = plan["grid"]
     stream = torch.cuda.current_stream(images.device).cuda_stream
     status = fn(
         images.data_ptr(), *ptrs, pmat.data_ptr(), out.data_ptr(),
         flag_bits(cfg, image_linear), max(cfg.curve_segments, 1), band_bits,
+        plan["min_blocks"], plan["rows"], gx, gy,
         # reciprocals taken in double, as PyTorch's CUDA division by a Python
         # scalar does in the plain chain
         b, h, w, 1.0 / w, 1.0 / h, 1.0 / scales.resolution_scale(w, h), h / w, stream,
@@ -262,7 +297,7 @@ def grade(images: torch.Tensor, levels: dict, pmat: torch.Tensor,
     """Grade + finish chain of a (B, 3, H, W) batch: the kernel wrapper.
 
     CPU tensor -> `grade_plain`; CUDA tensor -> one launch of
-    csrc/grade.cu with the batch on the grid. `image_linear`: the image is
+    csrc/grade.cu on `grade_launch_plan`, the batch on the grid. `image_linear`: the image is
     already linear (NR ran first); the blur levels stay in input space.
     """
     check_supported(cfg)
