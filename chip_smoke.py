@@ -5,7 +5,10 @@
 Phases: (1) the card's name and power limit; (2) build the six CUDA
 kernels from rapidraw_tpu_torch/csrc, one nvcc each, all started together;
 (3) the blur kernel against its plain PyTorch version at 24 MP, with a
-case at each main path's shapes; (4) the grade kernel against its plain
+case at each main path's shapes, one in each of its two regimes (the
+launch plan fuses small radii into one pass and gives larger ones two),
+two at a ragged size and one on values outside [0, 65504]; (4) the grade
+kernel against its plain
 version at 24 MP, B = 1 and 2, on six documents, and at a ragged size
 (1000 x 1503, a multiple of neither kernel's tile), B = 2; (5) the develop path end
 to end: adjustment JSON -> stack_params -> develop_batch -> device_u8 ->
@@ -334,24 +337,43 @@ def main() -> int:
     # ---- 3. blur kernel vs plain ----------------------------------------------
     blur_err = 0.0
     r3, r5 = path_radii(CONFIG3_DOC), path_radii(CONFIG5_DOC)
-    for label, c, radii, path in (
-            ("B1 r=14", 3, (14,), None), ("B2 radii 4/14/31/152", 3, (4, 14, 31, 152), None),
-            (f"config3 B=2 C=6 r={r3}", 6, r3, "config3"),
-            (f"config5 B=2 C=6 r={r5}", 6, r5, "config5")):
-        x = torch.rand((c, h, w), generator=gen, device=dev)
+    r_two = blur.FUSED_MAX_RADIUS + 1  # the smallest radius of the two-pass regime
+    blur_cases = [  # (label, channels, radii, main path, (rows, cols), value range)
+        ("B1 r=14", 3, (14,), None, (h, w), (0.0, 1.0)),
+        ("B2 radii 4/14/31/152", 3, (4, 14, 31, 152), None, (h, w), (0.0, 1.0)),
+        (f"config3 B=2 C=6 r={r3}", 6, r3, "config3", (h, w), (0.0, 1.0)),
+        (f"config5 B=2 C=6 r={r5}", 6, r5, "config5", (h, w), (0.0, 1.0)),
+        (f"two-pass C=6 r={r_two}", 6, (r_two,), None, (h, w), (0.0, 1.0)),
+        ("ragged fused C=6 r=14", 6, (14,), None, RAGGED, (0.0, 1.0)),
+        ("ragged two-pass C=3 r=31", 3, (31,), None, RAGGED, (0.0, 1.0)),
+        # linear RAW or HDR input: negatives and values past 65504, which
+        # the kernel clamps on load as the plain version does
+        ("out-of-range radii 4/14/31/152", 3, (4, 14, 31, 152), None, (h, w),
+         (-0.5e5, 1.5e5)),
+    ]
+    for label, c, radii, path, (bh, bw), (lo, hi) in blur_cases:
+        plan = blur.blur_launch_plan(c, bh, bw, radii)
+        x = torch.rand((c, bh, bw), generator=gen, device=dev) * (hi - lo) + lo
         got = blur.gaussian_blur_multi(x, radii)
         ref, ops = count_ops(lambda: blur.gaussian_blur_multi_plain(x, radii))
         torch.cuda.synchronize()
-        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        # relative to max(1, |ref|): outputs reach 65504 on out-of-range
+        # input, where an fp32 sum's rounding is ~4e-3 absolute; on [0, 1]
+        # input this is the absolute error
+        err = max(float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+                  for a, b in zip(got, ref))
         blur_err = max(blur_err, err)
         ms = time_ms(lambda: blur.gaussian_blur_multi(x, radii), reps)
         pms = time_ms(lambda: blur.gaussian_blur_multi_plain(x, radii), reps)
         bms, bby = bound_ms(nbytes(x) * (1 + len(radii)), ops)
-        log(f"[blur] {label} ({c},{h},{w}): max|d| {err:.3e} (bound {BLUR_TOL:g}) "
-            f"kernel {ms:.3f} ms plain {pms:.3f} ms bound {bms:.3f} ms ({bby}) [{card}]")
-        if err > BLUR_TOL:
-            raise AssertionError(f"blur {label}: max|d| {err} > {BLUR_TOL}")
-        if len(radii) == 1:
+        regimes = "+".join(f"{k} {[radii[g] for g in plan[k]]}" for k in ("fused", "two_pass")
+                           if plan[k])
+        log(f"[blur] {label} ({c},{bh},{bw}) {regimes}: max|d|/max(1,|ref|) {err:.3e} "
+            f"(bound {BLUR_TOL:g}) kernel {ms:.3f} ms plain {pms:.3f} ms bound {bms:.3f} ms "
+            f"({bby}) [{card}]")
+        if err > BLUR_TOL or not all(bool(torch.isfinite(a).all()) for a in got):
+            raise AssertionError(f"blur {label}: max|d| {err} > {BLUR_TOL} or non-finite")
+        if len(radii) == 1 and (bh, bw) == (h, w):
             # the library yardstick: one cuDNN depthwise convolution with the
             # 2-D Gaussian on the edge-padded input (the same function)
             import torch.nn.functional as F
@@ -367,7 +389,7 @@ def main() -> int:
             log(f"[blur] library: one depthwise 2-D conv2d {lms:.3f} ms [{card}]")
             del xp, k2
         del x, got, ref
-    log(f"[blur] max|d| over every case {blur_err:.3e}")
+    log(f"[blur] max|d|/max(1,|ref|) over every case {blur_err:.3e}")
     phase_done("blur")
 
     # ---- 4. grade kernel vs plain ---------------------------------------------

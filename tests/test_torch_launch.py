@@ -1,5 +1,6 @@
-"""Host-side parts of the redesigned grade and NR kernels that only the
-card would otherwise check: their launch plans and the exact libm rewrite.
+"""Host-side parts of the redesigned blur, grade and NR kernels that only
+the card would otherwise check: their launch plans, the blur kernel's
+tiling, and the exact libm rewrite.
 
 - The launch plans (`fused.grade_launch_plan`, `nr.nr_launch_plan`), each
   computed in Python beside its wrapper and passed to the C entry point
@@ -7,6 +8,16 @@ card would otherwise check: their launch plans and the exact libm rewrite.
   every pixel of ragged sizes exactly once; every tap of NR's tables lands
   inside the staged tile; the staged tile's shared memory stays within
   the limit rr_nr_static checks at every halo from 1 to 16.
+- The blur plan (`blur.blur_launch_plan`): every output pixel of every
+  level is written exactly once (fused regime, two-pass V) and every
+  scratch pixel once (two-pass H), at ragged sizes; the staged tile and
+  the intermediate cover every tap a chunk reads; shared memory stays
+  within the limit rr_blur checks at every radius from 1 to 300; the plan
+  mirrors the kernel's constants and its BlurPlan struct. A CPU emulation
+  of the kernel's tiling (fused: stream the clamped strip with its halo
+  step by step, H into each level's ring, min(., 65504), V from the ring,
+  crop; two-pass: H tiles, then the V ring with the next step's rows
+  loaded before each step computes) equals `gaussian_blur_multi_plain`.
 - `mod360` in csrc/grade.cu replaces `fmodf(x, 360)` by exact subtractions
   on [0, 1080) and keeps `fmodf` elsewhere: a numpy mirror of it equals
   the plain chain's `torch.fmod` bit for bit on every float32 of that
@@ -22,7 +33,7 @@ import torch
 import chip_smoke
 from rapidraw_tpu_torch import parse_adjustments
 from rapidraw_tpu_torch.native import CSRC
-from rapidraw_tpu_torch.ops import nr
+from rapidraw_tpu_torch.ops import blur, nr
 from rapidraw_tpu_torch.params import scales
 from rapidraw_tpu_torch.pipeline import fused
 
@@ -165,3 +176,301 @@ def test_mod360_mirrors_the_kernel_source():
                   "x >= 360.0f ? x - 360.0f : x", "fmodf(x, 360.0f)"):
         assert piece in body, piece
     assert code.count("fmodf(") == 1 and code.count("mod360(") == 3
+
+
+# ---- blur ----------------------------------------------------------------
+
+BLUR_SIZES = [(1000, 1503), (17, 1025), (5, 7), (1, 1), (63, 127), (129, 33)]
+BLUR_RADII = [(4, 14, 31, 152), (14,), (4,), (1, 2, 3, 16), (17,), (6, 21, 47, 237)]
+
+
+def blur_written(plan: dict, n: int, m: int) -> dict:
+    """{level: how often the kernels' index mapping writes each (row, col)}:
+    fused blocks (bx, by) write rows ys + ob * F_STEP + rg * KB + k, columns
+    bx * FX + col, for each output block ob of their strip; two-pass V
+    blocks write rows ys + st * V_STEP + warp * KB + k, column bx * V_COLS +
+    lane, for each step of their strip."""
+    counts = {g: np.zeros((n, m), np.int64) for g in range(len(plan["radii"]))}
+
+    def add(g, ys, xs):
+        ys, xs = ys[ys < n], xs[xs < m]
+        np.add.at(counts[g], (ys[:, None], xs[None]), 1)
+
+    kb = blur.KB
+    if plan["fused"]:
+        strip, tx = plan["fused_tile"]
+        gx, gy, _ = plan["fused_grid"]
+        for by in range(gy):
+            ys = by * strip
+            nob = -(-min(strip, n - ys) // blur.F_STEP)
+            rows = (ys + np.arange(nob)[:, None, None] * blur.F_STEP
+                    + np.arange(blur.F_STEP // kb)[None, :, None] * kb + np.arange(kb)).ravel()
+            for g in plan["fused"]:
+                add(g, rows, np.arange(gx * tx))
+    if plan["two_pass"]:
+        strip, vc = plan["v_tile"]
+        gx, gy, _ = plan["v_grid"]
+        for by in range(gy):
+            ys = by * strip
+            steps = -(-min(strip, n - ys) // blur.V_STEP)
+            rows = (ys + np.arange(steps)[:, None, None] * blur.V_STEP
+                    + np.arange(blur.V_STEP // kb)[None, :, None] * kb + np.arange(kb)).ravel()
+            for g in plan["two_pass"]:
+                add(g, rows, np.arange(gx * vc))
+    return counts
+
+
+@pytest.mark.parametrize("n,m", BLUR_SIZES)
+@pytest.mark.parametrize("radii", BLUR_RADII, ids=lambda r: "-".join(map(str, r)))
+def test_blur_plan_writes_every_pixel_of_every_level_once(n, m, radii):
+    plan = blur.blur_launch_plan(3, n, m, radii)
+    assert sorted(plan["fused"] + plan["two_pass"]) == list(range(len(radii)))
+    for g, counts in blur_written(plan, n, m).items():
+        np.testing.assert_array_equal(counts, 1, err_msg=f"level {g} r={radii[g]}")
+    if plan["two_pass"]:
+        # the H pass writes each scratch pixel of each two-pass plane once
+        th, tw = plan["h_tile"]
+        gx, gy, gz = plan["h_grid"]
+        assert gz == 3 * len(plan["two_pass"])
+        assert (gx * tw >= m > (gx - 1) * tw) and (gy * th >= n > (gy - 1) * th)
+
+
+def test_blur_plan_smem_within_limit_at_every_radius():
+    """Radii 1..300 as the largest of 1-4 levels, the others fused (the
+    most weight rows the fused stage holds)."""
+    for r in range(1, 301):
+        for levels in range(1, 5):
+            radii = (r,) + tuple(range(1, levels))
+            plan = blur.blur_launch_plan(6, 4096, 6144, radii)
+            for key in ("fused_smem", "h_smem", "v_smem"):
+                assert plan.get(key, 0) <= blur.SMEM_LIMIT, (radii, key)
+    # four levels at the threshold would pass the limit fused: the plan
+    # gives some of them two passes, and the others fit
+    big = blur.blur_launch_plan(6, 4096, 6144, (blur.FUSED_MAX_RADIUS,) * 4)
+    assert big["fused"] and big["two_pass"]
+    assert big["fused_smem"] <= blur.SMEM_LIMIT
+
+
+def test_blur_plan_refuses_what_does_not_fit():
+    with pytest.raises(ValueError, match="passes"):
+        blur.blur_launch_plan(3, 4096, 6144, (2000,))
+
+
+@pytest.mark.parametrize("radii", BLUR_RADII + [(1,), (8,), (9,), (16, 1), (16,) * 4],
+                         ids=lambda r: "-".join(map(str, r)))
+def test_blur_fused_stage_covers_every_tap(radii):
+    """Each fused level's H chunks read stage columns off .. off + FX + tp - 1
+    (the zero-weight padding included), off = col_halo(R) - r, and stage
+    rows R - r on; its V pass of output
+    block ob runs `delay` steps after the step that staged the block's first
+    source rows, when H has written every ring entry it reads, and its ring
+    still holds them (the same step's H pass writes F_STEP entries ahead)."""
+    plan = blur.blur_launch_plan(3, 300, 400, radii)
+    for g in plan["two_pass"]:
+        assert plan["v_ring"] >= 2 * blur.V_STEP + blur.padded_taps(radii[g])
+    if not plan["fused"]:
+        return
+    strip, tx = plan["fused_tile"]
+    sw = plan["fused_stage_w"]
+    big_r = max(radii[g] for g in plan["fused"])
+    assert strip % blur.F_STEP == 0 and tx == blur.FX and sw % 2 == 1
+    assert sw <= blur.F_STAGE_W
+    for i, g in enumerate(plan["fused"]):
+        r, tp = radii[g], blur.padded_taps(radii[g])
+        ring, delay = plan["fused_rings"][i], plan["fused_delays"][i]
+        assert r <= blur.FUSED_MAX_RADIUS and tp >= 2 * r + 1 and tp % blur.KB == 0
+        off = big_r - r
+        # the last chunk's 2KB-1 inputs of the last warp's column block
+        coff = blur.col_halo(big_r) - r
+        assert coff >= 0 and blur.col_halo(big_r) % 4 == 0
+        assert coff + (tx - blur.KB) + (tp - blur.KB) + 2 * blur.KB - 1 <= sw
+        for ob in range(4):
+            st = ob + delay
+            written = (st + 1) * blur.F_STEP - off  # entries [0, written) after step st
+            need_lo, need_hi = ob * blur.F_STEP, ob * blur.F_STEP + blur.F_STEP + tp - 1
+            assert need_hi <= written
+            assert written - ring <= need_lo  # nothing V reads is overwritten yet
+        assert ring >= blur.KB and ring & (ring - 1) == 0
+    if len(radii) == 4 and len(set(radii)) == 1:
+        assert plan["two_pass"], "four levels at the threshold do not fit fused"
+
+
+def test_blur_plan_splits_the_24mp_pyramid_as_perf_md_says():
+    """24 MP documents: sharpness, tonal, clarity, structure = 4, 14, 31,
+    152. The small two fuse, the large two take two passes; config 3's
+    tonal level and config 5's sharpness level are fused alone."""
+    plan = blur.blur_launch_plan(3, 4096, 6144, (4, 14, 31, 152))
+    assert (plan["fused"], plan["two_pass"]) == ([0, 1], [2, 3])
+    assert plan["fused_tile"] == (blur.FUSED_STRIP, 128) and plan["v_tile"] == (512, 32)
+    for doc, want in ((chip_smoke.CONFIG3_DOC, (14,)), (chip_smoke.CONFIG5_DOC, (4,))):
+        radii = tuple(fused.blur_radii(parse_adjustments(doc)[1], 6144, 4096).values())
+        assert radii == want
+        assert blur.blur_launch_plan(6, 4096, 6144, radii)["two_pass"] == []
+
+
+def test_blur_plan_mirrors_the_kernel_source():
+    """blur.py's shape constants are blur.cu's, and ctypes' _Plan lists
+    BlurPlan's fields in the same order."""
+    import re
+
+    src = (CSRC / "blur.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (\w+) = ([^;]+);", src))
+    assert consts["KB"] == str(blur.KB) and consts["SMEM_MAX"] == str(blur.SMEM_LIMIT)
+    nt, nw = int(consts["NT"]), int(consts["NT"]) // 32
+    assert blur.FX == nw * blur.KB and blur.V_STEP == nw * blur.KB and nt == 256
+    assert consts["HROWS"] == str(blur.H_ROWS) and consts["VC"] == str(blur.V_COLS)
+    assert consts["FSTEP"] == str(blur.F_STEP) and blur.F_STEP % nw == 0
+    assert 32 * 4 * int(consts["FCH"]) - 1 == blur.F_STAGE_W
+    body = src[src.index("struct BlurPlan {"):]
+    body = "\n".join(line.split("//")[0] for line in body[:body.index("};")].splitlines()[1:])
+    fields = re.findall(r"(\w+)(?:\[MAX_LEVELS\])?\s*[,;]", body)
+    assert fields == [f for f, _ in blur._Plan._fields_]
+
+
+def _conv_valid(x: torch.Tensor, w: torch.Tensor, axis: int) -> torch.Tensor:
+    """'Valid' 1-D convolution of (C, H, W) along axis 0 (H) or 1 (W) with
+    the (tp,) weights, taps in order, in float64."""
+    c = x.shape[0]
+    shape = (c, 1, 1, -1) if axis == 1 else (c, 1, -1, 1)
+    k = w.reshape(1, 1, *shape[2:]).expand(c, 1, *w.reshape(shape[2:]).shape)
+    return torch.nn.functional.conv2d(x[None].double(), k.double(), groups=c)[0]
+
+
+def _weights(r: int) -> torch.Tensor:
+    w = torch.zeros(blur.padded_taps(r), dtype=torch.float64)
+    w[: 2 * r + 1] = torch.from_numpy(blur._gauss_weights(r)).double()
+    return w
+
+
+def emulate_blur(x: torch.Tensor, plan: dict) -> list:
+    """The kernel's tiling on the CPU, from the plan alone."""
+    c, n, m = x.shape
+    radii, kb, fmax = plan["radii"], blur.KB, blur.F16_MAX
+    out = [torch.full((c, n, m), float("nan"), dtype=torch.float64) for _ in radii]
+
+    def put(g, ys, xs, val):
+        ky, kx = ys < n, xs < m
+        dst = out[g][:, ys[ky]][:, :, xs[kx]]
+        assert torch.isnan(dst).all(), "a pixel written twice"
+        rows = val[:, ky][:, :, kx]
+        out[g][:, ys[ky][:, None], xs[kx][None]] = rows
+
+    def ring_conv(buf, a, ring, w, tp):
+        """KB rows from `a` of a ring (entries on axis 1), as the kernel's
+        `conv` walks it: chunks of KB taps, two runs of entries each."""
+        acc = torch.zeros((c, kb, buf.shape[2]), dtype=torch.float64)
+        i0 = a % ring
+        for t0 in range(0, tp, kb):
+            i1 = i0 + kb - ring if i0 + kb >= ring else i0 + kb
+            v = torch.cat([buf[:, i0 : i0 + kb], buf[:, i1 : i1 + kb - 1]], 1)
+            for kk in range(kb):
+                acc += w[t0 + kk] * v[:, kk : kk + kb]
+            i0 = i1
+        return acc
+
+    if plan["fused"]:
+        strip, tx = plan["fused_tile"]
+        sw, fs = plan["fused_stage_w"], blur.F_STEP
+        gx, gy, _ = plan["fused_grid"]
+        big_r = max(radii[g] for g in plan["fused"])
+        for by in range(gy):
+            for bx in range(gx):
+                ys, x0 = by * strip, bx * tx
+                cols = torch.clamp(x0 - blur.col_halo(big_r) + torch.arange(sw), 0, m - 1)
+                rings = {g: torch.full((c, plan["fused_rings"][i], tx), float("nan"),
+                                       dtype=torch.float64)
+                         for i, g in enumerate(plan["fused"])}
+                nob = -(-min(strip, n - ys) // fs)
+                for st in range(nob + max(plan["fused_delays"])):
+                    rows = torch.clamp(ys - big_r + st * fs + torch.arange(fs), 0, n - 1)
+                    stage = x[:, rows][:, :, cols].clamp(0.0, fmax).double()
+                    for i, g in enumerate(plan["fused"]):
+                        r, tp, ring = radii[g], blur.padded_taps(radii[g]), plan["fused_rings"][i]
+                        off, coff = big_r - r, blur.col_halo(big_r) - r
+                        win = stage[:, :, coff : coff + tx + tp - 1]
+                        assert win.shape[2] == tx + tp - 1
+                        h = torch.clamp(_conv_valid(win, _weights(r), 1), max=fmax)
+                        e = st * fs + torch.arange(fs) - off
+                        keep = e >= 0
+                        rings[g][:, e[keep] % ring] = h[:, keep]
+                    for i, g in enumerate(plan["fused"]):
+                        ob = st - plan["fused_delays"][i]
+                        if 0 <= ob < nob:
+                            for rg in range(fs // kb):
+                                a = ob * fs + rg * kb
+                                acc = ring_conv(rings[g], a, plan["fused_rings"][i],
+                                                _weights(radii[g]), blur.padded_taps(radii[g]))
+                                put(g, ys + a + torch.arange(kb), x0 + torch.arange(tx), acc)
+    if plan["two_pass"]:
+        th, tw = plan["h_tile"]
+        strip, vc = plan["v_tile"]
+        ring = plan["v_ring"]
+        for g in plan["two_pass"]:
+            r, tp = radii[g], blur.padded_taps(radii[g])
+            w = _weights(r)
+            tmp = torch.full((c, n, m), float("nan"), dtype=torch.float64)
+            gx, gy, _ = plan["h_grid"]
+            for by in range(gy):
+                for bx in range(gx):
+                    y0, x0 = by * th, bx * tw
+                    rows = torch.clamp(y0 + torch.arange(th), 0, n - 1)
+                    cols = torch.clamp(x0 - r + torch.arange(tw + tp - 1), 0, m - 1)
+                    s = x[:, rows][:, :, cols].clamp(0.0, fmax).double()
+                    h = torch.clamp(_conv_valid(s, w, 1), max=fmax)
+                    ys, xs = y0 + torch.arange(th), x0 + torch.arange(tw)
+                    ky, kx = ys < n, xs < m
+                    tmp[:, ys[ky][:, None], xs[kx][None]] = h[:, ky][:, :, kx]
+            assert not torch.isnan(tmp).any()
+            gx, gy, _ = plan["v_grid"]
+            for by in range(gy):
+                for bx in range(gx):
+                    ys, x0 = by * strip, bx * vc
+                    cols = torch.clamp(x0 + torch.arange(vc), 0, m - 1)
+                    buf = torch.full((c, ring, vc), float("nan"), dtype=torch.float64)
+
+                    def load(i0, i1):
+                        i = torch.arange(i0, i1)
+                        src = torch.clamp(ys - r + i, 0, n - 1)
+                        buf[:, i % ring] = tmp[:, src][:, :, cols]
+
+                    steps = -(-min(strip, n - ys) // blur.V_STEP)
+                    load(0, blur.V_STEP + tp - 1)
+                    for st in range(steps):
+                        # the next step's rows may land before this step reads
+                        if st + 1 < steps:
+                            load((st + 1) * blur.V_STEP + tp - 1, (st + 2) * blur.V_STEP + tp - 1)
+                        for wp in range(blur.V_STEP // kb):
+                            a = st * blur.V_STEP + wp * kb
+                            put(g, ys + a + torch.arange(kb), x0 + torch.arange(vc),
+                                ring_conv(buf, a, ring, w, tp))
+    return out
+
+
+@pytest.mark.parametrize("shape,radii,tile", [
+    ((3, 70, 90), (1, 3, 7), (64, 32)),
+    ((2, 45, 300), (2, 5, 16, 17), None),
+    ((1, 300, 70), (20, 33), None),
+    ((1, 9, 11), (3, 40), None),
+    ((1, 200, 40), (16, 16, 16, 16), (96, 32)),
+])
+def test_blur_emulated_tiling_equals_the_plain_version(monkeypatch, shape, radii, tile):
+    """The kernel's tiling from the plan, with values outside [0, 65504]
+    so the staging clamp matters. `tile` forces a short fused strip and a
+    narrow block (the kernel's FX is 128; the emulation takes both from
+    the plan), so strips and column blocks meet inside the image; V strips
+    of 3 steps let the two-pass ring wrap within a strip."""
+    if tile is not None:
+        monkeypatch.setattr(blur, "FUSED_STRIP", tile[0])
+        monkeypatch.setattr(blur, "FX", tile[1])
+    monkeypatch.setattr(blur, "V_STRIP", 3 * blur.V_STEP)
+    rng = np.random.default_rng(sum(shape))
+    x = torch.from_numpy((rng.random(shape) * 2.0 - 0.5).astype(np.float32))
+    x[0, 0, 0], x[-1, shape[1] // 2, shape[2] // 2] = 9.0e4, -7.0
+    plan = blur.blur_launch_plan(*shape, radii)
+    if tile is not None:
+        assert plan["fused_tile"] == tile and len(plan["fused"]) >= 3
+    got = emulate_blur(x, plan)
+    want = blur.gaussian_blur_multi_plain(x, radii)
+    for r, a, b in zip(radii, got, want):
+        assert not torch.isnan(a).any(), f"r={r}: a pixel never written"
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6, atol=1e-6, err_msg=f"r={r}")
