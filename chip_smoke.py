@@ -24,22 +24,30 @@ it, plus its small-input check; (9) the profiling probes P1 and P2
 reset just before and read just after; each times its variants (P1 at 1,
 8, 16, 32 and 64 rows per thread, P2 at 32x8 and 32x32 tiles; each the
 median of 5 chained measurements), holds them against its plain version
-and raises on a mismatch. Each kernel line
-carries its time, its plain version's time and its bound (bytes over the
-HBM rate or operations over the float32 peak, whichever is larger). It
-prints a kernels JSON line (top level: each kernel's numbers on the path
-that runs it, config 5 for the four kernels of the develop paths, the
-probes for the probes' two; per path its launch count and that path's
-case; with each source's registers and spill bytes from ptxas), then as
-its last line {"ok": true, "device": {...}}.
+and raises on a mismatch; (10) local masks, the config-4 path: the
+config-4 masks rasterized once on the host (timed), the grade kernel with
+masks against its plain version at 24 MP, B = 2, and at 1000 x 1503 on
+config 4 and on a five-mask document that turns on every mask stage
+(dither off and on), config 4's band-restricted blur levels against the
+plain blur of the whole frame, and JSON -> rasterize_masks ->
+blur_band_rows -> stack_params -> develop_batch -> device_u8 -> host numpy
+for B = 1 and 2 (counters reset and read around it; the mask upload, the
+device part and the readback timed apart), plus its small-input check.
+Each kernel line carries its time, its plain version's time and its bound
+(bytes over the HBM rate or operations over the float32 peak, whichever is
+larger). It prints a kernels JSON line (top level: each kernel's numbers
+on the path that runs it, config 5 for the four kernels of the develop
+paths, the probes for the probes' two; per path its launch count and that
+path's case; with each source's registers and spill bytes from ptxas),
+then as its last line {"ok": true, "device": {...}}.
 Any failed check raises, so the process exits non-zero; without a CUDA
 device it exits non-zero before printing any result.
 
---quick runs phases 3-8 at 1024x1536 with fewer repetitions (a first
-check of a new kernel). --out DIR writes the nvcc/ptxas logs there.
---profile adds a torch.profiler pass over the config-3 and config-5 main
-paths: kernel time by name and the device busy share (and chrome traces
-in --out). Imports torch, numpy and rapidraw_tpu_torch only.
+--quick runs phases 3-8 and 10 at 1024x1536 with fewer repetitions (a
+first check of a new kernel). --out DIR writes the nvcc/ptxas logs there.
+--profile adds a torch.profiler pass over the config-3, config-5 and
+config-4 main paths: kernel time by name and the device busy share (and
+chrome traces in --out). Imports torch, numpy and rapidraw_tpu_torch only.
 """
 
 from __future__ import annotations
@@ -151,6 +159,117 @@ TCA_GEOMETRY = {
 }
 # NR strong enough to reach the largest tap offsets at 24 MP.
 NR_STRONG = (0.8, 0.6)
+
+
+def config4_doc(h: int = 4096, w: int = 6144) -> dict:
+    """BASELINE config 4 (`bench.py`'s `_CONFIG4_DOC`): local adjustments —
+    radial + linear + brush masks, each with its own adjustment stack, over
+    a light global grade. At 4096 x 6144 it is bench.py's literal; at other
+    sizes the mask geometry scales with the frame (the brush size and the
+    gradient's range with its width)."""
+    k = w / 6144
+    return {
+        "exposure": 0.2,
+        "contrast": 10,
+        "toneMapper": "agx",
+        "masks": [
+            {
+                "name": "sky", "visible": True,
+                "adjustments": {"exposure": -0.8, "saturation": 15, "contrast": 10},
+                "subMasks": [{
+                    "type": "linear", "visible": True, "mode": "additive",
+                    "parameters": {"startX": 0, "startY": 0, "endX": 0,
+                                   "endY": h * 0.45, "range": 40 * k},
+                }],
+            },
+            {
+                "name": "face", "visible": True,
+                "adjustments": {"exposure": 0.6, "shadows": 20},
+                "subMasks": [{
+                    "type": "radial", "visible": True, "mode": "additive",
+                    "parameters": {"centerX": w * 0.6, "centerY": h * 0.55,
+                                   "radiusX": w * 0.12, "radiusY": h * 0.16,
+                                   "rotation": 10.0, "feather": 0.5},
+                }],
+            },
+            {
+                "name": "dodge", "visible": True,
+                "adjustments": {"exposure": 0.4, "clarity": 20},
+                "subMasks": [{
+                    "type": "brush", "visible": True, "mode": "additive",
+                    "parameters": {"lines": [{
+                        "points": [{"x": w * 0.2, "y": h * 0.7},
+                                   {"x": w * 0.35, "y": h * 0.75},
+                                   {"x": w * 0.5, "y": h * 0.72}],
+                        "brushSize": 600.0 * k, "feather": 0.5,
+                    }]},
+                }],
+            },
+        ],
+    }
+
+
+CONFIG4_DOC = config4_doc()
+
+
+def mask_stage_doc(h: int, w: int) -> dict:
+    """Five masks that turn on every mask stage of the grade: sharpness (one
+    mask sharpens, one softens), HSL, colour grading and curves, and blend
+    every field the grade reads (exposure ... hue). Their shapes cover
+    radial, linear, brush and "all" sub-masks, the additive, subtractive
+    and intersect modes, an inverted subtractive sub-mask, an inverted mask
+    and opacities."""
+
+    def radial(cx, cy, rx, ry, **kw):
+        return {"type": "radial", "visible": True, "mode": "additive",
+                "parameters": {"centerX": w * cx, "centerY": h * cy, "radiusX": w * rx,
+                               "radiusY": h * ry, "rotation": 20.0, "feather": 0.6}, **kw}
+
+    def linear(y0, y1, **kw):
+        return {"type": "linear", "visible": True, "mode": "additive",
+                "parameters": {"startX": 0, "startY": h * y0, "endX": w * 0.1,
+                               "endY": h * y1, "range": w * 0.05}, **kw}
+
+    curve = [{"x": 0, "y": 12}, {"x": 96, "y": 80}, {"x": 200, "y": 220}, {"x": 255, "y": 245}]
+    return {
+        "exposure": 0.1, "contrast": 8, "toneMapper": "agx",
+        "masks": [
+            {"visible": True, "opacity": 90,
+             "adjustments": {"sharpness": 45, "exposure": 0.3, "highlights": -30,
+                             "whites": 12, "blacks": -10, "temperature": 12, "tint": -6},
+             "subMasks": [radial(0.5, 0.5, 0.3, 0.35)]},
+            {"visible": True,
+             "adjustments": {"hsl": {"reds": {"hue": 12, "saturation": 25, "luminance": -8},
+                                     "blues": {"hue": -10, "saturation": 15, "luminance": 6}},
+                             "brightness": 18, "vibrance": 25, "hue": 9, "sharpness": -30},
+             "subMasks": [linear(0.0, 0.5),
+                          radial(0.3, 0.3, 0.1, 0.1, mode="subtractive", invert=True,
+                                 opacity=60)]},
+            {"visible": True,
+             "adjustments": {"colorGrading": {
+                 "shadows": {"hue": 210, "saturation": 40, "luminance": 6},
+                 "highlights": {"hue": 40, "saturation": 30, "luminance": -4},
+                 "balance": 15, "blending": 60},
+                 "dehaze": 12, "structure": 18, "glowAmount": 25, "contrast": 12},
+             "subMasks": [{"type": "all", "visible": True, "mode": "additive"},
+                          radial(0.7, 0.6, 0.15, 0.2, mode="subtractive")]},
+            {"visible": True, "invert": True,
+             "adjustments": {"curves": {"luma": curve, "red": curve[::2] + curve[-1:]},
+                             "halationAmount": 30, "shadows": 30, "saturation": -15},
+             "subMasks": [radial(0.4, 0.6, 0.25, 0.2)]},
+            {"visible": True,
+             "adjustments": {"clarity": 25, "exposure": -0.25, "saturation": 20,
+                             "curves": {"luma": curve[::-1][:2] + curve[2:]}},
+             "subMasks": [
+                 {"type": "brush", "visible": True, "mode": "additive",
+                  "parameters": {"lines": [
+                      {"points": [{"x": w * 0.1, "y": h * 0.8}, {"x": w * 0.6, "y": h * 0.85}],
+                       "brushSize": w * 0.08, "feather": 0.5},
+                      {"points": [{"x": w * 0.3, "y": h * 0.82}], "brushSize": w * 0.03,
+                       "feather": 0.3, "tool": "eraser"}]}},
+                 linear(0.6, 1.0, mode="intersect")]},
+        ],
+    }
 
 DOCS = {"config1": (CONFIG1_DOC, False), "config3": (CONFIG3_DOC, False),
         "full": (FULL_DOC, False), "grain": (GRAIN_DOC, False), "raw": (RAW_DOC, True)}
@@ -273,13 +392,20 @@ def main() -> int:
     ap.add_argument("--quick", action="store_true", help="1024x1536, fewer repetitions")
     ap.add_argument("--out", default=None, help="directory for the nvcc/ptxas logs")
     ap.add_argument("--profile", action="store_true",
-                    help="torch.profiler over the config-3 and config-5 B=2 main paths")
+                    help="torch.profiler over the config-3, config-5 and config-4 B=2 main paths")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
 
-    from rapidraw_tpu_torch import develop_batch, device_u8, parse_adjustments, stack_params
+    from rapidraw_tpu_torch import (
+        blur_band_rows,
+        develop_batch,
+        device_u8,
+        parse_adjustments,
+        rasterize_masks,
+        stack_params,
+    )
     from rapidraw_tpu_torch.geometry import warp_fast
     from rapidraw_tpu_torch.geometry.params import geometry_params_from_json
     from rapidraw_tpu_torch.ops import blur, nr
@@ -323,7 +449,7 @@ def main() -> int:
             Path(args.out).mkdir(parents=True, exist_ok=True)
             (Path(args.out) / f"nvcc_{name}.log").write_text(kl.build_log)
         for line in kl.build_log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry function" in line or "registers" in line or "spill" in line:
                 log(f"[build] {name} ptxas: {line.strip()}")
     phase_done("build")
 
@@ -741,6 +867,203 @@ def main() -> int:
                       for r in rows])
     phase_done("probes")
 
+    # ---- 10. local masks, the config-4 path ------------------------------------
+    # host rasterization, once per document and size; its bitmaps are reused
+    t0 = time.perf_counter()
+    masks4 = rasterize_masks(config4_doc(h, w), w, h, scale=1.0)
+    raster_ms = (time.perf_counter() - t0) * 1e3
+    p4, c4 = parse_adjustments(config4_doc(h, w))
+    bands4 = blur_band_rows(c4, masks4)
+    log(f"[masks] config4 rasterize {masks4.shape} on the host: {raster_ms:.1f} ms; support "
+        f"{[round(float((m > 0).mean()), 4) for m in masks4]}; blur bands {bands4} [{card}]")
+    mdocs = {"config4": (config4_doc, masks4), "mask_stages": (mask_stage_doc, None)}
+
+    def mask_inputs(doc_fn, b, hh, ww, bitmaps=None):
+        """(stacked params, cfg, host bitmaps, (b, N, hh, ww) influences on the card)."""
+        doc = doc_fn(hh, ww)
+        bm = rasterize_masks(doc, ww, hh, scale=1.0) if bitmaps is None else bitmaps
+        q, c = parse_adjustments(doc)
+        sp, cfg = stack_params([q] * b, [c] * b, device=dev)
+        mk = torch.from_numpy(np.ascontiguousarray(np.broadcast_to(bm, (b,) + bm.shape)))
+        return sp, cfg, bm, mk.to(dev)
+
+    # the grade kernel with masks against its plain version, on full-frame
+    # levels and, where the document has bands, on the band levels the main
+    # path gives it (zeros outside each band); the band case is the one timed
+    mask_err = 0.0
+    for (bb, hh, ww) in ((2, h, w), (2, *RAGGED)):
+        images = torch.rand((bb, 3, hh, ww), generator=gen, device=dev)
+        for name, (doc_fn, bitmaps) in mdocs.items():
+            sp, cfg, bm, mk = mask_inputs(doc_fn, bb, hh, ww,
+                                          bitmaps if (hh, ww) == (h, w) else None)
+            pmat, mmat = fused.pack_rows(sp["glob"]), fused.pack_mask_rows(sp["mask"])
+            plan = fused.grade_launch_plan(bb, hh, ww, cfg)
+            bands = blur_band_rows(cfg, bm)
+            for level_bands in ((None, bands) if bands else (None,)):
+                levels = fused.blur_levels(images, cfg, level_bands)
+                timed = level_bands is bands and (hh, ww) == (h, w)
+                for dither in (False, True):
+                    c = dataclasses.replace(cfg, dither_active=dither)
+                    got = fused.grade(images, levels, pmat, c, masks=mk, mmat=mmat)
+                    ref, ops = count_ops(lambda: fused.grade_plain(images, levels, pmat, c,
+                                                                   masks=mk, mmat=mmat))
+                    torch.cuda.synchronize()
+                    d = (got - ref).abs()
+                    err, share = float(d.max()), float((d > GRADE_TOL).float().mean())
+                    tol = GRADE_DITHER_TOL if dither else GRADE_TOL
+                    line = (f"[grade-masks] B={bb} {hh}x{ww} {name} N={cfg.mask_count} "
+                            f"levels {level_bands or 'full'} stages {fused.grade_stages(cfg)} "
+                            f"build {plan['min_blocks']}/masks dither={'on' if dither else 'off'}: "
+                            f"max|d| {err:.3e} (bound {tol:.3e}), share>{GRADE_TOL:g} {share:.2e}")
+                    if timed and not dither:
+                        ms = time_ms(lambda: fused.grade(images, levels, pmat, c, masks=mk,
+                                                         mmat=mmat), reps)
+                        pms = time_ms(lambda: fused.grade_plain(images, levels, pmat, c,
+                                                                masks=mk, mmat=mmat), reps)
+                        # bytes: image, levels, influences, params read once, output written
+                        bms, bby = bound_ms(nbytes(images, pmat, mmat, mk, *levels.values())
+                                            + nbytes(images), ops)
+                        line += (f" kernel {ms:.3f} ms plain {pms:.3f} ms bound {bms:.3f} ms "
+                                 f"({bby}, {ops / (bb * hh * ww):.0f} ops/pixel) [{card}]")
+                        if name == "config4":
+                            report["grade", "config4"] = dict(ms=ms, plain_ms=pms, bound_ms=bms,
+                                                              bound_by=bby, library_ms=None,
+                                                              max_abs_err=err)
+                    log(line)
+                    if not bool(torch.isfinite(got).all()) or err > tol:
+                        raise AssertionError(f"grade with masks {name} B={bb} {hh}x{ww} levels "
+                                             f"{level_bands or 'full'}: max|d| {err} > {tol} "
+                                             f"or non-finite")
+                    mask_err = max(mask_err, err if not dither else 0.0)
+                    del got, ref
+                del levels
+            del mk
+        del images
+    log(f"[grade-masks] max|d| over every dither-off case {mask_err:.3e}")
+
+    # config 4's band-restricted blur levels against the plain blur of the
+    # whole frame: the band rows equal it, the rows outside are zeros
+    band_levels = fused.blur_levels(img2, c4, bands4)
+    radii4 = fused.blur_radii(c4, w, h)
+    # the path's numbers: each band group's launch, summed; the bound's term
+    # is the larger group's
+    band_err, blur4, top = 0.0, dict(ms=0.0, plain_ms=0.0, bound_ms=0.0), 0.0
+    for key, y0, y1 in bands4:
+        full = blur.gaussian_blur_multi_plain(img2.reshape(6, h, w), (radii4[key],))[0]
+        got = band_levels[key].reshape(6, h, w)
+        torch.cuda.synchronize()
+        err = float(((got[:, y0:y1] - full[:, y0:y1]).abs()
+                     / full[:, y0:y1].abs().clamp(min=1.0)).max())
+        outside = float(torch.cat([got[:, :y0], got[:, y1:]], 1).abs().max())
+        band_err = max(band_err, err, outside)
+        lo, hi = max(0, y0 - radii4[key]), min(h, y1 + radii4[key])
+        slab = img2.reshape(6, h, w)[:, lo:hi].contiguous()
+        plan = blur.blur_launch_plan(6, hi - lo, w, (radii4[key],))
+        _, ops = count_ops(lambda: blur.gaussian_blur_multi_plain(slab, (radii4[key],)))
+        ms = time_ms(lambda: blur.gaussian_blur_multi(slab, (radii4[key],)), reps)
+        pms = time_ms(lambda: blur.gaussian_blur_multi_plain(slab, (radii4[key],)), reps)
+        bms, bby = bound_ms(2 * nbytes(slab), ops)
+        blur4["ms"] += ms
+        blur4["plain_ms"] += pms
+        blur4["bound_ms"] += bms
+        if bms > top:
+            top, blur4["bound_by"] = bms, bby
+        regime = "fused" if plan["fused"] else "two-pass"
+        log(f"[blur-bands] config4 {key} r={radii4[key]} rows {y0}-{y1} slab (6,{hi - lo},{w}) "
+            f"{regime}: max|d|/max(1,|ref|) {err:.3e}, outside the band max {outside:.1e} "
+            f"(bound {BLUR_TOL:g}) kernel {ms:.3f} ms plain {pms:.3f} ms bound {bms:.3f} ms "
+            f"({bby}) [{card}]")
+        del full, got, slab
+    if band_err > BLUR_TOL:
+        raise AssertionError(f"banded blur levels: max|d| {band_err} > {BLUR_TOL}")
+    report["blur", "config4"] = dict(blur4, library_ms=None, max_abs_err=band_err)
+    del band_levels
+
+    # config 4 end to end: JSON -> rasterize_masks -> blur_band_rows ->
+    # stack_params -> develop_batch -> device_u8 -> host numpy
+    def upload(b, bitmaps, device):
+        """The (b, N, H, W) influences on `device`: each image's bitmaps
+        copied in (the batch here shares one document's masks)."""
+        mk = torch.empty((b,) + bitmaps.shape, dtype=torch.float32, device=device)
+        for i in range(b):
+            mk[i].copy_(torch.from_numpy(bitmaps))
+        return mk
+
+    def run4(b, images, bitmaps):
+        doc = config4_doc(images.shape[2], images.shape[3])
+        parsed = [parse_adjustments(doc) for _ in range(b)]
+        sp, cfg = stack_params([q for q, _ in parsed], [c for _, c in parsed],
+                               device=images.device)
+        bands = blur_band_rows(cfg, bitmaps)
+        out = develop_batch(images, sp, cfg, masks=upload(b, bitmaps, images.device),
+                            blur_bands=bands)
+        return out, device_u8(out).cpu().numpy()
+
+    # the influences the kernel reads are the host's f32 u8/255 values, the
+    # same as JAX's, bit for bit (an f32 upload copies them)
+    if not torch.equal(upload(1, masks4, dev)[0].cpu(), torch.from_numpy(masks4)):
+        raise AssertionError("the uploaded influences differ from the host bitmaps")
+    log("[masks] uploaded f32 influences equal the host bitmaps bit for bit")
+
+    reset_counts()
+    out4, u84 = run4(2, img2, masks4)
+    torch.cuda.synchronize()
+    launches4 = read_counts()
+    log(f"[e2e4] config4 B=2 launches {launches4} u8 {u84.shape} {u84.dtype}")
+    if min(launches4["blur"], launches4["grade"]) < 1:
+        raise AssertionError(f"a kernel of the config-4 path never launched: {launches4}")
+    if not bool(torch.isfinite(out4).all()) or u84.shape != (2, 3, h, w) \
+            or u84.min() == u84.max():
+        raise AssertionError("config-4 e2e output is non-finite, misshapen or constant")
+    del out4, u84
+
+    small = torch.rand((2, 3, 384, 512), generator=gen, device=dev)
+    small_masks = rasterize_masks(config4_doc(384, 512), 512, 384, scale=1.0)
+    _, u8_gpu = run4(2, small, small_masks)
+    _, u8_cpu = run4(2, small.cpu(), small_masks)
+    du = np.abs(u8_gpu.astype(np.int16) - u8_cpu.astype(np.int16))
+    log(f"[e2e4] small 2x3x384x512 CUDA vs plain CPU u8: max {int(du.max())} LSB, "
+        f"share>0 {float((du > 0).mean()):.2e}")
+    if du.max() > 1 or (du > 0).mean() > 1e-3:
+        raise AssertionError("config-4 CUDA output disagrees with the plain CPU path")
+
+    for b in (1, 2):
+        imgs = img2[:b].contiguous()
+        run4(b, imgs, masks4)
+        times, uploads, readback = [], [], []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run4(b, imgs, masks4)
+            times.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            upload(b, masks4, dev)
+            torch.cuda.synchronize()
+            uploads.append(time.perf_counter() - t0)
+        dt = statistics.median(times)
+        parsed = [parse_adjustments(config4_doc(h, w)) for _ in range(b)]
+        sp, cfg = stack_params([q for q, _ in parsed], [c for _, c in parsed], device=dev)
+        mk_dev = upload(b, masks4, dev)
+        bands = blur_band_rows(cfg, masks4)
+        dev_ms = time_ms(lambda: device_u8(develop_batch(imgs, sp, cfg, masks=mk_dev,
+                                                         blur_bands=bands)), reps)
+        q = device_u8(develop_batch(imgs, sp, cfg, masks=mk_dev, blur_bands=bands))
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            q.cpu()
+            readback.append(time.perf_counter() - t0)
+        log(f"[e2e4] config4 B={b}: {dt * 1e3 / b:.2f} ms/image, {b * h * w / dt / 1e6:.1f} "
+            f"MPix/s (JSON + bitmaps -> u8 on host); host rasterization {raster_ms:.1f} ms "
+            f"per document (once, not in e2e); mask upload ({b},{masks4.shape[0]},{h},{w}) "
+            f"f32 {statistics.median(uploads) * 1e3 / b:.2f} ms/image; device part "
+            f"{dev_ms / b:.2f} ms/image ({b * h * w / dev_ms / 1e3:.1f} MPix/s); u8 readback "
+            f"{statistics.median(readback) * 1e3 / b:.2f} ms/image [{card}]")
+        del mk_dev, q
+    if args.profile:
+        profile_run("config4 B=2", lambda: run4(2, img2, masks4), args.out, card)
+    phase_done("config 4")
+
     sources = {  # name -> (source, the TPU kernel it replaces, the path that runs it)
         "blur": ("rapidraw_tpu_torch/csrc/blur.cu", "rapidraw_tpu/ops/blur.py:242", "config5"),
         "grade": ("rapidraw_tpu_torch/csrc/grade.cu", "rapidraw_tpu/pipeline/fused.py:298",
@@ -758,7 +1081,8 @@ def main() -> int:
     # own launch count and, where it runs the kernel, the numbers of the case
     # at that path's shapes
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    counts = {"config3": launches3, "config5": launches5, "probes": launches_probes}
+    counts = {"config3": launches3, "config5": launches5, "probes": launches_probes,
+              "config4": launches4}
     kernels = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[top][name], **{k: report[name, top][k] for k in fields},

@@ -2,21 +2,24 @@
 NVIDIA H100.
 
 The develop main path: one adjustment document applied to planar
-(3, H, W) float32 images, then quantized on the device. On CUDA tensors it
-runs two hand-written Hopper kernels (csrc/blur.cu for the blur pyramid,
-csrc/grade.cu for the whole per-pixel grade chain); on CPU tensors it runs
-their plain PyTorch versions. The JAX package `rapidraw_tpu` stays the
+(3, H, W) float32 images, then quantized on the device. Local masks are
+rasterized on the host (rasterize_masks, blur_band_rows) and blended in
+the grade. On CUDA tensors it runs two hand-written Hopper kernels
+(csrc/blur.cu for the blur pyramid, csrc/grade.cu for the whole per-pixel
+grade chain); on CPU tensors it runs their plain PyTorch versions. The JAX package `rapidraw_tpu` stays the
 reference; this package never imports it or JAX.
 """
 
 __version__ = "0.1.0"
 
+from rapidraw_tpu_torch.masks.rasterize import rasterize_masks  # noqa: F401
 from rapidraw_tpu_torch.params.parse import (  # noqa: F401
     DevelopConfig,
     DevelopParams,
     merge_configs,
     parse_adjustments,
 )
+from rapidraw_tpu_torch.pipeline.bands import blur_band_rows  # noqa: F401
 from rapidraw_tpu_torch.pipeline.batch import develop_batch, stack_params  # noqa: F401
 from rapidraw_tpu_torch.pipeline.develop import develop  # noqa: F401
 from rapidraw_tpu_torch.pipeline.export import (  # noqa: F401

@@ -3,12 +3,12 @@
 // Replaces the TPU megakernel B3 (rapidraw_tpu/pipeline/fused.py
 // `develop_fused`, body `_make_dev_kernel`) and its batched form B4
 // (`develop_fused_batch`): grade_chain + finish_chain of
-// rapidraw_tpu/pipeline/grade.py, for documents without masks, flare or a
-// LUT (CA and NR run before it). Every device function below transcribes
-// the plain PyTorch op of the same name in rapidraw_tpu_torch/ops (itself
-// a port of the JAX op) in the same operation order; the file is built
-// with --fmad=false so each product and sum rounds on its own, as the
-// plain chain does.
+// rapidraw_tpu/pipeline/grade.py, local masks included, for documents
+// without flare or a LUT (CA and NR run before it). Every device function
+// below transcribes the plain PyTorch op of the same name in
+// rapidraw_tpu_torch/ops (itself a port of the JAX op) in the same
+// operation order; the file is built with --fmad=false so each product and
+// sum rounds on its own, as the plain chain does.
 //
 // Inputs: the image (B, 3, H, W) and up to four blur levels (B, 3, H, W),
 // all in input space (sRGB for LDR, linear for RAW) — both are linearized
@@ -50,12 +50,36 @@
 //   (40 registers, more warps to cover memory latency).
 // Every expression keeps the plain chain's operation order, so the kernel
 // stays bit-identical to `grade_plain` on the card.
+//
+// Local masks take their own builds (`MASKS`), so a document without masks
+// runs the code above unchanged. With masks the kernel also reads the
+// (B, N, H, W) influences, gated on load as JAX gates them (x > 0.001, else
+// 0), a (B, N, M_K) mask-param tensor (offsets M_* in grade_gen.h,
+// pipeline/fused.py MASK_LAYOUT) and, per field of EFF_FIELDS, the set of
+// masks that blends it (`MaskBlend`, one bit per mask). A blended field's
+// value is a per-pixel sum, global + influence_n * mask_n in ascending mask
+// order, and every value derived from it (its `Uniforms` entries) is
+// computed per pixel by the same device function; fields no mask blends
+// keep the block's hoisted values. Each block stages its masks' leading
+// M_SCALARS params (the blended fields, sharpness and the colour-grading
+// blend and balance) in dynamic shared memory; the rarely read HSL, colour
+// grading and curve rows are read from global memory, where every thread
+// of a block reads the same address. The mask stages (sharpness delta,
+// HSL, colour grading, curves) skip a mask whose influence is 0 at the
+// pixel: its terms there are exact zeros for finite values.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "grade_gen.h"
+
+// Per field of EFF_FIELDS (the M_* offsets below M_BLEND), bit n is set when
+// mask n blends the field; passed by value, so every thread reads it from
+// the kernel's parameter space.
+struct MaskBlend {
+  unsigned bits[M_BLEND];
+};
 
 namespace {
 
@@ -117,6 +141,32 @@ struct Uniforms {
   float v_e0, v_e1;        // the vignette's smoothstep edges
   float grain_freq;        // grain's base frequency
 };
+
+// The derived values of `Uniforms` as functions of their field, shared by
+// the per-block `uniforms` and the mask build's per-pixel values.
+__device__ __forceinline__ float w_mult_of(float whites) {
+  const float white_level = 1.0f - whites * FC(0.25);
+  return 1.0f / fmaxf(white_level, FC(0.01));
+}
+__device__ __forceinline__ float con_strength_of(float contrast) {
+  return exp2f(contrast * FC(1.25));
+}
+__device__ __forceinline__ float bl_factor_of(float blacks) {
+  return fminf(exp2f(blacks * FC(0.75)), FC(3.9));
+}
+__device__ __forceinline__ float sh_factor_of(float shadows) {
+  return fminf(exp2f(shadows * FC(1.5)), FC(3.9));
+}
+__device__ __forceinline__ void hl_gains(float h, float& gamma, float& cstr, float& gain) {
+  gamma = 1.0f - h * FC(1.75);
+  cstr = -h * FC(6.0);
+  gain = exp2f(h * FC(1.75));
+}
+__device__ __forceinline__ void wb_gains(float t, float n, float& r, float& g, float& b) {
+  r = (1.0f + t * FC(0.2)) * (1.0f + n * FC(0.25));
+  g = (1.0f + t * FC(0.05)) * (1.0f - n * FC(0.25));
+  b = (1.0f - t * FC(0.2)) * (1.0f + n * FC(0.25));
+}
 
 // ---- ops/common.py --------------------------------------------------------
 
@@ -426,7 +476,42 @@ __constant__ float HSL_INV_HALF_WIDTH[8] = {
     FC(2.0 / 35.0), FC(2.0 / 45.0), FC(2.0 / 40.0), FC(2.0 / 90.0),
     FC(2.0 / 60.0), FC(2.0 / 60.0), FC(2.0 / 55.0), FC(2.0 / 50.0)};
 
-__device__ F3 hsl_panel(F3 c, const float* hsl, unsigned bands) {
+// mask gate on load (JAX develop.py:120: where(masks > 0.001, masks, 0))
+__device__ __forceinline__ float gate(float x) { return x > FC(0.001) ? x : 0.0f; }
+
+// The masks of one pixel: its influences (ungated, one plane apart), the
+// block's staged mask scalars and the image's mask-param rows.
+struct PixelMasks {
+  const float* infl;
+  size_t plane;
+  const float* msm;
+  const float* rows;
+  int n;
+  __device__ __forceinline__ float influence(int m) const { return gate(__ldg(infl + m * plane)); }
+  __device__ __forceinline__ float scalar(int m, int k) const { return msm[m * M_SCALARS + k]; }
+  __device__ __forceinline__ const float* row(int m) const { return rows + (size_t)m * M_K; }
+};
+
+// HSL's weighted totals of one band-param set (8 x 3)
+__device__ __forceinline__ void hsl_totals(const float* p, const float* inf, float inv_total,
+                                           unsigned bands, float& th, float& ts, float& tl) {
+  th = 0.0f;
+  ts = 0.0f;
+  tl = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    if (!(bands & (1u << i))) continue;
+    const float ni = inf[i] * inv_total;
+    th = th + p[3 * i + 0] * 2.0f * ni;
+    ts = ts + p[3 * i + 1] * ni;
+    tl = tl + p[3 * i + 2] * ni;
+  }
+}
+
+// With MASKS, every mask's band totals add to the global ones, weighted by
+// its influence, in mask order (ops/color.py apply_hsl_panel)
+template <bool MASKS>
+__device__ F3 hsl_panel(F3 c, const float* hsl, unsigned bands, const PixelMasks* pm) {
   const F3 safe = max0(c);
   float h, s, v;
   rgb_to_hsv(safe, h, s, v);
@@ -448,18 +533,23 @@ __device__ F3 hsl_panel(F3 c, const float* hsl, unsigned bands) {
     total = i == 0 ? inf[i] : total + inf[i];
   }
   const float inv_total = 1.0f / total;
-  float th = 0.0f, ts = 0.0f, tl = 0.0f;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    if (!(bands & (1u << i))) continue;
-    const float ni = inf[i] * inv_total;
-    th = th + hsl[3 * i + 0] * 2.0f * ni;
-    ts = ts + hsl[3 * i + 1] * ni;
-    tl = tl + hsl[3 * i + 2] * ni;
+  float th, ts, tl;
+  hsl_totals(hsl, inf, inv_total, bands, th, ts, tl);
+  float total_hue = th * sat_mask;
+  float total_sat = ts * sat_mask;
+  float total_lum = tl * lum_weight;
+  if constexpr (MASKS) {
+    if (pm != nullptr) {
+      for (int m = 0; m < pm->n; ++m) {
+        const float im = pm->influence(m);
+        if (im == 0.0f) continue;
+        hsl_totals(pm->row(m) + M_HSL, inf, inv_total, bands, th, ts, tl);
+        total_hue = total_hue + im * (th * sat_mask);
+        total_sat = total_sat + im * (ts * sat_mask);
+        total_lum = total_lum + im * (tl * lum_weight);
+      }
+    }
   }
-  const float total_hue = th * sat_mask;
-  const float total_sat = ts * sat_mask;
-  const float total_lum = tl * lum_weight;
 
   const float new_sat_raw = s * (1.0f + total_sat);
   const float desat_val = ol * (1.0f + total_lum);
@@ -700,16 +790,16 @@ __device__ float eval_curve(float val, const float* seg, const float* ends, floa
   return out;
 }
 
-__device__ F3 apply_curves(F3 c, const float* p, int nseg, bool rgb_maybe) {
-  const float* seg = p + P_CURVES_SEG;
-  const float* ends = p + P_CURVES_ENDS;
-  const float* en = p + P_CURVES_ENABLED;
+// one curve set: seg (4, MAX_SEGMENTS, 7), ends (4, 4), enabled (4,) and
+// rgb_active, from the param row (global) or a mask-param row
+__device__ F3 apply_curves(F3 c, const float* seg, const float* ends, const float* en,
+                           const float* rgb_active, int nseg, bool rgb_maybe) {
   const int cs = MAX_SEGMENTS * 7;
   const float en0 = en[0];
   const F3 luma_path = f3(eval_curve(c.r, seg, ends, en0, nseg),
                           eval_curve(c.g, seg, ends, en0, nseg),
                           eval_curve(c.b, seg, ends, en0, nseg));
-  if (!rgb_maybe || !(p[P_CURVES_RGB_ACTIVE] > 0.0f)) return luma_path;
+  if (!rgb_maybe || !(*rgb_active > 0.0f)) return luma_path;
   const F3 graded = f3(eval_curve(c.r, seg + cs, ends + 4, en[1], nseg),
                        eval_curve(c.g, seg + 2 * cs, ends + 8, en[2], nseg),
                        eval_curve(c.b, seg + 3 * cs, ends + 12, en[3], nseg));
@@ -778,17 +868,12 @@ __device__ void uniforms(const float* __restrict__ p, float inv_scale, Uniforms&
   const float t = __ldg(p + P_TEMPERATURE), n = __ldg(p + P_TINT);
   u.exp_gain = exp2f(exposure);
   filmic_gains(brightness, u.br_scale, u.br_k);
-  const float white_level = 1.0f - whites * FC(0.25);
-  u.w_mult = 1.0f / fmaxf(white_level, FC(0.01));
-  u.con_strength = exp2f(__ldg(p + P_CONTRAST) * FC(1.25));
-  u.bl_factor = fminf(exp2f(__ldg(p + P_BLACKS) * FC(0.75)), FC(3.9));
-  u.sh_factor = fminf(exp2f(__ldg(p + P_SHADOWS) * FC(1.5)), FC(3.9));
-  u.hl_gamma = 1.0f - h * FC(1.75);
-  u.hl_cstr = -h * FC(6.0);
-  u.hl_gain = exp2f(h * FC(1.75));
-  u.wb_r = (1.0f + t * FC(0.2)) * (1.0f + n * FC(0.25));
-  u.wb_g = (1.0f + t * FC(0.05)) * (1.0f - n * FC(0.25));
-  u.wb_b = (1.0f - t * FC(0.2)) * (1.0f + n * FC(0.25));
+  u.w_mult = w_mult_of(whites);
+  u.con_strength = con_strength_of(__ldg(p + P_CONTRAST));
+  u.bl_factor = bl_factor_of(__ldg(p + P_BLACKS));
+  u.sh_factor = sh_factor_of(__ldg(p + P_SHADOWS));
+  hl_gains(h, u.hl_gamma, u.hl_cstr, u.hl_gain);
+  wb_gains(t, n, u.wb_r, u.wb_g, u.wb_b);
   const float midpoint = __ldg(p + P_VIGNETTE_MIDPOINT);
   const float v_feather = __ldg(p + P_VIGNETTE_FEATHER) * 0.5f;
   u.v_e0 = midpoint - v_feather;
@@ -796,31 +881,70 @@ __device__ void uniforms(const float* __restrict__ p, float inv_scale, Uniforms&
   u.grain_freq = (1.0f / fmaxf(__ldg(p + P_GRAIN_SIZE), FC(0.1))) * inv_scale;
 }
 
+// A field's effective value at one pixel: global + influence_n * mask_n
+// over the masks in `bits`, ascending (pipeline/grade.py effective_params)
+__device__ __forceinline__ float blend_field(float v, unsigned bits, int f, const PixelMasks& pm) {
+  while (bits) {
+    const int m = __ffs(bits) - 1;
+    bits &= bits - 1u;
+    v = v + pm.influence(m) * pm.scalar(m, f);
+  }
+  return v;
+}
+
+// The mask sharpness delta (pipeline/grade.py): each mask's sharpening of
+// the stage's input, weighted by its influence, summed in mask order
+__device__ F3 mask_sharpness(F3 c0, F3 blur, bool is_raw, const PixelMasks& pm) {
+  F3 delta = splat(0.0f);
+  for (int m = 0; m < pm.n; ++m) {
+    const float a = pm.scalar(m, M_SHARPNESS);
+    const float im = pm.influence(m);
+    if (!(fabsf(a) > FC(0.001)) || im == 0.0f) continue;
+    const F3 res = local_contrast(c0, blur, a, is_raw, 0, pm.scalar(m, M_SHARPNESS_THRESHOLD));
+    delta = add(delta, scl(sub(res, c0), im));
+  }
+  return delta;
+}
+
 // The kernel is built for two register budgets (`__launch_bounds__`'s
 // blocks per SM): 4 blocks, up to 64 registers, for a long chain, which is
 // issue-bound and gains from the registers; 6 blocks, 40 registers and 48
 // warps resident, for a short chain, which waits on memory and gains from
 // the warps. The wrapper's launch plan picks one by the document's stage
-// count (`grade_launch_plan`).
-template <int MIN_BLOCKS>
+// count (`grade_launch_plan`). A document with masks takes the MASKS build,
+// at 4 blocks per SM.
+template <int MIN_BLOCKS, bool MASKS>
 __global__ void __launch_bounds__(BX* BY, MIN_BLOCKS)
     grade_kernel(const float* __restrict__ img, const float* __restrict__ l_sharp,
                  const float* __restrict__ l_tonal, const float* __restrict__ l_clarity,
                  const float* __restrict__ l_structure, const float* __restrict__ params,
                  float* __restrict__ out, unsigned flags, int nseg, unsigned bands, int rows,
-                 int H, int W, float inv_w, float inv_h, float inv_scale, float aspect) {
+                 int H, int W, float inv_w, float inv_h, float inv_scale, float aspect,
+                 const float* __restrict__ infl, const float* __restrict__ mparams, int nmask,
+                 MaskBlend blend) {
   // per block: the image's param row and Uniforms, and the x-only and
-  // y-only terms of the tile's columns and rows
+  // y-only terms of the tile's columns and rows; with masks, each mask's
+  // M_SCALARS leading params (dynamic shared memory)
   __shared__ float prm[P_K];
   __shared__ Uniforms u;
   __shared__ float vig_x[BX], cen_x[BX];
   __shared__ float vig_y[MAX_TILE_H], cen_y[MAX_TILE_H];
+  extern __shared__ float msm[];
 #define ON(f) ((flags & (f)) != 0u)
 #define PV(name) prm[name]
+// a field's value at the pixel, and whether a mask blends it
+#define BLENDED(m) (MASKS && blend.bits[m] != 0u)
+#define EFF(pname, m) (BLENDED(m) ? blend_field(PV(pname), blend.bits[m], m, pm) : PV(pname))
   const int tile_h = BY * rows;
   const int tid = threadIdx.y * BX + threadIdx.x;
   const float* __restrict__ p = params + (size_t)blockIdx.z * P_K;
   for (int k = tid; k < P_K; k += BX * BY) prm[k] = __ldg(p + k);
+  const float* __restrict__ mrows = nullptr;
+  if constexpr (MASKS) {
+    mrows = mparams + (size_t)blockIdx.z * nmask * M_K;
+    for (int k = tid; k < nmask * M_SCALARS; k += BX * BY)
+      msm[k] = __ldg(mrows + (size_t)(k / M_SCALARS) * M_K + k % M_SCALARS);
+  }
   const float v_round = 1.0f - __ldg(p + P_VIGNETTE_ROUNDNESS);
   if (tid < BX) {
     const float xs = (float)(blockIdx.x * BX + tid);
@@ -855,6 +979,13 @@ __global__ void __launch_bounds__(BX* BY, MIN_BLOCKS)
     if (x >= W || y >= H) continue;
     const size_t i = base + (size_t)y * W;
     const float ys = (float)y;
+    PixelMasks pm;
+    Uniforms lu;  // MASKS: the block's Uniforms, blended fields' values per pixel
+    if constexpr (MASKS) {
+      pm = {infl + (size_t)blockIdx.z * nmask * plane + (size_t)y * W + x, plane, msm, mrows,
+            nmask};
+    }
+    const Uniforms& U = MASKS ? lu : u;
 
     F3 c = load3(img, i, plane);
     F3 b_sharp = {}, b_tonal = {}, b_clarity = {}, b_structure = {};
@@ -874,37 +1005,99 @@ __global__ void __launch_bounds__(BX* BY, MIN_BLOCKS)
     if (ON(F_CENTRE_ACTIVE)) cm = centre_mask(un, cen_y[ty]);
 
     // local contrast chain (shader.wgsl:1555-1580)
+    const F3 c_in = c;
     if (ON(F_SHARPNESS_ACTIVE))
       c = local_contrast(c, b_sharp, PV(P_SHARPNESS), is_raw, 0, PV(P_SHARPNESS_THRESHOLD));
-    if (ON(F_CLARITY_ACTIVE)) c = local_contrast(c, b_clarity, PV(P_CLARITY), is_raw, 1, 0.0f);
+    if constexpr (MASKS) {
+      if (ON(F_MASK_SHARPNESS_ACTIVE)) c = add(c, mask_sharpness(c_in, b_sharp, is_raw, pm));
+    }
+    if (ON(F_CLARITY_ACTIVE))
+      c = local_contrast(c, b_clarity, EFF(P_CLARITY, M_CLARITY), is_raw, 1, 0.0f);
     if (ON(F_STRUCTURE_ACTIVE))
-      c = local_contrast(c, b_structure, PV(P_STRUCTURE), is_raw, 1, 0.0f);
+      c = local_contrast(c, b_structure, EFF(P_STRUCTURE, M_STRUCTURE), is_raw, 1, 0.0f);
     if (ON(F_CENTRE_ACTIVE)) c = centre_local_contrast(c, PV(P_CENTRE), b_clarity, is_raw, cm);
 
     // exposure + atmosphere (shader.wgsl:1582-1613)
-    const float exposure = PV(P_EXPOSURE), brightness = PV(P_BRIGHTNESS), whites = PV(P_WHITES);
-    if (ON(F_EXPOSURE_ACTIVE)) c = linear_exposure(c, exposure, u.exp_gain);
+    const float exposure = EFF(P_EXPOSURE, M_EXPOSURE);
+    const float brightness = EFF(P_BRIGHTNESS, M_BRIGHTNESS);
+    const float whites = EFF(P_WHITES, M_WHITES);
+    if constexpr (MASKS) {
+      lu.exp_gain = BLENDED(M_EXPOSURE) ? exp2f(exposure) : u.exp_gain;
+      if (BLENDED(M_BRIGHTNESS)) {
+        filmic_gains(brightness, lu.br_scale, lu.br_k);
+      } else {
+        lu.br_scale = u.br_scale;
+        lu.br_k = u.br_k;
+      }
+      lu.w_mult = BLENDED(M_WHITES) ? w_mult_of(whites) : u.w_mult;
+    }
+    if (ON(F_EXPOSURE_ACTIVE)) c = linear_exposure(c, exposure, U.exp_gain);
     if (ON(F_GLOW_ACTIVE))
-      c = glow_bloom(c, b_structure, PV(P_GLOW), exposure, brightness, whites, u);
+      c = glow_bloom(c, b_structure, EFF(P_GLOW, M_GLOW), exposure, brightness, whites, U);
     if (ON(F_HALATION_ACTIVE))
-      c = halation(c, b_clarity, PV(P_HALATION), exposure, brightness, whites, u);
-    if (ON(F_DEHAZE_ACTIVE)) c = dehaze(c, b_structure, PV(P_DEHAZE));
+      c = halation(c, b_clarity, EFF(P_HALATION, M_HALATION), exposure, brightness, whites, U);
+    if (ON(F_DEHAZE_ACTIVE)) c = dehaze(c, b_structure, EFF(P_DEHAZE, M_DEHAZE));
     if (ON(F_CENTRE_ACTIVE)) c = centre_tonal_and_color(c, PV(P_CENTRE), cm);
 
     // global grade (shader.wgsl:1614-1631)
-    if (ON(F_WB_ACTIVE)) c = white_balance(c, u);
-    if (ON(F_BRIGHTNESS_ACTIVE)) c = filmic_exposure(c, brightness, u.br_scale, u.br_k);
+    if (ON(F_WB_ACTIVE)) {
+      if constexpr (MASKS) {
+        if (BLENDED(M_TEMPERATURE) || BLENDED(M_TINT)) {
+          wb_gains(EFF(P_TEMPERATURE, M_TEMPERATURE), EFF(P_TINT, M_TINT), lu.wb_r, lu.wb_g,
+                   lu.wb_b);
+        } else {
+          lu.wb_r = u.wb_r;
+          lu.wb_g = u.wb_g;
+          lu.wb_b = u.wb_b;
+        }
+      }
+      c = white_balance(c, U);
+    }
+    if (ON(F_BRIGHTNESS_ACTIVE)) c = filmic_exposure(c, brightness, U.br_scale, U.br_k);
     if (ON(F_TONAL_ACTIVE)) {
       const bool shadow_path = l_tonal != nullptr;
-      c = tonal_adjustments(c, shadow_path ? b_tonal : c, shadow_path, PV(P_CONTRAST),
-                            PV(P_SHADOWS), whites, PV(P_BLACKS), u);
+      const float contrast = EFF(P_CONTRAST, M_CONTRAST);
+      const float shadows = EFF(P_SHADOWS, M_SHADOWS), blacks = EFF(P_BLACKS, M_BLACKS);
+      if constexpr (MASKS) {
+        lu.con_strength = BLENDED(M_CONTRAST) ? con_strength_of(contrast) : u.con_strength;
+        lu.sh_factor = BLENDED(M_SHADOWS) ? sh_factor_of(shadows) : u.sh_factor;
+        lu.bl_factor = BLENDED(M_BLACKS) ? bl_factor_of(blacks) : u.bl_factor;
+      }
+      c = tonal_adjustments(c, shadow_path ? b_tonal : c, shadow_path, contrast, shadows, whites,
+                            blacks, U);
     }
-    if (ON(F_HIGHLIGHTS_ACTIVE)) c = highlights(c, PV(P_HIGHLIGHTS), u);
+    if (ON(F_HIGHLIGHTS_ACTIVE)) {
+      const float hl = EFF(P_HIGHLIGHTS, M_HIGHLIGHTS);
+      if constexpr (MASKS) {
+        if (BLENDED(M_HIGHLIGHTS)) {
+          hl_gains(hl, lu.hl_gamma, lu.hl_cstr, lu.hl_gain);
+        } else {
+          lu.hl_gamma = u.hl_gamma;
+          lu.hl_cstr = u.hl_cstr;
+          lu.hl_gain = u.hl_gain;
+        }
+      }
+      c = highlights(c, hl, U);
+    }
     if (ON(F_CALIBRATION_ACTIVE)) c = color_calibration(c, prm + P_CALIBRATION);
-    if (ON(F_HSL_ACTIVE)) c = hsl_panel(c, prm + P_HSL, bands);
-    if (ON(F_HUE_ACTIVE)) c = hue_shift(c, PV(P_HUE));
-    if (ON(F_CREATIVE_ACTIVE)) c = creative_color(c, PV(P_SATURATION), PV(P_VIBRANCE));
+    if (ON(F_HSL_ACTIVE))
+      c = hsl_panel<MASKS>(c, prm + P_HSL, bands,
+                           MASKS && ON(F_MASK_HSL_ACTIVE) ? &pm : nullptr);
+    if (ON(F_HUE_ACTIVE)) c = hue_shift(c, EFF(P_HUE, M_HUE));
+    if (ON(F_CREATIVE_ACTIVE))
+      c = creative_color(c, EFF(P_SATURATION, M_SATURATION), EFF(P_VIBRANCE, M_VIBRANCE));
     if (ON(F_CG_ACTIVE)) c = color_grading(c, prm + P_CG, PV(P_CG_BLENDING), PV(P_CG_BALANCE));
+    if constexpr (MASKS) {
+      if (ON(F_MASK_CG_ACTIVE)) {
+        for (int m = 0; m < pm.n; ++m) {
+          const float im = pm.influence(m);
+          if (im == 0.0f) continue;
+          const F3 graded = color_grading(c, pm.row(m) + M_CG, pm.scalar(m, M_CG_BLENDING),
+                                          pm.scalar(m, M_CG_BALANCE));
+          c = mix3(c, graded, im);
+        }
+      }
+    }
 
     // vignette (shader.wgsl:1645-1662)
     if (ON(F_VIGNETTE_ACTIVE))
@@ -916,7 +1109,23 @@ __global__ void __launch_bounds__(BX* BY, MIN_BLOCKS)
     else c = f3(linear_to_srgb(c.r), linear_to_srgb(c.g), linear_to_srgb(c.b));
 
     // point curves (shader.wgsl:1678-1697)
-    if (ON(F_CURVES_ACTIVE)) c = apply_curves(c, prm, nseg, ON(F_RGB_CURVES_MAYBE_ACTIVE));
+    const bool rgb_maybe = ON(F_RGB_CURVES_MAYBE_ACTIVE);
+    if (ON(F_CURVES_ACTIVE))
+      c = apply_curves(c, prm + P_CURVES_SEG, prm + P_CURVES_ENDS, prm + P_CURVES_ENABLED,
+                       prm + P_CURVES_RGB_ACTIVE, nseg, rgb_maybe);
+    if constexpr (MASKS) {
+      if (ON(F_MASK_CURVES_ACTIVE)) {
+        for (int m = 0; m < pm.n; ++m) {
+          const float im = pm.influence(m);
+          if (im == 0.0f) continue;
+          const float* mr = pm.row(m);
+          const F3 curved = apply_curves(c, mr + M_CURVES_SEG, mr + M_CURVES_ENDS,
+                                         mr + M_CURVES_ENABLED, mr + M_CURVES_RGB_ACTIVE, nseg,
+                                         rgb_maybe);
+          c = mix3(c, curved, im);
+        }
+      }
+    }
 
     // finish: grain -> clipping -> dither -> clamp (shader.wgsl:1699-1734)
     if (ON(F_GRAIN_ACTIVE))
@@ -932,6 +1141,8 @@ __global__ void __launch_bounds__(BX* BY, MIN_BLOCKS)
     out[i + plane] = clampf(c.g, 0.0f, 1.0f);
     out[i + 2 * plane] = clampf(c.b, 0.0f, 1.0f);
   }
+#undef EFF
+#undef BLENDED
 #undef PV
 #undef ON
 }
@@ -944,26 +1155,45 @@ extern "C" const char* rr_error_string(int err) {
 
 // Grade a (B, 3, H, W) batch on the wrapper's launch plan
 // (`grade_launch_plan` in pipeline/fused.py): the build for `min_blocks`
-// blocks per SM (4 or 6), `rows` rows per thread, a grid_x x grid_y x B
-// grid of 32 x 8 blocks. Absent blur levels are null pointers; the config
-// flags tell the kernel which stages read which level. A plan that leaves a
-// pixel uncovered, or names another build, is refused before launch.
+// blocks per SM (4 or 6; with masks, 4), `rows` rows per thread, a grid_x x
+// grid_y x B grid of 32 x 8 blocks. Absent blur levels are null pointers;
+// the config flags tell the kernel which stages read which level. With
+// `nmask` > 0 masks: the (B, nmask, H, W) influences, the (B, nmask, M_K)
+// mask params, the blend sets and the plan's `mask_smem` bytes of dynamic
+// shared memory. A plan that leaves a pixel uncovered, names another build
+// or another shared-memory size, or passes the block's shared memory, is
+// refused before launch.
 extern "C" int rr_grade(const float* img, const float* l_sharp, const float* l_tonal,
                         const float* l_clarity, const float* l_structure, const float* params,
                         float* out, unsigned flags, int nseg, unsigned bands,
                         int min_blocks, int rows, int grid_x, int grid_y, int B, int H, int W,
-                        float inv_w, float inv_h,
-                        float inv_scale, float aspect, void* stream) {
+                        float inv_w, float inv_h, float inv_scale, float aspect,
+                        const float* infl, const float* mparams, int nmask,
+                        const MaskBlend* blend, int mask_smem, void* stream) {
   if (rows < 1 || rows > MAX_ROWS || (min_blocks != 4 && min_blocks != 6))
     return (int)cudaErrorInvalidValue;
   if ((size_t)grid_x * BX < (size_t)W || (size_t)grid_y * BY * rows < (size_t)H ||
       grid_y > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
+  if (nmask < 0 || nmask > MAX_MASKS || blend == nullptr ||
+      mask_smem != nmask * M_SCALARS * (int)sizeof(float) ||
+      (nmask > 0 && (infl == nullptr || mparams == nullptr || min_blocks != 4)))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = nmask > 0          ? grade_kernel<4, true>
+                : min_blocks == 4 ? grade_kernel<4, false>
+                                  : grade_kernel<6, false>;
+  if (nmask > 0) {
+    // the static shared memory and the masks' together within a block's
+    // default 48 KB (at most 32 masks: ~3 KB)
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return (int)err;
+    if (attr.sharedSizeBytes + (size_t)mask_smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  }
   dim3 block(BX, BY);
   dim3 grid(grid_x, grid_y, B);
-  auto kernel = min_blocks == 4 ? grade_kernel<4> : grade_kernel<6>;
-  kernel<<<grid, block, 0, (cudaStream_t)stream>>>(img, l_sharp, l_tonal, l_clarity, l_structure,
-                                                   params, out, flags, nseg, bands, rows, H, W,
-                                                   inv_w, inv_h, inv_scale, aspect);
+  kernel<<<grid, block, mask_smem, (cudaStream_t)stream>>>(
+      img, l_sharp, l_tonal, l_clarity, l_structure, params, out, flags, nseg, bands, rows, H, W,
+      inv_w, inv_h, inv_scale, aspect, infl, mparams, nmask, *blend);
   return (int)cudaGetLastError();
 }

@@ -80,13 +80,20 @@ def _raw_hsl_influence(hue, center, width):
 
 
 def apply_hsl_panel(
-    rgb: torch.Tensor, hsl, band_active: tuple | None = None
+    rgb: torch.Tensor, hsl, mask_hsl=None, mask_influence=None,
+    band_active: tuple | None = None,
 ) -> torch.Tensor:
     """8-band hue/sat/luma mixer (shader.wgsl:628-684).
 
-    hsl: (8, 3) band params [hue, sat, lum]. `band_active` (static, from
-    DevelopConfig.hsl_band_active) skips bands whose params are all zero:
-    their terms are exactly zero. The normalizer still sums all 8 bands.
+    hsl: (8, 3) band params [hue, sat, lum]; mask_hsl: optional (N, 8, 3)
+    per-mask band params, mask_influence their (N, ...) influence maps.
+    `band_active` (static, from DevelopConfig.hsl_band_active, the union
+    over the global and the mask params) skips bands whose params are all
+    zero: their terms are exactly zero. The normalizer still sums all 8
+    bands. The shader sums global + mask band params per pixel before the
+    weighted totals; both reductions are linear, so the band weights are
+    contracted against the global and each mask's params separately, in
+    that order, as the JAX op does.
     """
     safe = torch.clamp_min(rgb, 0.0)
     h, s, v = cs.rgb_to_hsv(safe)
@@ -102,17 +109,24 @@ def apply_hsl_panel(
         total_raw = total_raw + r
     inv_total = 1.0 / total_raw
 
-    th = ts = tl = 0.0
-    for i in range(8):
-        if not active[i]:
-            continue
-        ni = raw_inf[i] * inv_total
-        th = th + hsl[i][0] * 2.0 * ni
-        ts = ts + hsl[i][1] * ni
-        tl = tl + hsl[i][2] * ni
-    total_hue = th * saturation_mask
-    total_sat = ts * saturation_mask
-    total_lum = tl * luminance_weight
+    def totals(band_params):  # (8, 3) -> three (...) maps
+        th = ts = tl = 0.0
+        for i in range(8):
+            if not active[i]:
+                continue
+            ni = raw_inf[i] * inv_total
+            th = th + band_params[i][0] * 2.0 * ni
+            ts = ts + band_params[i][1] * ni
+            tl = tl + band_params[i][2] * ni
+        return th * saturation_mask, ts * saturation_mask, tl * luminance_weight
+
+    total_hue, total_sat, total_lum = totals(hsl)
+    if mask_hsl is not None:
+        for n in range(len(mask_hsl)):
+            mh, ms, ml = totals(mask_hsl[n])
+            total_hue = total_hue + mask_influence[n] * mh
+            total_sat = total_sat + mask_influence[n] * ms
+            total_lum = total_lum + mask_influence[n] * ml
 
     new_sat_raw = s * (1.0 + total_sat)
     desat_val = original_luma * (1.0 + total_lum)

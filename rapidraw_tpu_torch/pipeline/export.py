@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from rapidraw_tpu_torch.params.parse import DevelopConfig
+from rapidraw_tpu_torch.pipeline.bands import blur_band_rows
 from rapidraw_tpu_torch.pipeline.batch import develop_batch, stack_params
 
 
@@ -24,8 +25,13 @@ def device_u16(x: torch.Tensor) -> torch.Tensor:
     return (torch.clamp(x, 0.0, 1.0) * 65535.0 + 0.5).to(torch.uint16)
 
 
-def develop_single(image: torch.Tensor, params: dict, cfg: DevelopConfig) -> torch.Tensor:
-    """One (3, H, W) image through the same batch-of-1 entry an export
-    chunk renders with, so single renders match batch renders exactly."""
+def develop_single(image: torch.Tensor, params: dict, cfg: DevelopConfig,
+                   masks=None) -> torch.Tensor:
+    """One (3, H, W) image (and its (N, H, W) mask influences) through the
+    same batch-of-1 entry an export chunk renders with, so single renders
+    match batch renders exactly; mask-only blur levels are band-restricted
+    as the JAX entry does."""
     sp, scfg = stack_params([params], [cfg], device=image.device)
-    return develop_batch(image[None], sp, scfg)[0]
+    bands = blur_band_rows(scfg, masks) if masks is not None else None
+    mk = torch.as_tensor(masks)[None] if masks is not None else None
+    return develop_batch(image[None], sp, scfg, masks=mk, blur_bands=bands)[0]

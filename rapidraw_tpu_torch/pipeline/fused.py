@@ -8,10 +8,17 @@ each image's params in one row of a (B, K) float32 matrix.
 
 Param layout: JAX packs the param pytree by sorted dict keys and trimmed
 curve shapes, which the CUDA side cannot know. Here one FIXED layout
-(`LAYOUT`, untrimmed 15-slot curves) defines every offset; the build emits
-them into a generated header (`grade_gen.h`) together with the
-DevelopConfig flag bits and the AgX curve constants, so the kernel never
-guesses an offset.
+(`LAYOUT`, untrimmed 15-slot curves) defines every offset, and a second
+one (`MASK_LAYOUT`) every offset of one mask's param set, a row of the
+(B, N, KM) mask-param tensor; the build emits both into a generated header
+(`grade_gen.h`) together with the DevelopConfig flag bits and the AgX
+curve constants, so the kernel never guesses an offset.
+
+Masks: the kernel takes the (B, N, H, W) influences as the caller gives
+them and gates them on load (`x > 0.001 ? x : 0`, JAX develop.py:120), the
+mask params, and which masks each field of `EFF_FIELDS` blends
+(`blend_bits`). Blur levels that only masks read may be computed over row
+bands (`blur_levels`, JAX develop.py:164-195).
 
 `grade` is the kernel wrapper: a CPU tensor runs `grade_plain` (the plain
 PyTorch chain of pipeline/grade.py), a CUDA tensor launches the kernel.
@@ -35,7 +42,12 @@ from rapidraw_tpu_torch.params import agx as agx_c
 from rapidraw_tpu_torch.params import scales
 from rapidraw_tpu_torch.params.curves import MAX_SEGMENTS
 from rapidraw_tpu_torch.params.parse import DevelopConfig
-from rapidraw_tpu_torch.pipeline.grade import finish_chain, grade_chain
+from rapidraw_tpu_torch.pipeline.grade import (
+    EFF_FIELDS,
+    blend_mask_indices,
+    finish_chain,
+    grade_chain,
+)
 
 BLUR_KEYS = ("sharp", "tonal", "clarity", "structure")
 
@@ -59,15 +71,28 @@ LAYOUT = (
 )
 
 
-def _offsets():
+def _offsets(layout):
     out, off = {}, 0
-    for path, shape in LAYOUT:
+    for path, shape in layout:
         out[path] = off
         off += math.prod(shape)
     return out, off
 
 
-OFFSETS, K = _offsets()
+OFFSETS, K = _offsets(LAYOUT)
+
+# One mask's param set, a row of the (B, N, KM) mask-param tensor: the
+# fields EFF_FIELDS blends (in that order, so a field's offset is also its
+# index in `blend_bits`), then the scalars the mask stages read; these
+# MASK_SCALARS lead the row and are the part the kernel stages in shared
+# memory. HSL, colour grading and curves follow.
+MASK_SCALARS = EFF_FIELDS + ("sharpness", "sharpness_threshold", "cg_blending", "cg_balance")
+MASK_LAYOUT = tuple((f, ()) for f in MASK_SCALARS) + (
+    ("hsl", (8, 3)), ("cg", (4, 3)),
+    ("curves/seg", (4, MAX_SEGMENTS, 7)), ("curves/ends", (4, 4)),
+    ("curves/enabled", (4,)), ("curves/rgb_active", ()),
+)
+M_OFFSETS, KM = _offsets(MASK_LAYOUT)
 
 # DevelopConfig booleans the kernel reads, in bit order.
 FLAGS = (
@@ -78,6 +103,7 @@ FLAGS = (
     "calibration_active", "hsl_active", "hue_active", "creative_active",
     "cg_active", "vignette_active", "curves_active",
     "rgb_curves_maybe_active", "grain_active", "dither_active",
+    "mask_sharpness_active", "mask_hsl_active", "mask_cg_active", "mask_curves_active",
 )
 # Not a DevelopConfig field: the wrapper sets it when the image it hands
 # the kernel is already linear (NR ran first), so the kernel skips the
@@ -91,31 +117,66 @@ def _leaf(tree: dict, path: str):
     return tree
 
 
+def _pack(stacked: dict, layout, lead: int) -> torch.Tensor:
+    cols = []
+    for path, shape in layout:
+        leaf = torch.as_tensor(_leaf(stacked, path), dtype=torch.float32)
+        if tuple(leaf.shape[lead:]) != shape:
+            raise ValueError(f"param {path!r}: shape {tuple(leaf.shape[lead:])}, layout {shape}")
+        cols.append(leaf.reshape(*leaf.shape[:lead], -1))
+    return torch.cat(cols, dim=lead).contiguous()
+
+
 def pack_rows(glob_stacked: dict) -> torch.Tensor:
     """(B, K) float32 matrix: image b's global params in row b, in LAYOUT
     order, on the leaves' device. Leaves carry a leading batch axis
     (stack_params output)."""
-    cols = []
-    for path, shape in LAYOUT:
-        leaf = torch.as_tensor(_leaf(glob_stacked, path), dtype=torch.float32)
-        if tuple(leaf.shape[1:]) != shape:
-            raise ValueError(f"param {path!r}: shape {tuple(leaf.shape[1:])}, layout {shape}")
-        cols.append(leaf.reshape(leaf.shape[0], -1))
-    return torch.cat(cols, dim=1).contiguous()
+    return _pack(glob_stacked, LAYOUT, 1)
 
 
-def unpack_row(row: torch.Tensor) -> dict:
-    """Rebuild one document's glob dict (tensor views) from a K-vector."""
+def pack_mask_rows(mask_stacked: dict) -> torch.Tensor:
+    """(B, N, KM) float32 tensor: image b's mask n's params in row [b, n],
+    in MASK_LAYOUT order. Leaves carry leading batch and mask axes
+    (stack_params output)."""
+    return _pack(mask_stacked, MASK_LAYOUT, 2)
+
+
+def _unpack(row: torch.Tensor, layout, offsets) -> dict:
     g: dict = {}
-    for path, shape in LAYOUT:
-        off = OFFSETS[path]
-        leaf = row[off : off + math.prod(shape)].reshape(shape)
+    for path, shape in layout:
+        off = offsets[path]
+        leaf = row[..., off : off + math.prod(shape)].reshape(tuple(row.shape[:-1]) + shape)
         node = g
         parts = path.split("/")
         for part in parts[:-1]:
             node = node.setdefault(part, {})
         node[parts[-1]] = leaf
     return g
+
+
+def unpack_row(row: torch.Tensor) -> dict:
+    """Rebuild one document's glob dict (tensor views) from a K-vector."""
+    return _unpack(row, LAYOUT, OFFSETS)
+
+
+def unpack_mask_rows(rows: torch.Tensor) -> dict:
+    """Rebuild one document's mask dict (leaves with a leading mask axis)
+    from its (N, KM) mask-param rows."""
+    return _unpack(rows, MASK_LAYOUT, M_OFFSETS)
+
+
+def blend_bits(cfg: DevelopConfig) -> tuple:
+    """Per field of EFF_FIELDS, the set of masks it blends as a 32-bit mask
+    (bit n: mask n). The kernel adds the terms in ascending mask order, the
+    order of `blend_mask_indices`, so a set in any other order is refused."""
+    bits = []
+    for f in EFF_FIELDS:
+        idx = tuple(blend_mask_indices(cfg, f))
+        if list(idx) != sorted(set(idx)) or any(not 0 <= n < cfg.mask_count for n in idx):
+            raise ValueError(f"field {f!r}: blend masks {idx} not ascending within "
+                             f"{cfg.mask_count} masks")
+        bits.append(sum(1 << n for n in idx))
+    return tuple(bits)
 
 
 def flag_bits(cfg: DevelopConfig, image_linear: bool = False) -> int:
@@ -134,6 +195,10 @@ def generated_header() -> str:
              "#pragma once", f"#define P_K {K}"]
     for path, _ in LAYOUT:
         lines.append(f"#define P_{path.replace('/', '_').upper()} {OFFSETS[path]}")
+    lines += [f"#define M_K {KM}", f"#define M_SCALARS {len(MASK_SCALARS)}",
+              f"#define M_BLEND {len(EFF_FIELDS)}", f"#define MAX_MASKS {scales.MAX_MASKS}"]
+    for path, _ in MASK_LAYOUT:
+        lines.append(f"#define M_{path.replace('/', '_').upper()} {M_OFFSETS[path]}")
     lines.append(f"#define MAX_SEGMENTS {MAX_SEGMENTS}")
     for i, name in enumerate(FLAGS):
         lines.append(f"#define F_{name.upper()} (1u << {i})")
@@ -171,7 +236,10 @@ _KERNEL = KernelLibrary("grade", header=generated_header(), extra_flags=("--fmad
 # memory: it takes the build for 6 blocks per SM (40 registers, more warps)
 # and 8 rows per thread. Measured on an H100 (PERF.md): config 3
 # (9 stages) 4.99 ms at 64 registers vs 5.31 at 40; config 5's linear image
-# (2 stages) 1.47 ms at 40 registers vs 1.59 at 64.
+# (2 stages) 1.47 ms at 40 registers vs 1.59 at 64. A document with masks
+# takes the mask build (`masks`), at 4 blocks per SM and 4 rows whatever
+# its stage count (the blend and the mask stages need the registers); it
+# stages each mask's MASK_SCALARS in `mask_smem` bytes of shared memory.
 GRADE_BLOCK = (32, 8)
 LONG_CHAIN = 6
 # DevelopConfig flags that are not stages of the chain
@@ -180,26 +248,34 @@ _NOT_STAGES = ("is_raw", "tonemapper_agx", "show_clipping", "rgb_curves_maybe_ac
 
 
 def grade_stages(cfg: DevelopConfig) -> int:
-    """How many stages of the grade chain the document turns on."""
-    return sum(bool(getattr(cfg, f)) for f in FLAGS if f not in _NOT_STAGES)
+    """How many stages of the grade chain the document turns on (the four
+    mask stages among them), plus one for the per-pixel blend of the mask
+    fields when the document has masks."""
+    stages = sum(bool(getattr(cfg, f)) for f in FLAGS if f not in _NOT_STAGES)
+    return stages + (cfg.mask_count > 0)
 
 
 def grade_launch_plan(b: int, h: int, w: int, cfg: DevelopConfig) -> dict:
     """The grade kernel's launch on a (b, 3, h, w) batch: the build (blocks
-    per SM), grid, rows per thread and the tile a block owns. rr_grade
-    refuses a grid that leaves a pixel out."""
+    per SM, masks or not), grid, rows per thread, the tile a block owns and
+    the shared memory of its mask scalars. rr_grade refuses a grid that
+    leaves a pixel out, and a plan whose shared memory differs or passes a
+    block's 48 KB."""
     bx, by = GRADE_BLOCK
-    long_chain = grade_stages(cfg) >= LONG_CHAIN
+    long_chain = grade_stages(cfg) >= LONG_CHAIN or cfg.mask_count > 0
     rows = 4 if long_chain else 8
     tile_h = by * rows
+    if cfg.mask_count > scales.MAX_MASKS:
+        raise ValueError(f"grade: {cfg.mask_count} masks, at most {scales.MAX_MASKS}")
+    mask_smem = 4 * len(MASK_SCALARS) * cfg.mask_count
     return {"block": GRADE_BLOCK, "min_blocks": 4 if long_chain else 6, "rows": rows,
-            "tile": (tile_h, bx), "grid": (-(-w // bx), -(-h // tile_h), b)}
+            "tile": (tile_h, bx), "grid": (-(-w // bx), -(-h // tile_h), b),
+            "masks": cfg.mask_count, "mask_smem": mask_smem}
 
 
 def check_supported(cfg: DevelopConfig) -> None:
-    """Raise NotImplementedError for documents outside this slice."""
+    """Raise NotImplementedError for documents outside the port's slices."""
     later = (
-        (cfg.mask_count > 0, "local masks (slice A.6)"),
         (cfg.has_lut, "the 3D LUT (slice A.8)"),
         (cfg.nr_active and (cfg.nr_static_luma is None or cfg.nr_static_color is None),
          "noise reduction with per-pixel amounts (slice A.8)"),
@@ -222,17 +298,27 @@ def blur_radii(cfg: DevelopConfig, w: int, h: int) -> dict:
     return {k: scales.blur_radius(base, scale) for k, flag, base in need if flag}
 
 
+def gate_influences(masks: torch.Tensor) -> torch.Tensor:
+    """Mask influences below the support threshold become exactly 0 (JAX
+    develop.py:120); the kernel does the same on load."""
+    return torch.where(masks > 0.001, masks, 0.0)
+
+
 def grade_plain(images: torch.Tensor, levels: dict, pmat: torch.Tensor,
-                cfg: DevelopConfig, image_linear: bool = False) -> torch.Tensor:
+                cfg: DevelopConfig, image_linear: bool = False,
+                masks: torch.Tensor | None = None,
+                mmat: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of the grade kernel, on the kernel's own inputs.
 
     images: (B, 3, H, W) in input space (sRGB, or linear when RAW), or
     linear when `image_linear`; levels: {key: (B, 3, H, W)} blur levels in
-    input space; pmat: (B, K).
+    input space; pmat: (B, K); with masks, masks: (B, N, H, W) influences
+    (gated here) and mmat: (B, N, KM) mask params.
     """
     b, _, h, w = images.shape
     scale = scales.resolution_scale(w, h)
     xs, ys = coord_maps(h, w, images.device)
+    gated = gate_influences(masks) if cfg.mask_count > 0 else None
 
     def lin(x):
         return x if cfg.is_raw else cs.srgb_to_linear(x)
@@ -240,20 +326,29 @@ def grade_plain(images: torch.Tensor, levels: dict, pmat: torch.Tensor,
     outs = []
     for i in range(b):
         g = unpack_row(pmat[i])
+        m = unpack_mask_rows(mmat[i]) if gated is not None else None
         blurs = {k: lin(levels[k][i]) if k in levels else None for k in BLUR_KEYS}
         image = images[i] if image_linear else lin(images[i])
         final = grade_chain(
             image, blurs["sharp"], blurs["tonal"], blurs["clarity"],
             blurs["structure"], g, cfg, xs, ys, w, h,
+            m=m, gated_infl=gated[i] if gated is not None else None,
         )
         outs.append(finish_chain(final, g, cfg, xs, ys, scale))
     return torch.stack(outs)
 
 
+class _Blend(ctypes.Structure):
+    """csrc/grade.cu's MaskBlend: per field of EFF_FIELDS, its masks' bits."""
+
+    _fields_ = [("bits", ctypes.c_uint * len(EFF_FIELDS))]
+
+
 def _grade_cuda(images: torch.Tensor, levels: dict, pmat: torch.Tensor,
-                cfg: DevelopConfig, image_linear: bool) -> torch.Tensor:
+                cfg: DevelopConfig, image_linear: bool, masks, mmat) -> torch.Tensor:
     b, c, h, w = images.shape
-    for name, t in [("images", images), ("params", pmat), *levels.items()]:
+    extra = [("masks", masks), ("mask params", mmat)] if cfg.mask_count > 0 else []
+    for name, t in [("images", images), ("params", pmat), *levels.items(), *extra]:
         if not t.is_contiguous():
             raise ValueError(f"grade kernel: {name} must be contiguous")
         if t.dtype != torch.float32 or t.device != images.device:
@@ -265,6 +360,10 @@ def _grade_cuda(images: torch.Tensor, levels: dict, pmat: torch.Tensor,
         raise ValueError(f"grade kernel: params shape {tuple(pmat.shape)}, want {(b, K)}")
     out = torch.empty_like(images)
     ptrs = [levels[k].data_ptr() if k in levels else None for k in BLUR_KEYS]
+    plan = grade_launch_plan(b, h, w, cfg)
+    blend = _Blend()
+    if cfg.mask_count > 0:
+        blend.bits[:] = blend_bits(cfg)
     lib = _KERNEL.lib()
     fn = lib.rr_grade
     fn.argtypes = (
@@ -272,11 +371,11 @@ def _grade_cuda(images: torch.Tensor, levels: dict, pmat: torch.Tensor,
         + [ctypes.c_uint, ctypes.c_int, ctypes.c_uint]
         + [ctypes.c_int] * 7
         + [ctypes.c_float] * 4
+        + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(_Blend), ctypes.c_int]
         + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     band_bits = sum(1 << i for i, on in enumerate(cfg.hsl_band_active) if on)
-    plan = grade_launch_plan(b, h, w, cfg)
     gx, gy, _ = plan["grid"]
     stream = torch.cuda.current_stream(images.device).cuda_stream
     status = fn(
@@ -285,7 +384,9 @@ def _grade_cuda(images: torch.Tensor, levels: dict, pmat: torch.Tensor,
         plan["min_blocks"], plan["rows"], gx, gy,
         # reciprocals taken in double, as PyTorch's CUDA division by a Python
         # scalar does in the plain chain
-        b, h, w, 1.0 / w, 1.0 / h, 1.0 / scales.resolution_scale(w, h), h / w, stream,
+        b, h, w, 1.0 / w, 1.0 / h, 1.0 / scales.resolution_scale(w, h), h / w,
+        masks.data_ptr() if extra else None, mmat.data_ptr() if extra else None,
+        plan["masks"], ctypes.byref(blend), plan["mask_smem"], stream,
     )
     _KERNEL.check(status, "rr_grade")
     grade.launches += 1
@@ -293,40 +394,85 @@ def _grade_cuda(images: torch.Tensor, levels: dict, pmat: torch.Tensor,
 
 
 def grade(images: torch.Tensor, levels: dict, pmat: torch.Tensor,
-          cfg: DevelopConfig, image_linear: bool = False) -> torch.Tensor:
+          cfg: DevelopConfig, image_linear: bool = False,
+          masks: torch.Tensor | None = None, mmat: torch.Tensor | None = None) -> torch.Tensor:
     """Grade + finish chain of a (B, 3, H, W) batch: the kernel wrapper.
 
     CPU tensor -> `grade_plain`; CUDA tensor -> one launch of
     csrc/grade.cu on `grade_launch_plan`, the batch on the grid. `image_linear`: the image is
     already linear (NR ran first); the blur levels stay in input space.
+    A document with masks also takes the (B, N, H, W) influences `masks`
+    (N = cfg.mask_count; gated by the kernel) and the (B, N, KM) mask
+    params `mmat`.
     """
     check_supported(cfg)
     if images.ndim != 4 or images.shape[1] != 3:
         raise ValueError(f"grade takes (B, 3, H, W) images, got {tuple(images.shape)}")
-    want = set(blur_radii(cfg, images.shape[3], images.shape[2]))
+    b, _, h, w = images.shape
+    want = set(blur_radii(cfg, w, h))
     if set(levels) != want:
         raise ValueError(f"grade: config reads blur levels {sorted(want)}, got {sorted(levels)}")
+    if cfg.mask_count > 0:
+        n = cfg.mask_count
+        if masks is None or tuple(masks.shape) != (b, n, h, w):
+            raise ValueError(f"grade: a config with {n} masks takes (B, N, H, W) = "
+                             f"{(b, n, h, w)} influences, got "
+                             f"{None if masks is None else tuple(masks.shape)}")
+        if mmat is None or tuple(mmat.shape) != (b, n, KM):
+            raise ValueError(f"grade: mask params shape "
+                             f"{None if mmat is None else tuple(mmat.shape)}, want {(b, n, KM)}")
     if images.device.type == "cpu":
-        return grade_plain(images, levels, pmat, cfg, image_linear)
+        return grade_plain(images, levels, pmat, cfg, image_linear, masks, mmat)
     if images.device.type != "cuda":
         raise ValueError(f"grade runs on CPU or CUDA tensors, got {images.device}")
-    return _grade_cuda(images, levels, pmat, cfg, image_linear)
+    return _grade_cuda(images, levels, pmat, cfg, image_linear, masks, mmat)
 
 
 # launch count of the grade kernel: one per rr_grade call
 grade.launches = 0
 
 
-def blur_levels(images: torch.Tensor, cfg: DevelopConfig) -> dict:
+def blur_levels(images: torch.Tensor, cfg: DevelopConfig, blur_bands=None) -> dict:
     """The pyramid levels of a (B, 3, H, W) batch in input space, batched
-    by folding B into the channel axis: one blur launch for all levels."""
+    by folding B into the channel axis: one blur launch for the full-height
+    levels, and one per band group.
+
+    A level listed in `blur_bands` (only masks read it) is blurred over
+    its band [y0, y1) plus a halo of the group's largest radius, so its
+    band rows equal the full-image blur (the edge clamp only ever lands in
+    the halo); its other rows are zeros, which the amount-gated consumers
+    never select. Levels share a launch only where their bands coincide
+    (JAX develop.py:172-195).
+    """
     b, c, h, w = images.shape
     radii = blur_radii(cfg, w, h)
     if not radii:
         return {}
+    # the bands that apply: levels this config reads, inside the image and
+    # shorter than it (JAX develop.py:164-171)
+    bands = {k: (y0, y1) for k, y0, y1 in (blur_bands or ())
+             if k in radii and 0 <= y0 < y1 <= h and (y1 - y0) < h}
     flat = images.reshape(b * c, h, w)
-    out = gaussian_blur_multi(flat, tuple(radii.values()))
-    return {k: lv.reshape(b, c, h, w) for k, lv in zip(radii, out)}
+    out = {}
+    full = [k for k in radii if k not in bands]
+    if full:
+        out.update(zip(full, gaussian_blur_multi(flat, tuple(radii[k] for k in full))))
+    groups: dict = {}
+    for k in radii:
+        if k in bands:
+            groups.setdefault(bands[k], []).append(k)
+    for (y0, y1), keys in groups.items():
+        rmax = max(radii[k] for k in keys)
+        lo, hi = max(0, y0 - rmax), min(h, y1 + rmax)
+        # the blur kernel takes a contiguous source: the slab is copied
+        slab = flat[:, lo:hi].contiguous()
+        for k, lv in zip(keys, gaussian_blur_multi(slab, tuple(radii[k] for k in keys))):
+            level = torch.empty_like(flat)
+            level[:, :y0] = 0.0
+            level[:, y1:] = 0.0
+            level[:, y0:y1] = lv[:, y0 - lo : y1 - lo]
+            out[k] = level
+    return {k: out[k].reshape(b, c, h, w) for k in radii}
 
 
 def prepare_inputs(images: torch.Tensor, cfg: DevelopConfig) -> tuple[torch.Tensor, bool]:
@@ -354,25 +500,41 @@ def prepare_inputs(images: torch.Tensor, cfg: DevelopConfig) -> tuple[torch.Tens
     return nr, True
 
 
-def develop_fused_batch(images: torch.Tensor, params: dict, cfg: DevelopConfig) -> torch.Tensor:
+def develop_fused_batch(images: torch.Tensor, params: dict, cfg: DevelopConfig,
+                        masks: torch.Tensor | None = None, blur_bands=None) -> torch.Tensor:
     """Develop a (B, 3, H, W) batch: CA and NR (`prepare_inputs`), the
-    blur pyramid of the original images, one grade launch.
+    blur pyramid of the original images (band-restricted levels per
+    `blur_bands`), one grade launch.
 
     params: stacked params (stack_params), leaves with a leading B axis.
+    masks: (B, N, H, W) mask influences when cfg.mask_count = N > 0 (an
+    image with fewer masks has zero influence in the rest: exact no-ops).
     The JAX package develops a CA or NR batch image by image
     (`fusable_batched`); the params are per row here, so one launch of
     each kernel serves the whole batch with the same per-image results.
     """
     check_supported(cfg)
     pmat = pack_rows(params["glob"]).to(images.device)
+    mmat = None
+    if cfg.mask_count > 0:
+        if masks is None or params["mask"] is None:
+            raise ValueError(f"a config with {cfg.mask_count} masks needs their influences "
+                             "and stacked mask params")
+        mmat = pack_mask_rows(params["mask"]).to(images.device)
+        masks = torch.as_tensor(masks, dtype=torch.float32, device=images.device).contiguous()
     image, linear = prepare_inputs(images, cfg)
-    return grade(image, blur_levels(images, cfg), pmat, cfg, image_linear=linear)
+    levels = blur_levels(images, cfg, blur_bands)
+    return grade(image, levels, pmat, cfg, image_linear=linear, masks=masks, mmat=mmat)
 
 
-def develop_fused(image: torch.Tensor, params: dict, cfg: DevelopConfig) -> torch.Tensor:
-    """One (3, H, W) image through the batched path with B = 1."""
-    glob = {"glob": _add_batch_axis(params["glob"])}
-    return develop_fused_batch(image[None], glob, cfg)[0]
+def develop_fused(image: torch.Tensor, params: dict, cfg: DevelopConfig,
+                  masks: torch.Tensor | None = None, blur_bands=None) -> torch.Tensor:
+    """One (3, H, W) image (masks (N, H, W)) through the batched path with
+    B = 1."""
+    batched = {"glob": _add_batch_axis(params["glob"]),
+               "mask": None if params["mask"] is None else _add_batch_axis(params["mask"])}
+    mk = None if masks is None else torch.as_tensor(masks)[None]
+    return develop_fused_batch(image[None], batched, cfg, masks=mk, blur_bands=blur_bands)[0]
 
 
 def _add_batch_axis(tree):

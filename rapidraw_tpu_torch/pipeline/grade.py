@@ -1,10 +1,13 @@
 """The per-pixel grade chain as plain PyTorch — the plain version of the
 CUDA grade kernel (csrc/grade.cu).
 
-Port of `rapidraw_tpu/pipeline/grade.py` for documents without masks or
-flare (those are later slices). Stage order is shader.wgsl main
-(:1555-1734). Spatially-dependent stages (centre, vignette, grain, dither)
-take absolute pixel-coordinate maps.
+Port of `rapidraw_tpu/pipeline/grade.py` for documents without flare or
+a LUT (a later slice). Stage order is shader.wgsl main (:1555-1734).
+Spatially-dependent stages (centre, vignette, grain, dither) take absolute
+pixel-coordinate maps. With masks, each field of `EFF_FIELDS` that a mask
+sets becomes a per-pixel map (global + sum of mask value x influence), and
+the mask stages (sharpness delta, HSL, colour grading, curves) blend each
+mask's own result by its influence.
 """
 
 from __future__ import annotations
@@ -19,6 +22,42 @@ from rapidraw_tpu_torch.ops import tone as tone_ops
 from rapidraw_tpu_torch.ops.common import as_t, fpow, mix, smoothstep
 from rapidraw_tpu_torch.ops.grain import apply_grain, dither_from_coords
 from rapidraw_tpu_torch.params.parse import DevelopConfig
+
+# fields blended per-pixel by mask influence (shader.wgsl:1503-1525)
+EFF_FIELDS = (
+    "exposure", "brightness", "contrast", "highlights", "shadows", "whites",
+    "blacks", "saturation", "temperature", "tint", "vibrance", "luma_nr",
+    "color_nr", "clarity", "dehaze", "structure", "glow", "halation",
+    "flare", "hue",
+)
+
+
+def blend_mask_indices(cfg: DevelopConfig, f: str) -> tuple:
+    """The masks whose value for field f is non-zero, in mask order (the
+    other masks' terms are exactly zero and are skipped)."""
+    if f not in cfg.mask_blend_fields:
+        return ()
+    i = cfg.mask_blend_fields.index(f)
+    if i < len(cfg.mask_blend_masks):
+        return cfg.mask_blend_masks[i]
+    return tuple(range(cfg.mask_count))  # configs without the per-field sets: blend all
+
+
+def effective_params(g: dict, m: dict | None, gated_infl, cfg: DevelopConfig) -> dict:
+    """t_x = global.x + sum_i mask_i.x * influence_i (shader.wgsl:1498-1536),
+    summed in mask order."""
+    eff = {}
+    for f in EFF_FIELDS:
+        v = g[f]
+        if cfg.mask_count > 0:
+            for n in blend_mask_indices(cfg, f):
+                v = v + gated_infl[n] * m[f][n]
+        eff[f] = v
+    return eff
+
+
+def _mask_curve_set(mask_curves: dict, n: int) -> dict:
+    return {k: v[n] for k, v in mask_curves.items()}
 
 
 def apply_vignette(rgb, xs, ys, w_full, h_full, amount, midpoint, roundness, feather):
@@ -50,13 +89,18 @@ def grade_chain(
     ys: torch.Tensor,
     w_full: int,
     h_full: int,
+    m: dict | None = None,
+    gated_infl: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Linear input -> post-curves sRGB (shader.wgsl:1555-1697).
 
     Blur inputs are LINEAR pyramid levels (None when the config needs none);
-    g holds one document's global params as tensors.
+    g holds one document's global params as tensors, m its per-mask params
+    (leaves with a leading mask axis) and gated_infl the (N, H, W) mask
+    influences, zero below 0.001 (both None without masks).
     """
     is_raw = cfg.is_raw
+    eff = effective_params(g, m, gated_infl, cfg)
     centre_mask = None
     if cfg.centre_active:
         centre_mask = local_ops.centre_mask_from_coords(xs, ys, w_full, h_full)
@@ -66,52 +110,73 @@ def grade_chain(
         rgb = local_ops.apply_local_contrast(
             rgb, sharp_blur, g["sharpness"], is_raw, 0, g["sharpness_threshold"]
         )
+    if cfg.mask_sharpness_active:
+        delta = torch.zeros_like(rgb)
+        for n in range(cfg.mask_count):
+            res = local_ops.apply_local_contrast(
+                initial_linear, sharp_blur, m["sharpness"][n], is_raw, 0,
+                m["sharpness_threshold"][n],
+            )
+            contrib = (res - initial_linear) * gated_infl[n]
+            delta = delta + torch.where(torch.abs(m["sharpness"][n]) > 0.001, contrib, 0.0)
+        rgb = rgb + delta
     if cfg.clarity_active:
-        rgb = local_ops.apply_local_contrast(rgb, clarity_blur, g["clarity"], is_raw, 1, 0.0)
+        rgb = local_ops.apply_local_contrast(rgb, clarity_blur, eff["clarity"], is_raw, 1, 0.0)
     if cfg.structure_active:
-        rgb = local_ops.apply_local_contrast(rgb, structure_blur, g["structure"], is_raw, 1, 0.0)
+        rgb = local_ops.apply_local_contrast(rgb, structure_blur, eff["structure"], is_raw, 1, 0.0)
     if cfg.centre_active:
         rgb = local_ops.apply_centre_local_contrast(
             rgb, g["centre"], clarity_blur, is_raw, centre_mask
         )
 
     if cfg.exposure_active:
-        rgb = tone_ops.apply_linear_exposure(rgb, g["exposure"])
+        rgb = tone_ops.apply_linear_exposure(rgb, eff["exposure"])
     if cfg.glow_active:
         rgb = local_ops.apply_glow_bloom(
-            rgb, structure_blur, g["glow"], g["exposure"], g["brightness"], g["whites"]
+            rgb, structure_blur, eff["glow"], eff["exposure"], eff["brightness"], eff["whites"]
         )
     if cfg.halation_active:
         rgb = local_ops.apply_halation(
-            rgb, clarity_blur, g["halation"], g["exposure"], g["brightness"], g["whites"]
+            rgb, clarity_blur, eff["halation"], eff["exposure"], eff["brightness"],
+            eff["whites"],
         )
     if cfg.dehaze_active:
-        rgb = local_ops.apply_dehaze(rgb, structure_blur, g["dehaze"])
+        rgb = local_ops.apply_dehaze(rgb, structure_blur, eff["dehaze"])
     if cfg.centre_active:
         rgb = local_ops.apply_centre_tonal_and_color(rgb, g["centre"], centre_mask)
 
     if cfg.wb_active:
-        rgb = color_ops.apply_white_balance(rgb, g["temperature"], g["tint"])
+        rgb = color_ops.apply_white_balance(rgb, eff["temperature"], eff["tint"])
     if cfg.brightness_active:
-        rgb = tone_ops.apply_filmic_exposure(rgb, g["brightness"])
+        rgb = tone_ops.apply_filmic_exposure(rgb, eff["brightness"])
     if cfg.tonal_active:
         rgb = tone_ops.apply_tonal_adjustments(
             rgb, tonal_blur if tonal_blur is not None else rgb,
-            g["contrast"], g["shadows"], g["whites"], g["blacks"],
+            eff["contrast"], eff["shadows"], eff["whites"], eff["blacks"],
             shadow_path=tonal_blur is not None,
         )
     if cfg.highlights_active:
-        rgb = tone_ops.apply_highlights(rgb, g["highlights"])
+        rgb = tone_ops.apply_highlights(rgb, eff["highlights"])
     if cfg.calibration_active:
         rgb = color_ops.apply_color_calibration(rgb, g["calibration"])
     if cfg.hsl_active:
-        rgb = color_ops.apply_hsl_panel(rgb, g["hsl"], band_active=cfg.hsl_band_active)
+        mask_hsl = cfg.mask_hsl_active and cfg.mask_count > 0
+        rgb = color_ops.apply_hsl_panel(
+            rgb, g["hsl"], m["hsl"] if mask_hsl else None,
+            gated_infl if mask_hsl else None, band_active=cfg.hsl_band_active,
+        )
     if cfg.hue_active:
-        rgb = color_ops.apply_hue_shift(rgb, g["hue"])
+        rgb = color_ops.apply_hue_shift(rgb, eff["hue"])
     if cfg.creative_active:
-        rgb = color_ops.apply_creative_color(rgb, g["saturation"], g["vibrance"])
+        rgb = color_ops.apply_creative_color(rgb, eff["saturation"], eff["vibrance"])
     if cfg.cg_active:
         rgb = color_ops.apply_color_grading(rgb, g["cg"], g["cg_blending"], g["cg_balance"])
+    if cfg.mask_cg_active:
+        for n in range(cfg.mask_count):
+            graded = color_ops.apply_color_grading(
+                rgb, m["cg"][n], m["cg_blending"][n], m["cg_balance"][n]
+            )
+            rgb = mix(rgb, graded, gated_infl[n])
 
     if cfg.vignette_active:
         rgb = apply_vignette(
@@ -131,6 +196,13 @@ def grade_chain(
         final = curve_ops.apply_all_curves(
             final, g["curves"], cfg.curve_segments, cfg.rgb_curves_maybe_active
         )
+    if cfg.mask_curves_active:
+        for n in range(cfg.mask_count):
+            curved = curve_ops.apply_all_curves(
+                final, _mask_curve_set(m["curves"], n), cfg.curve_segments,
+                cfg.rgb_curves_maybe_active,
+            )
+            final = mix(final, curved, gated_infl[n])
     return final
 
 

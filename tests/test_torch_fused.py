@@ -125,13 +125,14 @@ def test_plain_grade_takes_the_kernel_inputs():
 
 
 # Each case: the batch's documents, then the error and the text it names.
-# CA and static NR are developed since the stencil slice; what stays
-# outside is a batch of mixed CA amounts (one compile cannot hold two, as
-# in JAX) and mixed NR amounts (JAX's per-pixel gather path, slice A.8).
+# CA and static NR are developed since the stencil slice, masks since slice
+# A.6; what stays outside is a batch of mixed CA amounts (one compile
+# cannot hold two, as in JAX), mixed NR amounts and NR that a mask drives
+# (JAX's per-pixel gather path, slice A.8).
 UNSUPPORTED = {
     "masks (slice A.6)": (
-        [{"masks": [{"visible": True, "adjustments": {"exposure": 1.0}}]}],
-        NotImplementedError, "slice A.6"),
+        [{"masks": [{"visible": True, "adjustments": {"lumaNoiseReduction": 30}}]}],
+        NotImplementedError, "per-pixel amounts \\(slice A.8\\)"),
     "LUT (slice A.8)": ([{"lutPath": "x.cube"}], NotImplementedError, "slice A.8"),
     "chromatic aberration (slice A.8)": (
         [{"chromaticAberrationRedCyan": 10}, {"chromaticAberrationRedCyan": 20}],

@@ -26,6 +26,8 @@ tiling, and the exact libm rewrite.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -62,10 +64,11 @@ def covered(plan: dict, h: int, w: int) -> np.ndarray:
 
 SHORT_CHAIN = {"exposure": 0.3, "sharpness": 20}
 LONG_CHAIN = dict(chip_smoke.CONFIG3_DOC)
+MASKED = chip_smoke.config4_doc(64, 96)
 
 
 @pytest.mark.parametrize("b,h,w", RAGGED)
-@pytest.mark.parametrize("doc", [SHORT_CHAIN, LONG_CHAIN], ids=["short", "long"])
+@pytest.mark.parametrize("doc", [SHORT_CHAIN, LONG_CHAIN, MASKED], ids=["short", "long", "masks"])
 def test_grade_plan_covers_every_pixel_once(b, h, w, doc):
     plan = fused.grade_launch_plan(b, h, w, parse_adjustments(doc)[1])
     assert plan["grid"][2] == b
@@ -85,6 +88,27 @@ def test_grade_plan_picks_the_build_by_chain_length():
     assert [(p["min_blocks"], p["rows"]) for p in plans] == [(6, 8), (4, 4)]
     src = (CSRC / "grade.cu").read_text()
     assert "min_blocks != 4 && min_blocks != 6" in src and "MAX_ROWS = 16" in src
+
+
+def test_grade_plan_gives_masks_their_build():
+    """A document with masks takes the mask build at 4 blocks per SM and 4
+    rows per thread whatever its stage count, with 4 bytes per staged mask
+    scalar of shared memory; rr_grade refuses any other size, a short
+    budget with masks and more than MAX_MASKS masks; the plan refuses more
+    masks first."""
+    cfg = parse_adjustments(MASKED)[1]
+    assert fused.grade_stages(cfg) < fused.LONG_CHAIN
+    plan = fused.grade_launch_plan(2, 4096, 6144, cfg)
+    assert (plan["min_blocks"], plan["rows"], plan["masks"]) == (4, 4, 3)
+    assert plan["mask_smem"] == 3 * len(fused.MASK_SCALARS) * 4
+    assert fused.grade_launch_plan(2, 64, 96, parse_adjustments(SHORT_CHAIN)[1])["mask_smem"] == 0
+    src = (CSRC / "grade.cu").read_text()
+    assert "mask_smem != nmask * M_SCALARS * (int)sizeof(float)" in src
+    assert "nmask > MAX_MASKS" in src and "min_blocks != 4)))" in src
+    assert "attr.sharedSizeBytes + (size_t)mask_smem > 48 * 1024" in src
+    too_many = dataclasses.replace(cfg, mask_count=fused.scales.MAX_MASKS + 1)
+    with pytest.raises(ValueError, match="masks"):
+        fused.grade_launch_plan(1, 8, 8, too_many)
 
 
 @pytest.mark.parametrize("b,h,w", RAGGED)

@@ -91,6 +91,7 @@ def test_chip_smoke_docs_are_the_bench_and_test_docs():
 
     assert chip_smoke.CONFIG1_DOC == BENCH["_CONFIG1_DOC"]
     assert chip_smoke.CONFIG3_DOC == BENCH["_CONFIG3_DOC"]
+    assert chip_smoke.CONFIG4_DOC == BENCH["_CONFIG4_DOC"]
     assert chip_smoke.FULL_DOC == FULL_DOC
 
 

@@ -5,8 +5,10 @@ Float output with dither off: max |d| <= 1e-3 (ROADMAP's parity bar).
 u8 with dither on (the real export path): at most 1 LSB, on at most 0.1%
 of the values — the dither hash is fract() of large products, and the
 jitted JAX graph rounds some of them differently.
-Also: importing the port leaves JAX out, and chip_smoke.py refuses to run
-without a GPU.
+Config 4 (local masks) at 1024 x 1536 and a batch of documents with 3, 1
+and 0 masks are held to the same bounds.
+Also: importing the port leaves JAX (and PIL) out, and chip_smoke.py
+refuses to run without a GPU.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 import chip_smoke
 from rapidraw_tpu.params.parse import parse_adjustments as jparse
 from rapidraw_tpu.pipeline.batch import develop_batch as jdevelop_batch
+from rapidraw_tpu.pipeline.bands import blur_band_rows as jblur_band_rows
 from rapidraw_tpu.pipeline.batch import stack_params as jstack
 from rapidraw_tpu.pipeline.export import _device_u8
 import rapidraw_tpu_torch as rt
@@ -43,20 +46,31 @@ def batch(seed=11, b=2):
     return rng.random((b, 3, H, W), dtype=np.float32)
 
 
-def jax_run(docs, x, dither: bool):
+def jax_run(docs, x, dither: bool, masks=None):
     parsed = [jparse(d) for d in docs]
     p, c = jstack([q for q, _ in parsed], [k for _, k in parsed])
     c = dataclasses.replace(c, dither_active=dither)
-    out = jax.jit(lambda im, q: jdevelop_batch(im, q, c))(jnp.asarray(x), p)
+    bands = jblur_band_rows(c, masks)
+    out = jax.jit(lambda im, q, mk: jdevelop_batch(im, q, c, masks=mk, blur_bands=bands))(
+        jnp.asarray(x), p, None if masks is None else jnp.asarray(masks))
     return np.asarray(out), np.asarray(_device_u8(out))
 
 
-def port_run(docs, x, dither: bool):
+def port_run(docs, x, dither: bool, masks=None):
     parsed = [rt.parse_adjustments(d) for d in docs]
     p, c = rt.stack_params([q for q, _ in parsed], [k for _, k in parsed], device="cpu")
     c = dataclasses.replace(c, dither_active=dither)
-    out = rt.develop_batch(torch.from_numpy(x), p, c)
+    bands = rt.blur_band_rows(c, masks)
+    out = rt.develop_batch(torch.from_numpy(x), p, c,
+                           masks=None if masks is None else torch.from_numpy(masks),
+                           blur_bands=bands)
     return out.numpy(), rt.device_u8(out).numpy()
+
+
+def assert_u8_close(got, want):
+    d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    assert d.max() <= 1
+    assert (d > 0).mean() <= 1e-3
 
 
 @pytest.mark.parametrize("name", ["config1", "config3", "full"])
@@ -84,6 +98,46 @@ def test_slice_u8_matches_jax():
         d = np.abs(got.astype(np.int16) - ref.astype(np.int16))
         assert d.max() <= 1
         assert (d > 0).mean() <= 1e-3
+
+
+def test_config4_matches_jax():
+    """JSON -> rasterize_masks -> blur_band_rows -> stack_params ->
+    develop_batch -> device_u8 at 1024 x 1536, both mask-only levels
+    band-restricted: float (dither off) within 1e-3, u8 (dither on) within
+    1 LSB on at most 0.1% of the values."""
+    h, w = 1024, 1536
+    doc = chip_smoke.config4_doc(h, w)
+    docs = [doc, dict(doc, exposure=-0.3)]
+    masks = rt.rasterize_masks(doc, w, h)
+    mk = np.stack([masks, masks])
+    x = np.random.default_rng(14).random((2, 3, h, w), dtype=np.float32)
+    assert rt.blur_band_rows(rt.parse_adjustments(doc)[1], mk) is not None
+    want, _ = jax_run(docs, x, dither=False, masks=mk)
+    got, _ = port_run(docs, x, dither=False, masks=mk)
+    np.testing.assert_allclose(got, want, atol=1e-3)
+    _, want_u8 = jax_run(docs, x, dither=True, masks=mk)
+    _, got_u8 = port_run(docs, x, dither=True, masks=mk)
+    assert_u8_close(got_u8, want_u8)
+
+
+def test_mixed_mask_counts_match_jax():
+    """A batch of documents with 3, 1 and 0 masks: the stacks pad to 3
+    masks with zero adjustments and the influences with zeros."""
+    h, w = 128, 192
+    doc3 = chip_smoke.config4_doc(h, w)
+    docs = [doc3, dict(doc3, masks=doc3["masks"][1:2]), dict(chip_smoke.CONFIG3_DOC)]
+    mk = np.zeros((3, 3, h, w), np.float32)
+    for i, d in enumerate(docs):
+        m = rt.rasterize_masks(d, w, h)
+        if m is not None:
+            mk[i, : len(m)] = m
+    x = batch(seed=15, b=3)
+    want, want_u8 = jax_run(docs, x, dither=True, masks=mk)
+    got, got_u8 = port_run(docs, x, dither=True, masks=mk)
+    assert_u8_close(got_u8, want_u8)
+    want, _ = jax_run(docs, x, dither=False, masks=mk)
+    got, _ = port_run(docs, x, dither=False, masks=mk)
+    np.testing.assert_allclose(got, want, atol=1e-3)
 
 
 def test_develop_single_is_the_batch_of_one():
@@ -136,10 +190,12 @@ def test_import_leaves_jax_out():
         "rapidraw_tpu_torch.ops.blur, rapidraw_tpu_torch.pipeline.fused, "
         "rapidraw_tpu_torch.ops.nr, rapidraw_tpu_torch.ops.ca, "
         "rapidraw_tpu_torch.geometry.transforms, rapidraw_tpu_torch.geometry.warp_fast, "
-        "rapidraw_tpu_torch.tools.prof_chunked, rapidraw_tpu_torch.tools.prof_nr_slices\n"
+        "rapidraw_tpu_torch.tools.prof_chunked, rapidraw_tpu_torch.tools.prof_nr_slices, "
+        "rapidraw_tpu_torch.masks.rasterize, rapidraw_tpu_torch.masks.parametric, "
+        "rapidraw_tpu_torch.pipeline.bands\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'rapidraw_tpu' or m.startswith('rapidraw_tpu.')"
-        " or m == 'tools' or m.startswith('tools.')]\n"
+        " or m == 'tools' or m.startswith('tools.') or m == 'PIL' or m.startswith('PIL.')]\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
