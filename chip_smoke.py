@@ -3,7 +3,8 @@
     python3 chip_smoke.py [--quick] [--out DIR] [--profile]
 
 Phases: (1) the card's name and power limit; (2) build the six CUDA
-kernels from rapidraw_tpu_torch/csrc, one nvcc each, all started together;
+kernels from rapidraw_tpu_torch/csrc, one nvcc each, and the host
+lossless-JPEG decoder (csrc/host/ljpeg.cc, g++), all started together;
 (3) the blur kernel against its plain PyTorch version at 24 MP, with a
 case at each main path's shapes, one in each of its two regimes (the
 launch plan fuses small radii into one pass and gives larger ones two),
@@ -32,7 +33,27 @@ config 4 and on a five-mask document that turns on every mask stage
 plain blur of the whole frame, and JSON -> rasterize_masks ->
 blur_band_rows -> stack_params -> develop_batch -> device_u8 -> host numpy
 for B = 1 and 2 (counters reset and read around it; the mask upload, the
-device part and the readback timed apart), plus its small-input check.
+device part and the readback timed apart), plus its small-input check;
+(11) config 2, RAW: an RGGB DNG of random u16 samples from a seed (with a
+colour matrix and as-shot white balance), a 14-bit bit-packed copy, an
+Orientation = 6 copy and a lossless-JPEG tiled file, written to a
+temporary directory; the host parse of
+each, the u16 upload, the front end (normalize .. orientation) and the
+enhance pass timed apart with their bounds; the blur and grade kernels
+against their plain versions on the RAW images (is_raw), the blur also
+against one depthwise conv2d per radius; DNG ->
+load_image -> parse_adjustments(is_raw=True) -> stack_params ->
+develop_batch -> device_u8 -> host numpy for B = 1 and 2 on `{}` (grade
+only) and CONFIG3_DOC (blur + grade) and the fast thumbnail path, counters
+reset and read around each (grade once per develop call, blur once with
+CONFIG3_DOC and never with `{}`); e2e ms/image and MPix/s beside the
+develop device part and the readback; a 1024 x 1536 file on the card
+against the plain CPU path (the front end bit for bit, u8 within 1 LSB on
+<= 0.1% of values, the enhance gate flips counted); and an X-Trans RAF at
+the same size: its host parse, the front end's first frame (site masks
+built) and later frames (masks resident, the cache checked), the
+CONFIG3_DOC path from the file with its launches counted, and a
+1024 x 1536 RAF on the card against the plain CPU path.
 Each kernel line carries its time, its plain version's time and its bound
 (bytes over the HBM rate or operations over the float32 peak, whichever is
 larger). It prints a kernels JSON line (top level: each kernel's numbers
@@ -43,11 +64,12 @@ then as its last line {"ok": true, "device": {...}}.
 Any failed check raises, so the process exits non-zero; without a CUDA
 device it exits non-zero before printing any result.
 
---quick runs phases 3-8 and 10 at 1024x1536 with fewer repetitions (a
+--quick runs phases 3-8, 10 and 11 at 1024x1536 with fewer repetitions (a
 first check of a new kernel). --out DIR writes the nvcc/ptxas logs there.
---profile adds a torch.profiler pass over the config-3, config-5 and
-config-4 main paths: kernel time by name and the device busy share (and
-chrome traces in --out). Imports torch, numpy and rapidraw_tpu_torch only.
+--profile adds a torch.profiler pass over the config-3, config-5,
+config-4 and config-2 main paths: kernel time by name and the device busy
+share (and chrome traces in --out). Imports torch, numpy and
+rapidraw_tpu_torch only.
 """
 
 from __future__ import annotations
@@ -271,6 +293,141 @@ def mask_stage_doc(h: int, w: int) -> dict:
         ],
     }
 
+# BASELINE config 2: Bayer RAW develop, RGGB, black 64, white 16383
+# (bench.py's _minimal_dng), with bench.py's _bench_raw colour matrix
+# (XYZ -> camera) and as-shot white balance, so that neither is the identity.
+RAW_XYZ_TO_CAM = ((9000, -3000, -500), (-4000, 12000, 2000), (-500, 2000, 6500))  # / 10000
+RAW_AS_SHOT_NEUTRAL = ((10, 21), (1, 1), (20, 31))  # 1 / (2.1, 1.0, 1.55)
+RAW_BLACK, RAW_WHITE = 64, 16383
+
+
+def pack_msb(cfa: np.ndarray, bits: int) -> bytes:
+    """MSB-first bit packing of (H, W) samples, rows padded to a byte (TIFF
+    6.0, as DNG packs 10/12/14-bit CFAs), vectorized: a group of g samples
+    fills g * bits / 8 whole bytes."""
+    g = {10: 4, 12: 2, 14: 4, 16: 1}[bits]
+    h, w = cfa.shape
+    if w % g:
+        raise ValueError(f"width {w} is not a multiple of {g}")
+    v = np.zeros((h, w // g), np.uint64)
+    for k in range(g):
+        v = (v << np.uint64(bits)) | cfa[:, k::g].astype(np.uint64)
+    nbytes = g * bits // 8
+    out = np.stack([(v >> np.uint64(8 * (nbytes - 1 - i))) & np.uint64(0xFF)
+                    for i in range(nbytes)], axis=-1)
+    return out.astype(np.uint8).tobytes()
+
+
+def ljpeg_encode(tile: np.ndarray) -> bytes:
+    """One lossless-JPEG (SOF3) stream of a (H, W) u16 tile: precision 16,
+    predictor 1, one component, 17 Huffman symbols of 5 bits each (code =
+    category), vectorized. The repo's test encoder
+    (tests/test_native_ljpeg.py) writes the same stream sample by sample."""
+    import struct
+
+    h, w = tile.shape
+    s = tile.astype(np.int64)
+    pred = np.empty_like(s)
+    pred[:, 1:] = s[:, :-1]
+    pred[1:, 0] = s[:-1, 0]
+    pred[0, 0] = 1 << 15
+    diff = (s - pred) & 0xFFFF
+    diff = np.where(diff >= 0x8000, diff - 0x10000, diff).reshape(-1)
+    ssss = np.ceil(np.log2(np.abs(diff) + 1)).astype(np.int64)
+    value = np.where(diff > 0, diff, diff + (1 << ssss) - 1)
+    nbits = 5 + ssss
+    word = (ssss << ssss) | np.where(ssss > 0, value, 0)
+    j = np.arange(21)
+    bits = (word[:, None] >> (nbits[:, None] - 1 - j)) & 1
+    stream = bits[j[None, :] < nbits[:, None]].astype(np.uint8)
+    stream = np.concatenate([stream, np.ones((-stream.size) % 8, np.uint8)])  # pad with 1s
+    data = np.packbits(stream)
+    data = np.insert(data, np.flatnonzero(data == 0xFF) + 1, 0)  # byte stuffing
+
+    def seg(marker, payload):
+        return struct.pack(">HH", marker, len(payload) + 2) + payload
+
+    dht = bytes([0x00] + [0, 0, 0, 0, 17] + [0] * 11 + list(range(17)))
+    sof = struct.pack(">BHHB", 16, h, w, 1) + bytes([0, 0x11, 0])
+    sos = bytes([1, 0, 0x00, 1, 0, 0])
+    return (b"\xff\xd8" + seg(0xFFC4, dht) + seg(0xFFC3, sof) + seg(0xFFDA, sos)
+            + data.tobytes() + b"\xff\xd9")
+
+
+def raw_dng_bytes(cfa: np.ndarray, bits: int = 16, orientation: int = 1,
+                  ljpeg_tile: int = 0) -> bytes:
+    """A single-IFD RGGB CFA DNG: bench.py's _minimal_dng (black 64, white
+    16383) plus ColorMatrix2, AsShotNeutral and Orientation. Uncompressed
+    in one strip (`bits` 16: little-endian u16; 10/12/14: bit-packed), or
+    with `ljpeg_tile` = t lossless-JPEG t x t tiles (Compression 7), which
+    needs a CFA that repeats its top-left tile: every TileOffsets entry
+    points at that tile's one stream."""
+    import struct
+
+    h, w = cfa.shape
+    if ljpeg_tile:
+        t = ljpeg_tile
+        n = (h // t) * (w // t)
+        if h % t or w % t or not np.array_equal(np.tile(cfa[:t, :t], (h // t, w // t)), cfa):
+            raise ValueError(f"an LJPEG DNG here repeats one {t}x{t} tile over the frame")
+        payload = ljpeg_encode(cfa[:t, :t])
+        layout = [(258, 3, 1, 16), (259, 3, 1, 7), (322, 3, 1, t), (323, 3, 1, t),
+                  (324, 4, n, "data"), (325, 4, n, struct.pack(f"<{n}I", *[len(payload)] * n))]
+    else:
+        n = 1
+        payload = cfa.astype("<u2").tobytes() if bits == 16 else pack_msb(cfa, bits)
+        layout = [(258, 3, 1, bits), (259, 3, 1, 1), (273, 4, 1, "data"), (278, 4, 1, h),
+                  (279, 4, 1, len(payload))]
+    srational = b"".join(struct.pack("<ii", v, 10000) for row in RAW_XYZ_TO_CAM for v in row)
+    rational = b"".join(struct.pack("<II", a, b) for a, b in RAW_AS_SHOT_NEUTRAL)
+    entries = sorted(layout + [  # (tag, type, count, value: int, bytes or "data")
+        (256, 4, 1, w), (257, 4, 1, h), (262, 3, 1, 32803), (274, 3, 1, orientation),
+        (277, 3, 1, 1), (33422, 1, 4, bytes([0, 1, 1, 2])), (50706, 1, 4, bytes([1, 4, 0, 0])),
+        (50714, 3, 1, RAW_BLACK), (50717, 4, 1, RAW_WHITE),
+        (50722, 10, 9, srational), (50728, 5, 3, rational),
+    ])
+    ifd_end = 8 + 2 + 12 * len(entries) + 4
+    extra_len = sum(4 * cnt if val == "data" else len(val) for _, _, cnt, val in entries
+                    if (val == "data" and cnt > 1) or (isinstance(val, bytes) and len(val) > 4))
+    data_off = ifd_end + extra_len
+    out = bytearray(b"II*\x00" + struct.pack("<I", 8) + struct.pack("<H", len(entries)))
+    extra = bytearray()
+    for tag, typ, cnt, val in entries:
+        if val == "data":
+            val = struct.pack(f"<{cnt}I", *[data_off] * cnt) if cnt > 1 else data_off
+        if isinstance(val, bytes) and len(val) > 4:
+            out += struct.pack("<HHII", tag, typ, cnt, ifd_end + len(extra))
+            extra += val
+        elif isinstance(val, bytes):
+            out += struct.pack("<HHI", tag, typ, cnt) + val.ljust(4, b"\0")
+        else:
+            out += struct.pack("<HHI", tag, typ, cnt) + struct.pack(
+                "<H" if typ == 3 else "<I", val).ljust(4, b"\0")
+    out += struct.pack("<I", 0) + extra + payload
+    return bytes(out)
+
+
+def raw_raf_bytes(cfa: np.ndarray, xtrans: np.ndarray, wb_grb=(300, 450, 520)) -> bytes:
+    """An uncompressed Fujifilm RAF: the magic, the directory, a CFA header
+    of records 0x0100 (height, width), 0x0131 (the 6 x 6 X-Trans layout)
+    and 0x2FF0 (white balance, G R B), then the bare little-endian 16-bit
+    CFA block (libopenraw's layout; the parser reads 14-bit white)."""
+    import struct
+
+    h, w = cfa.shape
+    recs = [(0x0100, struct.pack(">HH", h, w)),
+            (0x0131, bytes(int(v) for v in np.asarray(xtrans).reshape(-1))),
+            (0x2FF0, struct.pack(">HHHH", *wb_grb, 0))]
+    hdr = struct.pack(">I", len(recs)) + b"".join(
+        struct.pack(">HH", tag, len(rec)) + rec for tag, rec in recs)
+    payload = cfa.astype("<u2").tobytes()
+    cfa_hdr_off = 0x6C
+    pre = (b"FUJIFILMCCD-RAW 0201" + b"\0" * (0x54 - 20) + struct.pack(">II", 0, 0)
+           + struct.pack(">II", cfa_hdr_off, len(hdr))
+           + struct.pack(">II", cfa_hdr_off + len(hdr), len(payload)))
+    return pre + hdr + payload
+
+
 DOCS = {"config1": (CONFIG1_DOC, False), "config3": (CONFIG3_DOC, False),
         "full": (FULL_DOC, False), "grain": (GRAIN_DOC, False), "raw": (RAW_DOC, True)}
 
@@ -281,6 +438,7 @@ GRADE_TOL = 2e-4         # dither off: the JAX fused-vs-XLA bound (test_fused.py
 GRADE_DITHER_TOL = 2e-4 + 1.0 / 255.0
 NR_TOL = 2e-4            # the JAX kernel-vs-XLA bound; a gate can flip on one ulp
 RESAMPLE_TOL = 1e-6      # the same lerp of the same two rows
+XTRANS_TOL = 1e-5        # the X-Trans front end's module tolerance (tests/test_torch_raw.py)
 
 
 def log(msg: str) -> None:
@@ -387,17 +545,351 @@ def profile_run(label, run, out_dir, card) -> None:
         prof.export_chrome_trace(str(Path(out_dir) / f"trace_{label.split()[0]}.json"))
 
 
+def median_host_ms(fn, reps: int) -> float:
+    """Median host-clock ms of `reps` calls of fn, each ended by a device sync."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_raw(args, h, w, reps, card, dev, reset_counts, read_counts):
+    """Phase 11, config 2: a RAW file through the port's entry points.
+
+    Writes an RGGB DNG of random u16 samples from a seed (bench.py's range
+    64..16383), a 14-bit bit-packed copy, an Orientation = 6 copy and a
+    lossless-JPEG tiled file, then load_image (host parse, u16 upload,
+    front end, enhance on the card) -> parse_adjustments(is_raw=True) ->
+    stack_params -> develop_batch -> device_u8 -> host numpy for B = 1, 2
+    on `{}` and CONFIG3_DOC, and the fast thumbnail path, counters reset
+    and read around each. Times each stage apart, holds the blur and grade
+    kernels against their plain versions on the RAW images, and checks a
+    1024 x 1536 file on the card against the plain CPU path. Then the same
+    for an X-Trans RAF. Returns ({path: launches}, {(kernel, path):
+    numbers})."""
+    import tempfile
+
+    from rapidraw_tpu_torch import (
+        develop_batch,
+        device_u8,
+        load_image,
+        parse_adjustments,
+        parse_raw,
+        stack_params,
+    )
+    from rapidraw_tpu_torch.io import dng as dng_io
+    from rapidraw_tpu_torch.ops import blur
+    from rapidraw_tpu_torch.pipeline import fused
+    from rapidraw_tpu_torch.raw import demosaic, xtrans
+    from rapidraw_tpu_torch.raw.enhance import remove_raw_artifacts_and_enhance
+    from rapidraw_tpu_torch.tools import PEAK_BYTES, bound_ms
+    from rapidraw_tpu_torch.utils.settings import DEFAULTS, AppSettings
+
+    nr_amount, sharpening = AppSettings(DEFAULTS).preprocessing_amounts()
+    docs = {"empty": {}, "config3": CONFIG3_DOC}
+    rng = np.random.default_rng(2)
+    launches, report = {}, {}
+
+    def run2(doc, paths, device=dev, fast=False):
+        """The config-2 main path: files -> u8 on the host."""
+        images = torch.stack([load_image(p, fast=fast, device=device)[0] for p in paths])
+        parsed = [parse_adjustments(doc, is_raw=True) for _ in paths]
+        sp, cfg = stack_params([q for q, _ in parsed], [c for _, c in parsed], device=device)
+        out = develop_batch(images, sp, cfg)
+        return out, device_u8(out).cpu().numpy()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_raw_") as tmp:
+        cfa = rng.integers(RAW_BLACK, RAW_WHITE, (h, w), dtype=np.uint16)
+        # the lossless-JPEG file repeats one random 256 x 256 tile (its
+        # stream encoded once); the host still decodes every tile
+        cfas = {"u16": cfa, "packed14": cfa, "orient6": cfa,
+                "ljpeg": np.tile(cfa[:256, :256], (h // 256, w // 256))}
+        files = {"u16": (16, 1, 0), "packed14": (14, 1, 0), "orient6": (16, 6, 0),
+                 "ljpeg": (16, 1, 256)}
+        paths = {}
+        for name, (bits, orientation, tile) in files.items():
+            t0 = time.perf_counter()
+            data = raw_dng_bytes(cfas[name], bits=bits, orientation=orientation, ljpeg_tile=tile)
+            paths[name] = Path(tmp) / f"{name}.dng"
+            paths[name].write_bytes(data)
+            log(f"[raw] wrote {name} {cfas[name].shape} {bits}-bit orientation {orientation}"
+                f"{f' lossless-JPEG {tile}x{tile} tiles' if tile else ''}: "
+                f"{len(data) / 1e6:.1f} MB in {(time.perf_counter() - t0) * 1e3:.0f} ms")
+
+        # host parse per file (the bytes read and decoded, as export pays)
+        raws = {}
+        for name, p in paths.items():
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                raws[name] = parse_raw(p.read_bytes(), ext=p.suffix)
+                times.append((time.perf_counter() - t0) * 1e3)
+            log(f"[raw] host parse {name}: {statistics.median(times):.1f} ms "
+                f"(read + decode, median of 3)")
+            if not np.array_equal(raws[name].cfa, cfas[name]):
+                raise AssertionError(f"the {name} DNG decodes to another CFA")
+        raw = raws["u16"]
+        if raws["orient6"].orientation != 6 or list(raw.wb) == [1.0, 1.0, 1.0]:
+            raise AssertionError("orientation or white balance lost in the DNG")
+
+        # the u16 upload, then the front end and enhance on the card
+        up_ms = median_host_ms(lambda: dng_io.upload_cfa(raw, dev), reps)
+        cfa_dev = dng_io.upload_cfa(raw, dev)
+        if cfa_dev.dtype != torch.uint16 or not torch.equal(cfa_dev.cpu(), torch.from_numpy(cfa)):
+            raise AssertionError(f"the upload changed the CFA ({cfa_dev.dtype})")
+        lin, front_ops = count_ops(lambda: dng_io.develop_raw(cfa_dev, raw))
+        front_ms = time_ms(lambda: dng_io.develop_raw(cfa_dev, raw), reps)
+        _, enh_ops = count_ops(lambda: remove_raw_artifacts_and_enhance(lin, nr_amount,
+                                                                         sharpening))
+        enh_ms = time_ms(lambda: remove_raw_artifacts_and_enhance(lin, nr_amount, sharpening),
+                         reps)
+        # the library yardstick of the demosaic stencils: one conv2d of the
+        # four Malvar 5x5 kernels over the edge-padded plane
+        import torch.nn.functional as F
+
+        k4 = torch.from_numpy(np.stack([demosaic._MALVAR[k] for k in (
+            "g_at_rb", "rb_at_g_rrow", "rb_at_g_brow", "rb_at_br")])[:, None]).to(dev)
+        xp = demosaic.pad_edge(cfa_dev.to(torch.float32), 2)[None, None]
+        conv_ms = time_ms(lambda: F.conv2d(xp, k4), reps)
+        del xp, k4
+        front_b = 2 * h * w + 12 * h * w  # read the u16 CFA once, write (3, H, W) f32
+        enh_b = 24 * h * w
+        fb, fby = bound_ms(front_b, front_ops)
+        eb, eby = bound_ms(enh_b, enh_ops)
+        over = float((lin.amax(0) >= 1.0).float().mean())
+        log(f"[raw] u16 upload ({h},{w}) {2 * h * w / 1e6:.1f} MB: {up_ms:.2f} ms (host clock, "
+            f"pageable); front end (normalize..orientation, malvar) {front_ms:.2f} ms, bound "
+            f"{fb:.3f} ms ({fby}; bytes alone {front_b / PEAK_BYTES * 1e3:.3f}, "
+            f"{front_ops / (h * w):.0f} ops/pixel); Malvar stencils as one conv2d {conv_ms:.3f} "
+            f"ms; enhance (nr {nr_amount:g}, sharpen {sharpening:g}) {enh_ms:.2f} ms, bound "
+            f"{eb:.3f} ms ({eby}; bytes alone {enh_b / PEAK_BYTES * 1e3:.3f}, "
+            f"{enh_ops / (h * w):.0f} ops/pixel); share of pixels at or past 1.0 after "
+            f"highlight compression {over:.3f} [{card}]")
+
+        # the three files develop alike: packed = u16, orient6 = the rotation
+        same = torch.equal(dng_io.load_raw_file(paths["packed14"], device=dev), lin)
+        rot = torch.equal(dng_io.load_raw_file(paths["orient6"], device=dev),
+                          torch.rot90(lin, -1, (1, 2)))
+        if not (same and rot):
+            raise AssertionError(f"packed14 equal {same}, orientation 6 equal {rot}")
+        if load_image(paths["u16"])[0].device.type != "cuda":
+            raise AssertionError("load_image without device= left the card")
+        log("[raw] the 14-bit packed file develops bit for bit as the 16-bit one; "
+            "orientation 6 gives its rot90; load_image without device= returns a CUDA tensor")
+        del lin, cfa_dev
+
+        # blur and grade against their plain versions on config 2's inputs
+        images = torch.stack([load_image(paths["u16"], device=dev)[0]] * 2)
+        p, c = parse_adjustments(CONFIG3_DOC, is_raw=True)
+        sp, cfg = stack_params([p] * 2, [c] * 2, device=dev)
+        radii = tuple(fused.blur_radii(cfg, w, h).values())
+        flat = images.reshape(6, h, w)
+        got = blur.gaussian_blur_multi(flat, radii)
+        ref, ops = count_ops(lambda: blur.gaussian_blur_multi_plain(flat, radii))
+        err = max(float(((a - b).abs() / b.abs().clamp(min=1.0)).max()) for a, b in zip(got, ref))
+        ms = time_ms(lambda: blur.gaussian_blur_multi(flat, radii), reps)
+        pms = time_ms(lambda: blur.gaussian_blur_multi_plain(flat, radii), reps)
+        bms, bby = bound_ms(nbytes(flat) * (1 + len(radii)), ops)
+        # the library yardstick, as in phase 3: per radius one depthwise 2-D
+        # conv2d with the Gaussian on the edge-padded RAW images
+        convs = []
+        for r in radii:
+            k1 = torch.from_numpy(blur._gauss_weights(r)).to(dev)
+            k2 = (k1[:, None] * k1[None, :]).expand(6, 1, 2 * r + 1, 2 * r + 1).contiguous()
+            convs.append((F.pad(flat[None], (r, r, r, r), mode="replicate"), k2))
+        lms = time_ms(lambda: [F.conv2d(xp, k2, groups=6) for xp, k2 in convs], reps)
+        del convs
+        report["blur", "config2"] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                                         library_ms=lms, max_abs_err=err)
+        log(f"[raw] blur on the RAW B=2 images C=6 r={radii}: max|d|/max(1,|ref|) {err:.3e} "
+            f"(bound {BLUR_TOL:g}) kernel {ms:.3f} ms plain {pms:.3f} ms bound {bms:.3f} ms "
+            f"({bby}); library: one depthwise 2-D conv2d per radius {lms:.3f} ms [{card}]")
+        if err > BLUR_TOL:
+            raise AssertionError(f"blur on config 2: max|d| {err} > {BLUR_TOL}")
+        del got, ref
+        pmat = fused.pack_rows(sp["glob"])
+        levels = fused.blur_levels(images, cfg)
+        for dither in (False, True):
+            cd = dataclasses.replace(cfg, dither_active=dither)
+            got = fused.grade(images, levels, pmat, cd)
+            ref, ops = count_ops(lambda: fused.grade_plain(images, levels, pmat, cd))
+            err = float((got - ref).abs().max())
+            tol = GRADE_DITHER_TOL if dither else GRADE_TOL
+            line = (f"[raw] grade is_raw B=2 config3 dither={'on' if dither else 'off'}: "
+                    f"max|d| {err:.3e} (bound {tol:.3e})")
+            if not dither:
+                ms = time_ms(lambda: fused.grade(images, levels, pmat, cd), reps)
+                pms = time_ms(lambda: fused.grade_plain(images, levels, pmat, cd), reps)
+                bms, bby = bound_ms(nbytes(images, pmat, *levels.values()) + nbytes(images), ops)
+                report["grade", "config2"] = dict(ms=ms, plain_ms=pms, bound_ms=bms,
+                                                  bound_by=bby, library_ms=None, max_abs_err=err)
+                line += (f" kernel {ms:.3f} ms plain {pms:.3f} ms bound {bms:.3f} ms ({bby}) "
+                         f"[{card}]")
+            log(line)
+            if not bool(torch.isfinite(got).all()) or err > tol:
+                raise AssertionError(f"grade on config 2: max|d| {err} > {tol} or non-finite")
+            del got, ref
+        del levels
+
+        # the main path, counters reset just before and read just after
+        for doc_name, doc in docs.items():
+            for b in (1, 2):
+                reset_counts()
+                out, u8 = run2(doc, [paths["u16"]] * b)
+                torch.cuda.synchronize()
+                n = read_counts()
+                key = "config2" if doc_name == "config3" else "config2_empty"
+                if b == 2:
+                    launches[key] = n
+                want_blur = 1 if doc_name == "config3" else 0
+                log(f"[e2e2] config2 {doc_name} B={b}: launches blur {n['blur']} grade "
+                    f"{n['grade']} (all {n}) u8 {u8.shape}")
+                if n["grade"] != 1 or n["blur"] != want_blur:
+                    raise AssertionError(f"config 2 {doc_name} B={b}: grade {n['grade']} "
+                                         f"(want 1), blur {n['blur']} (want {want_blur})")
+                if not bool(torch.isfinite(out).all()) or u8.shape != (b, 3, h, w) \
+                        or u8.min() == u8.max():
+                    raise AssertionError("config-2 e2e output is non-finite, misshapen or "
+                                         "constant")
+                del out, u8
+        reset_counts()
+        out, u8 = run2({}, [paths["u16"]], fast=True)
+        n = read_counts()
+        log(f"[e2e2] config2 fast thumbnail B=1: {tuple(out.shape)} launches blur {n['blur']} "
+            f"grade {n['grade']}")
+        if out.shape != (1, 3, h // 2, w // 2) or n["grade"] != 1:
+            raise AssertionError("the fast RAW path is misshapen or skipped the grade kernel")
+        fast_ms = median_host_ms(lambda: run2({}, [paths["u16"]], fast=True), reps)
+        del out, u8
+
+        # small input: the card against the plain CPU path, same file
+        sh, sw = 1024, 1536
+        small = Path(tmp) / "small.dng"
+        small.write_bytes(raw_dng_bytes(rng.integers(RAW_BLACK, RAW_WHITE, (sh, sw),
+                                                     dtype=np.uint16)))
+        lin_gpu = dng_io.load_raw_file(small, device=dev)
+        lin_cpu = dng_io.load_raw_file(small, device="cpu")
+        front_d = float((lin_gpu.cpu() - lin_cpu).abs().max())
+        enh_gpu = remove_raw_artifacts_and_enhance(lin_cpu.to(dev), nr_amount, sharpening)
+        enh_cpu = remove_raw_artifacts_and_enhance(lin_cpu, nr_amount, sharpening)
+        flips = int(((enh_gpu.cpu() - enh_cpu).abs() > 1e-5).sum())
+        _, u8_gpu = run2(CONFIG3_DOC, [small])
+        _, u8_cpu = run2(CONFIG3_DOC, [small], device="cpu")
+        du = np.abs(u8_gpu.astype(np.int16) - u8_cpu.astype(np.int16))
+        log(f"[e2e2] small {sh}x{sw} CUDA vs plain CPU: front end max|d| {front_d:.3e}; enhance "
+            f"on the same input: {flips} of {enh_cpu.numel()} values past 1e-5 (gate flips); "
+            f"u8 max {int(du.max())} LSB, share>0 {float((du > 0).mean()):.2e}")
+        if front_d > 0 or du.max() > 1 or (du > 0).mean() > 1e-3 \
+                or flips > 1e-3 * enh_cpu.numel():
+            raise AssertionError("config-2 CUDA output disagrees with the plain CPU path "
+                                 "(the front end is held bit for bit)")
+
+        # X-Trans: a 24 MP RAF through the same entry points; the site masks
+        # are built on the first frame and stay resident for the next
+        xcfa = rng.integers(0, 1 << 14, (h, w), dtype=np.uint16)
+        raf_path = Path(tmp) / "xtrans.raf"
+        raf_path.write_bytes(raw_raf_bytes(xcfa, xtrans.DEFAULT_XTRANS))
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            xraw = parse_raw(raf_path.read_bytes(), ext=".raf")
+            times.append((time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(xraw.cfa, xcfa) \
+                or not np.array_equal(xraw.xtrans, xtrans.DEFAULT_XTRANS):
+            raise AssertionError("the RAF decodes to another CFA or X-Trans layout")
+        xdev = dng_io.upload_cfa(xraw, dev)
+        xtrans._site_masks.cache_clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dng_io.develop_raw(xdev, xraw)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        _, xfront_ops = count_ops(lambda: dng_io.develop_raw(xdev, xraw))
+        xfront_ms = time_ms(lambda: dng_io.develop_raw(xdev, xraw), reps)
+        info = xtrans._site_masks.cache_info()
+        if info.misses != 1 or info.hits < reps:
+            raise AssertionError(f"the X-Trans site masks were rebuilt: {info}")
+        xb, xby = bound_ms(front_b, xfront_ops)
+        reset_counts()
+        out, u8 = run2(CONFIG3_DOC, [raf_path])
+        torch.cuda.synchronize()
+        n = read_counts()
+        launches["config2_xtrans"] = n
+        if n["grade"] != 1 or n["blur"] != 1 or not bool(torch.isfinite(out).all()) \
+                or u8.shape != (1, 3, h, w) or u8.min() == u8.max():
+            raise AssertionError(f"config 2 X-Trans: launches {n}, or the output is "
+                                 "non-finite, misshapen or constant")
+        del out, u8, xdev
+        xe2e_ms = median_host_ms(lambda: run2(CONFIG3_DOC, [raf_path]), reps)
+        log(f"[raw] X-Trans RAF ({h},{w}): host parse {statistics.median(times):.1f} ms (read "
+            f"+ decode, median of 3); front end (normalize..orientation, X-Trans) first frame "
+            f"{first_ms:.2f} ms (host clock, site masks built and uploaded), then "
+            f"{xfront_ms:.2f} ms (masks resident: {info.hits} cache hits, {info.misses} "
+            f"build), bound {xb:.3f} ms ({xby}; {xfront_ops / (h * w):.0f} ops/pixel)")
+        log(f"[e2e2] config2 X-Trans config3 B=1: launches blur {n['blur']} grade "
+            f"{n['grade']}; {xe2e_ms:.2f} ms/image, {h * w / xe2e_ms / 1e3:.1f} MPix/s (RAF "
+            f"file -> u8 on the host) [{card}]")
+        small_raf = Path(tmp) / "small.raf"
+        small_raf.write_bytes(raw_raf_bytes(rng.integers(0, 1 << 14, (sh, sw), dtype=np.uint16),
+                                            xtrans.DEFAULT_XTRANS))
+        xfront_d = float((dng_io.load_raw_file(small_raf, device=dev).cpu()
+                          - dng_io.load_raw_file(small_raf, device="cpu")).abs().max())
+        _, u8_gpu = run2(CONFIG3_DOC, [small_raf])
+        _, u8_cpu = run2(CONFIG3_DOC, [small_raf], device="cpu")
+        du = np.abs(u8_gpu.astype(np.int16) - u8_cpu.astype(np.int16))
+        log(f"[e2e2] small X-Trans {sh}x{sw} CUDA vs plain CPU: front end max|d| "
+            f"{xfront_d:.3e} (bound {XTRANS_TOL:g}); u8 max {int(du.max())} LSB, share>0 "
+            f"{float((du > 0).mean()):.2e}")
+        if xfront_d > XTRANS_TOL or du.max() > 1 or (du > 0).mean() > 1e-3:
+            raise AssertionError("config-2 X-Trans CUDA output disagrees with the plain CPU path")
+        del u8_gpu, u8_cpu
+
+        # e2e times: file -> u8 on the host, and its stages apart
+        for doc_name, doc in docs.items():
+            for b in (1, 2):
+                dt = median_host_ms(lambda: run2(doc, [paths["u16"]] * b), reps)
+                p, c = parse_adjustments(doc, is_raw=True)
+                sp, cfg = stack_params([p] * b, [c] * b, device=dev)
+                imgs = images[:b].contiguous()
+                dev_ms = time_ms(lambda: device_u8(develop_batch(imgs, sp, cfg)), reps)
+                q = device_u8(develop_batch(imgs, sp, cfg))
+                rb_ms = median_host_ms(lambda: q.cpu(), reps)
+                log(f"[e2e2] config2 {doc_name} B={b}: {dt / b:.2f} ms/image, "
+                    f"{b * h * w / dt / 1e3:.1f} MPix/s (DNG file -> u8 on the host); per "
+                    f"image: host parse + u16 upload + front end + enhance (above), develop "
+                    f"device part {dev_ms / b:.2f} ms ({b * h * w / dev_ms / 1e3:.1f} MPix/s), "
+                    f"u8 readback {rb_ms / b:.2f} ms; front end + enhance share of e2e "
+                    f"{(front_ms + enh_ms) * b / dt:.3f} [{card}]")
+                del q
+        for name in ("packed14", "ljpeg"):
+            dt = median_host_ms(lambda: run2(CONFIG3_DOC, [paths[name]]), reps)
+            log(f"[e2e2] config2 config3 B=1 from the {name} file: {dt:.2f} ms/image, "
+                f"{h * w / dt / 1e3:.1f} MPix/s [{card}]")
+        log(f"[e2e2] config2 fast thumbnail ({h // 2}x{w // 2}) B=1: {fast_ms:.2f} ms/image "
+            f"[{card}]")
+        if args.profile:
+            profile_run("config2 B=2", lambda: run2(CONFIG3_DOC, [paths["u16"]] * 2), args.out,
+                        card)
+        del images
+    return launches, report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true", help="1024x1536, fewer repetitions")
     ap.add_argument("--out", default=None, help="directory for the nvcc/ptxas logs")
     ap.add_argument("--profile", action="store_true",
-                    help="torch.profiler over the config-3, config-5 and config-4 B=2 main paths")
+                    help="torch.profiler over the config-3, -5, -4 and -2 B=2 main paths")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
 
+    from rapidraw_tpu_torch import native
     from rapidraw_tpu_torch import (
         blur_band_rows,
         develop_batch,
@@ -439,8 +931,15 @@ def main() -> int:
     libs = {"blur": blur._KERNEL, "grade": fused._KERNEL, "nr": nr._KERNEL,
             "resample": warp_fast._KERNEL, "chunked": prof_chunked._KERNEL,
             "nr_slices": prof_nr_slices._KERNEL}
-    with ThreadPoolExecutor(len(libs)) as pool:
+    def build_host():
+        t0 = time.perf_counter()
+        native.host_library("ljpeg")
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(libs) + 1) as pool:
+        host = pool.submit(build_host)
         list(pool.map(lambda kl: kl.lib(), libs.values()))
+        log(f"[build] ljpeg (host decoder, g++): {host.result():.1f} s")
     usage = {name: ptxas_usage(kl.build_log) for name, kl in libs.items()}
     for name, kl in libs.items():
         log(f"[build] {name}: nvcc {kl.build_seconds:.1f} s, registers {usage[name][0]}, "
@@ -1063,6 +1562,12 @@ def main() -> int:
     if args.profile:
         profile_run("config4 B=2", lambda: run4(2, img2, masks4), args.out, card)
     phase_done("config 4")
+    del img2
+
+    # ---- 11. config 2 (RAW): DNG -> load_image -> develop_batch -> u8 ----------
+    launches2, raw_report = phase_raw(args, h, w, reps, card, dev, reset_counts, read_counts)
+    report.update(raw_report)
+    phase_done("config 2 (RAW)")
 
     sources = {  # name -> (source, the TPU kernel it replaces, the path that runs it)
         "blur": ("rapidraw_tpu_torch/csrc/blur.cu", "rapidraw_tpu/ops/blur.py:242", "config5"),
@@ -1082,7 +1587,7 @@ def main() -> int:
     # at that path's shapes
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     counts = {"config3": launches3, "config5": launches5, "probes": launches_probes,
-              "config4": launches4}
+              "config4": launches4, **launches2}
     kernels = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[top][name], **{k: report[name, top][k] for k in fields},

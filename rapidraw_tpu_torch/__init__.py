@@ -2,16 +2,21 @@
 NVIDIA H100.
 
 The develop main path: one adjustment document applied to planar
-(3, H, W) float32 images, then quantized on the device. Local masks are
-rasterized on the host (rasterize_masks, blur_band_rows) and blended in
-the grade. On CUDA tensors it runs two hand-written Hopper kernels
-(csrc/blur.cu for the blur pyramid, csrc/grade.cu for the whole per-pixel
-grade chain); on CPU tensors it runs their plain PyTorch versions. The JAX package `rapidraw_tpu` stays the
-reference; this package never imports it or JAX.
+(3, H, W) float32 images, then quantized on the device. RAW files load
+through `load_image` (DNG and RAF decoded on the host, then demosaic,
+colour, highlight compression and the RAW enhance pass on the device).
+Local masks are rasterized on the host (rasterize_masks, blur_band_rows)
+and blended in the grade. On CUDA tensors it runs two hand-written Hopper
+kernels (csrc/blur.cu for the blur pyramid, csrc/grade.cu for the whole
+per-pixel grade chain); on CPU tensors it runs their plain PyTorch
+versions. The JAX package `rapidraw_tpu` stays the reference; this
+package never imports it or JAX.
 """
 
 __version__ = "0.1.0"
 
+from rapidraw_tpu_torch.io.containers import parse_raw  # noqa: F401
+from rapidraw_tpu_torch.io.loader import load_image  # noqa: F401
 from rapidraw_tpu_torch.masks.rasterize import rasterize_masks  # noqa: F401
 from rapidraw_tpu_torch.params.parse import (  # noqa: F401
     DevelopConfig,

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from rapidraw_tpu_torch.geometry.params import GeometryParams
-from rapidraw_tpu_torch.ops.common import coord_maps
+from rapidraw_tpu_torch.ops.common import coord_maps, sqrt_rn, true_div
 
 
 def build_transform_matrix(p: GeometryParams, width: float, height: float) -> np.ndarray:
@@ -126,21 +126,6 @@ def _auto_crop(p: GeometryParams, w: int, h: int) -> float:
     return 1.0
 
 
-def _sqrt(x: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded float32 sqrt. PyTorch's vectorized CPU sqrt is off
-    by an ulp on ~0.6% of inputs (NumPy, XLA and CUDA round correctly); a
-    float32 value's sqrt taken in float64 rounds back exactly."""
-    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
-
-
-def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
-    """x / c rounded as a true float32 division on every device. PyTorch's
-    CUDA division by a Python scalar multiplies by its reciprocal instead,
-    which moves a coordinate by an ulp now and then; a divisor tensor on
-    the same device divides."""
-    return x / torch.tensor(c, dtype=torch.float32, device=x.device)
-
-
 def _bilinear_zero_outside(plane: torch.Tensor, xq, yq, w: int, h: int) -> torch.Tensor:
     """Plain-path sampling of (..., H, W): black outside [0, W-1) x [0, H-1)."""
     valid = (
@@ -225,7 +210,7 @@ def source_coords_values(vals: dict, h: int, w: int, xs: torch.Tensor, ys: torch
 
     dx = src_x - cx
     dy = src_y - cy
-    ru = _sqrt(dx * dx + dy * dy)
+    ru = sqrt_rn(dx * dx + dy * dy)
     ru_norm = true_div(ru, half_diag)
     r2 = ru_norm * ru_norm
     k1, k2, k3 = float(vals["k1"]), float(vals["k2"]), float(vals["k3"])
@@ -291,7 +276,7 @@ def source_coords_at(p: GeometryParams, h: int, w: int, xs: torch.Tensor, ys: to
     if has_lens:
         dx = src_x - cx
         dy = src_y - cy
-        ru = _sqrt(dx * dx + dy * dy)
+        ru = sqrt_rn(dx * dx + dy * dy)
         ru_norm = true_div(ru, half_diag)
         rd_norm = _distort_radius_norm(ru_norm, p)
         safe_ru = torch.where(ru_norm > 1e-9, ru_norm, 1.0)

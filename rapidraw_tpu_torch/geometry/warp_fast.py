@@ -34,11 +34,10 @@ from rapidraw_tpu_torch.geometry.params import GeometryParams
 from rapidraw_tpu_torch.geometry.warp import (
     geometry_values,
     source_coords_values,
-    true_div,
     warp_image_geometry,
 )
 from rapidraw_tpu_torch.native import KernelLibrary
-from rapidraw_tpu_torch.ops.common import coord_maps
+from rapidraw_tpu_torch.ops.common import coord_maps, true_div
 
 TH = 32
 TW = 256

@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels (csrc/*.cu) over ctypes.
+"""Build and load the hand-written CUDA kernels (csrc/*.cu) and the host
+C++ decoders (csrc/host/*.cc) over ctypes.
 
 Each source compiles with nvcc for Hopper (sm_90a) into a shared library
 with a plain C interface, at first use, into `_build/` beside this file
@@ -7,6 +8,7 @@ of any generated header, so an edited kernel or param layout rebuilds and
 a stale library is never loaded. Build failures raise; nothing falls back.
 nvcc's output (with ptxas's registers and spills per kernel) is kept beside
 the library as `<library>.log` and read back when a built library is reused.
+A host decoder compiles with g++ the same way (`host_library`).
 """
 
 from __future__ import annotations
@@ -103,3 +105,70 @@ class KernelLibrary:
         if status != 0:
             msg = self.lib().rr_error_string(status).decode()
             raise RuntimeError(f"{what}: CUDA error {status} ({msg})")
+
+
+_host_libs: dict[str, ctypes.CDLL] = {}
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """csrc/host/<name>.cc compiled with g++ at first use into `_build/`,
+    named by a hash of the source. Compiled to a process-unique name and
+    published atomically, as several test workers may build it at once.
+    A failed build raises; nothing stands in for the decoder."""
+    if name in _host_libs:
+        return _host_libs[name]
+    src = CSRC / "host" / f"{name}.cc"
+    tag = hashlib.blake2b(src.read_bytes(), digest_size=8).hexdigest()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"lib{name}_host_{tag}.so"
+    if not out.exists():
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", str(src), "-o", str(tmp)]
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+        except (OSError, subprocess.TimeoutExpired) as e:
+            raise KernelBuildError(f"failed to run g++: {e}") from e
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise KernelBuildError(f"g++ failed on {src.name}:\n{proc.stderr[-4000:]}")
+        os.replace(tmp, out)
+    _host_libs[name] = ctypes.CDLL(str(out))
+    return _host_libs[name]
+
+
+def ljpeg_decode(stream: bytes):
+    """Decode one lossless-JPEG (SOF3) stream -> uint16 array (h, w * comps).
+
+    Raises KernelBuildError if the decoder does not build and ValueError on
+    malformed or unsupported streams.
+    """
+    import numpy as np
+
+    fn = host_library("ljpeg").ljpeg_decode
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_char_p, ctypes.c_long,
+        ctypes.POINTER(ctypes.c_uint16), ctypes.c_long,
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int),
+    ]
+    # DNG tiles are <= a few MPix; start at 4M samples and grow on -3
+    cap = 1 << 22
+    for _ in range(4):
+        buf = np.empty(cap, np.uint16)
+        w = ctypes.c_int(0)
+        h = ctypes.c_int(0)
+        nc = ctypes.c_int(0)
+        rc = fn(
+            stream, len(stream),
+            buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)), cap,
+            ctypes.byref(w), ctypes.byref(h), ctypes.byref(nc),
+        )
+        if rc == -3:
+            cap *= 4
+            continue
+        if rc != 0:
+            raise ValueError(f"ljpeg decode failed (code {rc})")
+        n = w.value * h.value * nc.value
+        return buf[:n].reshape(h.value, w.value * nc.value).copy()
+    raise ValueError("ljpeg stream too large")

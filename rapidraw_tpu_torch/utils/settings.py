@@ -1,0 +1,98 @@
+"""Application settings: the defaults and the engine accessors the RAW
+load needs.
+
+Port of the part of `rapidraw_tpu/utils/settings.py` (app_settings.rs,
+AppSettings :329-612) that the loader and the later export read: the
+shipped DEFAULTS document and the typed accessors of the RAW develop
+settings. Unknown keys round-trip untouched.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Any
+
+DEFAULTS: dict[str, Any] = {
+    "lastRootPath": None,
+    "rootFolders": [],
+    "pinnedFolders": [],
+    "thumbnailResolution": 720,
+    "editorPreviewResolution": 1920,
+    "enableZoomHifi": True,
+    "useFullDpiRendering": False,
+    "enableLivePreviews": True,
+    "livePreviewQuality": "high",
+    "theme": "dark",
+    "enableAiTagging": False,
+    "taggingThreadCount": 3,
+    "aiTagCount": 10,
+    "thumbnailSize": "medium",
+    "adjustmentVisibility": {},
+    "rawHighlightCompression": 2.5,
+    "processingBackend": None,
+    "exportPresets": [],
+    "linearRawMode": "default",
+    "imageCacheSize": 5,
+    "tonemapperOverrideEnabled": False,
+    "defaultRawTonemapper": "agx",
+    "defaultNonRawTonemapper": "basic",
+    "rawPreprocessingColorNr": 0.5,  # app_settings.rs:517
+    "rawPreprocessingSharpening": 0.35,  # app_settings.rs:518
+    "applyPreprocessingToNonRaws": False,
+    "language": None,
+}
+
+
+class AppSettings(dict):
+    """Settings document with defaults; unknown keys round-trip untouched."""
+
+    def __init__(self, *args, **kwargs):
+        # deep-copy nested defaults: AppSettings(DEFAULTS) must not share
+        # the module-global mutable lists/dicts across instances
+        super().__init__()
+        for a in args:
+            self.update(copy.deepcopy(a))
+        self.update(copy.deepcopy(kwargs))
+
+    @property
+    def raw_highlight_compression(self) -> float:
+        return float(self.get("rawHighlightCompression") or 2.5)
+
+    @property
+    def linear_raw_mode(self) -> str:
+        return str(self.get("linearRawMode") or "default")
+
+    @property
+    def raw_preprocessing_color_nr(self) -> float:
+        """RAW chroma-NR strength 0..1 (app_settings.rs:426,517)."""
+        v = self.get("rawPreprocessingColorNr")
+        return 0.5 if v is None else float(v)
+
+    @property
+    def raw_preprocessing_sharpening(self) -> float:
+        """RAW post-develop sharpening (app_settings.rs:428,518)."""
+        v = self.get("rawPreprocessingSharpening")
+        return 0.35 if v is None else float(v)
+
+    def preprocessing_amounts(self) -> tuple[float, float]:
+        """(color_nr_inv_sigma, sharpening) for raw.enhance: the setting's
+        0..1 slider maps to an inverse sigma via 12/x - 10
+        (image_loader.rs:71-78)."""
+        s = self.raw_preprocessing_color_nr
+        if s <= 0.0:
+            nr = 0.0
+        else:
+            x = min(max(s, 0.01), 1.0)
+            nr = max(12.0 / x - 10.0, 0.1)
+        return nr, self.raw_preprocessing_sharpening
+
+    def tonemapper_override(self, is_raw: bool) -> int | None:
+        """resolve_tonemapper_override (image_processing.rs:1663-1684)."""
+        if not self.get("tonemapperOverrideEnabled"):
+            return None
+        tm = (
+            self.get("defaultRawTonemapper") or "agx"
+            if is_raw
+            else self.get("defaultNonRawTonemapper") or "basic"
+        )
+        return 1 if tm == "agx" else 0

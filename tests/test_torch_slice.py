@@ -6,7 +6,9 @@ u8 with dither on (the real export path): at most 1 LSB, on at most 0.1%
 of the values — the dither hash is fract() of large products, and the
 jitted JAX graph rounds some of them differently.
 Config 4 (local masks) at 1024 x 1536 and a batch of documents with 3, 1
-and 0 masks are held to the same bounds.
+and 0 masks are held to the same bounds, and so is config 2 (RAW): a
+1024 x 1536 DNG through the port's load_image -> develop_batch against the
+JAX package's jitted load_image -> develop_batch.
 Also: importing the port leaves JAX (and PIL) out, and chip_smoke.py
 refuses to run without a GPU.
 """
@@ -140,6 +142,62 @@ def test_mixed_mask_counts_match_jax():
     np.testing.assert_allclose(got, want, atol=1e-3)
 
 
+@pytest.fixture(scope="module")
+def config2_images(tmp_path_factory):
+    """A 1024 x 1536 config-2 DNG (random u16 CFA from a seed, bench.py's
+    range) loaded by the JAX package (jitted, as export runs it) and by
+    the port on the CPU, with the default enhance pass."""
+    from rapidraw_tpu.io.loader import load_image as jload_image
+
+    h, w = 1024, 1536
+    cfa = np.random.default_rng(16).integers(64, 16383, (h, w), dtype=np.uint16)
+    path = tmp_path_factory.mktemp("config2") / "config2.dng"
+    path.write_bytes(chip_smoke.raw_dng_bytes(cfa))
+    want, want_raw = jload_image(path)
+    got, got_raw = rt.load_image(path, device="cpu")
+    assert want_raw and got_raw
+    return np.asarray(want)[None], got.numpy()[None]
+
+
+@pytest.mark.parametrize("name", ["empty", "config3"])
+def test_config2_matches_jax(name, config2_images):
+    """load_image -> parse_adjustments(is_raw=True) -> stack_params ->
+    develop_batch -> device_u8, the way export runs a RAW file. The JAX
+    front end is one jitted program whose fused arithmetic differs from
+    its own op-by-op run by up to ~3e-4 (the port follows the op-by-op
+    run); the enhance pass's gates can turn such a difference into a step,
+    so the values a gate moved are counted and bounded by 0.1%, and every
+    other value is held to 1e-3."""
+    doc = {"empty": {}, "config3": chip_smoke.CONFIG3_DOC}[name]
+    jimg, img = config2_images
+    assert img.shape == jimg.shape == (1, 3, 1024, 1536)
+    front = np.abs(img - jimg).max(axis=1) > 1e-3
+    print(f"config2 front end + enhance: max|d| {np.abs(img - jimg).max():.3e}, "
+          f"pixels moved past 1e-3 by a gate {int(front.sum())} (share {front.mean():.2e})")
+    assert front.mean() <= 1e-3
+    out = {}
+    for dither in (False, True):
+        jp, jc = jparse(doc, is_raw=True)
+        sp, sc = jstack([jp], [jc])
+        sc = dataclasses.replace(sc, dither_active=dither)
+        want = jax.jit(lambda im, q: jdevelop_batch(im, q, sc))(jnp.asarray(jimg), sp)
+        p, c = rt.parse_adjustments(doc, is_raw=True)
+        assert c.is_raw
+        tp, tc = rt.stack_params([p], [c], device="cpu")
+        tc = dataclasses.replace(tc, dither_active=dither)
+        got = rt.develop_batch(torch.from_numpy(img), tp, tc)
+        out[dither] = (got.numpy(), np.asarray(want), rt.device_u8(got).numpy(),
+                       np.asarray(_device_u8(want)))
+    got, want, _, _ = out[False]
+    d = np.abs(got - want)
+    print(f"config2 {name}: max|d| {d.max():.3e} off the gate-moved pixels "
+          f"{d.max(axis=1)[~front].max():.3e}")
+    assert np.isfinite(got).all()
+    assert float(d.max(axis=1)[~front].max()) <= 1e-3
+    _, _, got_u8, want_u8 = out[True]
+    assert_u8_close(got_u8, want_u8)
+
+
 def test_develop_single_is_the_batch_of_one():
     doc = chip_smoke.CONFIG1_DOC
     x = batch(seed=13, b=1)
@@ -192,7 +250,10 @@ def test_import_leaves_jax_out():
         "rapidraw_tpu_torch.geometry.transforms, rapidraw_tpu_torch.geometry.warp_fast, "
         "rapidraw_tpu_torch.tools.prof_chunked, rapidraw_tpu_torch.tools.prof_nr_slices, "
         "rapidraw_tpu_torch.masks.rasterize, rapidraw_tpu_torch.masks.parametric, "
-        "rapidraw_tpu_torch.pipeline.bands\n"
+        "rapidraw_tpu_torch.pipeline.bands, rapidraw_tpu_torch.io.loader, "
+        "rapidraw_tpu_torch.io.dng, rapidraw_tpu_torch.io.containers, rapidraw_tpu_torch.io.raf, "
+        "rapidraw_tpu_torch.io.sidecar, rapidraw_tpu_torch.raw.develop, "
+        "rapidraw_tpu_torch.raw.enhance, rapidraw_tpu_torch.utils.settings\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'rapidraw_tpu' or m.startswith('rapidraw_tpu.')"
         " or m == 'tools' or m.startswith('tools.') or m == 'PIL' or m.startswith('PIL.')]\n"
