@@ -1,10 +1,11 @@
 """Drive the PyTorch port's main paths once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--quick] [--out DIR] [--profile]
+    python3 chip_smoke.py [--quick] [--out DIR] [--profile] [--seed N]
 
 Phases: (1) the card's name and power limit; (2) build the six CUDA
-kernels from rapidraw_tpu_torch/csrc, one nvcc each, and the host
-lossless-JPEG decoder (csrc/host/ljpeg.cc, g++), all started together;
+kernels from rapidraw_tpu_torch/csrc, one nvcc each, and the five host
+decoders (csrc/host/: lossless JPEG, Nikon/Pentax Huffman, Panasonic/
+Olympus, crx, Phase One; g++ each), all started together;
 (3) the blur kernel against its plain PyTorch version at 24 MP, with a
 case at each main path's shapes, one in each of its two regimes (the
 launch plan fuses small radii into one pass and gives larger ones two),
@@ -53,7 +54,16 @@ against the plain CPU path (the front end bit for bit, u8 within 1 LSB on
 the same size: its host parse, the front end's first frame (site masks
 built) and later frames (masks resident, the cache checked), the
 CONFIG3_DOC path from the file with its launches counted, and a
-1024 x 1536 RAF on the card against the plain CPU path.
+1024 x 1536 RAF on the card against the plain CPU path; (12) config 2
+from the vendor containers: 24 MP CR2 (sliced lossless JPEG, 14-bit, a
+masked border), NEF (compression 34713, lossless 12-bit), ARW (ARW2) and
+CR3 (crx lossless 14-bit) files of photograph-like content from --seed,
+each with its host parse (the CFA must equal what was encoded), u16
+upload, front end and file -> load_image -> develop_batch(CONFIG3_DOC) ->
+u8 for B = 1 and 2 (grade and blur each launched once per call), and every
+vendor format (those four, PEF, ORF packed and predictive, RW2, MRW, SRW,
+IIQ format 5) at 1024 x 1536 (the ORF predictive stream, written sample
+by sample, at 512 x 768) on the card against the plain CPU path.
 Each kernel line carries its time, its plain version's time and its bound
 (bytes over the HBM rate or operations over the float32 peak, whichever is
 larger). It prints a kernels JSON line (top level: each kernel's numbers
@@ -64,11 +74,12 @@ then as its last line {"ok": true, "device": {...}}.
 Any failed check raises, so the process exits non-zero; without a CUDA
 device it exits non-zero before printing any result.
 
---quick runs phases 3-8, 10 and 11 at 1024x1536 with fewer repetitions (a
+--quick runs phases 3-8 and 10-12 at 1024x1536 with fewer repetitions (a
 first check of a new kernel). --out DIR writes the nvcc/ptxas logs there.
 --profile adds a torch.profiler pass over the config-3, config-5,
-config-4 and config-2 main paths: kernel time by name and the device busy
-share (and chrome traces in --out). Imports torch, numpy and
+config-4 and config-2 main paths (config 2 from a DNG and from a NEF):
+kernel time by name and the device busy share (and chrome traces in
+--out). Imports torch, numpy and
 rapidraw_tpu_torch only.
 """
 
@@ -318,42 +329,6 @@ def pack_msb(cfa: np.ndarray, bits: int) -> bytes:
     return out.astype(np.uint8).tobytes()
 
 
-def ljpeg_encode(tile: np.ndarray) -> bytes:
-    """One lossless-JPEG (SOF3) stream of a (H, W) u16 tile: precision 16,
-    predictor 1, one component, 17 Huffman symbols of 5 bits each (code =
-    category), vectorized. The repo's test encoder
-    (tests/test_native_ljpeg.py) writes the same stream sample by sample."""
-    import struct
-
-    h, w = tile.shape
-    s = tile.astype(np.int64)
-    pred = np.empty_like(s)
-    pred[:, 1:] = s[:, :-1]
-    pred[1:, 0] = s[:-1, 0]
-    pred[0, 0] = 1 << 15
-    diff = (s - pred) & 0xFFFF
-    diff = np.where(diff >= 0x8000, diff - 0x10000, diff).reshape(-1)
-    ssss = np.ceil(np.log2(np.abs(diff) + 1)).astype(np.int64)
-    value = np.where(diff > 0, diff, diff + (1 << ssss) - 1)
-    nbits = 5 + ssss
-    word = (ssss << ssss) | np.where(ssss > 0, value, 0)
-    j = np.arange(21)
-    bits = (word[:, None] >> (nbits[:, None] - 1 - j)) & 1
-    stream = bits[j[None, :] < nbits[:, None]].astype(np.uint8)
-    stream = np.concatenate([stream, np.ones((-stream.size) % 8, np.uint8)])  # pad with 1s
-    data = np.packbits(stream)
-    data = np.insert(data, np.flatnonzero(data == 0xFF) + 1, 0)  # byte stuffing
-
-    def seg(marker, payload):
-        return struct.pack(">HH", marker, len(payload) + 2) + payload
-
-    dht = bytes([0x00] + [0, 0, 0, 0, 17] + [0] * 11 + list(range(17)))
-    sof = struct.pack(">BHHB", 16, h, w, 1) + bytes([0, 0x11, 0])
-    sos = bytes([1, 0, 0x00, 1, 0, 0])
-    return (b"\xff\xd8" + seg(0xFFC4, dht) + seg(0xFFC3, sof) + seg(0xFFDA, sos)
-            + data.tobytes() + b"\xff\xd9")
-
-
 def raw_dng_bytes(cfa: np.ndarray, bits: int = 16, orientation: int = 1,
                   ljpeg_tile: int = 0) -> bytes:
     """A single-IFD RGGB CFA DNG: bench.py's _minimal_dng (black 64, white
@@ -427,6 +402,594 @@ def raw_raf_bytes(cfa: np.ndarray, xtrans: np.ndarray, wb_grb=(300, 450, 520)) -
            + struct.pack(">II", cfa_hdr_off + len(hdr), len(payload)))
     return pre + hdr + payload
 
+
+# ---- vendor RAW files (phase 12) ---------------------------------------------
+# Writers of the vendor containers the port decodes. The four 24 MP files'
+# bitstreams (CR2's lossless JPEG, NEF 34713, ARW2, CR3's crx) and PEF's,
+# ORF's and MRW's are written vectorized, each byte for byte as the repo's
+# test encoder (tests/test_raw_containers.py, tests/test_native_ljpeg.py)
+# writes it sample by sample; the ORF predictive, Panasonic and Phase One
+# row streams are sequential codecs written sample by sample, as the test
+# encoders do, at a reduced size.
+
+
+def photo_cfa(h: int, w: int, lo: float, hi: float, seed: int, noise: float = 3.0) -> np.ndarray:
+    """A (h, w) u16 CFA with a photograph's statistics: a smooth field from
+    `seed` (four low-frequency waves and three soft highlights) spanning
+    [lo, hi], a different gain on each Bayer channel, plus Gaussian noise of
+    `noise` DN."""
+    rng = np.random.default_rng(seed)
+    y = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]
+    x = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :]
+    f = np.zeros((h, w), np.float32)
+    for _ in range(4):
+        fy, fx, py, px, a = rng.uniform((0.5, 0.5, 0, 0, 0.3), (3, 3, 2 * np.pi, 2 * np.pi, 1))
+        f += np.float32(a) * (np.sin(np.float32(2 * np.pi * fy) * y + np.float32(py))
+                              * np.cos(np.float32(2 * np.pi * fx) * x + np.float32(px)))
+    for _ in range(3):
+        cy, cx, s, a = rng.uniform((0.1, 0.1, 0.05, 0.5), (0.9, 0.9, 0.2, 1.5))
+        f += np.float32(a) * np.exp(((y - np.float32(cy)) ** 2 + (x - np.float32(cx)) ** 2)
+                                    * np.float32(-0.5 / (s * s)))
+    f = (f - f.min()) / (f.max() - f.min())
+    g = rng.uniform(0.45, 1.0, 3).astype(np.float32)  # R, G, B
+    gain = np.array([[g[0], g[1]], [g[1], g[2]]], np.float32)  # RGGB sites
+    f *= np.tile(gain, (h // 2 + 1, w // 2 + 1))[:h, :w]
+    f = np.float32(lo) + np.float32(hi - lo) * f
+    f += np.float32(noise) * rng.standard_normal((h, w), dtype=np.float32)
+    return np.clip(np.rint(f), 0, 65535).astype(np.uint16)
+
+
+def pack_bits(words: np.ndarray, nbits: np.ndarray, pad: int = 1) -> bytes:
+    """words[i] in nbits[i] bits each, MSB first, concatenated and padded to
+    a whole byte with `pad` bits (vectorized in chunks of 1 M words)."""
+    words = np.asarray(words, np.int64).reshape(-1)
+    nbits = np.asarray(nbits, np.int64).reshape(-1)
+    j = np.arange(int(nbits.max(initial=1)))
+    chunks = []
+    for s in range(0, words.size, 1 << 20):
+        wv, nb = words[s:s + (1 << 20), None], nbits[s:s + (1 << 20), None]
+        bits = (wv >> np.maximum(nb - 1 - j, 0)) & 1
+        chunks.append(bits[j < nb].astype(np.uint8))
+    total = sum(c.size for c in chunks)
+    chunks.append(np.full((-total) % 8, pad, np.uint8))
+    return np.packbits(np.concatenate(chunks)).tobytes()
+
+
+def category_words(diff: np.ndarray, code: np.ndarray, length: np.ndarray):
+    """JPEG-style entropy words of signed differences: the Huffman code of
+    the difference's bit length ssss, then ssss bits of the difference
+    (negative ones as diff + 2**ssss - 1). Returns (words, nbits)."""
+    diff = diff.astype(np.int64).reshape(-1)
+    ssss = np.ceil(np.log2(np.abs(diff) + 1)).astype(np.int64)
+    value = np.where(diff >= 0, diff, diff + (1 << ssss) - 1)
+    return (code[ssss] << ssss) | np.where(ssss > 0, value, 0), length[ssss] + ssss
+
+
+def canonical_codes(counts, values):
+    """(code, length) per symbol of a canonical Huffman table (JPEG DHT
+    order: `counts` codes of each length 1..16 for `values` in order)."""
+    code_of = np.zeros(17, np.int64)
+    len_of = np.zeros(17, np.int64)
+    code = k = 0
+    for n in range(1, 17):
+        for _ in range(counts[n - 1]):
+            code_of[values[k]], len_of[values[k]] = code, n
+            code += 1
+            k += 1
+        code <<= 1
+    return code_of, len_of
+
+
+# NEF 34713 lossless 12-bit (tree 2) and PEF 65535 default tables
+NIKON_LOSSLESS12 = ([0, 1, 4, 2, 3, 1, 2] + [0] * 9, [5, 4, 6, 3, 7, 2, 8, 1, 9, 0, 10, 11, 12])
+PENTAX_DEFAULT = ([0, 2, 3, 1, 1, 1, 1, 1, 1, 2] + [0] * 6, [3, 4, 2, 5, 1, 6, 0, 7, 8, 9, 10, 11,
+                                                              12])
+
+
+def vendor_huffman(cfa: np.ndarray, table) -> bytes:
+    """The Nikon / Pentax Huffman stream of a CFA (initial vertical
+    predictors 0): the first two columns predict from the same column two
+    rows up, later ones from two columns left; padded with 1s."""
+    s = cfa.astype(np.int64)
+    pred = np.zeros_like(s)
+    pred[:, 2:] = s[:, :-2]
+    pred[2:, :2] = s[:-2, :2]
+    return pack_bits(*category_words(s - pred, *canonical_codes(*table)))
+
+
+def ljpeg_encode(samples: np.ndarray, precision: int = 16, ncomp: int = 1) -> bytes:
+    """One lossless-JPEG (SOF3) stream of (H, W * ncomp) u16 samples,
+    `ncomp` interleaved components, predictor 1, 17 Huffman symbols of 5
+    bits each (code = category), vectorized. The repo's test encoder
+    (tests/test_native_ljpeg.py) writes the same stream sample by sample."""
+    import struct
+
+    h, wn = samples.shape
+    w = wn // ncomp
+    s = samples.astype(np.int64).reshape(h, w, ncomp)
+    pred = np.empty_like(s)
+    pred[:, 1:] = s[:, :-1]
+    pred[1:, 0] = s[:-1, 0]
+    pred[0, 0] = 1 << (precision - 1)
+    diff = (s - pred) & 0xFFFF
+    diff = np.where(diff >= 0x8000, diff - 0x10000, diff)
+    # an ssss = 16 difference (-32768) also writes 16 bits, as the test encoder does
+    data = np.frombuffer(pack_bits(*category_words(diff, np.arange(17), np.full(17, 5))), np.uint8)
+    data = np.insert(data, np.flatnonzero(data == 0xFF) + 1, 0)  # byte stuffing
+
+    def seg(marker, payload):
+        return struct.pack(">HH", marker, len(payload) + 2) + payload
+
+    dht = bytes([0x00] + [0, 0, 0, 0, 17] + [0] * 11 + list(range(17)))
+    sof = struct.pack(">BHHB", precision, h, w, ncomp) + b"".join(
+        bytes([c, 0x11, 0]) for c in range(ncomp))
+    sos = bytes([ncomp]) + b"".join(bytes([c, 0]) for c in range(ncomp)) + bytes([1, 0, 0])
+    return (b"\xff\xd8" + seg(0xFFC4, dht) + seg(0xFFC3, sof) + seg(0xFFDA, sos)
+            + data.tobytes() + b"\xff\xd9")
+
+
+def arw2_encode(plane: np.ndarray):
+    """Sony ARW2 blocks of (H, W) 11-bit coded samples, W a multiple of 32:
+    16 bytes per 16 same-colour pixels of 32 interleaved columns (11-bit
+    max and min, their 4-bit positions, 14 7-bit deltas shifted by the
+    block's range). Returns (stream, the quantized plane the decoder
+    reconstructs). The min's position is the first minimum other than the
+    max's, as the test encoder's sort gives it."""
+    h, w = plane.shape
+    pix = plane.astype(np.int64).reshape(h, w // 32, 16, 2).transpose(0, 1, 3, 2).reshape(-1, 16)
+    nb = pix.shape[0]
+    idx = np.arange(16)
+    imax = pix.argmax(1)
+    imin = np.where(idx == imax[:, None], 1 << 20, pix).argmin(1)
+    r = np.arange(nb)
+    vmax, vmin = pix[r, imax], pix[r, imin]
+    sh = sum(((0x80 << s) <= vmax - vmin).astype(np.int64) for s in range(4))
+    delta = (pix - vmin[:, None]) >> sh[:, None]
+    quant = vmin[:, None] + (delta << sh[:, None])
+    quant[r, imin], quant[r, imax] = vmin, vmax
+    other = (idx != imax[:, None]) & (idx != imin[:, None])
+    deltas = delta[other].reshape(nb, 14)
+    bits = np.zeros((nb, 128), np.uint8)
+    fields = [(vmax, 0, 11), (vmin, 11, 11), (imax, 22, 4), (imin, 26, 4)] + [
+        (deltas[:, k], 30 + 7 * k, 7) for k in range(14)]
+    for val, pos, n in fields:
+        for i in range(n):
+            bits[:, pos + i] = (val >> i) & 1
+    stream = np.packbits(bits, axis=1, bitorder="little").tobytes()
+    quant = quant.reshape(h, w // 32, 2, 16).transpose(0, 1, 3, 2).reshape(h, w)
+    return stream, quant.astype(np.uint16)
+
+
+def tiff_bytes(chain: list, endian: str = "<", magic_extra: bytes = b"") -> bytes:
+    """A TIFF of chained IFDs. An IFD is a list of (tag, type, value):
+    value a list of ints (types 1, 3, 4), bytes (stored as given; count in
+    units of the type), a str (type 2), ("ifd", IFD) for a nested IFD's
+    offset or ("blob", bytes) for a LONG offset to the bytes."""
+    import struct
+
+    ifds = []
+
+    def collect(ifd):
+        ifds.append(ifd)
+        for _, _, v in ifd:
+            if isinstance(v, tuple) and v[0] == "ifd":
+                collect(v[1])
+
+    for ifd in chain:
+        collect(ifd)
+    offs, pos = {}, 8 + len(magic_extra)
+    for ifd in ifds:
+        offs[id(ifd)] = pos
+        pos += 2 + 12 * len(ifd) + 4
+    size = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 7: 1, 10: 8}
+    head = bytearray((b"II" if endian == "<" else b"MM") + struct.pack(endian + "HI", 42, 8 + len(
+        magic_extra)) + magic_extra)
+    extra = bytearray()
+    for ifd in ifds:
+        head += struct.pack(endian + "H", len(ifd))
+        for tag, typ, v in sorted(ifd, key=lambda e: e[0]):
+            if isinstance(v, tuple):
+                if v[0] == "ifd":
+                    ref = offs[id(v[1])]
+                else:
+                    ref = pos + len(extra)
+                    extra += v[1]
+                head += struct.pack(endian + "HHII", tag, 4, 1, ref)
+                continue
+            if isinstance(v, str):
+                raw = v.encode() + b"\0"
+            elif isinstance(v, bytes):
+                raw = v
+            else:
+                raw = b"".join(struct.pack(endian + {1: "B", 3: "H", 4: "I", 7: "B"}[typ], x)
+                               for x in v)
+            count = len(raw) // size[typ]
+            if len(raw) > 4:
+                head += struct.pack(endian + "HHII", tag, typ, count, pos + len(extra))
+                extra += raw
+            else:
+                head += struct.pack(endian + "HHI", tag, typ, count) + raw.ljust(4, b"\0")
+        nxt = chain[chain.index(ifd) + 1] if ifd in chain[:-1] else None
+        head += struct.pack(endian + "I", offs[id(nxt)] if nxt is not None else 0)
+    return bytes(head + extra)
+
+
+def rationals(*vals) -> bytes:
+    import struct
+
+    return b"".join(struct.pack("<II", round(v * 10000), 10000) for v in vals)
+
+
+def cfa_ifd(w: int, h: int, bits: int, compression: int, payload: bytes, pattern=(0, 1, 1, 2)):
+    """A raw CFA IFD (one strip), as the vendor TIFF containers hold it."""
+    return [(256, 4, [w]), (257, 4, [h]), (258, 3, [bits]), (259, 3, [compression]),
+            (262, 3, [32803]), (277, 3, [1]), (273, 4, ("blob", payload)), (278, 4, [h]),
+            (279, 4, [len(payload)]), (33422, 1, bytes(pattern))]
+
+
+def canon_makernote(wb_rggb, sensor_info) -> list:
+    """Canon makernote IFD: SensorInfo (0xe0: [_, w, h, _, _, left, top,
+    right, bottom]) and ColorData (0x4001, 796 shorts, as-shot WB RGGB at 63)."""
+    cd = [0] * 796
+    cd[63:67] = list(wb_rggb)
+    return [(0xE0, 3, list(sensor_info)), (0x4001, 3, cd)]
+
+
+def cr2_bytes(sensor: np.ndarray, crop, slices=3, wb_rggb=(2150, 1024, 1024, 1590)) -> bytes:
+    """Canon CR2: IFD0 (Make, Exif -> makernote) chained to the raw IFD, a
+    lossless-JPEG strip of two interleaved 14-bit components holding the
+    sensor as `slices` vertical slices one after another (tag 0xc640:
+    n - 1 slices of one width and a last one). `crop` = (top, left, bottom,
+    right) of the active area in SensorInfo; the masked columns left of
+    it give the black level."""
+    h, w = sensor.shape
+    last = w - (slices - 1) * (-(-w // slices) & ~1)
+    width = (w - last) // (slices - 1)
+    flat = np.concatenate([sensor[:, c:c + sw].reshape(-1) for c, sw in zip(
+        range(0, w, width), [width] * (slices - 1) + [last])])
+    stream = ljpeg_encode(flat.reshape(h, w), precision=14, ncomp=2)
+    top, left, bottom, right = crop
+    mn = canon_makernote(wb_rggb, [0, w, h, 0, 0, left, top, right, bottom])
+    exif = [(37500, 4, ("ifd", mn))]
+    ifd0 = [(271, 2, "Canon"), (272, 2, "EOS R"), (274, 3, [1]), (34665, 4, ("ifd", exif))]
+    raw = [(259, 3, [7]), (273, 4, ("blob", stream)), (279, 4, [len(stream)]),
+           (0xC640, 3, [slices - 1, width, last])]
+    return tiff_bytes([ifd0, raw], magic_extra=b"CR\x02\x00\0\0\0\0")
+
+
+def nef_bytes(cfa: np.ndarray, wb=(2.1, 1.55)) -> bytes:
+    """Nikon NEF, compression 34713, lossless 12-bit: IFD0 (Make, SubIFD
+    -> the raw IFD, Exif -> the 'Nikon' makernote holding an embedded
+    big-endian TIFF with LinearizationTable 0x96 (ver 0x46 0x14, vertical
+    predictors 0, no curve) and WB_RBLevels 0x0c)."""
+    import struct
+
+    h, w = cfa.shape
+    stream = vendor_huffman(cfa, NIKON_LOSSLESS12)
+    lt = bytes([0x46, 0x14]) + struct.pack(">4H", 0, 0, 0, 0) + struct.pack(">H", 0)
+    wbl = b"".join(struct.pack(">II", round(v * 10000), 10000) for v in (*wb, 1.0, 1.0))
+    inner = tiff_bytes([[(0x96, 7, lt), (0x0C, 5, wbl)]], endian=">")
+    exif = [(37500, 7, b"Nikon\x00\x02\x10\x00\x00" + inner)]
+    sub = cfa_ifd(w, h, 12, 34713, stream)
+    ifd0 = [(271, 2, "NIKON CORPORATION"), (272, 2, "NIKON Z 6"), (330, 4, ("ifd", sub)),
+            (34665, 4, ("ifd", exif))]
+    return tiff_bytes([ifd0])
+
+
+def arw_bytes(coded: np.ndarray, neutral=(1 / 2.1, 1.0, 1 / 1.55)):
+    """Sony ARW, ARW2 block compression of 11-bit coded samples (the Sony
+    tone curve expands them on decode; black 512 in that space). Returns
+    (file, the CFA the decoder must give: the curve of the quantized
+    plane)."""
+    from rapidraw_tpu_torch.io.makers import _arw2_curve
+
+    h, w = coded.shape
+    stream, quant = arw2_encode(coded)
+    ifd0 = [(271, 2, "SONY"), (272, 2, "ILCE-7M3"), (50728, 5, rationals(*neutral))]
+    data = tiff_bytes([ifd0, cfa_ifd(w, h, 8, 32767, stream)])
+    return data, _arw2_curve()[quant.astype(np.int64) << 1].astype(np.uint16)
+
+
+def cr3_bytes(sensor: np.ndarray, crop, wb_rggb=(2150, 1024, 1024, 1590)) -> bytes:
+    """Canon CR3 (ISO BMFF): ftyp 'crx ', moov [ Canon uuid [CMT1 (IFD0),
+    CMT3 (makernote: SensorInfo with `crop`, ColorData)], trak [stsd (CRAW
+    + CMP1), stsz, stco] ], mdat with the crx lossless 14-bit sample."""
+    import struct
+
+    from rapidraw_tpu_torch.io import crx
+    from rapidraw_tpu_torch.io.cr3 import CANON_UUID
+
+    def box(btype, payload):
+        return struct.pack(">I", 8 + len(payload)) + btype + payload
+
+    h, w = sensor.shape
+    sample, cmp1 = crx.encode_raw(sensor, n_bits=14, cfa_layout=0)
+    top, left, bottom, right = crop
+    cmt1 = tiff_bytes([[(271, 2, "Canon"), (272, 2, "EOS R6"), (274, 3, [1])]])
+    cmt3 = tiff_bytes([canon_makernote(wb_rggb, [0, w, h, 0, 0, left, top, right, bottom])])
+    cmp1_box = box(b"CMP1", crx.build_cmp1(cmp1))
+    entry = struct.pack(">I", 0x56 + len(cmp1_box)) + b"CRAW" + b"\0" * 6
+    entry += struct.pack(">H", 1) + b"\0" * 16 + struct.pack(">HH", w, h)
+    entry = entry.ljust(0x56, b"\0") + cmp1_box
+    stsd = box(b"stsd", struct.pack(">II", 0, 1) + entry)
+    stsz = box(b"stsz", struct.pack(">III", 0, len(sample), 1))
+    canon = box(b"uuid", CANON_UUID + box(b"CMT1", cmt1) + box(b"CMT3", cmt3))
+    ftyp = box(b"ftyp", b"crx " + b"\0\0\0\x01" + b"crx isom")
+
+    def head(mdat_at):
+        stco = box(b"stco", struct.pack(">III", 0, 1, mdat_at))
+        trak = box(b"trak", box(b"mdia", box(b"minf", box(b"stbl", stsd + stsz + stco))))
+        return ftyp + box(b"moov", canon + trak)
+
+    at = len(head(0)) + 8  # the sample starts after the mdat box header
+    return head(at) + box(b"mdat", sample)
+
+
+def pef_bytes(cfa: np.ndarray) -> bytes:
+    """Pentax PEF, compression 65535 (Pentax Huffman, default table), 12-bit."""
+    h, w = cfa.shape
+    return tiff_bytes([[(271, 2, "PENTAX Corporation")],
+                       cfa_ifd(w, h, 12, 65535, vendor_huffman(cfa, PENTAX_DEFAULT))])
+
+
+def pack_12le(cfa: np.ndarray) -> bytes:
+    """Little-endian 12-bit packing, 2 samples in 3 bytes (Olympus, Nikon)."""
+    a = cfa[:, 0::2].astype(np.uint16)
+    b = cfa[:, 1::2].astype(np.uint16)
+    return np.stack([a & 0xFF, ((a >> 8) & 0xF) | ((b & 0xF) << 4), b >> 4],
+                    axis=-1).astype(np.uint8).tobytes()
+
+
+def orf_bytes(cfa: np.ndarray, payload: bytes | None = None) -> bytes:
+    """Olympus ORF ('IIRO' magic): one CFA IFD; the strip is the 12-bit
+    little-endian packing of `cfa`, or `payload` (a predictive stream)."""
+    h, w = cfa.shape
+    data = bytearray(tiff_bytes([cfa_ifd(w, h, 12, 1, pack_12le(cfa) if payload is None
+                                         else payload)]))
+    data[2:4] = b"RO"
+    return bytes(data)
+
+
+def orf_predictive(h: int, w: int, rng):
+    """The Olympus predictive stream of a (h, w) frame the stream itself
+    drives (random low bits and signs from `rng`, as the test encoder
+    draws them), sample by sample. Returns (stream, expected plane)."""
+    bits = []
+    expected = np.zeros((h, w), np.int64)
+    for row in range(h):
+        acarry = [[0, 0, 0], [0, 0, 0]]
+        for col in range(w):
+            carry = acarry[col & 1]
+            i = 2 * (carry[2] < 3)
+            nbits = 2 + i
+            while (carry[0] & 0xFFFF) >> (nbits + i):
+                nbits += 1
+            if row < 2 and col < 2:
+                pred = 0
+            elif row < 2:
+                pred = int(expected[row, col - 2])
+            elif col < 2:
+                pred = int(expected[row - 2, col])
+            else:
+                wv, nv, nw = (int(expected[row, col - 2]), int(expected[row - 2, col]),
+                              int(expected[row - 2, col - 2]))
+                if (wv < nw < nv) or (nv < nw < wv):
+                    pred = wv + nv - nw if abs(wv - nw) > 32 or abs(nv - nw) > 32 \
+                        else (wv + nv) >> 1
+                else:
+                    pred = wv if abs(wv - nw) > abs(nv - nw) else nv
+            low = int(rng.integers(0, 4))
+            for _ in range(50):
+                c0 = int(rng.integers(0, min(48, (12 << nbits) - 1)))
+                sign_bit = int(rng.integers(0, 2))
+                diff = (c0 ^ -sign_bit) + carry[1]
+                pix = pred + ((diff << 2) | low)
+                if 0 <= pix < (1 << 12):
+                    break
+            else:
+                sign_bit, c0, diff = 0, 0, carry[1]
+                pix = min(max(pred + ((diff << 2) | low), 0), (1 << 12) - 1)
+            high = c0 >> nbits
+            for v, n in ((sign_bit << 2 | low, 3), (1, high + 1),
+                         (c0 & ((1 << nbits) - 1), nbits)):
+                bits.extend((v >> k) & 1 for k in range(n - 1, -1, -1))
+            carry[0] = c0
+            carry[1] = (diff * 3 + carry[1]) >> 5
+            carry[2] = 0 if carry[0] > 16 else carry[2] + 1
+            expected[row, col] = pix
+    bits.extend([0] * (-len(bits) % 8))
+    return b"\0" * 7 + np.packbits(np.array(bits, np.uint8)).tobytes(), \
+        expected.astype(np.uint16)
+
+
+def rw2_stream(h: int, w: int, rng):
+    """The Panasonic 12-bit bitstream of a (h, w) frame the stream drives
+    (random seeds and deltas from `rng`, as the test encoder draws them),
+    sample by sample: LSB-first bits at a down-counting cursor in
+    0x4000-byte sections, each stored with its halves swapped. Every
+    14-pixel block takes 128 bits, so `w` is a multiple of 14 and blocks
+    never straddle a section. Returns (stream, expected plane)."""
+    if w % 14:
+        raise ValueError(f"width {w} is not a multiple of 14")
+    sections = [bytearray(0x4001)]
+    a = [0x20000]
+
+    def put(v, n):
+        if a[0] == 0:  # the next section: 1024 blocks of 128 bits fill one
+            sections.append(bytearray(0x4001))
+            a[0] = 0x20000
+        a[0] -= n
+        buf = sections[-1]
+        idx = (a[0] // 8) ^ 0x3FF0
+        word = (buf[idx] | (buf[idx + 1] << 8)) | ((v & ((1 << n) - 1)) << (a[0] % 8))
+        buf[idx], buf[idx + 1] = word & 0xFF, (word >> 8) & 0xFF
+
+    expected = np.zeros((h, w), np.uint16)
+    for row in range(h):
+        pred, nonz, sh = [0, 0], [0, 0], 0
+        for col in range(w):
+            i = col % 14
+            if i == 0:
+                pred, nonz = [0, 0], [0, 0]
+            if i % 3 == 2:
+                b = int(rng.integers(0, 4))
+                put(b, 2)
+                sh = 4 >> (3 - b)
+            if nonz[i & 1]:
+                j = int(rng.integers(0, 256))
+                put(j, 8)
+                if j:
+                    pred[i & 1] -= 0x80 << sh
+                    if pred[i & 1] < 0 or sh == 4:
+                        pred[i & 1] &= ~(-1 << sh)
+                    pred[i & 1] += j << sh
+            else:
+                nz = int(rng.integers(1, 256))
+                put(nz, 8)
+                nonz[i & 1] = nz
+                lo = int(rng.integers(0, 16))
+                put(lo, 4)
+                pred[i & 1] = nz << 4 | lo
+            expected[row, col] = pred[col & 1] & 0xFFFF
+    return b"".join(bytes(s[0x2008:0x4000]) + bytes(s[0:0x2008]) for s in sections), expected
+
+
+def rw2_bytes(stream: bytes, h: int, w: int, crop=(2, 4), black=143, wb=(520, 263, 410)) -> bytes:
+    """Panasonic RW2 ('IIU\\0' magic): IFD0 with the PanasonicRaw sensor
+    tags (size, borders cropping `crop` rows / columns, RGGB, 12 bits,
+    black, WB levels) and the offset of the bitstream."""
+    top, left = crop
+    ifd = [(0x0001, 1, bytes([4, 0, 0, 0])), (0x0002, 3, [w]), (0x0003, 3, [h]),
+           (0x0004, 3, [top]), (0x0005, 3, [left]), (0x0006, 3, [h]), (0x0007, 3, [w]),
+           (0x0009, 3, [1]), (0x000A, 3, [12]), (0x001C, 3, [black]), (0x001D, 3, [black]),
+           (0x001E, 3, [black]), (0x0024, 3, [wb[0]]), (0x0025, 3, [wb[1]]),
+           (0x0026, 3, [wb[2]]), (0x0118, 4, ("blob", stream))]
+    data = bytearray(tiff_bytes([ifd]))
+    data[2:4] = b"U\0"
+    return bytes(data)
+
+
+def mrw_bytes(cfa: np.ndarray, gains=(320, 256, 256, 448)) -> bytes:
+    """Minolta MRW: the PRD (sensor) and WBG (gains) blocks, then the CFA
+    packed 12-bit big-endian, RGGB."""
+    import struct
+
+    h, w = cfa.shape
+    prd = (b"27730001" + struct.pack(">HHHH", h, w, h, w) + bytes([12, 12, 0x59, 0])
+           + struct.pack(">HH", 0, 0x0001))
+    wbg = bytes([0, 0, 0, 0]) + struct.pack(">HHHH", *gains)
+    blocks = (b"\x00PRD" + struct.pack(">I", len(prd)) + prd
+              + b"\x00WBG" + struct.pack(">I", len(wbg)) + wbg)
+    return b"\x00MRM" + struct.pack(">I", len(blocks)) + blocks + pack_msb(cfa, 12)
+
+
+def srw_bytes(cfa: np.ndarray) -> bytes:
+    """Samsung SRW on the generic TIFF-CFA path: IFD0 an RGB preview with
+    Make and the Samsung WB levels 0xa021 and black 0xa028, chained to a
+    16-bit raw IFD without a CFA tag (RGGB)."""
+    h, w = cfa.shape
+    ifd0 = [(256, 3, [64]), (257, 3, [48]), (258, 3, [8, 8, 8]), (277, 3, [3]), (259, 3, [1]),
+            (273, 4, ("blob", bytes(64 * 48 * 3))), (279, 4, [64 * 48 * 3]),
+            (271, 2, "SAMSUNG"), (0xA021, 4, [1150, 512, 512, 900]), (0xA028, 4, [128, 0, 0, 0])]
+    raw = [(256, 3, [w]), (257, 3, [h]), (258, 3, [16]), (277, 3, [1]), (259, 3, [1]),
+           (273, 4, ("blob", cfa.astype("<u2").tobytes())), (279, 4, [cfa.size * 2])]
+    return tiff_bytes([ifd0, raw])
+
+
+# Phase One length codes: length -> (index j, extra bit); j < 4 is written
+# as j + 1 zeros and a one, j = 4 as five zeros and no one (the reader's
+# unary scan stops at 5)
+IIQ_LEN_CODE = {8: (0, 0), 7: (0, 1), 6: (1, 0), 9: (1, 1), 11: (2, 0), 10: (2, 1), 5: (3, 0),
+                12: (3, 1), 14: (4, 0), 13: (4, 1)}
+IIQ_LENS = sorted(k for k in IIQ_LEN_CODE if k != 14)
+
+
+def iiq_row(values: np.ndarray, lens: list) -> bytes:
+    """One Phase One compressed row, little-endian words, sample by sample
+    (the test encoder's `_encode_row`): per group of 8, per column parity
+    the shortest code length covering its differences (a 1 bit when it
+    repeats the parity's last one, which carries over rows), then the 8
+    samples as offset differences, or raw 16 bits at length 14."""
+    out = []
+
+    def put(v, n):
+        if n:
+            out.append(format(v & ((1 << n) - 1), f"0{n}b"))
+
+    width = len(values)
+    tail = width & ~7
+    pred = [0, 0]
+    for g0 in range(0, tail, 8):
+        for i in (0, 1):
+            p, need = pred[i], 5
+            for v in values[g0 + i:g0 + 8:2]:
+                d = int(v) - p
+                p = int(v)
+                while need < 14 and not (1 - (1 << (need - 1)) <= d <= (1 << (need - 1))):
+                    need = next((n for n in IIQ_LENS if n > need), 14)
+            if need == lens[i]:
+                put(1, 1)
+            else:
+                zeros, bit = IIQ_LEN_CODE[need]
+                if zeros < 4:
+                    put(0, zeros + 1)
+                    put(1, 1)
+                else:
+                    put(0, 5)
+                put(bit, 1)
+                lens[i] = need
+        for col in range(g0, g0 + 8):
+            i = col & 1
+            v = int(values[col])
+            put(v, 16) if lens[i] == 14 else put(v - pred[i] - 1 + (1 << (lens[i] - 1)), lens[i])
+            pred[i] = v
+    for col in range(tail, width):
+        put(int(values[col]), 16)
+    if tail < width:
+        lens[0] = lens[1] = 14
+    bits = "".join(out)
+    bits += "0" * (-len(bits) % 32)
+    return b"".join(int(bits[i:i + 32], 2).to_bytes(4, "little") for i in range(0, len(bits), 32))
+
+
+def iiq_bytes(pred: np.ndarray, black: int = 64, wb=(2.25, 1.0, 1.4375), romm=None) -> bytes:
+    """Phase One IIQ, format 5, little-endian: the 'IIII' raw directory
+    (sensor size, format, black, WB floats, optional ROMM matrix, row
+    offsets, the XOR keys) over the compressed rows, wrapped in a TIFF whose
+    IFD0 holds the Make. The layout of the test writer `_build_iiq`."""
+    import struct
+
+    raw_h, raw_w = pred.shape
+    payload = bytearray()
+
+    def add(b: bytes) -> int:
+        off = 12 + len(payload)
+        payload.extend(b)
+        return off
+
+    wb_off = add(struct.pack("<3f", *wb))
+    romm_off = add(struct.pack("<9f", *np.asarray(romm, np.float64).ravel())) if romm is not None \
+        else 0
+    lens = [0, 0]
+    rows = [iiq_row(pred[r], lens) for r in range(raw_h)]
+    strip_off = add(np.cumsum([0] + [len(b) for b in rows[:-1]]).astype("<u4").tobytes())
+    data_off = add(b"".join(rows))
+    entries = [(0x108, 4, raw_w), (0x109, 4, raw_h), (0x10A, 4, 0), (0x10B, 4, 0),
+               (0x10C, 4, raw_w), (0x10D, 4, raw_h), (0x10E, 4, 5), (0x10F, 4, data_off),
+               (0x21D, 4, black), (0x107, 12, wb_off)]
+    if romm_off:
+        entries.append((0x106, 36, romm_off))
+    entries += [(0x21C, 4 * raw_h, strip_off), (0x222, 4, 0), (0x224, 4, 0),
+                (0x112, 4, struct.unpack("<I", struct.pack("<HH", 0xA5A5, 0x3C3C))[0])]
+    blob = (b"IIII" + struct.pack("<I", (0x526177 << 8) | 0x55)
+            + struct.pack("<I", 12 + len(payload)) + payload
+            + struct.pack("<II", len(entries), 0)
+            + b"".join(struct.pack("<IIII", tag, 4, n, word) for tag, n, word in entries))
+    ifd0_off = 8 + len(blob)
+    make = b"Phase One A/S\0"
+    return (b"II*\0" + struct.pack("<I", ifd0_off) + blob + struct.pack("<H", 1)
+            + struct.pack("<HHII", 271, 2, len(make), ifd0_off + 2 + 12 + 4)
+            + struct.pack("<I", 0) + make)
 
 DOCS = {"config1": (CONFIG1_DOC, False), "config3": (CONFIG3_DOC, False),
         "full": (FULL_DOC, False), "grain": (GRAIN_DOC, False), "raw": (RAW_DOC, True)}
@@ -878,10 +1441,172 @@ def phase_raw(args, h, w, reps, card, dev, reset_counts, read_counts):
     return launches, report
 
 
+# phase 12's 24 MP files: the four commonest vendor containers
+VENDOR_MAIN = ("cr2", "nef", "arw", "cr3")
+# the other vendor formats, checked on the card against the CPU: name ->
+# (extension, (rows, columns) of the written frame)
+VENDOR_OTHER = {"pef": ("pef", (1024, 1536)), "orf_packed": ("orf", (1024, 1536)),
+                "orf_predictive": ("orf", (512, 768)), "rw2": ("rw2", (1026, 1540)),
+                "mrw": ("mrw", (1024, 1536)), "srw": ("srw", (1024, 1536)),
+                "iiq5": ("iiq", (1024, 1536))}
+CANON_MASK = (2, 64)  # CR2 / CR3: masked rows above and columns left of the active area
+
+
+def vendor_file(kind: str, h: int, w: int, seed: int):
+    """(file bytes, the CFA it decodes to) of one vendor container with an
+    (h, w) active area (VENDOR_MAIN), or of (h, w) frames of the other
+    formats (VENDOR_OTHER). The main four and the PEF, ORF-packed, MRW,
+    SRW and IIQ frames hold photo_cfa content: CR2 / CR3 a 14-bit sensor
+    with a 2048 pedestal and masked columns (the black level) around the
+    active area, NEF / PEF / ORF / MRW 12-bit, SRW 14-bit in 16, ARW2 11-bit
+    coded samples (the decoded CFA is the Sony curve of the plane the
+    encoder quantized); the ORF predictive and Panasonic streams drive their
+    own random frames, as their test encoders do."""
+    rng = np.random.default_rng(seed)
+    if kind in ("cr2", "cr3"):
+        top, left = CANON_MASK
+        sensor = photo_cfa(h + 2 * top, w + left, 2048, 15000, seed)
+        sensor[:, :left] = photo_cfa(h + 2 * top, left, 2048, 2048, seed + 1)
+        crop = (top, left, top + h - 1, left + w - 1)
+        data = cr2_bytes(sensor, crop) if kind == "cr2" else cr3_bytes(sensor, crop)
+        return data, sensor[top:top + h, left:]
+    if kind == "arw":
+        return arw_bytes(photo_cfa(h, w, 256, 1900, seed))
+    if kind == "orf_predictive":
+        stream, cfa = orf_predictive(h, w, rng)
+        return orf_bytes(cfa, stream), cfa
+    if kind == "rw2":
+        stream, plane = rw2_stream(h, w, rng)
+        return rw2_bytes(stream, h, w), plane[2:, 4:]
+    if kind == "iiq5":
+        pred = photo_cfa(h, w, 200, 15000, seed)
+        black = 64
+        v = np.where(pred < 256, (pred.astype(np.float64) ** 2 / 3.969 + 0.5).astype(np.int64),
+                     pred.astype(np.int64))  # the format-5 small-value ramp, << 2, - black
+        return iiq_bytes(pred, black), np.clip((v << 2) - black, 0, 65535).astype(np.uint16)
+    cfa = photo_cfa(h, w, 0, 16000 if kind == "srw" else 4000, seed)
+    writer = {"nef": nef_bytes, "pef": pef_bytes, "orf_packed": orf_bytes, "mrw": mrw_bytes,
+              "srw": srw_bytes}[kind]
+    return writer(cfa), cfa
+
+
+def phase_vendor(args, h, w, reps, card, dev, reset_counts, read_counts):
+    """Phase 12, config 2 from the vendor containers: 24 MP CR2 (sliced
+    lossless JPEG, 14-bit, masked border), NEF (34713 lossless 12-bit), ARW
+    (ARW2) and CR3 (crx lossless 14-bit) files written from `--seed` into a
+    temporary directory; per file the host parse (median
+    of 3; the CFA must equal what was encoded), the u16 upload, the front
+    end, and file -> load_image -> develop_batch(CONFIG3_DOC) -> u8 for
+    B = 1, 2 with the counters read around each call (grade 1, blur 1);
+    then every vendor format at 1024 x 1536 (the ORF predictive stream at
+    512 x 768: its encoder is sequential) on the card against the CPU:
+    front end bit for bit, u8 within 1 LSB on <= 0.1%. Returns {path:
+    launches}."""
+    import tempfile
+
+    from rapidraw_tpu_torch import develop_batch, device_u8, load_image, parse_adjustments, \
+        parse_raw, stack_params
+    from rapidraw_tpu_torch.io import dng as dng_io
+
+    e2e_reps = min(reps, 3)
+    launches = {}
+
+    def run2(paths, device=dev):
+        images = torch.stack([load_image(p, device=device)[0] for p in paths])
+        parsed = [parse_adjustments(CONFIG3_DOC, is_raw=True) for _ in paths]
+        sp, cfg = stack_params([q for q, _ in parsed], [c for _, c in parsed], device=device)
+        out = develop_batch(images, sp, cfg)
+        return out, device_u8(out).cpu().numpy()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_vendor_") as tmp:
+        paths = {}
+        for i, kind in enumerate(VENDOR_MAIN):
+            t0 = time.perf_counter()
+            data, want = vendor_file(kind, h, w, args.seed + i)
+            paths[kind] = Path(tmp) / f"shot.{kind}"
+            paths[kind].write_bytes(data)
+            write_ms = (time.perf_counter() - t0) * 1e3
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                raw = parse_raw(paths[kind].read_bytes(), ext=paths[kind].suffix)
+                times.append((time.perf_counter() - t0) * 1e3)
+            parse_ms = statistics.median(times)
+            if raw.cfa.dtype != np.uint16 or not np.array_equal(raw.cfa, want):
+                raise AssertionError(f"the {kind} file decodes to another CFA")
+            up_ms = median_host_ms(lambda: dng_io.upload_cfa(raw, dev), reps)
+            cfa_dev = dng_io.upload_cfa(raw, dev)
+            front_ms = time_ms(lambda: dng_io.develop_raw(cfa_dev, raw), reps)
+            del cfa_dev
+            log(f"[vendor] {kind} ({h},{w}): wrote {len(data) / 1e6:.1f} MB in {write_ms:.0f} ms; "
+                f"host parse {parse_ms:.1f} ms (read + decode, median of 3; the CFA equals the "
+                f"encoded one: pattern {raw.pattern}, black {raw.black_level:g}, white "
+                f"{raw.white_level:g}, wb {np.round(raw.wb, 4).tolist()}, matrix "
+                f"{raw.xyz_to_cam is not None}); u16 upload {up_ms:.2f} ms (host clock); front end "
+                f"{front_ms:.2f} ms [{card}]")
+            for b in (1, 2):
+                reset_counts()
+                out, u8 = run2([paths[kind]] * b)
+                torch.cuda.synchronize()
+                n = read_counts()
+                if b == 2:
+                    launches[f"config2_{kind}"] = n
+                if n["grade"] != 1 or n["blur"] != 1:
+                    raise AssertionError(f"{kind} B={b}: launches {n} (want grade 1, blur 1)")
+                if not bool(torch.isfinite(out).all()) or u8.shape != (b, 3, h, w) \
+                        or u8.min() == u8.max():
+                    raise AssertionError(f"{kind} B={b}: output non-finite, misshapen or constant")
+                del out, u8
+                # each e2e run right after a parse of the same file: the host
+                # parse's share of e2e is the median of the pairs' ratios
+                pts, dts = [], []
+                for _ in range(e2e_reps):
+                    t0 = time.perf_counter()
+                    parse_raw(paths[kind].read_bytes(), ext=paths[kind].suffix)
+                    pts.append((time.perf_counter() - t0) * 1e3)
+                    dts.append(median_host_ms(lambda: run2([paths[kind]] * b), 1))
+                dt = statistics.median(dts)
+                share = statistics.median(pt * b / d for pt, d in zip(pts, dts))
+                log(f"[vendor] e2e {kind} config3 B={b}: launches blur {n['blur']} grade "
+                    f"{n['grade']}; {dt / b:.2f} ms/image, {b * h * w / dt / 1e3:.1f} MPix/s "
+                    f"({kind} file -> u8 on the host, median of {e2e_reps}; range "
+                    f"{min(dts) / b:.2f}-{max(dts) / b:.2f}); host parse share {share:.3f} "
+                    f"(parse {min(pts):.1f}-{max(pts):.1f} ms beside it) [{card}]")
+        if args.profile:
+            profile_run("config2_nef B=2", lambda: run2([paths["nef"]] * 2), args.out, card)
+
+        # every vendor format on the card against the plain CPU path
+        sh, sw = 1024, 1536
+        small = {kind: (kind, (sh, sw)) for kind in VENDOR_MAIN} | VENDOR_OTHER
+        for i, (kind, (ext, (fh, fw))) in enumerate(small.items()):
+            t0 = time.perf_counter()
+            data, want = vendor_file(kind, fh, fw, args.seed + 20 + i)
+            write_ms = (time.perf_counter() - t0) * 1e3
+            p = Path(tmp) / f"small_{kind}.{ext}"
+            p.write_bytes(data)
+            raw = parse_raw(data, ext=ext)
+            if not np.array_equal(raw.cfa, want):
+                raise AssertionError(f"the small {kind} file decodes to another CFA")
+            lin_gpu = dng_io.load_raw_file(p, device=dev)
+            lin_cpu = dng_io.load_raw_file(p, device="cpu")
+            front_d = float((lin_gpu.cpu() - lin_cpu).abs().max())
+            _, u8_gpu = run2([p])
+            _, u8_cpu = run2([p], device="cpu")
+            du = np.abs(u8_gpu.astype(np.int16) - u8_cpu.astype(np.int16))
+            log(f"[vendor] small {kind} {tuple(raw.cfa.shape)} (written in {write_ms:.0f} ms) "
+                f"CUDA vs plain CPU: front end max|d| {front_d:.3e}; u8 max {int(du.max())} LSB, "
+                f"share>0 {float((du > 0).mean()):.2e}")
+            if front_d > 0 or du.max() > 1 or (du > 0).mean() > 1e-3:
+                raise AssertionError(f"the {kind} file on the card disagrees with the CPU")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true", help="1024x1536, fewer repetitions")
     ap.add_argument("--out", default=None, help="directory for the nvcc/ptxas logs")
+    ap.add_argument("--seed", type=int, default=12,
+                    help="seed of phase 12's vendor files (their content and streams)")
     ap.add_argument("--profile", action="store_true",
                     help="torch.profiler over the config-3, -5, -4 and -2 B=2 main paths")
     args = ap.parse_args()
@@ -931,15 +1656,17 @@ def main() -> int:
     libs = {"blur": blur._KERNEL, "grade": fused._KERNEL, "nr": nr._KERNEL,
             "resample": warp_fast._KERNEL, "chunked": prof_chunked._KERNEL,
             "nr_slices": prof_nr_slices._KERNEL}
-    def build_host():
+    def build_host(name):
         t0 = time.perf_counter()
-        native.host_library("ljpeg")
+        native.host_library(name)
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(libs) + 1) as pool:
-        host = pool.submit(build_host)
+    hosts = ("ljpeg", "vendor_huff", "pana_oly", "crx", "phase_one")  # the host decoders
+    with ThreadPoolExecutor(len(libs) + len(hosts)) as pool:
+        host = {name: pool.submit(build_host, name) for name in hosts}
         list(pool.map(lambda kl: kl.lib(), libs.values()))
-        log(f"[build] ljpeg (host decoder, g++): {host.result():.1f} s")
+        for name, fut in host.items():
+            log(f"[build] {name} (host decoder, g++): {fut.result():.1f} s")
     usage = {name: ptxas_usage(kl.build_log) for name, kl in libs.items()}
     for name, kl in libs.items():
         log(f"[build] {name}: nvcc {kl.build_seconds:.1f} s, registers {usage[name][0]}, "
@@ -1569,6 +2296,10 @@ def main() -> int:
     report.update(raw_report)
     phase_done("config 2 (RAW)")
 
+    # ---- 12. config 2 from the vendor containers: CR2, NEF, ARW, CR3 -> u8 -------
+    launches12 = phase_vendor(args, h, w, reps, card, dev, reset_counts, read_counts)
+    phase_done("config 2 vendor RAW")
+
     sources = {  # name -> (source, the TPU kernel it replaces, the path that runs it)
         "blur": ("rapidraw_tpu_torch/csrc/blur.cu", "rapidraw_tpu/ops/blur.py:242", "config5"),
         "grade": ("rapidraw_tpu_torch/csrc/grade.cu", "rapidraw_tpu/pipeline/fused.py:298",
@@ -1587,7 +2318,7 @@ def main() -> int:
     # at that path's shapes
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     counts = {"config3": launches3, "config5": launches5, "probes": launches_probes,
-              "config4": launches4, **launches2}
+              "config4": launches4, **launches2, **launches12}
     kernels = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[top][name], **{k: report[name, top][k] for k in fields},

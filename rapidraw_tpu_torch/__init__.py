@@ -3,8 +3,10 @@ NVIDIA H100.
 
 The develop main path: one adjustment document applied to planar
 (3, H, W) float32 images, then quantized on the device. RAW files load
-through `load_image` (DNG and RAF decoded on the host, then demosaic,
-colour, highlight compression and the RAW enhance pass on the device).
+through `load_image` (DNG, RAF and the vendor containers CR2, CR3, NEF,
+PEF, ARW, ORF, RW2, MRW, IIQ and the TIFF-CFA tail decoded on the host,
+then demosaic, colour, highlight compression and the RAW enhance pass on
+the device).
 Local masks are rasterized on the host (rasterize_masks, blur_band_rows)
 and blended in the grade. On CUDA tensors it runs two hand-written Hopper
 kernels (csrc/blur.cu for the blur pyramid, csrc/grade.cu for the whole

@@ -1,13 +1,18 @@
 """RAW container detection and decode dispatch.
 
-Port of `rapidraw_tpu/io/containers.py` (host Python). Each container the
-port decodes has a host parser producing a `RawFile` (io/dng.py):
-DNG/TIFF (io/dng.py) and RAF (Fujifilm, io/raf.py, the X-Trans entry
-point). The JAX package also decodes CR2, NEF, PEF, ARW, ORF, RW2, CR3,
-MRW, the generic vendor TIFF-CFA tail and IIQ; the port detects them and
-refuses each with an UnsupportedRawFormat that names the format and says
-it is not yet ported. X3F, CRW, ARRIRAW and the extension tail are refused
-as the JAX package refuses them.
+Port of `rapidraw_tpu/io/containers.py` (host Python). Each container has a
+host parser producing a `RawFile` (io/dng.py), as in the JAX package:
+  TIFF-family: DNG/TIFF (io/dng.py), CR2/NEF/PEF/ARW/ORF/RW2 (io/makers.py,
+  with the Olympus predictive and Panasonic 12-bit bitstreams decoded by
+  csrc/host/pana_oly.cc), plus the generic vendor TIFF-CFA tail
+  (ERF/MEF/MOS/FFF/3FR/KDC/DCR/DCS/SRW, parse_tiff_cfa).
+  Block-chain: MRW (Minolta, parse_mrw). RAF (Fujifilm, io/raf.py).
+  CR3 (ISO BMFF): io/cr3.py + io/crx.py decode the lossless crx dialect
+  (csrc/host/crx.cc); payloads that do not match refuse precisely.
+  IIQ (Phase One): io/iiq.py + csrc/host/phase_one.cc.
+X3F, CRW, ARRIRAW, bare BMFF and the extension tail are refused as the JAX
+package refuses them. The metadata-only dimension queries
+(`raw_dimensions`) are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,13 +21,11 @@ import struct
 
 from rapidraw_tpu_torch.io.dng import DngError, RawFile, parse_dng
 
-# the containers this package decodes
-SUPPORTED_FORMATS = ("dng", "tiff", "raf")
-
-# containers the JAX package decodes and this package does not yet
-# (sniff_container kinds)
-NOT_YET_PORTED = (
-    "cr2", "nef", "pef", "arw", "orf", "rw2", "cr3", "mrw", "tiffcfa", "iiq",
+SUPPORTED_FORMATS = (
+    "dng", "tiff", "cr2", "cr3", "nef", "nrw", "pef", "arw", "srf", "sr2",
+    "orf", "rw2", "rwl", "raf", "mrw", "iiq",
+    # generic vendor TIFF-CFA path (io/makers.py parse_tiff_cfa)
+    "erf", "mef", "mos", "fff", "3fr", "kdc", "dcr", "dcs", "srw",
 )
 
 # Make-prefix -> the generic TIFF-CFA path (formats.rs:4-71's vendor list)
@@ -155,16 +158,30 @@ def sniff_container(data: bytes, ext: str = "") -> str:
 def _dispatch(kind: str, data: bytes) -> RawFile | None:
     if kind == "tiff":
         return parse_dng(data)
+    if kind in _MAKER_PARSERS:
+        from rapidraw_tpu_torch.io import makers
+
+        return getattr(makers, _MAKER_PARSERS[kind])(data)
     if kind == "raf":
         from rapidraw_tpu_torch.io.raf import parse_raf
 
         return parse_raf(data)
-    if kind in NOT_YET_PORTED:
-        raise UnsupportedRawFormat(
-            kind, "the JAX package rapidraw_tpu decodes it; not yet ported to "
-            "rapidraw_tpu_torch",
-        )
+    if kind == "cr3":
+        from rapidraw_tpu_torch.io.cr3 import parse_cr3
+
+        return parse_cr3(data)  # structured parse; raises with metadata
+    if kind == "iiq":
+        from rapidraw_tpu_torch.io.iiq import parse_iiq
+
+        return parse_iiq(data)
     return None
+
+
+# sniff_container kind -> its parser in io/makers.py
+_MAKER_PARSERS = {
+    "cr2": "parse_cr2", "nef": "parse_nef", "pef": "parse_pef", "arw": "parse_arw",
+    "orf": "parse_orf", "rw2": "parse_rw2", "mrw": "parse_mrw", "tiffcfa": "parse_tiff_cfa",
+}
 
 
 def parse_raw(data: bytes, ext: str = "") -> RawFile:

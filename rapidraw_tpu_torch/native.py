@@ -8,7 +8,12 @@ of any generated header, so an edited kernel or param layout rebuilds and
 a stale library is never loaded. Build failures raise; nothing falls back.
 nvcc's output (with ptxas's registers and spills per kernel) is kept beside
 the library as `<library>.log` and read back when a built library is reused.
-A host decoder compiles with g++ the same way (`host_library`).
+A host decoder compiles with g++ the same way (`host_library`): the
+lossless-JPEG decoder (ljpeg.cc), the Nikon and Pentax Huffman decoders
+(vendor_huff.cc), the Panasonic and Olympus bitstreams (pana_oly.cc), the
+crx codec of CR3 (crx.cc) and the Phase One IIQ rows (phase_one.cc). Their
+bindings below copy the JAX package's (`rapidraw_tpu/native/__init__.py`)
+signature for signature.
 """
 
 from __future__ import annotations
@@ -172,3 +177,199 @@ def ljpeg_decode(stream: bytes):
         n = w.value * h.value * nc.value
         return buf[:n].reshape(h.value, w.value * nc.value).copy()
     raise ValueError("ljpeg stream too large")
+
+
+def nikon_decode(stream: bytes, width: int, height: int, tree: int,
+                 split: int, vpred, bits: int):
+    """Nikon NEF compression 34713 -> (H, W) uint16 predicted values
+    (pre-curve). vpred: 4 uint16 initial vertical predictors."""
+    import numpy as np
+
+    lib = host_library("vendor_huff")
+    fn = lib.nikon_decode
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_char_p, ctypes.c_long, ctypes.POINTER(ctypes.c_uint16),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint16), ctypes.c_int,
+    ]
+    out = np.empty((height, width), np.uint16)
+    vp = np.ascontiguousarray(np.asarray(vpred, np.uint16).reshape(4))
+    rc = fn(
+        stream, len(stream),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
+        width, height, tree, split,
+        vp.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)), bits,
+    )
+    if rc != 0:
+        raise ValueError(f"nikon decode failed (code {rc})")
+    return out
+
+
+def pentax_decode(stream: bytes, width: int, height: int, bits: int = 16,
+                  table=None):
+    """Pentax PEF compression 65535 -> (H, W) u16.
+
+    table: optional (codes, lens, syms) sequences from makernote 0x220
+    (dcraw builds its Huffman table from that tag unconditionally); None
+    uses the format's default table.
+    """
+    import numpy as np
+
+    lib = host_library("vendor_huff")
+    out = np.empty((height, width), np.uint16)
+    out_p = out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16))
+    if table is None:
+        fn = lib.pentax_decode
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            ctypes.c_char_p, ctypes.c_long, ctypes.POINTER(ctypes.c_uint16),
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ]
+        rc = fn(stream, len(stream), out_p, width, height, bits)
+    else:
+        codes, lens, syms = table
+        n = len(codes)
+        if not (0 < n <= 32 and len(lens) == n and len(syms) == n):
+            raise ValueError("pentax table must be <=32 (codes, lens, syms)")
+        fn = lib.pentax_decode_table
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            ctypes.c_char_p, ctypes.c_long, ctypes.POINTER(ctypes.c_uint16),
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_uint16), ctypes.c_char_p, ctypes.c_char_p,
+            ctypes.c_int,
+        ]
+        codes_a = np.ascontiguousarray(codes, np.uint16)
+        rc = fn(
+            stream, len(stream), out_p, width, height, bits,
+            codes_a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
+            bytes(bytearray(lens)), bytes(bytearray(syms)), n,
+        )
+    if rc != 0:
+        raise ValueError(f"pentax decode failed (code {rc})")
+    return out
+
+
+def panasonic_decode(stream: bytes, raw_width: int, height: int):
+    """Panasonic RW2 12-bit bitstream -> (H, raw_width) uint16."""
+    import numpy as np
+
+    lib = host_library("pana_oly")
+    fn = lib.panasonic_decode
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_char_p, ctypes.c_long, ctypes.POINTER(ctypes.c_uint16),
+        ctypes.c_int, ctypes.c_int,
+    ]
+    out = np.empty((height, raw_width), np.uint16)
+    rc = fn(
+        stream, len(stream),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
+        raw_width, height,
+    )
+    if rc != 0:
+        raise ValueError(f"panasonic decode failed (code {rc})")
+    return out
+
+
+def olympus_decode(stream: bytes, raw_width: int, width: int, height: int):
+    """Olympus ORF predictive codec -> (H, width) uint16 (12-bit range)."""
+    import numpy as np
+
+    lib = host_library("pana_oly")
+    fn = lib.olympus_decode
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_char_p, ctypes.c_long, ctypes.POINTER(ctypes.c_uint16),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ]
+    out = np.zeros((height, width), np.uint16)
+    rc = fn(
+        stream, len(stream),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
+        raw_width, width, height,
+    )
+    if rc != 0:
+        raise ValueError(f"olympus decode failed (code {rc})")
+    return out
+
+
+def phase_one_decode(data: bytes, row_offsets, raw_width: int,
+                     raw_height: int, fmt: int, big_endian: bool):
+    """Phase One IIQ compressed rows -> (H, W) uint16 pixel values
+    (post-prediction, format-5 curve applied, PRE black subtraction).
+
+    row_offsets: per-row byte offsets into `data` (the region starting at
+    the container's data_offset)."""
+    import numpy as np
+
+    lib = host_library("phase_one")
+    fn = lib.phase_one_decode
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_char_p, ctypes.c_long, ctypes.POINTER(ctypes.c_uint32),
+        ctypes.POINTER(ctypes.c_uint16),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ]
+    offs = np.ascontiguousarray(row_offsets, np.uint32)
+    if offs.shape != (raw_height,):
+        raise ValueError("row_offsets must have raw_height entries")
+    out = np.empty((raw_height, raw_width), np.uint16)
+    rc = fn(
+        data, len(data),
+        offs.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
+        raw_width, raw_height, fmt, 1 if big_endian else 0,
+    )
+    if rc != 0:
+        raise ValueError(f"phase one decode failed (code {rc})")
+    return out
+
+
+def crx_decode(sample: bytes, planes: int, pw: int, ph: int):
+    """Decode one crx-class tile sample -> uint16 (planes, ph, pw).
+
+    Strictly validates the ff01/ff02/ff03 framing; raises ValueError on any
+    mismatch (io/cr3.py treats that as "not our crx dialect" and falls back
+    to its precise refusal).
+    """
+    import numpy as np
+
+    lib = host_library("crx")
+    fn = lib.crx_decode
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_char_p, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint16),
+    ]
+    out = np.empty((planes, ph, pw), np.uint16)
+    rc = fn(sample, len(sample), planes, pw, ph,
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)))
+    if rc != 0:
+        raise ValueError(f"crx decode failed (code {rc})")
+    return out
+
+
+def crx_encode(planes_arr) -> bytes:
+    """Encode uint16 (planes, ph, pw) as one crx-class tile sample."""
+    import numpy as np
+
+    a = np.ascontiguousarray(planes_arr, np.uint16)
+    planes, ph, pw = a.shape
+    lib = host_library("crx")
+    fn = lib.crx_encode
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [
+        ctypes.POINTER(ctypes.c_uint16),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_ubyte), ctypes.c_longlong,
+    ]
+    cap = a.nbytes * 2 + 4096
+    buf = (ctypes.c_ubyte * cap)()
+    n = fn(a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
+           planes, pw, ph, buf, cap)
+    if n < 0:
+        raise ValueError(f"crx encode failed (code {n})")
+    return bytes(buf[: int(n)])

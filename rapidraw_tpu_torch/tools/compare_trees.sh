@@ -12,8 +12,9 @@
 # end holds each run's exit code, the card's name, power limit and SM clock
 # before and after, and the lines to compare: the grade builds' registers and
 # spills, the B = 2 config-3 and config-5 grade times, the config-4 and
-# config-2 (RAW, phase 11) lines and the kernels JSON of the change's first
-# run; a parent older than phase 11 prints no config-2 lines. Exits non-zero
+# config-2 (RAW: phase 11's DNG and RAF, phase 12's vendor files) lines and
+# the kernels JSON of the change's first run; a parent older than a phase
+# prints none of its lines. Exits non-zero
 # if a run that must pass failed, or if the lone script did not fail.
 set -u
 parent=$(cd "$1" && pwd)
@@ -51,7 +52,7 @@ for tag in parent1 change2 change3 parent4; do
         "$out/$tag.log" | sed "s/^/$tag /"
 done
 for tag in parent1 change2 change3 parent4 profile; do
-    grep -E "^\[(masks|grade-masks|blur-bands|e2e4|raw|e2e2)\]|^\[profile\] config[42]|^\[time\] config [42]" \
+    grep -E "^\[(masks|grade-masks|blur-bands|e2e4|raw|e2e2|vendor)\]|^\[profile\] config[42]|^\[time\] config [42]" \
         "$out/$tag.log" | grep -v "dither=on" | sed "s/^/$tag /"
 done
 grep -E '^\{"kernels"' "$out/change2.log" >"$out/kernels.json"

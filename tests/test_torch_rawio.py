@@ -5,9 +5,10 @@ Host decode: `parse_dng` / `parse_raw` of the port and of the JAX package
 on the same bytes, field for field, the CFA bit-equal (uncompressed 8- and
 16-bit in both byte orders, bit-packed 10/12/14-bit, strips and tiles,
 lossless-JPEG tiles and strips, LinearRaw with 1, 3 and 4 samples, RAF
-with and without an X-Trans record and with an embedded TIFF). The
-containers the port does not decode yet are refused by name; arbitrary
-bytes decode or raise ValueError. The device half (`load_raw_file`,
+with and without an X-Trans record and with an embedded TIFF). Minimal
+vendor files and the JAX package's refusals behave in the port as in the
+JAX package; arbitrary bytes (mutated DNG, RAF and vendor seeds) decode or
+raise ValueError, as the JAX package's `parse_raw` does on the same bytes. The device half (`load_raw_file`,
 `load_image`) on the CPU against the JAX package's run op by op:
 max |d| <= 1e-5, the enhance pass's gate-moved values counted and bounded
 by 0.1%.
@@ -39,6 +40,7 @@ from rapidraw_tpu_torch import native
 from rapidraw_tpu_torch.io import containers, dng, loader, sidecar
 from rapidraw_tpu_torch.utils import settings
 from test_native_ljpeg import encode_ljpeg
+from test_raw_fuzz import _seeds as raw_fuzz_seeds
 from test_raw_containers import Ifd, _build_raf, _build_raf_embedded_tiff, _pack_msb, build_tiff
 
 torch.set_num_threads(2)
@@ -211,7 +213,9 @@ def _tiff_with_make(make: str, magic_extra: bytes = b"") -> bytes:
                       magic_extra=magic_extra)
 
 
-NOT_PORTED = {
+# one minimal file of each vendor container: a TIFF with only a Make tag
+# (and CR2's magic), or a bare magic
+MINIMAL_VENDOR = {
     "cr2": (_tiff_with_make("Canon", b"CR\x02\x00\0\0\0\0"), "cr2"),
     "nef": (_tiff_with_make("NIKON CORPORATION"), "nef"),
     "arw": (_tiff_with_make("SONY"), "arw"),
@@ -225,13 +229,21 @@ NOT_PORTED = {
 }
 
 
-@pytest.mark.parametrize("kind", sorted(NOT_PORTED))
-def test_unported_containers_are_refused_by_name(kind):
-    data, ext = NOT_PORTED[kind]
+@pytest.mark.parametrize("kind", sorted(MINIMAL_VENDOR))
+def test_minimal_vendor_files_behave_as_jax(kind):
+    """Each vendor container is routed to its parser and fails (or decodes)
+    as the JAX package's: the same error type and message."""
+    data, ext = MINIMAL_VENDOR[kind]
     assert containers.sniff_container(data, ext) == jcontainers.sniff_container(data, ext) == kind
-    with pytest.raises(containers.UnsupportedRawFormat, match="not yet ported") as e:
-        containers.parse_raw(data, ext)
-    assert e.value.format == kind and f"{kind!r}" in str(e.value)
+    try:
+        want = jcontainers.parse_raw(data, ext)
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            containers.parse_raw(data, ext)
+        assert type(got.value).__name__ == type(e).__name__
+        assert str(got.value) == str(e) and "not yet ported" not in str(e)
+        return
+    assert_same_rawfile(containers.parse_raw(data, ext), want)
 
 
 @pytest.mark.parametrize("data,ext", [
@@ -250,25 +262,38 @@ def test_refusals_are_the_jax_packages(data, ext):
     assert str(got.value).split("; supported")[0] == str(want.value).split("; supported")[0]
 
 
-SEEDS = [CASES["config2_u16"], CASES["linear_spp3"], CASES["ljpeg_tiles"],
-         RAFS["xtrans_record"], RAFS["embedded_tiff"], b"II*\0" + struct.pack("<I", 8) + b"\1" * 40]
+# (bytes, extension): DNG and RAF, then the vendor seeds of
+# tests/test_raw_fuzz.py (magic prefixes of every container, a structured
+# MRW, vendor TIFF-CFA and IIQ), which it parses without an extension
+SEEDS = ([(CASES["config2_u16"], "dng"), (CASES["linear_spp3"], "dng"),
+          (CASES["ljpeg_tiles"], "dng"), (RAFS["xtrans_record"], "raf"),
+          (RAFS["embedded_tiff"], "raf"), (b"II*\0" + struct.pack("<I", 8) + b"\1" * 40, "dng")]
+         + [(seed, "") for seed in raw_fuzz_seeds()])
 
 
-@hsettings(max_examples=50, deadline=None, database=None,
+@hsettings(max_examples=80, deadline=None, database=None,
            suppress_health_check=list(HealthCheck))
 @given(seed=st.sampled_from(range(len(SEEDS))),
        edits=st.lists(st.tuples(st.integers(0, 4095), st.integers(0, 255)), max_size=8),
        cut=st.integers(16, 1 << 16))
 def test_parse_raw_decodes_or_raises_value_error(seed, edits, cut):
-    data = bytearray(SEEDS[seed][:cut])
+    """Mutated and cut files decode or raise ValueError, the JAX package's
+    outcome on the same bytes."""
+    blob, ext = SEEDS[seed]
+    data = bytearray(blob[:cut])
     for pos, val in edits:
         if pos < len(data):
             data[pos] = val
     try:
-        raw = containers.parse_raw(bytes(data), "raf" if seed in (3, 4) else "dng")
-    except ValueError:
+        want = jcontainers.parse_raw(bytes(data), ext)
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            containers.parse_raw(bytes(data), ext)
+        assert str(got.value) == str(e)
         return
+    raw = containers.parse_raw(bytes(data), ext)
     assert raw.cfa.ndim in (2, 3)
+    assert_same_rawfile(raw, want)
 
 
 def test_upload_keeps_the_dtype_and_copies_views():
