@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py [--quick] [--out DIR] [--profile] [--seed N]
 
-Phases: (1) the card's name and power limit; (2) build the six CUDA
-kernels from rapidraw_tpu_torch/csrc, one nvcc each, and the five host
+Phases: (1) the card's name and power limit; (2) build the seven CUDA
+sources of rapidraw_tpu_torch/csrc, one nvcc each, and the five host
 decoders (csrc/host/: lossless JPEG, Nikon/Pentax Huffman, Panasonic/
 Olympus, crx, Phase One; g++ each), all started together;
 (3) the blur kernel against its plain PyTorch version at 24 MP, with a
@@ -63,7 +63,18 @@ upload, front end and file -> load_image -> develop_batch(CONFIG3_DOC) ->
 u8 for B = 1 and 2 (grade and blur each launched once per call), and every
 vendor format (those four, PEF, ORF packed and predictive, RW2, MRW, SRW,
 IIQ format 5) at 1024 x 1536 (the ORF predictive stream, written sample
-by sample, at 512 x 768) on the card against the plain CPU path.
+by sample, at 512 x 768) on the card against the plain CPU path; (13) the
+rest of the develop document (`phase_doc`): the flare kernel against its
+plain version on a B = 2 batch of bright-spot images, the grade kernel
+with flare and a 33^3 .cube LUT (written here, parsed by
+io/lut.parse_lut_file) against its plain version, timed beside config 3's
+grade, in its masks build with a flare mask and at the ragged size, the
+per-pixel NR kernel against its plain version on config 5 with an NR mask
+(amount maps) and on a batch of mixed NR amounts (per-image amounts), then
+JSON -> develop_batch -> device_u8 -> host numpy for those documents at
+B = 1 and 2 (the mixed batch at B = 2), counters reset and read around
+each (flare, grade and blur, or NR, grade and blur, once per call), and
+each at 1024 x 1536 on the card against the plain CPU path.
 Each kernel line carries its time, its plain version's time and its bound
 (bytes over the HBM rate or operations over the float32 peak, whichever is
 larger). It prints a kernels JSON line (top level: each kernel's numbers
@@ -74,7 +85,7 @@ then as its last line {"ok": true, "device": {...}}.
 Any failed check raises, so the process exits non-zero; without a CUDA
 device it exits non-zero before printing any result.
 
---quick runs phases 3-8 and 10-12 at 1024x1536 with fewer repetitions (a
+--quick runs phases 3-8 and 10-13 at 1024x1536 with fewer repetitions (a
 first check of a new kernel). --out DIR writes the nvcc/ptxas logs there.
 --profile adds a torch.profiler pass over the config-3, config-5,
 config-4 and config-2 main paths (config 2 from a DNG and from a NEF):
@@ -192,6 +203,50 @@ TCA_GEOMETRY = {
 }
 # NR strong enough to reach the largest tap offsets at 24 MP.
 NR_STRONG = (0.8, 0.6)
+
+
+# Phase 13 (the rest of the develop document): config 3 with lens flare
+# and a 33^3 .cube LUT that the script writes (`write_cube`) and parses
+# through io/lut.parse_lut_file.
+FLARE_LUT_DOC = dict(CONFIG3_DOC, flareAmount=50, lutPath="phase13.cube", lutIntensity=80)
+LUT_SIZE = 33
+# config 5 at two NR strengths: a batch of mixed amounts takes the
+# per-pixel NR path (per-image scalars)
+MIXED_NR_DOCS = (CONFIG5_DOC, dict(CONFIG5_DOC, lumaNoiseReduction=60, colorNoiseReduction=45))
+
+
+def write_cube(path, size: int = LUT_SIZE) -> None:
+    """A .cube film look: a warm split tone and a soft S-curve on a
+    size^3 lattice (red fastest, six decimals), from a fixed formula."""
+    ax = np.linspace(0.0, 1.0, size)
+    b, g, r = np.meshgrid(ax, ax, ax, indexing="ij")  # .cube order: r fastest
+    lum = 0.2126 * r + 0.7152 * g + 0.0722 * b
+    s = lum + 0.12 * np.sin(2.0 * np.pi * lum) / (2.0 * np.pi)
+    out = np.stack([r + 0.06 * (1.0 - lum) * lum + (s - lum),
+                    g + 0.01 * np.sin(3.0 * b) + (s - lum),
+                    b - 0.05 * lum + (s - lum)], -1).reshape(-1, 3)
+    lines = [f"TITLE \"phase 13 look\"", f"LUT_3D_SIZE {size}"]
+    lines += [f"{x:.6f} {y:.6f} {z:.6f}" for x, y, z in np.clip(out, 0.0, 1.0)]
+    Path(path).write_text("\n".join(lines) + "\n")
+
+
+def _radial(h: int, w: int, adjustments: dict) -> dict:
+    return {"visible": True, "adjustments": adjustments, "subMasks": [{
+        "type": "radial", "visible": True, "mode": "additive",
+        "parameters": {"centerX": w * 0.45, "centerY": h * 0.5, "radiusX": w * 0.22,
+                       "radiusY": h * 0.28, "rotation": 15.0, "feather": 0.6}}]}
+
+
+def masked_nr_doc(h: int, w: int) -> dict:
+    """Config 5 with a radial mask that carries its own NR: the amounts
+    become per-pixel maps (the per-pixel NR path)."""
+    return dict(CONFIG5_DOC, masks=[_radial(h, w, {"lumaNoiseReduction": 60,
+                                                   "colorNoiseReduction": 50})])
+
+
+def flare_mask_doc(h: int, w: int) -> dict:
+    """FLARE_LUT_DOC with a radial mask that adds flare (and exposure)."""
+    return dict(FLARE_LUT_DOC, masks=[_radial(h, w, {"flareAmount": 40, "exposure": 0.2})])
 
 
 def config4_doc(h: int = 4096, w: int = 6144) -> dict:
@@ -1601,6 +1656,305 @@ def phase_vendor(args, h, w, reps, card, dev, reset_counts, read_counts):
     return launches
 
 
+FLARE_TOL = 1e-5  # x max(1, |ref|): the flare map's module tolerance (tests/test_torch_flare.py)
+CPU_CHECK = (1024, 1536)  # phase 13's size for the card against the plain CPU path
+
+
+def phase_doc(h, w, reps, card, dev, reset_counts, read_counts):
+    """Phase 13, the rest of the develop document: lens flare, the 3D LUT
+    and NR with per-pixel amounts.
+
+    (a) the flare kernel against its plain version on a B = 2 batch of
+    bright-spot images; (b) the grade kernel with flare and the LUT
+    (FLARE_LUT_DOC, a 33^3 .cube written here and parsed by
+    io/lut.parse_lut_file) against grade_plain, timed beside config 3's
+    grade in the same call, then the masks build with a radial mask that
+    carries flare, and a ragged size; (c) the per-pixel NR kernel against its
+    plain version on config 5's document with an NR mask (amount maps) and
+    on the mixed-amount batch MIXED_NR_DOCS (per-image amounts); (d) JSON ->
+    develop_batch -> device_u8 -> host numpy for (b)'s document and (c)'s
+    masked one at B = 1 and 2 and the mixed batch at B = 2, counters reset
+    and read around each main-path call, the flare map's share of the
+    device time; and each document at 1024 x 1536 on the card against the
+    plain CPU path. Returns ({path: launches}, {(kernel, path): numbers})."""
+    import tempfile
+
+    import torch.nn.functional as F
+
+    from rapidraw_tpu_torch import (
+        blur_band_rows,
+        develop_batch,
+        device_u8,
+        parse_adjustments,
+        rasterize_masks,
+        stack_params,
+    )
+    from rapidraw_tpu_torch.io.lut import parse_lut_file
+    from rapidraw_tpu_torch.ops import flare, nr
+    from rapidraw_tpu_torch.ops.colorspace import srgb_to_linear
+    from rapidraw_tpu_torch.params import scales
+    from rapidraw_tpu_torch.pipeline import fused
+    from rapidraw_tpu_torch.tools import bound_ms
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    launches, report = {}, {}
+
+    def bright(b, hh, ww):
+        """Random pixels with saturated discs: the flare's bright sources."""
+        x = torch.rand((b, 3, hh, ww), generator=gen, device=dev) * 0.7
+        yy = torch.arange(hh, device=dev)[:, None]
+        xx = torch.arange(ww, device=dev)[None, :]
+        for cy, cx in ((0.3, 0.25), (0.6, 0.7), (0.5, 0.98)):
+            x[:, :, (yy - cy * hh) ** 2 + (xx - cx * ww) ** 2 <= (0.03 * hh) ** 2] = 1.0
+        return x
+
+    def stacked(docs, device=dev):
+        parsed = [parse_adjustments(d) for d in docs]
+        return stack_params([q for q, _ in parsed], [c for _, c in parsed], device=device)
+
+    def flare_params(sp):
+        pmat = fused.pack_rows(sp["glob"])
+        return pmat[:, [fused.OFFSETS[k] for k in flare.FLARE_PARAMS]].contiguous()
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_lut_"))
+    write_cube(tmp / "phase13.cube")
+    cube_np = parse_lut_file(tmp / "phase13.cube")
+    cube = torch.from_numpy(cube_np).to(dev)
+    log(f"[doc] wrote and parsed a {cube_np.shape[0]}^3 .cube: {tuple(cube_np.shape)}")
+
+    # ---- (a) the flare kernel against its plain version ----------------------
+    images = bright(2, h, w)
+    sp, cfg = stacked([FLARE_LUT_DOC, dict(FLARE_LUT_DOC, exposure=-0.3, flareAmount=70)])
+    fp = flare_params(sp)
+    got = flare.flare_maps(images, fp, cfg.is_raw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = flare.flare_maps_plain(images, fp, cfg.is_raw)
+    torch.cuda.synchronize()
+    pms = (time.perf_counter() - t0) * 1e3  # one run: ~30,000 launches per image
+    _, ops = count_ops(lambda: flare.flare_maps_plain(images, fp, cfg.is_raw))
+    err = float(((got - ref).abs() / ref.abs().clamp(min=1.0)).max())
+    ms = time_ms(lambda: flare.flare_maps(images, fp, cfg.is_raw), reps)
+    n = flare.FLARE_MAP_SIZE
+    # bytes: each map pixel's 2 x 2 input texels and its 3 MB map (the
+    # threshold map and its taps stay on chip), the params
+    bms, bby = bound_ms(2 * n * n * (4 * 3 * 4 + 3 * 4) + nbytes(fp), ops)
+    log(f"[flare] B=2 ({h},{w}) -> (2,{n},{n},3): max|d|/max(1,|ref|) {err:.3e} (bound "
+        f"{FLARE_TOL:g}), max|ref| {float(ref.abs().max()):.3f}; kernel {ms:.3f} ms, plain "
+        f"{pms:.1f} ms (one run), bound {bms:.3f} ms ({bby}, {ops / 1e9:.2f} G ops) [{card}]")
+    if not bool(torch.isfinite(got).all()) or err > FLARE_TOL:
+        raise AssertionError(f"flare map: max|d| {err} > {FLARE_TOL} or non-finite")
+    report["flare", "flare_lut"] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                                        library_ms=None, max_abs_err=err)
+    fmaps = got
+    del ref
+
+    # ---- (b) the grade kernel with flare and the LUT ---------------------------
+    pmat = fused.pack_rows(sp["glob"])
+    levels = fused.blur_levels(images, cfg)
+    sp3, cfg3 = stacked([CONFIG3_DOC, dict(CONFIG3_DOC, exposure=-0.3)])
+    pmat3 = fused.pack_rows(sp3["glob"])
+    for dither in (False, True):
+        c = dataclasses.replace(cfg, dither_active=dither)
+        got = fused.grade(images, levels, pmat, c, flare=fmaps, lut=cube)
+        ref, ops = count_ops(lambda: fused.grade_plain(images, levels, pmat, c, flare=fmaps,
+                                                       lut=cube))
+        torch.cuda.synchronize()
+        d = (got - ref).abs()
+        err, share = float(d.max()), float((d > GRADE_TOL).float().mean())
+        tol = GRADE_DITHER_TOL if dither else GRADE_TOL
+        line = (f"[grade-doc] B=2 flare+LUT stages {fused.grade_stages(c)} build "
+                f"{fused.grade_launch_plan(2, h, w, c)['min_blocks']} dither="
+                f"{'on' if dither else 'off'}: max|d| {err:.3e} (bound {tol:.3e}), "
+                f"share>{GRADE_TOL:g} {share:.2e}")
+        if not dither:
+            # config 3's grade and this one, interleaved in one call
+            t3, tf = [], []
+            for _ in range(2):
+                t3.append(time_ms(lambda: fused.grade(images, levels, pmat3, cfg3), reps))
+                tf.append(time_ms(lambda: fused.grade(images, levels, pmat, c, flare=fmaps,
+                                                      lut=cube), reps))
+            ms, ms3 = statistics.median(tf), statistics.median(t3)
+            pms = time_ms(lambda: fused.grade_plain(images, levels, pmat, c, flare=fmaps,
+                                                    lut=cube), 1)
+            bms, bby = bound_ms(nbytes(images, pmat, fmaps, cube, *levels.values())
+                                + nbytes(images), ops)
+            # the library yardstick of the flare input: one bilinear
+            # grid_sample of the maps at every pixel (border clamp)
+            gy = (torch.arange(h, device=dev, dtype=torch.float32) + 0.5) / h * 2.0 - 1.0
+            gx = (torch.arange(w, device=dev, dtype=torch.float32) + 0.5) / w * 2.0 - 1.0
+            grid = torch.stack(torch.meshgrid(gx, gy, indexing="xy"), -1)[None].expand(
+                2, h, w, 2).contiguous()
+            fm = fmaps.permute(0, 3, 1, 2).contiguous()
+            lms = time_ms(lambda: F.grid_sample(fm, grid, mode="bilinear",
+                                                padding_mode="border", align_corners=False),
+                          reps)
+            del grid, fm
+            line += (f" kernel {ms:.3f} ms (config 3's grade {ms3:.3f} ms, +{ms - ms3:.3f}) "
+                     f"plain {pms:.3f} ms bound {bms:.3f} ms ({bby}, "
+                     f"{ops / (2 * h * w):.0f} ops/pixel); flare sample alone as one "
+                     f"grid_sample {lms:.3f} ms [{card}]")
+            report["grade", "flare_lut"] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                                                library_ms=lms, max_abs_err=err,
+                                                config3_ms=ms3)
+        log(line)
+        if not bool(torch.isfinite(got).all()) or err > tol:
+            raise AssertionError(f"grade flare+LUT: max|d| {err} > {tol} or non-finite")
+        del got, ref
+    del levels, pmat3
+
+    # the masks build: a radial mask that adds flare, B = 2 at this size
+    t0 = time.perf_counter()
+    mdoc = flare_mask_doc(h, w)
+    bm = rasterize_masks(mdoc, w, h, scale=1.0)
+    raster_ms = (time.perf_counter() - t0) * 1e3
+    spm, cfgm = stacked([mdoc, dict(mdoc, exposure=0.1)])
+    mk = torch.from_numpy(np.repeat(bm[None], 2, 0)).to(dev)
+    pm, mm = fused.pack_rows(spm["glob"]), fused.pack_mask_rows(spm["mask"])
+    levels = fused.blur_levels(images, cfgm, blur_band_rows(cfgm, bm))
+    fm = flare.flare_maps(images, flare_params(spm), False)
+    c = dataclasses.replace(cfgm, dither_active=False)
+    got = fused.grade(images, levels, pm, c, masks=mk, mmat=mm, flare=fm, lut=cube)
+    ref = fused.grade_plain(images, levels, pm, c, masks=mk, mmat=mm, flare=fm, lut=cube)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    ms = time_ms(lambda: fused.grade(images, levels, pm, c, masks=mk, mmat=mm, flare=fm,
+                                     lut=cube), reps)
+    log(f"[grade-doc] B=2 masks build, a flare mask (rasterized in {raster_ms:.0f} ms): "
+        f"max|d| {err:.3e} (bound {GRADE_TOL:g}) kernel {ms:.3f} ms [{card}]")
+    if not bool(torch.isfinite(got).all()) or err > GRADE_TOL:
+        raise AssertionError(f"grade with a flare mask: max|d| {err} > {GRADE_TOL}")
+    del got, ref, levels, mk, fm, images
+
+    # a size that is a multiple of neither tile, with its own flare maps
+    rimg = bright(2, *RAGGED)
+    rmaps = flare.flare_maps(rimg, fp, False)
+    rref = flare.flare_maps_plain(rimg, fp, False)
+    rlv = fused.blur_levels(rimg, cfg)
+    for dither in (False, True):
+        c = dataclasses.replace(cfg, dither_active=dither)
+        got = fused.grade(rimg, rlv, pmat, c, flare=rmaps, lut=cube)
+        ref = fused.grade_plain(rimg, rlv, pmat, c, flare=rmaps, lut=cube)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        ferr = float(((rmaps - rref).abs() / rref.abs().clamp(min=1.0)).max())
+        tol = GRADE_DITHER_TOL if dither else GRADE_TOL
+        log(f"[grade-doc] ragged B=2 {RAGGED[0]}x{RAGGED[1]} flare+LUT dither="
+            f"{'on' if dither else 'off'}: max|d| {err:.3e} (bound {tol:.3e}); flare map "
+            f"{ferr:.3e} (bound {FLARE_TOL:g})")
+        if err > tol or ferr > FLARE_TOL or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"ragged flare+LUT: max|d| {err}, map {ferr}")
+        del got, ref
+    del rimg, rmaps, rref, rlv
+
+    # ---- (c) NR with per-pixel amounts --------------------------------------
+    scale = scales.resolution_scale(w, h)
+    images = torch.rand((2, 3, h, w), generator=gen, device=dev)
+    center = srgb_to_linear(images).contiguous()
+    planes = nr.nr_planes(images, False).contiguous()
+    ndoc = masked_nr_doc(h, w)
+    nbm = rasterize_masks(ndoc, w, h, scale=1.0)
+    nmk = torch.from_numpy(np.repeat(nbm[None], 2, 0)).to(dev)
+    for label, docs, mk in (("masked", [ndoc, ndoc], nmk), ("mixed", list(MIXED_NR_DOCS), None)):
+        spn, cfgn = stacked(docs)
+        la, ca = fused.nr_amounts(spn, cfgn, mk, dev)
+        got = nr.nr_dynamic(center, planes, la, ca, scale)
+        ref, ops = count_ops(lambda: nr.nr_dynamic_plain(center, planes, la, ca, scale))
+        torch.cuda.synchronize()
+        d = (got - ref).abs()
+        err, share = float(d.max()), float((d > 0).float().mean())
+        ms = time_ms(lambda: nr.nr_dynamic(center, planes, la, ca, scale), reps)
+        pms = time_ms(lambda: nr.nr_dynamic_plain(center, planes, la, ca, scale), 1)
+        bms, bby = bound_ms(nbytes(center, planes, la, ca) + nbytes(center), ops)
+        log(f"[nr-dyn] {label} B=2 ({h},{w}) amounts {'maps' if la.ndim == 3 else 'per image'} "
+            f"{tuple(la.shape)}: max|d| {err:.3e} (bound {NR_TOL:g}), values that differ "
+            f"{share:.2e}; kernel {ms:.3f} ms plain {pms:.3f} ms bound {bms:.3f} ms ({bby}, "
+            f"{ops / 1e9:.1f} G ops) [{card}]")
+        if not bool(torch.isfinite(got).all()) or err > NR_TOL:
+            raise AssertionError(f"nr_dynamic {label}: max|d| {err} > {NR_TOL} or non-finite")
+        report["nr_dynamic", f"{label}_nr"] = dict(ms=ms, plain_ms=pms, bound_ms=bms,
+                                                   bound_by=bby, library_ms=None,
+                                                   max_abs_err=err)
+        del got, ref, la, ca
+    del center, planes
+
+    # ---- (d) end to end: JSON -> develop_batch -> device_u8 -> host numpy --------
+    def inputs(kind, b, imgs):
+        """(stacked params, config, influences, cube) of a path's b images."""
+        hh, ww = imgs.shape[2:]
+        mk, lut = None, None
+        if kind == "flare_lut":
+            docs = [FLARE_LUT_DOC] * b
+            lut = cube.to(imgs.device)
+        elif kind == "masked_nr":
+            docs = [masked_nr_doc(hh, ww)] * b
+            bmk = nbm if (hh, ww) == (h, w) else rasterize_masks(docs[0], ww, hh, scale=1.0)
+            mk = torch.from_numpy(np.repeat(bmk[None], b, 0))
+            mk = mk.to(imgs.device)
+        else:
+            docs = list(MIXED_NR_DOCS)[:b]
+        sp, c = stacked(docs, imgs.device)
+        return sp, c, mk, lut
+
+    def run(kind, b, imgs):
+        sp, c, mk, lut = inputs(kind, b, imgs)
+        out = develop_batch(imgs, sp, c, masks=mk, lut=lut)
+        return out, device_u8(out).cpu().numpy()
+
+    img2 = bright(2, h, w)
+    expect = {"flare_lut": ("flare", "grade", "blur"), "masked_nr": ("nr_dynamic", "grade", "blur"),
+              "mixed_nr": ("nr_dynamic", "grade", "blur")}
+    for kind, need in expect.items():
+        for b in ((2,) if kind == "mixed_nr" else (1, 2)):
+            imgs = img2[:b].contiguous()
+            reset_counts()
+            out, u8 = run(kind, b, imgs)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            if b == 2:
+                launches[kind] = counts
+            if min(counts[k] for k in need) < 1:
+                raise AssertionError(f"a kernel of the {kind} path never launched: {counts}")
+            if not bool(torch.isfinite(out).all()) or u8.shape != (b, 3, h, w) \
+                    or u8.min() == u8.max():
+                raise AssertionError(f"{kind} e2e output is non-finite, misshapen or constant")
+            times = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(kind, b, imgs)
+                times.append(time.perf_counter() - t0)
+            dt = statistics.median(times)
+            sp, c, mk, lut = inputs(kind, b, imgs)
+            dev_ms = time_ms(lambda: device_u8(develop_batch(imgs, sp, c, masks=mk, lut=lut)),
+                             reps)
+            fshare = ""
+            if kind == "flare_lut":
+                spf, cf = stacked([FLARE_LUT_DOC] * b)
+                fms = time_ms(lambda: flare.flare_maps(imgs, flare_params(spf), False), reps)
+                fshare = (f"; flare maps {fms:.3f} ms, {100.0 * fms / dev_ms:.1f}% of the "
+                          f"device part")
+            log(f"[e2e-doc] {kind} B={b}: {dt * 1e3 / b:.2f} ms/image, "
+                f"{b * h * w / dt / 1e6:.1f} MPix/s (JSON -> u8 on host); device part "
+                f"{dev_ms / b:.2f} ms/image ({b * h * w / dev_ms / 1e3:.1f} MPix/s){fshare}; "
+                f"launches per call { {k: v for k, v in counts.items() if v} } [{card}]")
+            del out, u8
+
+    # each document at 1024 x 1536 on the card against the plain CPU path
+    small = bright(2, *CPU_CHECK)
+    for kind in expect:
+        b = 2 if kind == "mixed_nr" else 1
+        _, u8_gpu = run(kind, b, small[:b].contiguous())
+        _, u8_cpu = run(kind, b, small[:b].cpu())
+        du = np.abs(u8_gpu.astype(np.int16) - u8_cpu.astype(np.int16))
+        log(f"[e2e-doc] {kind} {b}x3x{CPU_CHECK[0]}x{CPU_CHECK[1]} CUDA vs plain CPU u8: max "
+            f"{int(du.max())} LSB, "
+            f"share>0 {float((du > 0).mean()):.2e}")
+        if du.max() > 1 or (du > 0).mean() > 1e-3:
+            raise AssertionError(f"{kind}: the CUDA output disagrees with the plain CPU path")
+    return launches, report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true", help="1024x1536, fewer repetitions")
@@ -1625,7 +1979,7 @@ def main() -> int:
     )
     from rapidraw_tpu_torch.geometry import warp_fast
     from rapidraw_tpu_torch.geometry.params import geometry_params_from_json
-    from rapidraw_tpu_torch.ops import blur, nr
+    from rapidraw_tpu_torch.ops import blur, flare, nr
     from rapidraw_tpu_torch.ops.colorspace import srgb_to_linear
     from rapidraw_tpu_torch.params import scales
     from rapidraw_tpu_torch.pipeline import fused
@@ -1655,7 +2009,7 @@ def main() -> int:
 
     libs = {"blur": blur._KERNEL, "grade": fused._KERNEL, "nr": nr._KERNEL,
             "resample": warp_fast._KERNEL, "chunked": prof_chunked._KERNEL,
-            "nr_slices": prof_nr_slices._KERNEL}
+            "nr_slices": prof_nr_slices._KERNEL, "flare": flare._KERNEL}
     def build_host(name):
         t0 = time.perf_counter()
         native.host_library(name)
@@ -1826,12 +2180,15 @@ def main() -> int:
         warp_fast.resample_rows.launches = 0
         prof_chunked.chain.launches = 0
         prof_nr_slices.slices.launches = 0
+        flare.flare_maps.launches = 0
+        nr.nr_dynamic.launches = 0
 
     def read_counts() -> dict:
         return {"blur": blur.gaussian_blur_multi.launches, "grade": fused.grade.launches,
                 "nr": nr.nr_static.launches, "resample": warp_fast.resample_rows.launches,
                 "chunked": prof_chunked.chain.launches,
-                "nr_slices": prof_nr_slices.slices.launches}
+                "nr_slices": prof_nr_slices.slices.launches,
+                "flare": flare.flare_maps.launches, "nr_dynamic": nr.nr_dynamic.launches}
 
     img2 = torch.rand((2, 3, h, w), generator=gen, device=dev)
     reset_counts()
@@ -2300,11 +2657,22 @@ def main() -> int:
     launches12 = phase_vendor(args, h, w, reps, card, dev, reset_counts, read_counts)
     phase_done("config 2 vendor RAW")
 
+    # ---- 13. flare, the 3D LUT and NR with per-pixel amounts -> u8 -------------
+    launches13, doc_report = phase_doc(h, w, reps, card, dev, reset_counts, read_counts)
+    report.update(doc_report)
+    phase_done("flare, LUT, per-pixel NR")
+
     sources = {  # name -> (source, the TPU kernel it replaces, the path that runs it)
         "blur": ("rapidraw_tpu_torch/csrc/blur.cu", "rapidraw_tpu/ops/blur.py:242", "config5"),
         "grade": ("rapidraw_tpu_torch/csrc/grade.cu", "rapidraw_tpu/pipeline/fused.py:298",
                   "config5"),
         "nr": ("rapidraw_tpu_torch/csrc/nr.cu", "rapidraw_tpu/ops/nr.py:1005", "config5"),
+        # no TPU kernel: JAX runs these with XLA (the flare map's taps, the
+        # per-pixel NR path's gathers)
+        "flare": ("rapidraw_tpu_torch/csrc/flare.cu",
+                  "rapidraw_tpu/ops/flare.py:101 (XLA, no Pallas kernel)", "flare_lut"),
+        "nr_dynamic": ("rapidraw_tpu_torch/csrc/nr.cu",
+                       "rapidraw_tpu/ops/nr.py:108 (XLA gathers, no Pallas kernel)", "masked_nr"),
         "resample": ("rapidraw_tpu_torch/csrc/resample.cu",
                      "rapidraw_tpu/geometry/warp_fast.py:473", "config5"),
         "chunked": ("rapidraw_tpu_torch/csrc/chunked.cu", "tools/prof_chunked.py:60", "probes"),
@@ -2318,11 +2686,12 @@ def main() -> int:
     # at that path's shapes
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     counts = {"config3": launches3, "config5": launches5, "probes": launches_probes,
-              "config4": launches4, **launches2, **launches12}
+              "config4": launches4, **launches2, **launches12, **launches13}
+    library = {"nr_dynamic": "nr"}  # the kernels that share a source with another
     kernels = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[top][name], **{k: report[name, top][k] for k in fields},
-         "regs": usage[name][0], "spills": usage[name][1],
+         "regs": usage[library.get(name, name)][0], "spills": usage[library.get(name, name)][1],
          **({"variant": report[name, top]["variant"]} if top == "probes" else {}),
          "paths": {path: {"launches": n[name], **report.get((name, path), {})}
                    for path, n in counts.items()}}

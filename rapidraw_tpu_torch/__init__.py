@@ -8,9 +8,12 @@ PEF, ARW, ORF, RW2, MRW, IIQ and the TIFF-CFA tail decoded on the host,
 then demosaic, colour, highlight compression and the RAW enhance pass on
 the device).
 Local masks are rasterized on the host (rasterize_masks, blur_band_rows)
-and blended in the grade. On CUDA tensors it runs two hand-written Hopper
-kernels (csrc/blur.cu for the blur pyramid, csrc/grade.cu for the whole
-per-pixel grade chain); on CPU tensors it runs their plain PyTorch
+and blended in the grade; a 3D LUT is parsed on the host (io/lut.py) and
+applied in the grade; lens flare is a 512^2 map per image sampled in the
+grade. On CUDA tensors it runs hand-written Hopper kernels (csrc/blur.cu
+for the blur pyramid, csrc/nr.cu for noise reduction, csrc/flare.cu for
+the flare maps, csrc/grade.cu for the whole per-pixel grade chain,
+csrc/resample.cu for the warp); on CPU tensors it runs their plain PyTorch
 versions. The JAX package `rapidraw_tpu` stays the reference; this
 package never imports it or JAX.
 """

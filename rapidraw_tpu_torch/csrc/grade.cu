@@ -3,8 +3,8 @@
 // Replaces the TPU megakernel B3 (rapidraw_tpu/pipeline/fused.py
 // `develop_fused`, body `_make_dev_kernel`) and its batched form B4
 // (`develop_fused_batch`): grade_chain + finish_chain of
-// rapidraw_tpu/pipeline/grade.py, local masks included, for documents
-// without flare or a LUT (CA and NR run before it). Every device function
+// rapidraw_tpu/pipeline/grade.py, local masks, lens flare and the 3D LUT
+// included (CA and NR run before it). Every device function
 // below transcribes the plain PyTorch op of the same name in
 // rapidraw_tpu_torch/ops (itself a port of the JAX op) in the same
 // operation order; the file is built with --fmad=false so each product and
@@ -67,6 +67,20 @@
 // of a block reads the same address. The mask stages (sharpness delta,
 // HSL, colour grading, curves) skip a mask whose influence is 0 at the
 // pixel: its terms there are exact zeros for finite values.
+//
+// Lens flare: the TPU kernel streams a (3, H, W) flare tile that XLA
+// sampled from the 512^2 map beforehand (302 MB per 24 MP image). Here each
+// pixel samples its image's (512, 512, 3) map itself (bilinear at
+// u = x / W, v = y / H, true divisions; indices clamped, uv not), times 1.4,
+// squared (JAX develop.py:36-67, :207-217): the 3 MB map stays in L2 and no
+// full-size flare tensor exists. The 3D LUT: the TPU kernel stops after the
+// curves when a document has one and leaves the LUT, grain and dither to
+// XLA, because a gather is slow in Pallas there; on this card the stage
+// stays in the kernel, after the curves and before grain, which saves a
+// full-size f32 round trip. It fetches only the selected tetrahedron's four
+// corners from the (L, L, L, 3) cube (L <= 65, <= 3.3 MB, read through the
+// read-only cache) and blends them in the plain version's order, so its
+// result is the `where`-selected one bit for bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -730,6 +744,32 @@ __device__ F3 glow_bloom(F3 c, F3 blur, float amount, float exp, float bright, f
   return add(c, scl(bloom, amount * FC(3.8) * protection));
 }
 
+// the flare contribution of one pixel: its image's (512, 512, 3) map
+// sampled bilinearly at u = x / W, v = y / H, times 1.4, squared
+// (ops/flare.py `sample_flare`)
+__device__ F3 flare_sample(const float* __restrict__ map, float xs, float ys, int W, int H) {
+  constexpr int FN = 512;
+  const float x = __fdiv_rn(xs, (float)W) * (float)FN - 0.5f;
+  const float y = __fdiv_rn(ys, (float)H) * (float)FN - 0.5f;
+  const float x0 = floorf(x), y0 = floorf(y);
+  const float fx = x - x0, fy = y - y0;
+  const int xi0 = min(max((int)x0, 0), FN - 1), yi0 = min(max((int)y0, 0), FN - 1);
+  const int xi1 = min(xi0 + 1, FN - 1), yi1 = min(yi0 + 1, FN - 1);
+  const float* c00 = map + (yi0 * FN + xi0) * 3;
+  const float* c10 = map + (yi0 * FN + xi1) * 3;
+  const float* c01 = map + (yi1 * FN + xi0) * 3;
+  const float* c11 = map + (yi1 * FN + xi1) * 3;
+  float o[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float top = __ldg(c00 + k) * (1.0f - fx) + __ldg(c10 + k) * fx;
+    const float bot = __ldg(c01 + k) * (1.0f - fx) + __ldg(c11 + k) * fx;
+    const float v = (top * (1.0f - fy) + bot * fy) * FC(1.4);
+    o[k] = v * v;
+  }
+  return f3(o[0], o[1], o[2]);
+}
+
 __device__ F3 halation(F3 c, F3 blur, float amount, float exp, float bright, float wh,
                        const Uniforms& u) {
   if (amount <= 0.0f) return c;
@@ -748,6 +788,70 @@ __device__ F3 halation(F3 c, F3 blur, float amount, float exp, float bright, flo
   const F3 affected = mix3(c, splat(cl), hm * FC(0.12));
   const F3 reduced = mix3(splat(0.5f), affected, 1.0f - hm * FC(0.06));
   return add(reduced, scl(scl(glow, amount), 2.5f));
+}
+
+// the flare stage (pipeline/grade.py, shader.wgsl:1596-1610)
+__device__ __forceinline__ F3 flare(F3 c, F3 fr, float amount) {
+  const float perceptual = perceptual_luma(luma(max0(c)));
+  const float protection = 1.0f - ss(0.7, 1.8, perceptual);
+  if (!(amount > 0.0f)) return c;
+  return add(c, f3(fr.r * amount * protection, fr.g * amount * protection,
+                   fr.b * amount * protection));
+}
+
+// ---- ops/lut3d.py ---------------------------------------------------------
+
+// Tetrahedral interpolation in the (L, L, L, 3) cube and the intensity
+// blend: the tetrahedron is chosen as `sample_lut_tetrahedral`'s nested
+// `where`s choose it (ties included), and only its four corners are read;
+// each channel is c000 * w0 + ca * wa + cb * wb + c111 * w1 in that order.
+__device__ F3 apply_lut(F3 c, const float* __restrict__ lut, int L, float intensity) {
+  const float s = (float)(L - 1);
+  const float sr = clampf(c.r, 0.0f, 1.0f) * s, sg = clampf(c.g, 0.0f, 1.0f) * s,
+              sb = clampf(c.b, 0.0f, 1.0f) * s;
+  const float ir = floorf(sr), ig = floorf(sg), ib = floorf(sb);
+  const float fr = sr - ir, fg = sg - ig, fb = sb - ib;
+  const int r0 = (int)ir, g0 = (int)ig, b0 = (int)ib;
+  const int r1 = min(r0 + 1, L - 1), g1 = min(g0 + 1, L - 1), b1 = min(b0 + 1, L - 1);
+  // corners (ra, ga, ba), (rb, gb, bb) and the four weights of the chosen tetrahedron
+  int ra, ga, ba, rb, gb, bb;
+  float w0, wa, wb, w1;
+  if (fr > fg) {
+    if (fg > fb) {  // t1: c100, c110
+      ra = r1, ga = g0, ba = b0, rb = r1, gb = g1, bb = b0;
+      w0 = 1.0f - fr, wa = fr - fg, wb = fg - fb, w1 = fb;
+    } else if (fr > fb) {  // t2: c100, c101
+      ra = r1, ga = g0, ba = b0, rb = r1, gb = g0, bb = b1;
+      w0 = 1.0f - fr, wa = fr - fb, wb = fb - fg, w1 = fg;
+    } else {  // t3: c001, c101
+      ra = r0, ga = g0, ba = b1, rb = r1, gb = g0, bb = b1;
+      w0 = 1.0f - fb, wa = fb - fr, wb = fr - fg, w1 = fg;
+    }
+  } else {
+    if (fb > fg) {  // t4: c001, c011
+      ra = r0, ga = g0, ba = b1, rb = r0, gb = g1, bb = b1;
+      w0 = 1.0f - fb, wa = fb - fg, wb = fg - fr, w1 = fr;
+    } else if (fb > fr) {  // t5: c010, c011
+      ra = r0, ga = g1, ba = b0, rb = r0, gb = g1, bb = b1;
+      w0 = 1.0f - fg, wa = fg - fb, wb = fb - fr, w1 = fr;
+    } else {  // t6: c010, c110
+      ra = r0, ga = g1, ba = b0, rb = r1, gb = g1, bb = b0;
+      w0 = 1.0f - fg, wa = fg - fr, wb = fr - fb, w1 = fb;
+    }
+  }
+  const float* p000 = lut + ((r0 * L + g0) * L + b0) * 3;
+  const float* p111 = lut + ((r1 * L + g1) * L + b1) * 3;
+  const float* pa = lut + ((ra * L + ga) * L + ba) * 3;
+  const float* pb = lut + ((rb * L + gb) * L + bb) * 3;
+  float o[3];
+  const float in[3] = {c.r, c.g, c.b};
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float t = __ldg(p000 + k) * w0 + __ldg(pa + k) * wa + __ldg(pb + k) * wb +
+                    __ldg(p111 + k) * w1;
+    o[k] = in[k] * (1.0f - intensity) + t * intensity;
+  }
+  return f3(o[0], o[1], o[2]);
 }
 
 // ---- pipeline/grade.py: vignette ------------------------------------------
@@ -921,7 +1025,8 @@ __global__ void __launch_bounds__(BX* BY, MIN_BLOCKS)
                  float* __restrict__ out, unsigned flags, int nseg, unsigned bands, int rows,
                  int H, int W, float inv_w, float inv_h, float inv_scale, float aspect,
                  const float* __restrict__ infl, const float* __restrict__ mparams, int nmask,
-                 MaskBlend blend) {
+                 MaskBlend blend, const float* __restrict__ flare_map,
+                 const float* __restrict__ lut, int lut_size) {
   // per block: the image's param row and Uniforms, and the x-only and
   // y-only terms of the tile's columns and rows; with masks, each mask's
   // M_SCALARS leading params (dynamic shared memory)
@@ -1036,6 +1141,10 @@ __global__ void __launch_bounds__(BX* BY, MIN_BLOCKS)
       c = glow_bloom(c, b_structure, EFF(P_GLOW, M_GLOW), exposure, brightness, whites, U);
     if (ON(F_HALATION_ACTIVE))
       c = halation(c, b_clarity, EFF(P_HALATION, M_HALATION), exposure, brightness, whites, U);
+    if (ON(F_FLARE_ACTIVE)) {
+      const float* map = flare_map + (size_t)blockIdx.z * (512 * 512 * 3);
+      c = flare(c, flare_sample(map, xs, ys, W, H), EFF(P_FLARE, M_FLARE));
+    }
     if (ON(F_DEHAZE_ACTIVE)) c = dehaze(c, b_structure, EFF(P_DEHAZE, M_DEHAZE));
     if (ON(F_CENTRE_ACTIVE)) c = centre_tonal_and_color(c, PV(P_CENTRE), cm);
 
@@ -1127,7 +1236,8 @@ __global__ void __launch_bounds__(BX* BY, MIN_BLOCKS)
       }
     }
 
-    // finish: grain -> clipping -> dither -> clamp (shader.wgsl:1699-1734)
+    // finish: 3D LUT -> grain -> clipping -> dither -> clamp (shader.wgsl:1699-1734)
+    if (ON(F_HAS_LUT)) c = apply_lut(c, lut, lut_size, PV(P_LUT_INTENSITY));
     if (ON(F_GRAIN_ACTIVE))
       c = grain(c, xs, ys, PV(P_GRAIN_AMOUNT), PV(P_GRAIN_ROUGHNESS), u.grain_freq);
     if (ON(F_SHOW_CLIPPING)) {
@@ -1160,16 +1270,19 @@ extern "C" const char* rr_error_string(int err) {
 // the config flags tell the kernel which stages read which level. With
 // `nmask` > 0 masks: the (B, nmask, H, W) influences, the (B, nmask, M_K)
 // mask params, the blend sets and the plan's `mask_smem` bytes of dynamic
-// shared memory. A plan that leaves a pixel uncovered, names another build
-// or another shared-memory size, or passes the block's shared memory, is
-// refused before launch.
+// shared memory. With F_FLARE_ACTIVE the (B, 512, 512, 3) flare maps, with
+// F_HAS_LUT the (lut_size^3, 3) cube. A plan that leaves a pixel uncovered,
+// names another build or another shared-memory size, or passes the block's
+// shared memory, and flags whose inputs are missing, are refused before
+// launch.
 extern "C" int rr_grade(const float* img, const float* l_sharp, const float* l_tonal,
                         const float* l_clarity, const float* l_structure, const float* params,
                         float* out, unsigned flags, int nseg, unsigned bands,
                         int min_blocks, int rows, int grid_x, int grid_y, int B, int H, int W,
                         float inv_w, float inv_h, float inv_scale, float aspect,
                         const float* infl, const float* mparams, int nmask,
-                        const MaskBlend* blend, int mask_smem, void* stream) {
+                        const MaskBlend* blend, int mask_smem, const float* flare_map,
+                        const float* lut, int lut_size, void* stream) {
   if (rows < 1 || rows > MAX_ROWS || (min_blocks != 4 && min_blocks != 6))
     return (int)cudaErrorInvalidValue;
   if ((size_t)grid_x * BX < (size_t)W || (size_t)grid_y * BY * rows < (size_t)H ||
@@ -1178,6 +1291,9 @@ extern "C" int rr_grade(const float* img, const float* l_sharp, const float* l_t
   if (nmask < 0 || nmask > MAX_MASKS || blend == nullptr ||
       mask_smem != nmask * M_SCALARS * (int)sizeof(float) ||
       (nmask > 0 && (infl == nullptr || mparams == nullptr || min_blocks != 4)))
+    return (int)cudaErrorInvalidValue;
+  if (((flags & F_FLARE_ACTIVE) && flare_map == nullptr) ||
+      ((flags & F_HAS_LUT) && (lut == nullptr || lut_size < 2)))
     return (int)cudaErrorInvalidValue;
   auto kernel = nmask > 0          ? grade_kernel<4, true>
                 : min_blocks == 4 ? grade_kernel<4, false>
@@ -1194,6 +1310,6 @@ extern "C" int rr_grade(const float* img, const float* l_sharp, const float* l_t
   dim3 grid(grid_x, grid_y, B);
   kernel<<<grid, block, mask_smem, (cudaStream_t)stream>>>(
       img, l_sharp, l_tonal, l_clarity, l_structure, params, out, flags, nseg, bands, rows, H, W,
-      inv_w, inv_h, inv_scale, aspect, infl, mparams, nmask, *blend);
+      inv_w, inv_h, inv_scale, aspect, infl, mparams, nmask, *blend, flare_map, lut, lut_size);
   return (int)cudaGetLastError();
 }

@@ -1,25 +1,31 @@
-"""Noise reduction on the document-static tap grid (PyTorch + csrc/nr.cu).
+"""Noise reduction (PyTorch + csrc/nr.cu).
 
-Port of the static branch of `rapidraw_tpu/ops/nr.py:apply_noise_reduction`
-(shader.wgsl:889-1075): a 5x5 sampling window whose stride grows with the
-amount and the resolution; a two-pass robust (bisquare) weighted luma mean;
-a joint spatial/luma/chroma bilateral filter on the R-Y / B-Y planes. With
-document-constant amounts (every real document) the tap offsets are fixed,
-so each tap is an edge-clamped shift.
+Port of `rapidraw_tpu/ops/nr.py:apply_noise_reduction` (shader.wgsl:
+889-1075): a 5x5 sampling window whose stride grows with the amount and
+the resolution; a two-pass robust (bisquare) weighted luma mean; a joint
+spatial/luma/chroma bilateral filter on the R-Y / B-Y planes. With
+document-constant amounts (every single document without NR masks) the
+tap offsets are fixed, so each tap is an edge-clamped shift (`nr_static`).
+With per-pixel amounts (NR that a mask drives, or a batch whose documents
+carry different amounts) the taps are hash-jittered per pixel and gathered
+(`nr_dynamic`, JAX nr.py:108-254).
 
 The centre value is the CA-corrected, linearized pixel, while the neighbour
 taps read the *original* input, linearized (shader.wgsl:951, 1040):
 `nr_planes` makes those three neighbour planes (luma, R-Y, B-Y).
 
-`nr_static` is the kernel wrapper: a CPU tensor runs `nr_static_plain`, a
-CUDA tensor launches csrc/nr.cu, which replaces the TPU kernel B5
-(`_apply_nr_static_pallas`). `nr_static_plain` follows that Pallas kernel
-body at float32 (not the XLA formulation `_apply_nr_static`): the
-equal/not-equal edge-gate select, the hoisted smoothstep reciprocal, gates
-pre-masked at 1e-4 for the robust pass, the centre tap's gate g_eq, one exp
-per chroma tap. The kernel repeats its operations in the same order.
+`nr_static` and `nr_dynamic` are the kernel wrappers: a CPU tensor runs
+the plain version, a CUDA tensor launches csrc/nr.cu (`rr_nr_static`,
+which replaces the TPU kernel B5 `_apply_nr_static_pallas`, and
+`rr_nr_dynamic`, JAX's per-pixel gather path, which has no TPU kernel).
+`nr_static_plain` follows that Pallas kernel body at float32 (not the XLA
+formulation `_apply_nr_static`): the equal/not-equal edge-gate select, the
+hoisted smoothstep reciprocal, gates pre-masked at 1e-4 for the robust
+pass, the centre tap's gate g_eq, one exp per chroma tap.
+`nr_dynamic_plain` follows JAX's gather path op for op. Each kernel
+repeats its plain version's operations in the same order.
 
-Masked (per-pixel) amounts and the exact-jitter mode are later slices.
+The exact-jitter mode (RAPIDRAW_NR_EXACT_JITTER) is not ported.
 """
 
 from __future__ import annotations
@@ -33,7 +39,16 @@ import torch.nn.functional as F
 
 from rapidraw_tpu_torch.native import KernelLibrary
 from rapidraw_tpu_torch.ops import colorspace as cs
-from rapidraw_tpu_torch.ops.common import LUMA_COEFF, luma, mix, smoothstep
+from rapidraw_tpu_torch.ops.common import (
+    LUMA_COEFF,
+    as_t,
+    coord_maps,
+    luma,
+    mix,
+    smoothstep,
+    sqrt_rn,
+)
+from rapidraw_tpu_torch.ops.grain import hash2
 
 _OFFSETS = [(dx, dy) for dy in range(-2, 3) for dx in range(-2, 3) if not (dx == 0 and dy == 0)]
 NTAPS = len(_OFFSETS)
@@ -317,15 +332,208 @@ def nr_static(center: torch.Tensor, planes: torch.Tensor, luma_a: float,
 nr_static.launches = 0
 
 
+def _nr_dynamic_one(center: torch.Tensor, planes: torch.Tensor, luma_amount, color_amount,
+                    scale: float) -> torch.Tensor:
+    """JAX's per-pixel gather path (nr.py:108-254) on one (3, H, W) image:
+    amounts 0-d or (H, W), taps hash-jittered per pixel, gathered from the
+    neighbour planes with the indices clamped to the image."""
+    _, h, w = center.shape
+    luma_a = torch.clamp(as_t(luma_amount, center), 0.0, 1.0)
+    color_a = torch.clamp(as_t(color_amount, center), 0.0, 1.0)
+    flat = planes.reshape(3, -1)
+    center_luma = luma(torch.clamp_min(center, 0.0))
+    center_chroma = center - center_luma
+    res_factor = float(min(max(scale**0.5, 0.5), 2.0))
+    xs, ys = coord_maps(h, w, center.device)
+    xi, yi = xs.to(torch.int64), ys.to(torch.int64)
+
+    def index(dx: int, dy: int, stride, jx, jy) -> torch.Tensor:
+        off_x = torch.round(dx * stride + jx).to(torch.int64)
+        off_y = torch.round(dy * stride + jy).to(torch.int64)
+        return torch.clamp(yi + off_y, 0, h - 1) * w + torch.clamp(xi + off_x, 0, w - 1)
+
+    # ---- luma pass
+    l_curve = sqrt_rn(luma_a)
+    stride_f = mix(1.0, 2.0, smoothstep(0.45, 0.95, luma_a)) * res_factor
+    extra = torch.clamp(stride_f - 1.0, 0.0, 1.0)
+    l_spatial = mix(1.0, 1.5, l_curve)
+    l_spat_n = -1.0 / torch.clamp_min(2.0 * l_spatial * l_spatial, 1e-6)
+    jx = (hash2(xs, ys) - 0.5) * 2.0 * extra
+    jy = (hash2(xs + 17.31, ys + 71.13) - 0.5) * 2.0 * extra
+
+    samp_luma = [center_luma]
+    samp_spat = [torch.ones_like(center_luma)]
+    lmin = lmax = center_luma
+    for dx, dy in _OFFSETS:
+        grow = 1.0 + extra * (1.0 if max(abs(dx), abs(dy)) == 2 else 0.5)
+        s_luma = flat[0][index(dx, dy, grow, jx, jy)]
+        samp_luma.append(s_luma)
+        samp_spat.append(torch.exp(float(dx * dx + dy * dy) * l_spat_n))
+        lmin = torch.minimum(lmin, s_luma)
+        lmax = torch.maximum(lmax, s_luma)
+    edge_strength = smoothstep(0.04, 0.20, lmax - lmin)
+    edge_midpoint = (lmin + lmax) * 0.5
+    center_side = center_luma > edge_midpoint
+    l_range_tol = mix(mix(0.025, 0.075, l_curve), mix(0.010, 0.025, l_curve), edge_strength)
+
+    sum_a = torch.zeros_like(center_luma)
+    w_a = torch.zeros_like(center_luma)
+    gates = []
+    for s_luma, s_spat in zip(samp_luma, samp_spat):
+        diff = torch.abs(s_luma - center_luma)
+        g_range = 1.0 - smoothstep(l_range_tol * 0.6, l_range_tol, diff)
+        g_side = torch.where((s_luma > edge_midpoint) == center_side, 1.0, 0.0)
+        g_edge = mix(1.0, g_side, edge_strength)
+        wgt = s_spat * g_range * g_edge
+        gates.append(wgt)
+        sum_a = sum_a + s_luma * wgt
+        w_a = w_a + wgt
+    initial_mean = sum_a / torch.clamp_min(w_a, 1e-4)
+
+    outlier_tol = mix(0.07, 0.025, edge_strength)
+    sum_b = torch.zeros_like(center_luma)
+    w_b = torch.zeros_like(center_luma)
+    for s_luma, init_w in zip(samp_luma, gates):
+        r = torch.abs(s_luma - initial_mean) / outlier_tol
+        bisq = torch.clamp_min(1.0 - r * r, 0.0)
+        wgt = torch.where(init_w > 0.0001, init_w * bisq * bisq, 0.0)
+        sum_b = sum_b + s_luma * wgt
+        w_b = w_b + wgt
+    robust = torch.where(w_b > 0.01, sum_b / torch.clamp_min(w_b, 1e-6), initial_mean)
+    strength = luma_a * mix(1.0, 0.6, edge_strength)
+    new_luma = torch.where(luma_a > 0.001, mix(center_luma, robust, strength), center_luma)
+
+    # ---- colour pass
+    center_r_y = center[0] - center_luma
+    center_b_y = center[2] - center_luma
+    c_curve = sqrt_rn(color_a)
+    c_stride = mix(2.0, 3.5, c_curve) * res_factor
+    c_spatial = mix(2.0, 3.5, c_curve)
+    c_spat_n = -1.0 / torch.clamp_min(2.0 * c_spatial * c_spatial, 1e-6)
+    luma_tol = mix(0.12, 0.04, c_curve)
+    luma_n = -1.0 / torch.clamp_min(2.0 * luma_tol * luma_tol, 1e-6)
+    chroma_tol = mix(0.20, 0.08, c_curve)
+    chroma_n = -1.0 / torch.clamp_min(2.0 * chroma_tol * chroma_tol, 1e-6)
+    cjx = (hash2(xs + 43.7, ys + 91.1) - 0.5) * c_stride * 0.5
+    cjy = (hash2(xs + 73.3, ys + 17.9) - 0.5) * c_stride * 0.5
+
+    sum_r = center_r_y
+    sum_bv = center_b_y
+    w_sum = torch.ones_like(center_r_y)
+    for dx, dy in _OFFSETS:
+        s_luma, s_r_y, s_b_y = flat[:, index(dx, dy, c_stride, cjx, cjy)]
+        w_s = torch.exp(float(dx * dx + dy * dy) * c_spat_n)
+        dl = s_luma - center_luma
+        w_l = torch.exp(dl * dl * luma_n)
+        dr = s_r_y - center_r_y
+        db = s_b_y - center_b_y
+        w_c = torch.exp((dr * dr + db * db) * chroma_n)
+        wgt = w_s * w_l * w_c
+        sum_r = sum_r + s_r_y * wgt
+        sum_bv = sum_bv + s_b_y * wgt
+        w_sum = w_sum + wgt
+    new_r_y = mix(center_r_y, sum_r / torch.clamp_min(w_sum, 1e-6), color_a)
+    new_b_y = mix(center_b_y, sum_bv / torch.clamp_min(w_sum, 1e-6), color_a)
+    new_g_y = -(LUMA_COEFF[0] * new_r_y + LUMA_COEFF[2] * new_b_y) / LUMA_COEFF[1]
+    new_chroma = torch.where(color_a > 0.001, torch.stack([new_r_y, new_g_y, new_b_y]),
+                             center_chroma)
+    out = new_luma + new_chroma
+    skip = (luma_a < 0.001) & (color_a < 0.001)
+    return torch.where(skip, center, out)
+
+
+def _amounts(a, b: int, h: int, w: int, device) -> torch.Tensor:
+    """An NR amount of a (B, 3, H, W) batch as (B,) per-image scalars or
+    (B, H, W) maps, float32 on `device`."""
+    t = torch.as_tensor(a, dtype=torch.float32, device=device)
+    if t.ndim == 0:
+        t = t.expand(b)
+    if tuple(t.shape) not in ((b,), (b, h, w)):
+        raise ValueError(f"NR amount shape {tuple(t.shape)}: want ({b},) or ({b}, {h}, {w})")
+    return t.contiguous()
+
+
+def nr_dynamic_plain(center: torch.Tensor, planes: torch.Tensor, luma_amount, color_amount,
+                     scale: float) -> torch.Tensor:
+    """Plain version of the per-pixel NR kernel: center (B, 3, H, W) linear
+    pixels, planes (B, 3, H, W) from `nr_planes`, amounts (B,) per image
+    or (B, H, W) per pixel (for a (3, H, W) image: 0-d or (H, W))."""
+    _check(center, planes)
+    if center.ndim == 3:
+        return _nr_dynamic_one(center, planes, luma_amount, color_amount, scale)
+    b, _, h, w = center.shape
+    la = _amounts(luma_amount, b, h, w, center.device)
+    ca = _amounts(color_amount, b, h, w, center.device)
+    return torch.stack([_nr_dynamic_one(c, p, la[i], ca[i], scale)
+                        for i, (c, p) in enumerate(zip(center, planes))])
+
+
+def _nr_dynamic_cuda(center: torch.Tensor, planes: torch.Tensor, luma_amount, color_amount,
+                     scale: float) -> torch.Tensor:
+    one = center.ndim == 3
+    if one:
+        center, planes = center[None], planes[None]
+        luma_amount, color_amount = (torch.as_tensor(a)[None] for a in (luma_amount,
+                                                                        color_amount))
+    b, _, h, w = center.shape
+    la = _amounts(luma_amount, b, h, w, center.device)
+    ca = _amounts(color_amount, b, h, w, center.device)
+    for name, t in (("image", center), ("planes", planes)):
+        if not t.is_contiguous():
+            raise ValueError(f"NR kernel: {name} must be contiguous")
+        if t.device != center.device:
+            raise ValueError(f"NR kernel: {name} must be on {center.device}")
+    plan = nr_launch_plan(b, h, w, NR_HALO)
+    out = torch.empty_like(center)
+    fn = _KERNEL.lib().rr_nr_dynamic
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_size_t]
+                   + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(center.device).cuda_stream
+    gx, gy, _ = plan["grid"]
+    status = fn(
+        center.data_ptr(), planes.data_ptr(), la.data_ptr(), ca.data_ptr(), out.data_ptr(),
+        int(la.ndim == 3), int(ca.ndim == 3), plan["halo"], plan["rows"], gx, gy,
+        plan["smem"], b, h, w, float(min(max(scale**0.5, 0.5), 2.0)), stream,
+    )
+    _KERNEL.check(status, "rr_nr_dynamic")
+    nr_dynamic.launches += 1
+    return out[0] if one else out
+
+
+def nr_dynamic(center: torch.Tensor, planes: torch.Tensor, luma_amount, color_amount,
+               scale: float) -> torch.Tensor:
+    """NR with per-pixel amounts and hash-jittered taps of (3, H, W) or
+    (B, 3, H, W): the kernel wrapper. Amounts: per image ((B,) or a float)
+    or per pixel ((B, H, W)).
+
+    CPU tensor -> `nr_dynamic_plain`; CUDA tensor -> one launch of
+    csrc/nr.cu's `rr_nr_dynamic` for the whole batch.
+    """
+    _check(center, planes)
+    if center.device.type == "cpu":
+        return nr_dynamic_plain(center, planes, luma_amount, color_amount, scale)
+    if center.device.type != "cuda":
+        raise ValueError(f"NR runs on CPU or CUDA tensors, got {center.device}")
+    return _nr_dynamic_cuda(center, planes, luma_amount, color_amount, scale)
+
+
+# launch count of the per-pixel NR kernel: one per rr_nr_dynamic call
+nr_dynamic.launches = 0
+
+
 def apply_noise_reduction(center_linear: torch.Tensor, input_rgb: torch.Tensor,
                           scale: float, is_raw: bool, static_luma: float | None,
-                          static_color: float | None) -> torch.Tensor:
+                          static_color: float | None, luma_amount=None,
+                          color_amount=None) -> torch.Tensor:
     """NR of (..., 3, H, W) linear pixels, neighbours from the input-space
-    `input_rgb`. Only document-static amounts are ported: per-pixel
-    (masked) amounts raise NotImplementedError."""
-    if static_luma is None or static_color is None:
-        raise NotImplementedError(
-            "the PyTorch port does not run noise reduction with per-pixel (masked) "
-            "amounts yet (slice A.8)")
-    return nr_static(center_linear.contiguous(), nr_planes(input_rgb, is_raw).contiguous(),
-                     static_luma, static_color, scale)
+    `input_rgb`, routed as JAX routes it (nr.py:73-108): document-static
+    amounts (both `static_*` set) take the static grid; otherwise the
+    per-pixel path takes `luma_amount` / `color_amount`, per image or per
+    pixel."""
+    planes = nr_planes(input_rgb, is_raw).contiguous()
+    if static_luma is not None and static_color is not None:
+        return nr_static(center_linear.contiguous(), planes, static_luma, static_color, scale)
+    if luma_amount is None or color_amount is None:
+        raise ValueError("NR with per-pixel amounts takes luma_amount and color_amount")
+    return nr_dynamic(center_linear.contiguous(), planes, luma_amount, color_amount, scale)

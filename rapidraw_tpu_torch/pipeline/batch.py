@@ -2,9 +2,9 @@
 
 Port of `rapidraw_tpu/pipeline/batch.py`. Every B goes through one launch
 of each kernel its document needs — NR, the blur pyramid (one more per
-band group of mask-only levels), the grade with the batch on the grid; on
-a CPU batch the wrappers run their plain versions instead. No switch sends
-a CUDA batch down a plain path. Mask stacks are padded to the batch's
+band group of mask-only levels), the flare maps, the grade with the batch
+on the grid; on a CPU batch the wrappers run their plain versions instead.
+No switch sends a CUDA batch down a plain path. Mask stacks are padded to the batch's
 mask count with zero adjustments.
 """
 
@@ -19,7 +19,7 @@ from rapidraw_tpu_torch.params.parse import (
     _shared_set,
     merge_configs,
 )
-from rapidraw_tpu_torch.pipeline.fused import check_supported, develop_fused_batch
+from rapidraw_tpu_torch.pipeline.fused import develop_fused_batch
 
 
 def _pad_mask_sets(params: DevelopParams, target_n: int) -> DevelopParams:
@@ -85,7 +85,6 @@ def stack_params(
     """
     if cfg is None:
         cfg = merge_configs(configs)
-    check_supported(cfg)
     padded = [_pad_mask_sets(p, cfg.mask_count) for p in params_list]
     device = device or "cuda"
     stacked = {"glob": _stack([p["glob"] for p in padded], device),
@@ -94,15 +93,21 @@ def stack_params(
 
 
 def develop_batch(images: torch.Tensor, params: DevelopParams, cfg: DevelopConfig,
-                  masks=None, blur_bands: tuple | None = None) -> torch.Tensor:
+                  masks=None, lut=None, flare=None,
+                  blur_bands: tuple | None = None) -> torch.Tensor:
     """Develop planar (B, 3, H, W) images with per-image stacked params.
 
     masks: (B, N, H, W) influences in [0, 1] (N = cfg.mask_count), e.g.
     rasterize_masks per image, stacked; an image with fewer masks than N
-    takes zero influence in the rest. blur_bands: ((level, y0, y1), ...)
-    row bands of the mask-only blur levels (blur_band_rows over THIS
-    batch's masks): exact, and the blur skips the rows outside.
+    takes zero influence in the rest. lut: the (L, L, L, 3) cube of the
+    batch (io/lut.parse_lut_file), shared as in JAX; a document with
+    `lutPath` and no cube skips the LUT. flare: a (512, 512, 3) flare map
+    for the batch, or None to make each image's own. blur_bands:
+    ((level, y0, y1), ...) row bands of the mask-only blur levels
+    (blur_band_rows over THIS batch's masks): exact, and the blur skips the
+    rows outside.
     """
     if images.ndim != 4 or images.shape[1] != 3:
         raise ValueError(f"develop_batch expects (B, 3, H, W), got {tuple(images.shape)}")
-    return develop_fused_batch(images, params, cfg, masks=masks, blur_bands=blur_bands)
+    return develop_fused_batch(images, params, cfg, masks=masks, blur_bands=blur_bands,
+                               lut=lut, flare=flare)

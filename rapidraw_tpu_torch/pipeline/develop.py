@@ -1,9 +1,9 @@
 """The develop entry for one image.
 
-Port of `rapidraw_tpu/pipeline/develop.py`: CA -> linearize -> NR -> blur
-pyramid (mask-only levels over their row bands) -> grade chain with the
-mask blend -> grain -> clipping -> dither. Flare, the LUT and NR driven by
-masks are later slices and raise NotImplementedError.
+Port of `rapidraw_tpu/pipeline/develop.py`: CA -> linearize -> NR (on
+the static grid, or per pixel when masks drive it) -> blur pyramid
+(mask-only levels over their row bands) -> flare map -> grade chain with
+the mask blend and the flare -> 3D LUT -> grain -> clipping -> dither.
 
 The port has one path: the JAX package's XLA chain and its megakernel are
 two implementations, but here the blur, NR and grade wrappers already
@@ -22,12 +22,15 @@ from rapidraw_tpu_torch.pipeline.fused import develop_fused
 
 
 def develop(image: torch.Tensor, params: dict, cfg: DevelopConfig,
-            masks=None, blur_bands: tuple | None = None) -> torch.Tensor:
+            masks=None, lut=None, flare=None, blur_bands: tuple | None = None) -> torch.Tensor:
     """Develop one planar (3, H, W) float32 image in input space (sRGB for
     LDR sources, scene-linear for RAW) to clamped sRGB (3, H, W).
 
     params: {'glob': {...}, 'mask': {...} | None} from parse_adjustments;
     masks: the (N, H, W) influences of its N masks (rasterize_masks);
+    lut: the (L, L, L, 3) cube of a document with `lutPath`
+    (io/lut.parse_lut_file; without it the LUT is skipped, as in JAX);
+    flare: a (512, 512, 3) flare map (made from the image when None);
     blur_bands: blur_band_rows(cfg, masks).
     """
     if image.ndim != 3 or image.shape[0] != 3:
@@ -35,4 +38,5 @@ def develop(image: torch.Tensor, params: dict, cfg: DevelopConfig,
             f"develop() expects a PLANAR (3, H, W) image, got {tuple(image.shape)}; "
             "convert interleaved (H, W, C) with np.moveaxis(img, -1, 0) (and drop alpha)"
         )
-    return develop_fused(image, params, cfg, masks=masks, blur_bands=blur_bands)
+    return develop_fused(image, params, cfg, masks=masks, blur_bands=blur_bands, lut=lut,
+                         flare=flare)

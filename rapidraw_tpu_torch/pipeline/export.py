@@ -26,12 +26,14 @@ def device_u16(x: torch.Tensor) -> torch.Tensor:
 
 
 def develop_single(image: torch.Tensor, params: dict, cfg: DevelopConfig,
-                   masks=None) -> torch.Tensor:
-    """One (3, H, W) image (and its (N, H, W) mask influences) through the
-    same batch-of-1 entry an export chunk renders with, so single renders
-    match batch renders exactly; mask-only blur levels are band-restricted
-    as the JAX entry does."""
+                   masks=None, lut=None, flare=None) -> torch.Tensor:
+    """One (3, H, W) image (and its (N, H, W) mask influences, LUT cube
+    and flare map, as `develop`) through the same batch-of-1 entry an
+    export chunk renders with, so single renders match batch renders
+    exactly; mask-only blur levels are band-restricted as the JAX entry
+    does."""
     sp, scfg = stack_params([params], [cfg], device=image.device)
     bands = blur_band_rows(scfg, masks) if masks is not None else None
     mk = torch.as_tensor(masks)[None] if masks is not None else None
-    return develop_batch(image[None], sp, scfg, masks=mk, blur_bands=bands)[0]
+    return develop_batch(image[None], sp, scfg, masks=mk, lut=lut, flare=flare,
+                         blur_bands=bands)[0]

@@ -6,6 +6,15 @@ its batched form B4 (`develop_fused_batch`): a thread computes 4 or 8
 pixels of one column (`grade_launch_plan`), the batch on the grid's z axis,
 each image's params in one row of a (B, K) float32 matrix.
 
+Lens flare: the TPU megakernel streams a full-size (3, H, W) flare tile
+that XLA sampled from the 512^2 map (JAX develop.py:197-217); here the
+kernel takes each image's (512, 512, 3) map (`ops/flare.flare_maps`, made
+from the original image and the global params) and samples it per pixel,
+so no full-size flare tensor exists. The 3D LUT: the TPU kernel stops
+after the curves when the document has one and XLA runs the finish (JAX
+fused.py:277, :320-327); here the LUT stage stays in the kernel, before
+grain, on a cube shared by the batch.
+
 Param layout: JAX packs the param pytree by sorted dict keys and trimmed
 curve shapes, which the CUDA side cannot know. Here one FIXED layout
 (`LAYOUT`, untrimmed 15-slot curves) defines every offset, and a second
@@ -28,6 +37,7 @@ There is no fallback between the two.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 
 import torch
@@ -37,6 +47,7 @@ from rapidraw_tpu_torch.ops import colorspace as cs
 from rapidraw_tpu_torch.ops.blur import gaussian_blur_multi
 from rapidraw_tpu_torch.ops.ca import apply_ca_correction
 from rapidraw_tpu_torch.ops.common import coord_maps
+from rapidraw_tpu_torch.ops.flare import FLARE_MAP_SIZE, FLARE_PARAMS, flare_maps, sample_flare
 from rapidraw_tpu_torch.ops.nr import apply_noise_reduction
 from rapidraw_tpu_torch.params import agx as agx_c
 from rapidraw_tpu_torch.params import scales
@@ -104,6 +115,7 @@ FLAGS = (
     "cg_active", "vignette_active", "curves_active",
     "rgb_curves_maybe_active", "grain_active", "dither_active",
     "mask_sharpness_active", "mask_hsl_active", "mask_cg_active", "mask_curves_active",
+    "flare_active", "has_lut",
 )
 # Not a DevelopConfig field: the wrapper sets it when the image it hands
 # the kernel is already linear (NR ran first), so the kernel skips the
@@ -273,19 +285,6 @@ def grade_launch_plan(b: int, h: int, w: int, cfg: DevelopConfig) -> dict:
             "masks": cfg.mask_count, "mask_smem": mask_smem}
 
 
-def check_supported(cfg: DevelopConfig) -> None:
-    """Raise NotImplementedError for documents outside the port's slices."""
-    later = (
-        (cfg.has_lut, "the 3D LUT (slice A.8)"),
-        (cfg.nr_active and (cfg.nr_static_luma is None or cfg.nr_static_color is None),
-         "noise reduction with per-pixel amounts (slice A.8)"),
-        (cfg.flare_active, "lens flare (slice A.8)"),
-    )
-    for hit, what in later:
-        if hit:
-            raise NotImplementedError(f"the PyTorch port does not develop {what} yet")
-
-
 def blur_radii(cfg: DevelopConfig, w: int, h: int) -> dict:
     """{level key: radius} of the pyramid levels this config reads."""
     scale = scales.resolution_scale(w, h)
@@ -307,13 +306,16 @@ def gate_influences(masks: torch.Tensor) -> torch.Tensor:
 def grade_plain(images: torch.Tensor, levels: dict, pmat: torch.Tensor,
                 cfg: DevelopConfig, image_linear: bool = False,
                 masks: torch.Tensor | None = None,
-                mmat: torch.Tensor | None = None) -> torch.Tensor:
+                mmat: torch.Tensor | None = None,
+                flare: torch.Tensor | None = None,
+                lut: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of the grade kernel, on the kernel's own inputs.
 
     images: (B, 3, H, W) in input space (sRGB, or linear when RAW), or
     linear when `image_linear`; levels: {key: (B, 3, H, W)} blur levels in
     input space; pmat: (B, K); with masks, masks: (B, N, H, W) influences
-    (gated here) and mmat: (B, N, KM) mask params.
+    (gated here) and mmat: (B, N, KM) mask params; with flare, flare:
+    (B, 512, 512, 3) maps; with a LUT, lut: the (L, L, L, 3) cube.
     """
     b, _, h, w = images.shape
     scale = scales.resolution_scale(w, h)
@@ -333,8 +335,9 @@ def grade_plain(images: torch.Tensor, levels: dict, pmat: torch.Tensor,
             image, blurs["sharp"], blurs["tonal"], blurs["clarity"],
             blurs["structure"], g, cfg, xs, ys, w, h,
             m=m, gated_infl=gated[i] if gated is not None else None,
+            flare_rgb=sample_flare(flare[i], h, w) if flare is not None else None,
         )
-        outs.append(finish_chain(final, g, cfg, xs, ys, scale))
+        outs.append(finish_chain(final, g, cfg, xs, ys, scale, lut=lut))
     return torch.stack(outs)
 
 
@@ -345,9 +348,11 @@ class _Blend(ctypes.Structure):
 
 
 def _grade_cuda(images: torch.Tensor, levels: dict, pmat: torch.Tensor,
-                cfg: DevelopConfig, image_linear: bool, masks, mmat) -> torch.Tensor:
+                cfg: DevelopConfig, image_linear: bool, masks, mmat, flare,
+                lut) -> torch.Tensor:
     b, c, h, w = images.shape
     extra = [("masks", masks), ("mask params", mmat)] if cfg.mask_count > 0 else []
+    extra += [(name, t) for name, t in (("flare maps", flare), ("LUT", lut)) if t is not None]
     for name, t in [("images", images), ("params", pmat), *levels.items(), *extra]:
         if not t.is_contiguous():
             raise ValueError(f"grade kernel: {name} must be contiguous")
@@ -372,7 +377,7 @@ def _grade_cuda(images: torch.Tensor, levels: dict, pmat: torch.Tensor,
         + [ctypes.c_int] * 7
         + [ctypes.c_float] * 4
         + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(_Blend), ctypes.c_int]
-        + [ctypes.c_void_p]
+        + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     band_bits = sum(1 << i for i, on in enumerate(cfg.hsl_band_active) if on)
@@ -385,8 +390,12 @@ def _grade_cuda(images: torch.Tensor, levels: dict, pmat: torch.Tensor,
         # reciprocals taken in double, as PyTorch's CUDA division by a Python
         # scalar does in the plain chain
         b, h, w, 1.0 / w, 1.0 / h, 1.0 / scales.resolution_scale(w, h), h / w,
-        masks.data_ptr() if extra else None, mmat.data_ptr() if extra else None,
-        plan["masks"], ctypes.byref(blend), plan["mask_smem"], stream,
+        masks.data_ptr() if cfg.mask_count > 0 else None,
+        mmat.data_ptr() if cfg.mask_count > 0 else None,
+        plan["masks"], ctypes.byref(blend), plan["mask_smem"],
+        flare.data_ptr() if flare is not None else None,
+        lut.data_ptr() if lut is not None else None,
+        lut.shape[0] if lut is not None else 0, stream,
     )
     _KERNEL.check(status, "rr_grade")
     grade.launches += 1
@@ -395,7 +404,8 @@ def _grade_cuda(images: torch.Tensor, levels: dict, pmat: torch.Tensor,
 
 def grade(images: torch.Tensor, levels: dict, pmat: torch.Tensor,
           cfg: DevelopConfig, image_linear: bool = False,
-          masks: torch.Tensor | None = None, mmat: torch.Tensor | None = None) -> torch.Tensor:
+          masks: torch.Tensor | None = None, mmat: torch.Tensor | None = None,
+          flare: torch.Tensor | None = None, lut: torch.Tensor | None = None) -> torch.Tensor:
     """Grade + finish chain of a (B, 3, H, W) batch: the kernel wrapper.
 
     CPU tensor -> `grade_plain`; CUDA tensor -> one launch of
@@ -403,9 +413,10 @@ def grade(images: torch.Tensor, levels: dict, pmat: torch.Tensor,
     already linear (NR ran first); the blur levels stay in input space.
     A document with masks also takes the (B, N, H, W) influences `masks`
     (N = cfg.mask_count; gated by the kernel) and the (B, N, KM) mask
-    params `mmat`.
+    params `mmat`; one with flare the (B, 512, 512, 3) maps `flare`
+    (`ops/flare.flare_maps`); one with a LUT the (L, L, L, 3) cube `lut`
+    (without it the LUT stage is skipped, as in JAX).
     """
-    check_supported(cfg)
     if images.ndim != 4 or images.shape[1] != 3:
         raise ValueError(f"grade takes (B, 3, H, W) images, got {tuple(images.shape)}")
     b, _, h, w = images.shape
@@ -421,11 +432,20 @@ def grade(images: torch.Tensor, levels: dict, pmat: torch.Tensor,
         if mmat is None or tuple(mmat.shape) != (b, n, KM):
             raise ValueError(f"grade: mask params shape "
                              f"{None if mmat is None else tuple(mmat.shape)}, want {(b, n, KM)}")
+    n = FLARE_MAP_SIZE
+    if cfg.flare_active and (flare is None or tuple(flare.shape) != (b, n, n, 3)):
+        raise ValueError(f"grade: a config with flare takes (B, {n}, {n}, 3) maps, got "
+                         f"{None if flare is None else tuple(flare.shape)}")
+    if cfg.has_lut and lut is None:
+        cfg = dataclasses.replace(cfg, has_lut=False)  # no cube: the stage is skipped
+    if lut is not None and (lut.ndim != 4 or lut.shape[3] != 3 or
+                            not lut.shape[0] == lut.shape[1] == lut.shape[2] >= 2):
+        raise ValueError(f"grade: a LUT is (L, L, L, 3) with L >= 2, got {tuple(lut.shape)}")
     if images.device.type == "cpu":
-        return grade_plain(images, levels, pmat, cfg, image_linear, masks, mmat)
+        return grade_plain(images, levels, pmat, cfg, image_linear, masks, mmat, flare, lut)
     if images.device.type != "cuda":
         raise ValueError(f"grade runs on CPU or CUDA tensors, got {images.device}")
-    return _grade_cuda(images, levels, pmat, cfg, image_linear, masks, mmat)
+    return _grade_cuda(images, levels, pmat, cfg, image_linear, masks, mmat, flare, lut)
 
 
 # launch count of the grade kernel: one per rr_grade call
@@ -475,7 +495,26 @@ def blur_levels(images: torch.Tensor, cfg: DevelopConfig, blur_bands=None) -> di
     return {k: out[k].reshape(b, c, h, w) for k in radii}
 
 
-def prepare_inputs(images: torch.Tensor, cfg: DevelopConfig) -> tuple[torch.Tensor, bool]:
+def nr_amounts(params: dict, cfg: DevelopConfig, masks: torch.Tensor | None, device):
+    """Each image's luma and colour NR amounts (JAX develop.py:124-141): a
+    field that a mask blends becomes a (B, H, W) map, global + gated
+    influence x mask value in mask order; a field no mask blends stays a
+    (B,) vector of per-image scalars (a batch of mixed amounts)."""
+    out = []
+    for f in ("luma_nr", "color_nr"):
+        v = torch.as_tensor(params["glob"][f], dtype=torch.float32, device=device)
+        idx = blend_mask_indices(cfg, f) if cfg.mask_count > 0 else ()
+        if idx:
+            mvals = torch.as_tensor(params["mask"][f], dtype=torch.float32, device=device)
+            v = v[:, None, None]
+            for n in idx:
+                v = v + gate_influences(masks[:, n]) * mvals[:, n, None, None]
+        out.append(v)
+    return tuple(out)
+
+
+def prepare_inputs(images: torch.Tensor, cfg: DevelopConfig, params: dict | None = None,
+                   masks: torch.Tensor | None = None) -> tuple[torch.Tensor, bool]:
     """Front half of the chain for a (B, 3, H, W) batch in input space:
     CA, then linearize and NR when NR is active (JAX develop.py:101-141).
 
@@ -484,7 +523,9 @@ def prepare_inputs(images: torch.Tensor, cfg: DevelopConfig) -> tuple[torch.Tens
     NR it is the linear, noise-reduced image. NR's neighbour taps read the
     original `images` (linearized), its centre the CA-corrected pixel. The
     blur levels (`blur_levels`) are taken from the original `images` too,
-    not from this result.
+    not from this result. NR with per-pixel amounts (`cfg.nr_static_*`
+    None) takes them from the stacked `params` and the (B, N, H, W)
+    influences `masks` (`nr_amounts`).
     """
     h, w = images.shape[-2:]
     image = images
@@ -493,27 +534,55 @@ def prepare_inputs(images: torch.Tensor, cfg: DevelopConfig) -> tuple[torch.Tens
     if not cfg.nr_active:
         return image, False
     linear = image if cfg.is_raw else cs.srgb_to_linear(image)
+    amounts = (None, None)
+    if cfg.nr_static_luma is None or cfg.nr_static_color is None:
+        if params is None:
+            raise ValueError("NR with per-pixel amounts needs the stacked params")
+        amounts = nr_amounts(params, cfg, masks, images.device)
     nr = apply_noise_reduction(
         linear, images, scales.resolution_scale(w, h), cfg.is_raw,
-        cfg.nr_static_luma, cfg.nr_static_color,
+        cfg.nr_static_luma, cfg.nr_static_color, *amounts,
     )
     return nr, True
 
 
+def flare_inputs(images: torch.Tensor, pmat: torch.Tensor, cfg: DevelopConfig,
+                 flare=None) -> torch.Tensor:
+    """The (B, 512, 512, 3) flare maps of a batch: the caller's map (one
+    (512, 512, 3) map for the whole batch, as JAX's develop_batch shares
+    it, or one per image), else one per image made from the ORIGINAL images
+    (before CA) and the global params, unblended (JAX develop.py:197-206)."""
+    b = images.shape[0]
+    n = FLARE_MAP_SIZE
+    if flare is None:
+        cols = [OFFSETS[k] for k in FLARE_PARAMS]
+        return flare_maps(images, pmat[:, cols].contiguous(), cfg.is_raw)
+    fm = torch.as_tensor(flare, dtype=torch.float32, device=images.device)
+    if tuple(fm.shape) == (n, n, 3):
+        fm = fm.expand(b, n, n, 3)
+    if tuple(fm.shape) != (b, n, n, 3):
+        raise ValueError(f"a flare map is ({n}, {n}, 3) or ({b}, {n}, {n}, 3), got "
+                         f"{tuple(fm.shape)}")
+    return fm.contiguous()
+
+
 def develop_fused_batch(images: torch.Tensor, params: dict, cfg: DevelopConfig,
-                        masks: torch.Tensor | None = None, blur_bands=None) -> torch.Tensor:
+                        masks: torch.Tensor | None = None, blur_bands=None,
+                        lut=None, flare=None) -> torch.Tensor:
     """Develop a (B, 3, H, W) batch: CA and NR (`prepare_inputs`), the
     blur pyramid of the original images (band-restricted levels per
-    `blur_bands`), one grade launch.
+    `blur_bands`), the flare maps (`flare_inputs`), one grade launch.
 
     params: stacked params (stack_params), leaves with a leading B axis.
     masks: (B, N, H, W) mask influences when cfg.mask_count = N > 0 (an
     image with fewer masks has zero influence in the rest: exact no-ops).
-    The JAX package develops a CA or NR batch image by image
+    lut: the (L, L, L, 3) cube shared by the batch (a document with a LUT
+    and no cube skips the stage, as in JAX); flare: a (512, 512, 3) map for
+    the batch or (B, 512, 512, 3) maps, made here when None.
+    The JAX package develops a CA, NR, LUT or flare batch image by image
     (`fusable_batched`); the params are per row here, so one launch of
     each kernel serves the whole batch with the same per-image results.
     """
-    check_supported(cfg)
     pmat = pack_rows(params["glob"]).to(images.device)
     mmat = None
     if cfg.mask_count > 0:
@@ -522,19 +591,26 @@ def develop_fused_batch(images: torch.Tensor, params: dict, cfg: DevelopConfig,
                              "and stacked mask params")
         mmat = pack_mask_rows(params["mask"]).to(images.device)
         masks = torch.as_tensor(masks, dtype=torch.float32, device=images.device).contiguous()
-    image, linear = prepare_inputs(images, cfg)
+    image, linear = prepare_inputs(images, cfg, params, masks)
     levels = blur_levels(images, cfg, blur_bands)
-    return grade(image, levels, pmat, cfg, image_linear=linear, masks=masks, mmat=mmat)
+    fmaps = flare_inputs(images, pmat, cfg, flare) if cfg.flare_active else None
+    cube = None
+    if cfg.has_lut and lut is not None:
+        cube = torch.as_tensor(lut, dtype=torch.float32, device=images.device).contiguous()
+    return grade(image, levels, pmat, cfg, image_linear=linear, masks=masks, mmat=mmat,
+                 flare=fmaps, lut=cube)
 
 
 def develop_fused(image: torch.Tensor, params: dict, cfg: DevelopConfig,
-                  masks: torch.Tensor | None = None, blur_bands=None) -> torch.Tensor:
+                  masks: torch.Tensor | None = None, blur_bands=None,
+                  lut=None, flare=None) -> torch.Tensor:
     """One (3, H, W) image (masks (N, H, W)) through the batched path with
     B = 1."""
     batched = {"glob": _add_batch_axis(params["glob"]),
                "mask": None if params["mask"] is None else _add_batch_axis(params["mask"])}
     mk = None if masks is None else torch.as_tensor(masks)[None]
-    return develop_fused_batch(image[None], batched, cfg, masks=mk, blur_bands=blur_bands)[0]
+    return develop_fused_batch(image[None], batched, cfg, masks=mk, blur_bands=blur_bands,
+                               lut=lut, flare=flare)[0]
 
 
 def _add_batch_axis(tree):

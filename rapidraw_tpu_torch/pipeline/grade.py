@@ -1,8 +1,8 @@
 """The per-pixel grade chain as plain PyTorch — the plain version of the
 CUDA grade kernel (csrc/grade.cu).
 
-Port of `rapidraw_tpu/pipeline/grade.py` for documents without flare or
-a LUT (a later slice). Stage order is shader.wgsl main (:1555-1734).
+Port of `rapidraw_tpu/pipeline/grade.py`, lens flare and the 3D LUT
+included. Stage order is shader.wgsl main (:1555-1734).
 Spatially-dependent stages (centre, vignette, grain, dither) take absolute
 pixel-coordinate maps. With masks, each field of `EFF_FIELDS` that a mask
 sets becomes a per-pixel map (global + sum of mask value x influence), and
@@ -19,8 +19,9 @@ from rapidraw_tpu_torch.ops import colorspace as cs
 from rapidraw_tpu_torch.ops import curves as curve_ops
 from rapidraw_tpu_torch.ops import local as local_ops
 from rapidraw_tpu_torch.ops import tone as tone_ops
-from rapidraw_tpu_torch.ops.common import as_t, fpow, mix, smoothstep
+from rapidraw_tpu_torch.ops.common import as_t, fpow, luma, mix, smoothstep
 from rapidraw_tpu_torch.ops.grain import apply_grain, dither_from_coords
+from rapidraw_tpu_torch.ops.lut3d import apply_lut
 from rapidraw_tpu_torch.params.parse import DevelopConfig
 
 # fields blended per-pixel by mask influence (shader.wgsl:1503-1525)
@@ -91,13 +92,16 @@ def grade_chain(
     h_full: int,
     m: dict | None = None,
     gated_infl: torch.Tensor | None = None,
+    flare_rgb: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Linear input -> post-curves sRGB (shader.wgsl:1555-1697).
 
     Blur inputs are LINEAR pyramid levels (None when the config needs none);
     g holds one document's global params as tensors, m its per-mask params
     (leaves with a leading mask axis) and gated_infl the (N, H, W) mask
-    influences, zero below 0.001 (both None without masks).
+    influences, zero below 0.001 (both None without masks); flare_rgb the
+    (3, H, W) flare contribution, sampled and squared (ops/flare.py
+    `sample_flare`), or None.
     """
     is_raw = cfg.is_raw
     eff = effective_params(g, m, gated_infl, cfg)
@@ -140,6 +144,13 @@ def grade_chain(
             rgb, clarity_blur, eff["halation"], eff["exposure"], eff["brightness"],
             eff["whites"],
         )
+    if cfg.flare_active and flare_rgb is not None:
+        # shader.wgsl:1596-1610 (flare_rgb already * 1.4 and squared)
+        linear_luma = luma(torch.clamp_min(rgb, 0.0))
+        perceptual = local_ops._perceptual_luma(linear_luma)
+        protection = 1.0 - smoothstep(0.7, 1.8, perceptual)
+        contrib = flare_rgb * eff["flare"] * protection
+        rgb = torch.where(as_t(eff["flare"], rgb) > 0.0, rgb + contrib, rgb)
     if cfg.dehaze_active:
         rgb = local_ops.apply_dehaze(rgb, structure_blur, eff["dehaze"])
     if cfg.centre_active:
@@ -206,8 +217,12 @@ def grade_chain(
     return final
 
 
-def finish_chain(final: torch.Tensor, g: dict, cfg: DevelopConfig, xs, ys, scale: float):
-    """Grain -> clipping -> dither -> clamp (shader.wgsl:1699-1734)."""
+def finish_chain(final: torch.Tensor, g: dict, cfg: DevelopConfig, xs, ys, scale: float,
+                 lut: torch.Tensor | None = None):
+    """3D LUT -> grain -> clipping -> dither -> clamp (shader.wgsl:1699-1734).
+    Without a cube (`lut` None) the LUT stage is skipped, as in JAX."""
+    if cfg.has_lut and lut is not None:
+        final = apply_lut(final, lut, g["lut_intensity"])
     if cfg.grain_active:
         final = apply_grain(
             final, g["grain_amount"], g["grain_size"], g["grain_roughness"], scale, xs, ys

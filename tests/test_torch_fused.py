@@ -124,44 +124,64 @@ def test_plain_grade_takes_the_kernel_inputs():
         tfused.grade(x, {k: v for k, v in levels.items() if k != "tonal"}, pmat, c)
 
 
-# Each case: the batch's documents, then the error and the text it names.
-# CA and static NR are developed since the stencil slice, masks since slice
-# A.6; what stays outside is a batch of mixed CA amounts (one compile
-# cannot hold two, as in JAX), mixed NR amounts and NR that a mask drives
-# (JAX's per-pixel gather path, slice A.8).
+# Each case: the batch's documents and, for a batch the port refuses, the
+# error and the text it names. Until slice A.8 the port refused all five;
+# since then NR that a mask drives, the LUT, mixed NR amounts and flare
+# develop and match JAX (32 x 48, dither off; the LUT case with a seeded
+# 9^3 cube, the flare case with JAX handed the port's map, which
+# test_torch_flare.py holds to JAX's). A batch of mixed CA amounts stays
+# refused, as in JAX (one compile cannot hold two).
 UNSUPPORTED = {
     "masks (slice A.6)": (
-        [{"masks": [{"visible": True, "adjustments": {"lumaNoiseReduction": 30}}]}],
-        NotImplementedError, "per-pixel amounts \\(slice A.8\\)"),
-    "LUT (slice A.8)": ([{"lutPath": "x.cube"}], NotImplementedError, "slice A.8"),
+        [{"masks": [{"visible": True, "adjustments": {"lumaNoiseReduction": 30}}]}], None, None),
+    "LUT (slice A.8)": ([{"lutPath": "x.cube", "lutIntensity": 75}], None, None),
     "chromatic aberration (slice A.8)": (
         [{"chromaticAberrationRedCyan": 10}, {"chromaticAberrationRedCyan": 20}],
         ValueError, "chromatic-aberration"),
     "noise reduction (slice A.8)": (
-        [{"lumaNoiseReduction": 20}, {"lumaNoiseReduction": 40}],
-        NotImplementedError, "per-pixel amounts \\(slice A.8\\)"),
-    "flare (slice A.8)": ([{"flareAmount": 20}], NotImplementedError, "slice A.8"),
+        [{"lumaNoiseReduction": 20}, {"lumaNoiseReduction": 40, "colorNoiseReduction": 30}],
+        None, None),
+    "flare (slice A.8)": ([{"flareAmount": 20}], None, None),
 }
 
 
 @pytest.mark.parametrize("what", sorted(UNSUPPORTED))
 def test_documents_outside_the_slice_raise(what):
-    from rapidraw_tpu_torch import develop, develop_batch, merge_configs
+    from rapidraw_tpu.pipeline.batch import develop_batch as jdevelop_batch
+    from rapidraw_tpu_torch import develop_batch, rasterize_masks
+    from rapidraw_tpu_torch.ops.flare import FLARE_PARAMS, flare_maps
 
     docs, exc, match = UNSUPPORTED[what]
-    parsed = [tparse(d) for d in docs]
-    x = torch.zeros((len(docs), 3, 8, 8))
-    with pytest.raises(exc, match=match):
-        tstack([p for p, _ in parsed], [c for _, c in parsed], device="cpu")
-    if len(docs) == 1:
-        p, c = parsed[0]
+    tparsed = [tparse(d) for d in docs]
+    jparsed = [jparse(d) for d in docs]
+    if exc is not None:
         with pytest.raises(exc, match=match):
-            develop(x[0], p, c)
+            tstack([p for p, _ in tparsed], [c for _, c in tparsed], device="cpu")
         with pytest.raises(exc, match=match):
-            develop_batch(x, {"glob": p["glob"], "mask": None}, c)
-        with pytest.raises(exc, match=match):
-            tfused.check_supported(c)
-    elif exc is NotImplementedError:
-        c = merge_configs([c for _, c in parsed])
-        with pytest.raises(exc, match=match):
-            tfused.check_supported(c)
+            jstack([p for p, _ in jparsed], [c for _, c in jparsed])
+        return
+    h, w = 32, 48
+    x = images(len(docs), h, w, seed=9)
+    tp, tc = tstack([p for p, _ in tparsed], [c for _, c in tparsed], device="cpu")
+    jp, jc = jstack([p for p, _ in jparsed], [c for _, c in jparsed])
+    tc, jc = nodither(tc), nodither(jc)
+    masks = None
+    if tc.mask_count:
+        masks = np.stack([rasterize_masks(d, w, h) for d in docs])
+    kw = {}
+    if tc.has_lut:
+        rng = np.random.default_rng(10)
+        kw["lut"] = (np.stack(np.meshgrid(*[np.linspace(0, 1, 9)] * 3, indexing="ij"), -1)
+                     + 0.1 * rng.standard_normal((9, 9, 9, 3))).astype(np.float32)
+    jkw = dict(kw)
+    if tc.flare_active:
+        fparams = tfused.pack_rows(tp["glob"])[:, [tfused.OFFSETS[k] for k in FLARE_PARAMS]]
+        jkw["flare"] = flare_maps(torch.from_numpy(x), fparams.contiguous(), False)[0].numpy()
+    got = develop_batch(torch.from_numpy(x), tp, tc,
+                        masks=None if masks is None else torch.from_numpy(masks),
+                        **{k: torch.from_numpy(v) for k, v in kw.items()}).numpy()
+    want = np.asarray(jdevelop_batch(jnp.asarray(x), jp, jc,
+                                     masks=None if masks is None else jnp.asarray(masks),
+                                     **{k: jnp.asarray(v) for k, v in jkw.items()}))
+    assert got.shape == want.shape == x.shape
+    np.testing.assert_allclose(got, want, atol=TOL)

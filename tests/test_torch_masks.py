@@ -14,7 +14,7 @@ package, on the CPU, on inputs made from a seed with numpy.
   megakernel for ~30 s.
 - Band exactness: banded and full-height blur levels give the same output.
 - The fixed mask layout, the blend sets and the stage count the grade
-  kernel reads; masked NR still raises.
+  kernel reads; NR that a mask drives develops and matches JAX.
 The config-4 path end to end and the mixed batch are in test_torch_slice.py.
 """
 
@@ -282,8 +282,21 @@ def test_masks_must_match_the_config():
 
 
 def test_masked_nr_still_raises():
-    doc = {"masks": [{"visible": True, "adjustments": {"colorNoiseReduction": 40},
-                      "subMasks": [sub("all")]}]}
+    """Until slice A.8 NR that a mask drives raised NotImplementedError; now
+    it develops through the per-pixel NR path and matches JAX's develop
+    (dither off) within 2e-4."""
+    from rapidraw_tpu.pipeline.develop import develop as jdevelop
+
+    h, w = 48, 64
+    doc = {"lumaNoiseReduction": 20, "masks": [
+        {"visible": True, "adjustments": {"colorNoiseReduction": 40, "lumaNoiseReduction": 30},
+         "subMasks": [sub("radial", RADIAL)]}]}
     p, c = rt.parse_adjustments(doc)
-    with pytest.raises(NotImplementedError, match="per-pixel amounts"):
-        rt.develop(torch.zeros((3, 8, 8)), p, c, masks=np.ones((1, 8, 8), np.float32))
+    jp, jc = jparse(doc)
+    assert c.nr_static_luma is None and c.nr_static_color is None
+    c, jc = (dataclasses.replace(k, dither_active=False) for k in (c, jc))
+    masks = rt.rasterize_masks(doc, w, h)
+    x = np.random.default_rng(22).random((3, h, w), dtype=np.float32)
+    got = rt.develop(torch.from_numpy(x), p, c, masks=masks).numpy()
+    want = np.asarray(jdevelop(jnp.asarray(x), jp, jc, masks=jnp.asarray(masks)))
+    np.testing.assert_allclose(got, want, atol=TOL)

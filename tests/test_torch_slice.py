@@ -9,8 +9,9 @@ Config 4 (local masks) at 1024 x 1536 and a batch of documents with 3, 1
 and 0 masks are held to the same bounds, and so is config 2 (RAW): a
 1024 x 1536 DNG through the port's load_image -> develop_batch against the
 JAX package's jitted load_image -> develop_batch, and so are 1024 x 1536
-CR2, NEF, ARW and CR3 files.
-Also: importing the port (and decoding every vendor container with it)
+CR2, NEF, ARW and CR3 files, and the documents of slice A.8: config 3
+with flare and a .cube LUT, NR that a mask drives and a batch of mixed NR
+amounts. Also: importing the port (and decoding every vendor container with it)
 leaves JAX (and PIL) out, and chip_smoke.py refuses to run without a GPU.
 """
 
@@ -37,6 +38,8 @@ from rapidraw_tpu.pipeline.bands import blur_band_rows as jblur_band_rows
 from rapidraw_tpu.pipeline.batch import stack_params as jstack
 from rapidraw_tpu.pipeline.export import _device_u8
 import rapidraw_tpu_torch as rt
+from rapidraw_tpu_torch.ops.flare import FLARE_PARAMS, flare_maps
+from rapidraw_tpu_torch.pipeline import fused as tfused
 
 torch.set_num_threads(2)
 
@@ -49,13 +52,20 @@ def batch(seed=11, b=2):
     return rng.random((b, 3, H, W), dtype=np.float32)
 
 
-def jax_run(docs, x, dither: bool, masks=None):
+def jax_run(docs, x, dither: bool, masks=None, op_by_op: bool = False):
+    """JAX's develop_batch -> _device_u8, jitted (as export runs it) or op
+    by op (`jax.disable_jit`)."""
     parsed = [jparse(d) for d in docs]
     p, c = jstack([q for q, _ in parsed], [k for _, k in parsed])
     c = dataclasses.replace(c, dither_active=dither)
     bands = jblur_band_rows(c, masks)
-    out = jax.jit(lambda im, q, mk: jdevelop_batch(im, q, c, masks=mk, blur_bands=bands))(
-        jnp.asarray(x), p, None if masks is None else jnp.asarray(masks))
+    fn = lambda im, q, mk: jdevelop_batch(im, q, c, masks=mk, blur_bands=bands)  # noqa: E731
+    args = (jnp.asarray(x), p, None if masks is None else jnp.asarray(masks))
+    if op_by_op:
+        with jax.disable_jit():
+            out = fn(*args)
+    else:
+        out = jax.jit(fn)(*args)
     return np.asarray(out), np.asarray(_device_u8(out))
 
 
@@ -252,6 +262,89 @@ def test_vendor_raw_matches_jax(kind, tmp_path):
     assert du[:, ~gate].max() <= 1 and (du > 0).mean() <= 1e-3
 
 
+@pytest.fixture(scope="module")
+def phase13_cube(tmp_path_factory):
+    """chip_smoke.py's 33^3 .cube, written and parsed by the port's and
+    the JAX package's parsers (the same array)."""
+    from rapidraw_tpu.io.lut import parse_lut_file as jparse_lut
+    from rapidraw_tpu_torch.io.lut import parse_lut_file
+
+    path = tmp_path_factory.mktemp("lut") / "phase13.cube"
+    chip_smoke.write_cube(path)
+    cube = parse_lut_file(path)
+    assert np.array_equal(cube, jparse_lut(path)) and cube.shape == (33, 33, 33, 3)
+    return cube
+
+
+def bright_batch(b, h, w, seed):
+    """Random pixels with a few saturated discs: the flare's bright sources."""
+    x = np.random.default_rng(seed).random((b, 3, h, w), dtype=np.float32) * np.float32(0.7)
+    yy, xx = np.ogrid[:h, :w]
+    for cy, cx in ((0.3, 0.25), (0.6, 0.7)):
+        x[:, :, (yy - cy * h) ** 2 + (xx - cx * w) ** 2 <= (0.03 * h) ** 2] = 1.0
+    return x
+
+
+def test_flare_lut_matches_jax(phase13_cube):
+    """Phase 13's (b) document (config 3 + flare 50 + the 33^3 .cube at 80%)
+    at 1024 x 1536 through develop_batch -> device_u8. The port makes its
+    own flare map; JAX is handed the same map (test_torch_flare.py holds the
+    port's map to JAX's; JAX's jitted map generator, ~1,300 unrolled taps,
+    compiles for minutes). Float (dither off) within 1e-3, u8 (dither on)
+    within 1 LSB on at most 0.1% of the values."""
+    h, w = 1024, 1536
+    doc = chip_smoke.FLARE_LUT_DOC
+    x = bright_batch(1, h, w, 17)
+    tp, tc = rt.stack_params(*zip(rt.parse_adjustments(doc)), device="cpu")
+    jp, jc = jstack(*map(list, zip(jparse(doc))))
+    assert tc.flare_active and tc.has_lut
+    fparams = tfused.pack_rows(tp["glob"])[:, [tfused.OFFSETS[k] for k in FLARE_PARAMS]]
+    fmap = flare_maps(torch.from_numpy(x), fparams.contiguous(), False)
+    out = {}
+    for dither in (False, True):
+        c = dataclasses.replace(tc, dither_active=dither)
+        jcd = dataclasses.replace(jc, dither_active=dither)
+        want = jax.jit(lambda im, q, lut, fl: jdevelop_batch(im, q, jcd, lut=lut, flare=fl))(
+            jnp.asarray(x), jp, jnp.asarray(phase13_cube), jnp.asarray(fmap[0].numpy()))
+        got = rt.develop_batch(torch.from_numpy(x), tp, c, lut=torch.from_numpy(phase13_cube),
+                               flare=None if not dither else fmap)
+        out[dither] = (got.numpy(), np.asarray(want), rt.device_u8(got).numpy(),
+                       np.asarray(_device_u8(want)))
+    got, want, _, _ = out[False]
+    print(f"flare + LUT: max|d| {np.abs(got - want).max():.3e}")
+    np.testing.assert_allclose(got, want, atol=1e-3)
+    _, _, got_u8, want_u8 = out[True]
+    assert_u8_close(got_u8, want_u8)
+
+
+@pytest.mark.parametrize("case", ["masked NR", "mixed NR"])
+def test_per_pixel_nr_matches_jax(case):
+    """NR with per-pixel amounts at 1024 x 1536, B = 2, through
+    develop_batch -> device_u8 against JAX's develop_batch run op by op:
+    config 5's document with a radial mask carrying its own NR (amount
+    maps), and config 5 at NR 0.30/0.25 beside 0.60/0.45 (per-image
+    amounts). Dither off (JAX's op-by-op develop is slow at this size):
+    float within 1e-3, u8 within 1 LSB on at most 0.1%. JAX's jitted graph contracts the coordinate hash into
+    FMAs and so moves some jittered taps: it differs from its own op-by-op
+    run past 1e-3 on ~0.2% of the values, and the port follows the op-by-op
+    run."""
+    h, w = 1024, 1536
+    if case == "masked NR":
+        doc = chip_smoke.masked_nr_doc(h, w)
+        docs = [doc, dict(doc, exposure=-0.3)]
+        m = rt.rasterize_masks(doc, w, h)
+        masks = np.stack([m, m])
+    else:
+        docs, masks = list(chip_smoke.MIXED_NR_DOCS), None
+    x = np.random.default_rng(18).random((2, 3, h, w), dtype=np.float32)
+    assert rt.merge_configs([rt.parse_adjustments(d)[1] for d in docs]).nr_static_luma is None
+    want, want_u8 = jax_run(docs, x, dither=False, masks=masks, op_by_op=True)
+    got, got_u8 = port_run(docs, x, dither=False, masks=masks)
+    print(f"{case}: max|d| {np.abs(got - want).max():.3e}")
+    np.testing.assert_allclose(got, want, atol=1e-3)
+    assert_u8_close(got_u8, want_u8)
+
+
 def test_develop_single_is_the_batch_of_one():
     doc = chip_smoke.CONFIG1_DOC
     x = batch(seed=13, b=1)
@@ -308,7 +401,8 @@ def test_import_leaves_jax_out():
         "rapidraw_tpu_torch.io.dng, rapidraw_tpu_torch.io.containers, rapidraw_tpu_torch.io.raf, "
         "rapidraw_tpu_torch.io.sidecar, rapidraw_tpu_torch.io.makers, rapidraw_tpu_torch.io.cr3, "
         "rapidraw_tpu_torch.io.crx, rapidraw_tpu_torch.io.iiq, rapidraw_tpu_torch.native, "
-        "rapidraw_tpu_torch.raw.develop, "
+        "rapidraw_tpu_torch.raw.develop, rapidraw_tpu_torch.io.lut, rapidraw_tpu_torch.ops.lut3d, "
+        "rapidraw_tpu_torch.ops.flare, "
         "rapidraw_tpu_torch.raw.enhance, rapidraw_tpu_torch.utils.settings\n"
         "import chip_smoke\n"
         "for k in (*chip_smoke.VENDOR_MAIN, *chip_smoke.VENDOR_OTHER):\n"
