@@ -3,9 +3,10 @@
     python3 chip_smoke.py [--quick] [--out DIR] [--profile] [--seed N]
 
 Phases: (1) the card's name and power limit; (2) build the seven CUDA
-sources of rapidraw_tpu_torch/csrc, one nvcc each, and the five host
-decoders (csrc/host/: lossless JPEG, Nikon/Pentax Huffman, Panasonic/
-Olympus, crx, Phase One; g++ each), all started together;
+sources of rapidraw_tpu_torch/csrc, one nvcc each, the five host decoders
+(csrc/host/: lossless JPEG, Nikon/Pentax Huffman, Panasonic/Olympus, crx,
+Phase One) and the export's JPEG encoder (csrc/host/jpeg_enc.cc), g++
+each, all started together;
 (3) the blur kernel against its plain PyTorch version at 24 MP, with a
 case at each main path's shapes, one in each of its two regimes (the
 launch plan fuses small radii into one pass and gives larger ones two),
@@ -74,7 +75,18 @@ per-pixel NR kernel against its plain version on config 5 with an NR mask
 JSON -> develop_batch -> device_u8 -> host numpy for those documents at
 B = 1 and 2 (the mixed batch at B = 2), counters reset and read around
 each (flare, grade and blur, or NR, grade and blur, once per call), and
-each at 1024 x 1536 on the card against the plain CPU path.
+each at 1024 x 1536 on the card against the plain CPU path; (14) batch
+export (`phase_export`, `[export]` lines): 8 DNGs of photograph-like
+content from --seed with capture metadata and a GPS IFD (raw_dng_bytes
+with EXPORT_META), 6 with CONFIG3_DOC and 2 with `{}` in their sidecars,
+plus a virtual copy, through export_images on the card: JPEG q90 with the
+default settings, TIFF and PNG on two files, JPEG with long_edge 2048 on
+two, counters reset and read around each (grade once per chunk, blur once
+per CONFIG3_DOC chunk), images/s, the stage split, the device memory peak
+and the JPEG encoder alone on one frame; every result ok, the file names
+as _output_path gives them, the JPEG markers in order with the EXIF APP1
+and no GPS tag, a TIFF read back equal to its chunk's device_u16 frame,
+and a 1024 x 1536 export on the card against the plain CPU path.
 Each kernel line carries its time, its plain version's time and its bound
 (bytes over the HBM rate or operations over the float32 peak, whichever is
 larger). It prints a kernels JSON line (top level: each kernel's numbers
@@ -85,7 +97,7 @@ then as its last line {"ok": true, "device": {...}}.
 Any failed check raises, so the process exits non-zero; without a CUDA
 device it exits non-zero before printing any result.
 
---quick runs phases 3-8 and 10-13 at 1024x1536 with fewer repetitions (a
+--quick runs phases 3-8 and 10-14 at 1024x1536 with fewer repetitions (a
 first check of a new kernel). --out DIR writes the nvcc/ptxas logs there.
 --profile adds a torch.profiler pass over the config-3, config-5,
 config-4 and config-2 main paths (config 2 from a DNG and from a NEF):
@@ -367,6 +379,33 @@ RAW_AS_SHOT_NEUTRAL = ((10, 21), (1, 1), (20, 31))  # 1 / (2.1, 1.0, 1.55)
 RAW_BLACK, RAW_WHITE = 64, 16383
 
 
+# Phase 14's capture metadata (the export copies it, GPS stripped): IFD0's
+# Make, Model and DateTime, the Exif IFD's DateTimeOriginal and exposure,
+# and a GPS IFD.
+EXPORT_META = {"make": "RapidRAW", "model": "Synthetic H100", "taken": "2024:05:17 09:41:07",
+               "lat": (52, 31, 1234), "lon": (13, 24, 5678)}
+
+
+def exif_entries(meta: dict) -> list:
+    """IFD0 entries (tiff_bytes' form) of `meta`: Make, Model, DateTime, an
+    Exif IFD (DateTimeOriginal, ExposureTime 1/125, FNumber 2.8, ISO 400)
+    and a GPS IFD (version 2.3, latitude, longitude, altitude 34.5 m)."""
+    import struct
+
+    def rat(*pairs):
+        return b"".join(struct.pack("<II", a, b) for a, b in pairs)
+
+    def dms(d, m, s100):
+        return rat((d, 1), (m, 1), (s100, 100))
+
+    exif = [(36867, 2, meta["taken"]), (33434, 5, rat((1, 125))), (33437, 5, rat((28, 10))),
+            (34855, 3, [400])]
+    gps = [(0, 1, bytes([2, 3, 0, 0])), (1, 2, "N"), (2, 5, dms(*meta["lat"])), (3, 2, "E"),
+           (4, 5, dms(*meta["lon"])), (6, 5, rat((345, 10)))]
+    return [(271, 2, meta["make"]), (272, 2, meta["model"]), (306, 2, meta["taken"]),
+            (34665, 4, ("ifd", exif)), (34853, 4, ("ifd", gps))]
+
+
 def pack_msb(cfa: np.ndarray, bits: int) -> bytes:
     """MSB-first bit packing of (H, W) samples, rows padded to a byte (TIFF
     6.0, as DNG packs 10/12/14-bit CFAs), vectorized: a group of g samples
@@ -385,16 +424,37 @@ def pack_msb(cfa: np.ndarray, bits: int) -> bytes:
 
 
 def raw_dng_bytes(cfa: np.ndarray, bits: int = 16, orientation: int = 1,
-                  ljpeg_tile: int = 0) -> bytes:
+                  ljpeg_tile: int = 0, meta: dict | None = None) -> bytes:
     """A single-IFD RGGB CFA DNG: bench.py's _minimal_dng (black 64, white
     16383) plus ColorMatrix2, AsShotNeutral and Orientation. Uncompressed
     in one strip (`bits` 16: little-endian u16; 10/12/14: bit-packed), or
     with `ljpeg_tile` = t lossless-JPEG t x t tiles (Compression 7), which
     needs a CFA that repeats its top-left tile: every TileOffsets entry
-    points at that tile's one stream."""
+    points at that tile's one stream. With `meta` (EXPORT_META's keys), a
+    camera's layout instead: IFD0 an 8-bit RGB preview with the capture
+    metadata (`exif_entries`) and the raw IFD a SubIFD of it (strips only)."""
     import struct
 
     h, w = cfa.shape
+    if meta is not None:
+        if ljpeg_tile:
+            raise ValueError("a DNG with capture metadata is written in strips")
+        payload = cfa.astype("<u2").tobytes() if bits == 16 else pack_msb(cfa, bits)
+        raw = [(254, 4, [0]), (256, 4, [w]), (257, 4, [h]), (258, 3, [bits]), (259, 3, [1]),
+               (262, 3, [32803]), (273, 4, ("blob", payload)), (277, 3, [1]), (278, 4, [h]),
+               (279, 4, [len(payload)]), (33422, 1, bytes([0, 1, 1, 2])),
+               (50714, 3, [RAW_BLACK]), (50717, 4, [RAW_WHITE])]
+        th, tw = max(1, h // 64), max(1, w // 64)
+        thumb = (cfa[::h // th, ::w // tw][:th, :tw, None] >> 6).clip(0, 255).astype(np.uint8)
+        thumb = np.repeat(thumb, 3, axis=2).tobytes()
+        srational = b"".join(struct.pack("<ii", v, 10000) for row in RAW_XYZ_TO_CAM for v in row)
+        rational = b"".join(struct.pack("<II", a, b) for a, b in RAW_AS_SHOT_NEUTRAL)
+        ifd0 = [(254, 4, [1]), (256, 4, [tw]), (257, 4, [th]), (258, 3, [8, 8, 8]),
+                (259, 3, [1]), (262, 3, [2]), (273, 4, ("blob", thumb)), (274, 3, [orientation]),
+                (277, 3, [3]), (278, 4, [th]), (279, 4, [len(thumb)]), (284, 3, [1]),
+                (330, 4, ("ifd", raw)), (50706, 1, bytes([1, 4, 0, 0])),
+                (50722, 10, srational), (50728, 5, rational), *exif_entries(meta)]
+        return tiff_bytes([ifd0])
     if ljpeg_tile:
         t = ljpeg_tile
         n = (h // t) * (w // t)
@@ -617,8 +677,8 @@ def arw2_encode(plane: np.ndarray):
 
 def tiff_bytes(chain: list, endian: str = "<", magic_extra: bytes = b"") -> bytes:
     """A TIFF of chained IFDs. An IFD is a list of (tag, type, value):
-    value a list of ints (types 1, 3, 4), bytes (stored as given; count in
-    units of the type), a str (type 2), ("ifd", IFD) for a nested IFD's
+    value a list of ints (types 1, 3, 4), bytes (stored as given, of any
+    type; count in units of the type), a str (type 2), ("ifd", IFD) for a nested IFD's
     offset or ("blob", bytes) for a LONG offset to the bytes."""
     import struct
 
@@ -636,7 +696,7 @@ def tiff_bytes(chain: list, endian: str = "<", magic_extra: bytes = b"") -> byte
     for ifd in ifds:
         offs[id(ifd)] = pos
         pos += 2 + 12 * len(ifd) + 4
-    size = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 7: 1, 10: 8}
+    size = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4, 12: 8}
     head = bytearray((b"II" if endian == "<" else b"MM") + struct.pack(endian + "HI", 42, 8 + len(
         magic_extra)) + magic_extra)
     extra = bytearray()
@@ -658,7 +718,7 @@ def tiff_bytes(chain: list, endian: str = "<", magic_extra: bytes = b"") -> byte
             else:
                 raw = b"".join(struct.pack(endian + {1: "B", 3: "H", 4: "I", 7: "B"}[typ], x)
                                for x in v)
-            count = len(raw) // size[typ]
+            count = len(raw) // size.get(typ, 1)
             if len(raw) > 4:
                 head += struct.pack(endian + "HHII", tag, typ, count, pos + len(extra))
                 extra += raw
@@ -1955,6 +2015,205 @@ def phase_doc(h, w, reps, card, dev, reset_counts, read_counts):
     return launches, report
 
 
+EXPORT_FILES = 8  # phase 14's DNGs: 6 with CONFIG3_DOC, 2 with `{}`, and one virtual copy
+
+
+def jpeg_markers(data: bytes) -> list:
+    """The marker codes of a JPEG file up to its scan, then EOI if it ends so."""
+    import struct
+
+    out, pos = [data[:2].hex()], 2
+    while pos + 4 <= len(data) and data[pos] == 0xFF:
+        marker = data[pos + 1]
+        out.append(f"ff{marker:02x}")
+        if marker == 0xDA:
+            break
+        pos += 2 + struct.unpack_from(">H", data, pos + 2)[0]
+    if data[-2:] == b"\xff\xd9":
+        out.append("ffd9")
+    return out
+
+
+def phase_export(args, h, w, card, dev, reset_counts, read_counts):
+    """Phase 14, batch export (A.10): EXPORT_FILES 16-bit DNGs of
+    photograph-like content from --seed (raw_dng_bytes with EXPORT_META:
+    a preview IFD0 with Make, Model, DateTime, an Exif IFD and a GPS IFD;
+    the raw IFD a SubIFD), six with CONFIG3_DOC and two with `{}` in their
+    sidecars, and a virtual copy of the first with `{}` (two buckets), then
+    export_images on the card: JPEG q90 with the default settings (batch 4,
+    EXIF copied, GPS stripped), TIFF and PNG on two files, JPEG with
+    long_edge 2048 on two. Counters are reset and read around each run:
+    grade once per chunk, blur once per CONFIG3_DOC chunk and never for
+    `{}`. Prints images/s, s/image, the stage split, the device memory
+    peak, the encoder alone on one frame; checks every result, the file
+    names against _output_path, the JPEG markers, the copied EXIF (GPS
+    gone, Orientation 1), a TIFF against its chunk's device_u16 frame, and
+    a 1024 x 1536 export on the card against the plain CPU path. Returns
+    the launches of the default JPEG run."""
+    import tempfile
+
+    from rapidraw_tpu_torch import native
+    from rapidraw_tpu_torch.io import encode, exif
+    from rapidraw_tpu_torch.io.loader import parse_virtual_path
+    from rapidraw_tpu_torch.pipeline import export as ex
+
+    frames = []  # (chunk shape, is CONFIG3, the quantized frames read back)
+    real_render = ex._render_chunk
+
+    def spy(imgs, params, masks, lut, cfg, *a, **k):
+        out = real_render(imgs, params, masks, lut, cfg, *a, **k)
+        frames.append((tuple(imgs.shape), cfg.tonemapper_agx, out))
+        return out
+
+    def run(paths, out_dir, device=dev, **kw):
+        """export_images with counters reset just before and read just after."""
+        frames.clear()
+        ex.reset_stage_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = ex.export_images(paths, out_dir, ex.ExportSettings(**kw), device=device)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        bad = [(r.source, r.error) for r in res if not r.ok]
+        if bad:
+            raise RuntimeError(f"export failed: {bad}")
+        return res, counts, wall
+
+    def check_launches(label, counts):
+        n3 = sum(1 for _, agx, _ in frames if agx)
+        n0 = len(frames) - n3
+        want = {"grade": len(frames), "blur": n3}
+        got = {k: counts[k] for k in want}
+        others = {k: v for k, v in counts.items() if k not in want and v}
+        log(f"[export] {label}: chunks {[s for s, _, _ in frames]}, launches {counts} "
+            f"(CONFIG3_DOC chunks {n3}, `{{}}` chunks {n0})")
+        if got != want or others or not n3 or not n0:
+            raise RuntimeError(f"{label}: launches {counts}, expected {want} and no other")
+
+    def report(label, res, wall):
+        st = dict(ex.STAGE_STATS)
+        n = len(res)
+        log(f"[export] {label}: {n} images in {wall:.3f} s = {n / wall:.3f} images/s, "
+            f"{wall / n:.3f} s/image; stage seconds (summed over threads) decode "
+            f"{st['decode_s']:.3f}, prepare {st['prepare_s']:.3f}, render {st['render_s']:.3f}, "
+            f"encode {st['encode_s']:.3f} ({st['encode_s'] / n:.3f} s/image), frames "
+            f"{st['frames']}; device memory peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+
+    rng = np.random.default_rng(args.seed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        bases = [photo_cfa(h, w, RAW_BLACK, RAW_WHITE, args.seed + k) for k in range(2)]
+        paths = []
+        for i in range(EXPORT_FILES):
+            cfa = np.roll(bases[i % 2], (int(rng.integers(0, h // 2)) * 2,
+                                         int(rng.integers(0, w // 2)) * 2), axis=(0, 1))
+            p = tmp / "src" / f"shot_{i:02d}.dng"
+            p.parent.mkdir(exist_ok=True)
+            p.write_bytes(raw_dng_bytes(cfa, meta=EXPORT_META))
+            doc = CONFIG3_DOC if i < 6 else {}
+            p.with_name(p.name + ".rrdata").write_text(json.dumps({"adjustments": doc}))
+            paths.append(str(p))
+        vc = paths[0] + "?vc=2"  # a virtual copy: its own sidecar, shot_00.dng.2.rrdata
+        Path(paths[0] + ".2.rrdata").write_text(json.dumps({"adjustments": {}}))
+        paths.append(vc)
+        log(f"[export] wrote {EXPORT_FILES} DNGs {h}x{w} (+ a virtual copy) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        ex._render_chunk = spy
+        try:
+            # the default settings: JPEG q90, batch 4, EXIF copied, GPS stripped
+            res, launches, wall = run(paths, tmp / "jpeg")
+            report("JPEG q90 (defaults)", res, wall)
+            check_launches("JPEG q90", launches)
+            created = {p: exif.get_creation_date(parse_virtual_path(p)[0]) for p in paths}
+            settings = ex.ExportSettings()
+            appearance = {}
+            for i, (p, r) in enumerate(zip(paths, res)):
+                real, vcn = parse_virtual_path(p)
+                appearance[real] = appearance.get(real, 0) + 1
+                want = ex._output_path(real, tmp / "jpeg", settings, i + 1, total=len(paths),
+                                       vc=vcn, appearance=appearance[real], created=created[p])
+                if r.output != str(want):
+                    raise RuntimeError(f"{p}: wrote {r.output}, _output_path gives {want}")
+            data = Path(res[0].output).read_bytes()
+            markers = jpeg_markers(data)
+            expect = ["ffd8", "ffe1", "ffe0", "ffdb", "ffdb", "ffc0", "ffc4", "ffc4", "ffc4",
+                      "ffc4", "ffda", "ffd9"]
+            tags = exif.read_exif_tags(res[0].output)
+            log(f"[export] {Path(res[0].output).name}: {len(data)} bytes, markers "
+                f"{' '.join(markers)}; EXIF Make {tags.get('Make')!r}, DateTimeOriginal "
+                f"{tags.get('DateTimeOriginal')!r}, Orientation {tags.get('Orientation')}, "
+                f"GPS tags {sorted(k for k in tags if k.startswith('GPS'))}")
+            if (markers != expect or tags.get("Make") != EXPORT_META["make"]
+                    or tags.get("DateTimeOriginal") != EXPORT_META["taken"]
+                    or tags.get("Orientation") != "1" or any(k.startswith("GPS") for k in tags)):
+                raise RuntimeError(f"JPEG {res[0].output}: markers {markers}, tags {tags}")
+            if created[paths[0]].strftime("%Y:%m:%d %H:%M:%S") != EXPORT_META["taken"]:
+                raise RuntimeError(f"capture date {created[paths[0]]} is not the EXIF's")
+
+            # the encoder alone on one frame of the run
+            frame = np.ascontiguousarray(frames[0][2][0].transpose(1, 2, 0))
+            t0 = time.perf_counter()
+            enc = native.jpeg_encode(frame, 90)
+            log(f"[export] jpeg_enc alone: {frame.shape[1]}x{frame.shape[0]} q90 "
+                f"{(time.perf_counter() - t0) * 1e3:.1f} ms on one host thread, "
+                f"{len(enc)} bytes [{card}]")
+
+            two = [paths[0], paths[6]]  # one of each bucket
+            for fmt in ("tiff", "png"):
+                res, counts, wall = run(two, tmp / fmt, format=fmt)
+                report(f"{fmt.upper()} 16-bit", res, wall)
+                check_launches(fmt, counts)
+            # the TIFF of the first file against its chunk's device_u16 frame
+            res, counts, wall = run(two[:1], tmp / "tiff1", format="tiff")
+            back = encode.read_tiff16_rgb(res[0].output)
+            want = frames[0][2][0].transpose(1, 2, 0)
+            if back is None or not np.array_equal(back, want):
+                raise RuntimeError("TIFF read back differs from its device_u16 frame")
+            tiff_tags = exif.read_exif_tags(res[0].output)
+            log(f"[export] TIFF read back by read_tiff16_rgb equals the device_u16 frame "
+                f"{want.shape}; merged IFD0 Make {tiff_tags.get('Make')!r}, "
+                f"DateTimeOriginal {tiff_tags.get('DateTimeOriginal')!r}")
+            res, counts, wall = run(two, tmp / "resized", long_edge=2048)
+            report("JPEG q90, long_edge 2048", res, wall)
+            check_launches("long_edge 2048", counts)
+        finally:
+            ex._render_chunk = real_render
+
+        # a 1024 x 1536 file on the card and on the plain CPU path
+        ch, cw = CPU_CHECK
+        p = tmp / "small" / "check.dng"
+        p.parent.mkdir()
+        p.write_bytes(raw_dng_bytes(photo_cfa(ch, cw, RAW_BLACK, RAW_WHITE, args.seed + 7),
+                                    meta=EXPORT_META))
+        p.with_name(p.name + ".rrdata").write_text(json.dumps({"adjustments": CONFIG3_DOC}))
+        got = {}
+        ex._render_chunk = spy
+        try:
+            for name, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
+                frames.clear()
+                res = ex.export_images([str(p)], tmp / f"small_{name}", ex.ExportSettings(),
+                                       device=device)
+                if not res[0].ok:
+                    raise RuntimeError(f"{name} export: {res[0].error}")
+                got[name] = (frames[0][2][0], Path(res[0].output).read_bytes())
+        finally:
+            ex._render_chunk = real_render
+        d = np.abs(got["cuda"][0].astype(np.int16) - got["cpu"][0].astype(np.int16))
+        same_bytes = got["cuda"][1] == got["cpu"][1]
+        log(f"[export] {ch}x{cw} card vs CPU: u8 frames max|d| {int(d.max())}, values off "
+            f"{(d > 0).mean():.2e}; JPEG files {'equal' if same_bytes else 'differ'}")
+        if d.max() > 1 or (d > 0).mean() > 1e-3 or (not d.any() and not same_bytes):
+            raise RuntimeError("the card's export differs from the CPU's")
+        enc = native.jpeg_encode(np.ascontiguousarray(got["cuda"][0].transpose(1, 2, 0)), 90)
+        if not got["cuda"][1].endswith(enc[2:]):  # the EXIF segment sits after SOI
+            raise RuntimeError("the card's JPEG is not the encoder's file of its frame")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true", help="1024x1536, fewer repetitions")
@@ -2015,12 +2274,13 @@ def main() -> int:
         native.host_library(name)
         return time.perf_counter() - t0
 
-    hosts = ("ljpeg", "vendor_huff", "pana_oly", "crx", "phase_one")  # the host decoders
+    # the host decoders and the export's JPEG encoder
+    hosts = ("ljpeg", "vendor_huff", "pana_oly", "crx", "phase_one", "jpeg_enc")
     with ThreadPoolExecutor(len(libs) + len(hosts)) as pool:
         host = {name: pool.submit(build_host, name) for name in hosts}
         list(pool.map(lambda kl: kl.lib(), libs.values()))
         for name, fut in host.items():
-            log(f"[build] {name} (host decoder, g++): {fut.result():.1f} s")
+            log(f"[build] {name} (host code, g++): {fut.result():.1f} s")
     usage = {name: ptxas_usage(kl.build_log) for name, kl in libs.items()}
     for name, kl in libs.items():
         log(f"[build] {name}: nvcc {kl.build_seconds:.1f} s, registers {usage[name][0]}, "
@@ -2662,6 +2922,10 @@ def main() -> int:
     report.update(doc_report)
     phase_done("flare, LUT, per-pixel NR")
 
+    # ---- 14. batch export: DNG files -> JPEG / TIFF / PNG with EXIF ------------
+    launches14 = phase_export(args, h, w, card, dev, reset_counts, read_counts)
+    phase_done("batch export")
+
     sources = {  # name -> (source, the TPU kernel it replaces, the path that runs it)
         "blur": ("rapidraw_tpu_torch/csrc/blur.cu", "rapidraw_tpu/ops/blur.py:242", "config5"),
         "grade": ("rapidraw_tpu_torch/csrc/grade.cu", "rapidraw_tpu/pipeline/fused.py:298",
@@ -2686,7 +2950,8 @@ def main() -> int:
     # at that path's shapes
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     counts = {"config3": launches3, "config5": launches5, "probes": launches_probes,
-              "config4": launches4, **launches2, **launches12, **launches13}
+              "config4": launches4, **launches2, **launches12, **launches13,
+              "export": launches14}
     library = {"nr_dynamic": "nr"}  # the kernels that share a source with another
     kernels = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

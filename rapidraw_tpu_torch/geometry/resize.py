@@ -1,0 +1,141 @@
+"""Image resizing: the energy-preserving area downscale and the Lanczos3
+resample of the export.
+
+`downscale` and `downscale_to_long_edge` port `rapidraw_tpu/geometry/
+resize.py` (downscale_f32_image, image_processing.rs:197-354): area
+weights on SQUARED pixel values with a square root at the end, aspect kept
+via ratio = min(nw/W, nh/H) and rounded output sizes. The separable weight
+tables are built on the host exactly like the reference's loops; the two
+products run in plain PyTorch on the image's device, in float64.
+
+`lanczos_resize` is the export's output resize (export_processing.rs:
+194-211), which the JAX package runs through PIL's 'F'-mode
+`resize(..., LANCZOS)`: PIL's coefficients (precompute_coeffs: support
+3 * max(scale, 1), centre (i + 0.5) * scale, weights normalized, in float64)
+and its two passes, horizontal then vertical, each summed tap by tap in
+float64 and stored as float32.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+
+@functools.lru_cache(maxsize=32)
+def _area_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) normalized overlap weights (image_processing.rs:226-299)."""
+    ratio = n_in / n_out
+    w = np.zeros((n_out, n_in), np.float32)
+    for i_out in range(n_out):
+        start = i_out * ratio
+        end = (i_out + 1) * ratio
+        i0 = int(np.floor(start))
+        i1 = min(int(np.ceil(end)), n_in)
+        total = 0.0
+        for i_in in range(i0, i1):
+            ov = max(min(end, i_in + 1) - max(start, i_in), 0.0)
+            if ov > 0:
+                w[i_out, i_in] = ov
+                total += ov
+        if total > 0:
+            w[i_out] /= total
+    return w
+
+
+def downscale(image: torch.Tensor, nwidth: int, nheight: int) -> torch.Tensor:
+    """Downscale planar (3, H, W) to fit (nwidth, nheight), keeping aspect."""
+    _, h, w = image.shape
+    if nwidth <= 0 or nheight <= 0 or (nwidth >= w and nheight >= h):
+        return image
+    ratio = min(nwidth / w, nheight / h)
+    new_w = int(round(w * ratio))
+    new_h = int(round(h * ratio))
+    if new_w == 0 or new_h == 0:
+        return image
+    dev = image.device
+    wy = torch.from_numpy(_area_weights(h, new_h)).to(dev, torch.float64)
+    wx = torch.from_numpy(_area_weights(w, new_w)).to(dev, torch.float64)
+    sq = torch.square(torch.clamp(image, min=0.0)).to(torch.float64)
+    out = torch.matmul(torch.matmul(wy, sq), wx.T).to(torch.float32)
+    return torch.sqrt(torch.clamp(out, min=0.0))
+
+
+def downscale_to_long_edge(image: torch.Tensor, long_edge: int) -> torch.Tensor:
+    """Fit the longest side to `long_edge` (preview/thumbnail sizing)."""
+    _, h, w = image.shape
+    if max(h, w) <= long_edge:
+        return image
+    if w >= h:
+        return downscale(image, long_edge, max(1, int(round(h * long_edge / w))))
+    return downscale(image, max(1, int(round(w * long_edge / h))), long_edge)
+
+
+def _lanczos3(x: float) -> float:
+    """PIL's lanczos_filter: sinc(x) * sinc(x / 3) on [-3, 3)."""
+    if -3.0 <= x < 3.0:
+        a = 1.0 if x == 0.0 else math.sin(x * math.pi) / (x * math.pi)
+        y = x / 3
+        b = 1.0 if y == 0.0 else math.sin(y * math.pi) / (y * math.pi)
+        return a * b
+    return 0.0
+
+
+@functools.lru_cache(maxsize=16)
+def lanczos_coeffs(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
+    """PIL's precompute_coeffs over the whole input: (first input index
+    (out_size,) int64, weights (out_size, ksize) float64, zero past each
+    output's taps)."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 3.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    first = np.zeros(out_size, np.int64)
+    kk = np.zeros((out_size, ksize), np.float64)
+    ss = 1.0 / filterscale
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        k = [_lanczos3((x + xmin - center + 0.5) * ss) for x in range(xmax)]
+        ww = 0.0
+        for v in k:
+            ww += v
+        if ww != 0.0:
+            k = [v / ww for v in k]
+        kk[xx, :xmax] = k
+        first[xx] = xmin
+    return first, kk
+
+
+def _resample_last(x: torch.Tensor, out_size: int, rows: int = 256) -> torch.Tensor:
+    """One PIL pass along the last axis of (C, R, N) float32: float64 sums
+    tap by tap in PIL's order, stored as float32."""
+    c, r, n = x.shape
+    first, kk = lanczos_coeffs(n, out_size)
+    ksize = kk.shape[1]
+    idx = torch.from_numpy(np.minimum(first[:, None] + np.arange(ksize), n - 1)).to(x.device)
+    k = torch.from_numpy(kk).to(x.device)
+    out = torch.empty((c, r, out_size), dtype=torch.float32, device=x.device)
+    for r0 in range(0, r, rows):
+        src = x[:, r0:r0 + rows].to(torch.float64)
+        acc = torch.zeros((c, src.shape[1], out_size), dtype=torch.float64, device=x.device)
+        for t in range(ksize):
+            acc += src[..., idx[:, t]] * k[:, t]
+        out[:, r0:r0 + rows] = acc.to(torch.float32)
+    return out
+
+
+def lanczos_resize(image: torch.Tensor, width: int, height: int) -> torch.Tensor:
+    """Planar (C, H, W) float32 -> (C, height, width), as PIL's 'F'-mode
+    resize((width, height), LANCZOS) of each channel (no clamp)."""
+    _, h, w = image.shape
+    out = image.to(torch.float32)
+    if width != w:
+        out = _resample_last(out, width)
+    if height != h:
+        out = _resample_last(out.transpose(1, 2), height).transpose(1, 2)
+    return out.contiguous()

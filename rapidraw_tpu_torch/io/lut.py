@@ -4,7 +4,9 @@ A copy of `rapidraw_tpu/io/lut.py` (lut_processing.rs:22-187, identity and
 export helpers :285-328), with its two documented .3dl divergences.
 Returned arrays are (L, L, L, 3) float32 indexed [r, g, b], the layout
 `ops/lut3d.py` and the grade kernel sample (.cube's fastest axis, red, is
-the texture x axis). PIL is imported only to read a HALD image.
+the texture x axis). A HALD image is read by the port's PNG decoder
+(io/encode.decode_png_rgb); JPEG and TIFF HALD images wait for the LDR
+loader (slice A.10b) and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -119,11 +121,14 @@ def parse_lut_file(path: str | Path) -> np.ndarray:
         return parse_cube(path.read_text(errors="replace"))
     if ext == "3dl":
         return parse_3dl(path.read_text(errors="replace"))
-    if ext in ("png", "jpg", "jpeg", "tiff"):
-        from PIL import Image
+    if ext == "png":
+        from rapidraw_tpu_torch.io.encode import decode_png_rgb
 
-        img = np.asarray(Image.open(path).convert("RGB"))
-        return parse_hald(img)
+        return parse_hald(decode_png_rgb(path.read_bytes()))
+    if ext in ("jpg", "jpeg", "tiff"):
+        raise NotImplementedError(
+            f"{path}: a {ext} HALD image needs the LDR loader (slice A.10b); "
+            "rapidraw_tpu_torch reads PNG HALD images")
     raise LutError(f"Unsupported LUT file format: {ext}")
 
 

@@ -20,7 +20,6 @@ inside the AI-bitmap decode, which the develop path never reaches).
 from __future__ import annotations
 
 import base64
-import io
 
 import numpy as np
 
@@ -177,12 +176,22 @@ def generate_luminance_range(params, width, height, scale, crop_offset, warped_u
 
 
 def _decode_data_url_gray(data_url: str) -> np.ndarray | None:
-    from PIL import Image
+    """A PNG data URL -> (H, W) u8 (io/encode.decode_png_gray, PIL's
+    convert("L")); None for bad data. Other image formats need the LDR
+    loader (slice A.10b) and raise."""
+    from rapidraw_tpu_torch.io.encode import decode_png_gray
 
     b64 = data_url.split(",", 1)[1] if "," in data_url else data_url
     try:
         raw = base64.b64decode(b64)
-        return np.asarray(Image.open(io.BytesIO(raw)).convert("L"))
+    except Exception:
+        return None
+    if raw[:8] != b"\x89PNG\r\n\x1a\n" and raw[:2] == b"\xff\xd8":
+        raise NotImplementedError("a JPEG mask image needs the LDR loader (slice A.10b)")
+    try:
+        return decode_png_gray(raw)
+    except NotImplementedError:
+        raise
     except Exception:
         return None
 

@@ -377,7 +377,6 @@ def generate_mask_overlay(
     sub-masks; pass `is_raw` so the overlay samples the SAME tonemapped
     warped image the develop-time mask samples."""
     import base64
-    import io as _io
 
     warped = None
     if adjustments is not None and image is not None:
@@ -390,14 +389,12 @@ def generate_mask_overlay(
     gray = generate_mask_bitmap(mask_def, width, height, scale, scaled_offset, warped)
     if gray is None:
         return ""
-    from PIL import Image
+    from rapidraw_tpu_torch.io.encode import png_bytes
 
     rgba = np.zeros((height, width, 4), np.uint8)
     rgba[..., 0] = 255
     rgba[..., 3] = (gray.astype(np.uint16) // 2).astype(np.uint8)
-    buf = _io.BytesIO()
-    Image.fromarray(rgba, "RGBA").save(buf, format="PNG")
-    return "data:image/png;base64," + base64.b64encode(buf.getvalue()).decode()
+    return "data:image/png;base64," + base64.b64encode(png_bytes(rgba)).decode()
 
 
 def _sub_needs_warp(sub: dict) -> bool:

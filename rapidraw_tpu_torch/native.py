@@ -13,7 +13,9 @@ lossless-JPEG decoder (ljpeg.cc), the Nikon and Pentax Huffman decoders
 (vendor_huff.cc), the Panasonic and Olympus bitstreams (pana_oly.cc), the
 crx codec of CR3 (crx.cc) and the Phase One IIQ rows (phase_one.cc). Their
 bindings below copy the JAX package's (`rapidraw_tpu/native/__init__.py`)
-signature for signature.
+signature for signature. The export's baseline JPEG encoder (jpeg_enc.cc)
+builds the same way; it has no JAX counterpart (the JAX package encodes
+through PIL).
 """
 
 from __future__ import annotations
@@ -373,3 +375,31 @@ def crx_encode(planes_arr) -> bytes:
     if n < 0:
         raise ValueError(f"crx encode failed (code {n})")
     return bytes(buf[: int(n)])
+
+
+def jpeg_encode(hwc_u8, quality: int) -> bytes:
+    """(H, W, 3) uint8 RGB -> a baseline JPEG file at `quality` (1-100),
+    as PIL's `Image.save(..., "JPEG", quality=quality)` writes it
+    (csrc/host/jpeg_enc.cc). The call releases the GIL, so threads encode
+    in parallel."""
+    import numpy as np
+
+    a = np.asarray(hwc_u8)
+    if a.dtype != np.uint8 or a.ndim != 3 or a.shape[2] != 3:
+        raise ValueError(f"jpeg_encode expects (H, W, 3) uint8, got {a.dtype} {a.shape}")
+    a = np.ascontiguousarray(a)
+    lib = host_library("jpeg_enc")
+    enc = lib.jpeg_encode_rgb
+    enc.restype = ctypes.c_long
+    enc.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_long, ctypes.c_int]
+    fetch = lib.jpeg_fetch
+    fetch.restype = ctypes.c_int
+    fetch.argtypes = [ctypes.c_void_p, ctypes.c_long]
+    h, w, _ = a.shape
+    n = enc(a.ctypes.data, w, h, 3 * w, int(quality))
+    if n < 0:
+        raise ValueError(f"jpeg encode failed for a {w}x{h} image (code {n})")
+    out = np.empty(n, np.uint8)
+    if fetch(out.ctypes.data, n) != 0:
+        raise RuntimeError("jpeg encode: the encoded file was lost before it was fetched")
+    return out.tobytes()

@@ -403,7 +403,9 @@ def test_import_leaves_jax_out():
         "rapidraw_tpu_torch.io.crx, rapidraw_tpu_torch.io.iiq, rapidraw_tpu_torch.native, "
         "rapidraw_tpu_torch.raw.develop, rapidraw_tpu_torch.io.lut, rapidraw_tpu_torch.ops.lut3d, "
         "rapidraw_tpu_torch.ops.flare, "
-        "rapidraw_tpu_torch.raw.enhance, rapidraw_tpu_torch.utils.settings\n"
+        "rapidraw_tpu_torch.raw.enhance, rapidraw_tpu_torch.utils.settings, "
+        "rapidraw_tpu_torch.io.encode, rapidraw_tpu_torch.io.exif, rapidraw_tpu_torch.io.jxl, "
+        "rapidraw_tpu_torch.geometry.resize, rapidraw_tpu_torch.pipeline.export\n"
         "import chip_smoke\n"
         "for k in (*chip_smoke.VENDOR_MAIN, *chip_smoke.VENDOR_OTHER):\n"
         "    data, cfa = chip_smoke.vendor_file(k, 16, 224, 1)\n"
@@ -411,7 +413,8 @@ def test_import_leaves_jax_out():
         "    assert (rapidraw_tpu_torch.parse_raw(data, ext).cfa == cfa).all(), k\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'rapidraw_tpu' or m.startswith('rapidraw_tpu.')"
-        " or m == 'tools' or m.startswith('tools.') or m == 'PIL' or m.startswith('PIL.')]\n"
+        " or m == 'tools' or m.startswith('tools.') or m == 'PIL' or m.startswith('PIL.')"
+        " or m == 'cv2' or m.startswith('cv2.')]\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -420,9 +423,10 @@ def test_import_leaves_jax_out():
 
 
 def test_port_sources_never_import_jax():
-    """Neither the port nor chip_smoke.py imports JAX, the JAX package or
-    the repo's `tools/` probes (the port keeps its own in its `tools`)."""
-    bad = re.compile(r"^\s*(import|from)\s+(jax|rapidraw_tpu|tools)\b")
+    """Neither the port nor chip_smoke.py imports JAX, the JAX package, the
+    repo's `tools/` probes (the port keeps its own in its `tools`), PIL or
+    cv2 (the card's machine has neither: the port writes its own files)."""
+    bad = re.compile(r"^\s*(import|from)\s+(jax|rapidraw_tpu|tools|PIL|cv2)\b")
     for path in [*(REPO / "rapidraw_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             assert not bad.match(line), f"{path}: {line}"
