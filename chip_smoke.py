@@ -66,12 +66,14 @@ vendor format (those four, PEF, ORF packed and predictive, RW2, MRW, SRW,
 IIQ format 5) at 1024 x 1536 (the ORF predictive stream, written sample
 by sample, at 512 x 768) on the card against the plain CPU path; (13) the
 rest of the develop document (`phase_doc`): the flare kernel against its
-plain version on a B = 2 batch of bright-spot images, the grade kernel
+plain version on a B = 2 batch of bright-spot images (24 MP and the ragged
+size, with the share of values that differ), the grade kernel
 with flare and a 33^3 .cube LUT (written here, parsed by
 io/lut.parse_lut_file) against its plain version, timed beside config 3's
 grade, in its masks build with a flare mask and at the ragged size, the
 per-pixel NR kernel against its plain version on config 5 with an NR mask
-(amount maps) and on a batch of mixed NR amounts (per-image amounts), then
+(amount maps) and on a batch of mixed NR amounts (per-image amounts), at
+24 MP (timed) and the ragged size, then
 JSON -> develop_batch -> device_u8 -> host numpy for those documents at
 B = 1 and 2 (the mixed batch at B = 2), counters reset and read around
 each (flare, grade and blur, or NR, grade and blur, once per call), and
@@ -1184,6 +1186,27 @@ def ptxas_usage(log: str) -> tuple:
     return max(regs, default=None), sum(int(a) + int(b) for a, b in spills)
 
 
+def ptxas_entries(log: str) -> dict:
+    """{kernel: (registers, spill bytes)} of one source from nvcc -Xptxas -v,
+    each entry by its name (a template's arguments mangled after it: grade
+    build `grade_kernelILi4ELb1E`), spill stores and loads summed."""
+    out = {}
+    for chunk in log.split("Compiling entry function '")[1:]:
+        mangled = chunk.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
+        pos, name = (3 if mangled.startswith("_ZN") else 2), mangled
+        while pos < len(mangled) and mangled[pos].isdigit():
+            n = re.match(r"\d+", mangled[pos:]).group()
+            pos += len(n)
+            name, pos = mangled[pos:pos + int(n)], pos + int(n)
+        if mangled[pos:pos + 1] == "I":
+            name += mangled[pos:mangled.index("EE", pos) + 1]
+        out[name] = (int(regs.group(1)) if regs else None,
+                     sum(map(int, spills.groups())) if spills else 0)
+    return out
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -1729,9 +1752,10 @@ def phase_doc(h, w, reps, card, dev, reset_counts, read_counts):
     (FLARE_LUT_DOC, a 33^3 .cube written here and parsed by
     io/lut.parse_lut_file) against grade_plain, timed beside config 3's
     grade in the same call, then the masks build with a radial mask that
-    carries flare, and a ragged size; (c) the per-pixel NR kernel against its
-    plain version on config 5's document with an NR mask (amount maps) and
-    on the mixed-amount batch MIXED_NR_DOCS (per-image amounts); (d) JSON ->
+    carries flare, and a ragged size (the flare map there too); (c) the
+    per-pixel NR kernel against its plain version on config 5's document
+    with an NR mask (amount maps) and on the mixed-amount batch
+    MIXED_NR_DOCS (per-image amounts), at 24 MP and the ragged size; (d) JSON ->
     develop_batch -> device_u8 -> host numpy for (b)'s document and (c)'s
     masked one at B = 1 and 2 and the mixed batch at B = 2, counters reset
     and read around each main-path call, the flare map's share of the
@@ -1794,13 +1818,15 @@ def phase_doc(h, w, reps, card, dev, reset_counts, read_counts):
     pms = (time.perf_counter() - t0) * 1e3  # one run: ~30,000 launches per image
     _, ops = count_ops(lambda: flare.flare_maps_plain(images, fp, cfg.is_raw))
     err = float(((got - ref).abs() / ref.abs().clamp(min=1.0)).max())
+    share = float((got != ref).float().mean())
     ms = time_ms(lambda: flare.flare_maps(images, fp, cfg.is_raw), reps)
     n = flare.FLARE_MAP_SIZE
     # bytes: each map pixel's 2 x 2 input texels and its 3 MB map (the
     # threshold map and its taps stay on chip), the params
     bms, bby = bound_ms(2 * n * n * (4 * 3 * 4 + 3 * 4) + nbytes(fp), ops)
     log(f"[flare] B=2 ({h},{w}) -> (2,{n},{n},3): max|d|/max(1,|ref|) {err:.3e} (bound "
-        f"{FLARE_TOL:g}), max|ref| {float(ref.abs().max()):.3f}; kernel {ms:.3f} ms, plain "
+        f"{FLARE_TOL:g}), values that differ {share:.2e}, max|ref| "
+        f"{float(ref.abs().max()):.3f}; kernel {ms:.3f} ms, plain "
         f"{pms:.1f} ms (one run), bound {bms:.3f} ms ({bby}, {ops / 1e9:.2f} G ops) [{card}]")
     if not bool(torch.isfinite(got).all()) or err > FLARE_TOL:
         raise AssertionError(f"flare map: max|d| {err} > {FLARE_TOL} or non-finite")
@@ -1890,6 +1916,12 @@ def phase_doc(h, w, reps, card, dev, reset_counts, read_counts):
     rimg = bright(2, *RAGGED)
     rmaps = flare.flare_maps(rimg, fp, False)
     rref = flare.flare_maps_plain(rimg, fp, False)
+    torch.cuda.synchronize()
+    ferr = float(((rmaps - rref).abs() / rref.abs().clamp(min=1.0)).max())
+    log(f"[flare] ragged B=2 {RAGGED[0]}x{RAGGED[1]}: max|d|/max(1,|ref|) {ferr:.3e} (bound "
+        f"{FLARE_TOL:g}), values that differ {float((rmaps != rref).float().mean()):.2e}")
+    if ferr > FLARE_TOL or not bool(torch.isfinite(rmaps).all()):
+        raise AssertionError(f"ragged flare map: max|d| {ferr} > {FLARE_TOL} or non-finite")
     rlv = fused.blur_levels(rimg, cfg)
     for dither in (False, True):
         c = dataclasses.replace(cfg, dither_active=dither)
@@ -1897,46 +1929,52 @@ def phase_doc(h, w, reps, card, dev, reset_counts, read_counts):
         ref = fused.grade_plain(rimg, rlv, pmat, c, flare=rmaps, lut=cube)
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
-        ferr = float(((rmaps - rref).abs() / rref.abs().clamp(min=1.0)).max())
         tol = GRADE_DITHER_TOL if dither else GRADE_TOL
         log(f"[grade-doc] ragged B=2 {RAGGED[0]}x{RAGGED[1]} flare+LUT dither="
-            f"{'on' if dither else 'off'}: max|d| {err:.3e} (bound {tol:.3e}); flare map "
-            f"{ferr:.3e} (bound {FLARE_TOL:g})")
-        if err > tol or ferr > FLARE_TOL or not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"ragged flare+LUT: max|d| {err}, map {ferr}")
+            f"{'on' if dither else 'off'}: max|d| {err:.3e} (bound {tol:.3e})")
+        if err > tol or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"ragged flare+LUT: max|d| {err}")
         del got, ref
     del rimg, rmaps, rref, rlv
 
-    # ---- (c) NR with per-pixel amounts --------------------------------------
-    scale = scales.resolution_scale(w, h)
-    images = torch.rand((2, 3, h, w), generator=gen, device=dev)
-    center = srgb_to_linear(images).contiguous()
-    planes = nr.nr_planes(images, False).contiguous()
-    ndoc = masked_nr_doc(h, w)
-    nbm = rasterize_masks(ndoc, w, h, scale=1.0)
-    nmk = torch.from_numpy(np.repeat(nbm[None], 2, 0)).to(dev)
-    for label, docs, mk in (("masked", [ndoc, ndoc], nmk), ("mixed", list(MIXED_NR_DOCS), None)):
-        spn, cfgn = stacked(docs)
-        la, ca = fused.nr_amounts(spn, cfgn, mk, dev)
-        got = nr.nr_dynamic(center, planes, la, ca, scale)
-        ref, ops = count_ops(lambda: nr.nr_dynamic_plain(center, planes, la, ca, scale))
-        torch.cuda.synchronize()
-        d = (got - ref).abs()
-        err, share = float(d.max()), float((d > 0).float().mean())
-        ms = time_ms(lambda: nr.nr_dynamic(center, planes, la, ca, scale), reps)
-        pms = time_ms(lambda: nr.nr_dynamic_plain(center, planes, la, ca, scale), 1)
-        bms, bby = bound_ms(nbytes(center, planes, la, ca) + nbytes(center), ops)
-        log(f"[nr-dyn] {label} B=2 ({h},{w}) amounts {'maps' if la.ndim == 3 else 'per image'} "
-            f"{tuple(la.shape)}: max|d| {err:.3e} (bound {NR_TOL:g}), values that differ "
-            f"{share:.2e}; kernel {ms:.3f} ms plain {pms:.3f} ms bound {bms:.3f} ms ({bby}, "
-            f"{ops / 1e9:.1f} G ops) [{card}]")
-        if not bool(torch.isfinite(got).all()) or err > NR_TOL:
-            raise AssertionError(f"nr_dynamic {label}: max|d| {err} > {NR_TOL} or non-finite")
-        report["nr_dynamic", f"{label}_nr"] = dict(ms=ms, plain_ms=pms, bound_ms=bms,
-                                                   bound_by=bby, library_ms=None,
-                                                   max_abs_err=err)
-        del got, ref, la, ca
-    del center, planes
+    # ---- (c) NR with per-pixel amounts, at 24 MP (timed) and the ragged size ------
+    for hh, ww in ((h, w), RAGGED):
+        scale = scales.resolution_scale(ww, hh)
+        images = torch.rand((2, 3, hh, ww), generator=gen, device=dev)
+        center = srgb_to_linear(images).contiguous()
+        planes = nr.nr_planes(images, False).contiguous()
+        ndoc = masked_nr_doc(hh, ww)
+        nbm_s = rasterize_masks(ndoc, ww, hh, scale=1.0)
+        if (hh, ww) == (h, w):
+            nbm = nbm_s  # (d) reuses the 24 MP mask
+        nmk = torch.from_numpy(np.repeat(nbm_s[None], 2, 0)).to(dev)
+        for label, docs, mk in (("masked", [ndoc, ndoc], nmk),
+                                ("mixed", list(MIXED_NR_DOCS), None)):
+            spn, cfgn = stacked(docs)
+            la, ca = fused.nr_amounts(spn, cfgn, mk, dev)
+            got = nr.nr_dynamic(center, planes, la, ca, scale)
+            ref, ops = count_ops(lambda: nr.nr_dynamic_plain(center, planes, la, ca, scale))
+            torch.cuda.synchronize()
+            d = (got - ref).abs()
+            err, share = float(d.max()), float((d > 0).float().mean())
+            line = (f"[nr-dyn] {label} B=2 ({hh},{ww}) amounts "
+                    f"{'maps' if la.ndim == 3 else 'per image'} {tuple(la.shape)}: max|d| "
+                    f"{err:.3e} (bound {NR_TOL:g}), values that differ {share:.2e}")
+            if (hh, ww) == (h, w):
+                ms = time_ms(lambda: nr.nr_dynamic(center, planes, la, ca, scale), reps)
+                pms = time_ms(lambda: nr.nr_dynamic_plain(center, planes, la, ca, scale), 1)
+                bms, bby = bound_ms(nbytes(center, planes, la, ca) + nbytes(center), ops)
+                line += (f"; kernel {ms:.3f} ms plain {pms:.3f} ms bound {bms:.3f} ms ({bby}, "
+                         f"{ops / 1e9:.1f} G ops, {ops / (2 * hh * ww):.0f} per pixel) [{card}]")
+                report["nr_dynamic", f"{label}_nr"] = dict(ms=ms, plain_ms=pms, bound_ms=bms,
+                                                           bound_by=bby, library_ms=None,
+                                                           max_abs_err=err)
+            log(line)
+            if not bool(torch.isfinite(got).all()) or err > NR_TOL:
+                raise AssertionError(f"nr_dynamic {label} ({hh},{ww}): max|d| {err} > {NR_TOL} "
+                                     "or non-finite")
+            del got, ref, la, ca
+        del center, planes, nmk
 
     # ---- (d) end to end: JSON -> develop_batch -> device_u8 -> host numpy --------
     def inputs(kind, b, imgs):
@@ -2291,6 +2329,8 @@ def main() -> int:
         for line in kl.build_log.splitlines():
             if "Compiling entry function" in line or "registers" in line or "spill" in line:
                 log(f"[build] {name} ptxas: {line.strip()}")
+        for entry, (regs, spill) in ptxas_entries(kl.build_log).items():
+            log(f"[build] {name} {entry}: {regs} registers, {spill} bytes spilled")
     phase_done("build")
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -2953,10 +2993,18 @@ def main() -> int:
               "config4": launches4, **launches2, **launches12, **launches13,
               "export": launches14}
     library = {"nr_dynamic": "nr"}  # the kernels that share a source with another
+    # a kernel that shares its source: its own entry's registers and spills
+    entry = {"nr": "nr_kernel", "nr_dynamic": "nr_dynamic_kernel"}
+
+    def regs_spills(name):
+        if name in entry:
+            return ptxas_entries(libs[library.get(name, name)].build_log)[entry[name]]
+        return usage[name]
+
     kernels = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[top][name], **{k: report[name, top][k] for k in fields},
-         "regs": usage[library.get(name, name)][0], "spills": usage[library.get(name, name)][1],
+         "regs": regs_spills(name)[0], "spills": regs_spills(name)[1],
          **({"variant": report[name, top]["variant"]} if top == "probes" else {}),
          "paths": {path: {"launches": n[name], **report.get((name, path), {})}
                    for path, n in counts.items()}}

@@ -10,29 +10,40 @@
 //   (the batch on the grid's z axis): a clamped bilinear sample of the
 //   (B, 3, H, W) input, linearized unless RAW, then exposure, the flare
 //   filmic, whites and the soft knee (flare.py `flare_threshold_map`),
-//   into a (B, 3, 512, 512) scratch map;
-// - `composite_kernel`: one thread per map pixel: the 6-spike starburst
-//   (per-channel spread), the inner burst, the glow rings, the iris rings,
-//   the 7 ghosts, the 3 halos and the 64-tap streak, each tap a bilinear
-//   sample of the 3 MB threshold map, written (B, 512, 512, 3) HWC as JAX
-//   returns it.
+//   written twice: planar (B, 3, N + 1, S) and as float4 texels (B, N + 1,
+//   S), each padded by a column and a row that repeat the last ones;
+// - `composite_kernel`: the 6-spike starburst (per-channel spread), the
+//   inner burst, the glow rings, the iris rings, the 7 ghosts, the 3 halos
+//   and the 64-tap streak, each tap a bilinear sample of the threshold
+//   map, written (B, 512, 512, 3) HWC as JAX returns it.
 // Every tap's offset, falloff and weight is a double on the JAX side,
 // rounded once to f32 where it meets an f32 array: the wrapper builds that
-// table (`flare_taps`) and this file copies it into constant memory, where
-// every thread of a warp reads the same tap at the same time (a broadcast).
-// Each expression keeps the plain version's operation order, and the file
-// is built with --fmad=false; divisions by a Python constant multiply by
-// its reciprocal as PyTorch's CUDA division does (`divs`), and pow, atan2,
-// cos, exp and sqrt are the libm calls PyTorch's CUDA kernels make (powf,
-// atan2f, cosf, expf, sqrtf). A tap whose uv falls outside the bounds JAX
-// gates it by is not sampled at all (its term is an exact zero).
+// table (`flare_taps`), uploads it once per aspect ratio and device, and
+// each block stages it in shared memory, where every thread of a warp
+// reads the same tap at the same time (a broadcast). Each expression keeps
+// the plain version's operation order, and the file is built with
+// --fmad=false; divisions by a Python constant multiply by its reciprocal
+// as PyTorch's CUDA division does (`divs`), and pow, atan2, cos, exp and
+// sqrt are the libm calls PyTorch's CUDA kernels make (powf, atan2f,
+// cosf, expf, sqrtf). A tap whose uv falls outside the bounds JAX gates it
+// by is not sampled at all (its term is an exact zero).
 //
-// What bounds it on the card: operations. A map pixel takes ~1,300
-// bilinear samples (4 loads and ~10 operations each, one channel or three)
-// and the reads hit L1/L2, not HBM: the threshold map (3 MB per image)
-// stays in the 50 MB L2 cache. HBM traffic is the input's 2 x 2 texels per
-// map pixel and the 3 MB map written, so a batch of two 24 MP images moves
-// a few MB.
+// What bounds it on the card: instruction issue and the L1 traffic of the
+// taps. A map pixel takes ~1,300 bilinear samples and the reads hit L1/L2,
+// not HBM: the threshold map (7 MB per image, both copies) stays in the
+// 50 MB L2 cache. HBM traffic is the input's 2 x 2 texels per map pixel
+// and the 3 MB map written, so a batch of two 24 MP images moves a few MB.
+// The design cuts the work per tap:
+// - a thread makes two map rows of one column, so a tap's column part
+//   (clamp, texel index, weight) is computed once for both, and the
+//   streak's row part once per row for all 64 taps (they share v);
+// - `axis` takes texel space with one fma (x 512 is exact) and its floor
+//   by a round-down add instead of two conversions; the padding stands in
+//   for the high clamp of the neighbour index;
+// - a three-channel tap reads four float4 texels, not twelve floats;
+// - a tap's column start in a plane is one register pair, and each row's
+//   texel one widening multiply-add from it (`opaque`), with the four
+//   texels immediate offsets.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -45,13 +56,14 @@
 
 // Every tap's constants, float32 (ops/flare.py `_Taps`, same field order).
 // Outside the anonymous namespace: the extern "C" entry point takes it.
-struct FlareTaps {
-  float star[N_SPIKES * 2 * N_STAR * 7];    // green dx, dy; red dx, dy; blue dx, dy; falloff
-  float inner[N_SPIKES * 2 * N_INNER * 3];  // dx, dy, falloff
-  float glow[N_GLOW * 3];                   // dx, dy, ring weight
+struct alignas(16) FlareTaps {
+  float star[N_SPIKES * 2 * N_STAR * 8];    // green dx, dy; red dx, dy; blue dx, dy; falloff; 0
+  float inner[N_SPIKES * 2 * N_INNER * 4];  // dx, dy, falloff, 0
+  float glow[N_GLOW * 4];                   // dx, dy, ring weight, 0
   float streak[N_STREAK * 4];               // green du, red du, blue du, weight
   float aspect;                             // W / H
   float total_w_inv;                        // 1 / (sum of the streak weights), in double
+  float pad[2];
 };
 
 namespace {
@@ -62,9 +74,7 @@ namespace {
 #define divs(x, c) ((x) * (float)(1.0 / (c)))
 
 constexpr int N = 512;  // the map's side (FLARE_MAP_SIZE)
-constexpr int BX = 32, BY = 8;
-
-__constant__ FlareTaps c_taps;
+constexpr int BX = 32, BY = 4;
 
 struct F3 {
   float r, g, b;
@@ -100,8 +110,9 @@ __device__ __forceinline__ float srgb_to_linear(float c) {
   return c <= FC(0.04045) ? lower : higher;
 }
 
-// bilinear weights and texel indices of one uv on an (h, w) grid, uv
-// clamped to [0, 1] (flare.py `_bilinear_uv`)
+// bilinear weights and texel indices of one uv on an (h, w) image, uv
+// clamped to [0, 1] (flare.py `_bilinear_uv`): the threshold pass's sample
+// of the input
 struct Bilin {
   int i00, i01, i10, i11;
   float fx, fy;
@@ -120,24 +131,72 @@ __device__ __forceinline__ float lerp_plane(const float* __restrict__ p, const B
   return mix(top, bot, s.fy);
 }
 
-// one channel, or all three, of the (3, N, N) threshold map at uv
-__device__ __forceinline__ float tap1(const float* __restrict__ thr, int ch, float u, float v) {
-  return lerp_plane(thr + ch * N * N, bilin(u, v, N, N));
-}
-__device__ __forceinline__ F3 tap3(const float* __restrict__ thr, float u, float v) {
-  const Bilin s = bilin(u, v, N, N);
-  return {lerp_plane(thr, s), lerp_plane(thr + N * N, s), lerp_plane(thr + 2 * N * N, s)};
+// One axis of a bilinear tap of the threshold map: the texel index and the
+// weight of clamp(c, 0, 1) * N - 0.5. The product by N = 512 is exact, so
+// one fma rounds as the plain version's multiply and subtract do. x <=
+// N - 0.5, so only the low clamp of the index can act: at x0 = -1 the
+// index is 0 and its neighbour 1, JAX's rule (`xi1 = clip(xi0 + 1)` of the
+// clipped xi0); the map's padding (texel N repeats texel N - 1) stands in
+// for the high clamp of the neighbour.
+struct Ax {
+  unsigned i;
+  float f;
+};
+// floor(x) by one round-down add of 1.5 * 2^23: x lies in [-0.5, N - 0.5],
+// where that sum's ulp is 1, so the sum is floor(x) + 1.5 * 2^23 exactly;
+// its float less the constant is floor(x), its bits less the constant's
+// the integer (no conversion instruction).
+__device__ __forceinline__ Ax axis(float c) {
+  const float x = __fmaf_rn(__saturatef(c), (float)N, -0.5f);
+  const float t = __fadd_rd(x, 12582912.0f);
+  const float x0 = t - 12582912.0f;
+  return {(unsigned)max(__float_as_int(t) - 0x4B400000, 0), x - x0};
 }
 
-__device__ __forceinline__ bool in_bounds(float u, float v) {
-  return u >= 0.0f && u <= 1.0f && v >= 0.0f && v <= 1.0f;
+// a map row's stride in texels (N plus the padding, 16-byte aligned) and a
+// padded plane's texels (N + 1 rows)
+constexpr int S = N + 4;
+constexpr int MAP_TEX = (N + 1) * S;
+
+// one channel of the planar padded map, or all three of the float4 one,
+// at the texel q (its row and column already added) with weights fx, fy:
+// the four texels are immediate offsets from q. A caller adds a tap's
+// column to the plane's base once and each row's offset (one widening
+// multiply-add) per row, so no 64-bit index arithmetic repeats per texel.
+__device__ __forceinline__ float lerp1(const float* __restrict__ q, float fx, float fy) {
+  const float top = mix(__ldg(q), __ldg(q + 1), fx);
+  const float bot = mix(__ldg(q + S), __ldg(q + S + 1), fx);
+  return mix(top, bot, fy);
 }
+__device__ __forceinline__ F3 lerp3(const float4* __restrict__ q, float fx, float fy) {
+  const float4 a = __ldg(q), b = __ldg(q + 1);
+  const float4 c = __ldg(q + S), d = __ldg(q + S + 1);
+  return {mix(mix(a.x, b.x, fx), mix(c.x, d.x, fx), fy),
+          mix(mix(a.y, b.y, fx), mix(c.y, d.y, fx), fy),
+          mix(mix(a.z, b.z, fx), mix(c.z, d.z, fx), fy)};
+}
+// p as a value the compiler cannot see into: a tap's column start becomes
+// one register pair, and a row's offset from it one widening multiply-add,
+// not a 64-bit add and shift of a recombined index per texel
+template <typename T>
+__device__ __forceinline__ const T* opaque(const T* p) {
+  asm("mov.b64 %0, %0;" : "+l"(p));
+  return p;
+}
+
+__device__ __forceinline__ F3 tap3(const float4* __restrict__ p, float u, float v) {
+  const Ax x = axis(u), y = axis(v);
+  return lerp3(p + x.i + y.i * S, x.f, y.f);
+}
+
+__device__ __forceinline__ bool in_unit(float c) { return c >= 0.0f && c <= 1.0f; }
 
 __device__ __forceinline__ float map_coord(int i) { return ((float)i + 0.5f) * (1.0f / N); }
 
 __global__ void __launch_bounds__(BX* BY)
     threshold_kernel(const float* __restrict__ img, const float* __restrict__ fparams,
-                     float* __restrict__ thr, int is_raw, int H, int W) {
+                     float* __restrict__ thr, float4* __restrict__ thr4, int is_raw, int H,
+                     int W) {
   const int j = blockIdx.x * BX + threadIdx.x, i = blockIdx.y * BY + threadIdx.y;
   if (j >= N || i >= N) return;
   const float* p = fparams + blockIdx.z * 4;
@@ -176,10 +235,19 @@ __global__ void __launch_bounds__(BX* BY)
   const float x = lt - threshold + FC(0.15);
   const float contrib = x <= 0.0f ? 0.0f : (x < FC(0.3) ? divs(x * x, 0.6) : x - FC(0.15));
   const float f = contrib / fmaxf(true_luma, FC(0.001));
-  float* out = thr + (size_t)blockIdx.z * 3 * N * N + i * N + j;
-  out[0] = c.r * f;
-  out[N * N] = c.g * f;
-  out[2 * N * N] = c.b * f;
+  const float4 t = {c.r * f, c.g * f, c.b * f, 0.0f};
+  // the texel, and the padding row and column that repeat the last ones
+  float* pl = thr + (size_t)blockIdx.z * 3 * MAP_TEX;
+  float4* p4 = thr4 + (size_t)blockIdx.z * MAP_TEX;
+  for (int dy = 0; dy <= (i == N - 1); ++dy) {
+    for (int dx = 0; dx <= (j == N - 1); ++dx) {
+      const int off = (i + dy) * S + j + dx;
+      pl[off] = t.x;
+      pl[MAP_TEX + off] = t.y;
+      pl[2 * MAP_TEX + off] = t.z;
+      p4[off] = t;
+    }
+  }
 }
 
 __device__ __forceinline__ void add_tinted(F3& acc, F3 t, float tr, float tg, float tb,
@@ -189,174 +257,286 @@ __device__ __forceinline__ void add_tinted(F3& acc, F3 t, float tr, float tg, fl
   acc.b = acc.b + t.b * tb * mult;
 }
 
-__global__ void __launch_bounds__(BX* BY)
-    composite_kernel(const float* __restrict__ thr_all, const float* __restrict__ fparams,
+// Each thread makes ROWS map pixels of one column, rows ROWS * ty ..
+// ROWS * ty + ROWS - 1 of its block: a tap's column part (the clamp, index
+// and weight of u + du) is computed once for all of them, and the streak's
+// row part (its taps share v) once per row for all 64 taps.
+constexpr int ROWS = 2;
+
+__global__ void __launch_bounds__(BX* BY, 8)
+    composite_kernel(const float* __restrict__ thr_all, const float4* __restrict__ thr4_all,
+                     const float* __restrict__ fparams, const FlareTaps* __restrict__ taps,
                      float* __restrict__ out) {
-  const int j = blockIdx.x * BX + threadIdx.x, i = blockIdx.y * BY + threadIdx.y;
-  if (j >= N || i >= N) return;
-  const float* thr = thr_all + (size_t)blockIdx.z * 3 * N * N;
+  // the tap table, staged from the wrapper's cached device copy
+  __shared__ FlareTaps tb;
+  {
+    const float4* src = reinterpret_cast<const float4*>(taps);
+    float4* dst = reinterpret_cast<float4*>(&tb);
+    for (int k = threadIdx.y * BX + threadIdx.x; k < (int)(sizeof(FlareTaps) / 16); k += BX * BY)
+      dst[k] = __ldg(src + k);
+  }
+  __syncthreads();
+  const int j = blockIdx.x * BX + threadIdx.x;
+  const int i0 = (blockIdx.y * BY + threadIdx.y) * ROWS;
+  const float* thr = thr_all + (size_t)blockIdx.z * 3 * MAP_TEX;
+  const float* thr_g = thr + MAP_TEX;
+  const float* thr_b = thr + 2 * MAP_TEX;
+  const float4* thr4 = thr4_all + (size_t)blockIdx.z * MAP_TEX;
   const float amount = __ldg(fparams + blockIdx.z * 4);
-  const float u = map_coord(j), v = map_coord(i);
-  const float fu = 1.0f - u, fv = 1.0f - v;
-  const float aspect = c_taps.aspect;
+  const float u = map_coord(j), fu = 1.0f - u;
+  const float aspect = tb.aspect;
+  float v[ROWS];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) v[r] = map_coord(i0 + r);
+  F3 flare[ROWS];
 
   // ---- 6-spike starburst
-  F3 star = {0.0f, 0.0f, 0.0f};
-  for (int spike = 0; spike < N_SPIKES; ++spike) {
-    F3 acc = {0.0f, 0.0f, 0.0f};
-    float wsum = 0.0f;
+  {
+    F3 star[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) star[r] = {0.0f, 0.0f, 0.0f};
+    for (int spike = 0; spike < N_SPIKES; ++spike) {
+      F3 acc[ROWS];
+      float wsum[ROWS];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) acc[r] = {0.0f, 0.0f, 0.0f}, wsum[r] = 0.0f;
 #pragma unroll 2
-    for (int t = 0; t < 2 * N_STAR; ++t) {
-      // indexed on the __constant__ array itself, so the loads stay constant-cache loads
-      const int k = (spike * 2 * N_STAR + t) * 7;
-      const float uu = u + c_taps.star[k], vv = v + c_taps.star[k + 1];
-      if (!in_bounds(uu, vv)) continue;
-      const float f = c_taps.star[k + 6];
-      acc.r = acc.r + tap1(thr, 0, u + c_taps.star[k + 2], v + c_taps.star[k + 3]) * f;
-      acc.g = acc.g + tap1(thr, 1, uu, vv) * f;
-      acc.b = acc.b + tap1(thr, 2, u + c_taps.star[k + 4], v + c_taps.star[k + 5]) * f;
-      wsum = wsum + f;
+      for (int t = 0; t < 2 * N_STAR; ++t) {
+        const float4* tp = reinterpret_cast<const float4*>(tb.star) + (spike * 2 * N_STAR + t) * 2;
+        const float4 g = tp[0];  // green dx, dy; red dx, dy
+        const float4 bf = tp[1]; // blue dx, dy; falloff
+        const float uu = u + g.x;
+        if (!in_unit(uu)) continue;
+        const Ax xr = axis(u + g.z), xg = axis(uu), xb = axis(u + bf.x);
+        const float* cr = opaque(thr + xr.i);
+        const float* cg = opaque(thr_g + xg.i);
+        const float* cb = opaque(thr_b + xb.i);
+        const float f = bf.z;
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          const float vv = v[r] + g.y;
+          if (!in_unit(vv)) continue;
+          const Ax yr = axis(v[r] + g.w), yg = axis(vv), yb = axis(v[r] + bf.y);
+          acc[r].r = acc[r].r + lerp1(cr + (size_t)yr.i * S, xr.f, yr.f) * f;
+          acc[r].g = acc[r].g + lerp1(cg + (size_t)yg.i * S, xg.f, yg.f) * f;
+          acc[r].b = acc[r].b + lerp1(cb + (size_t)yb.i * S, xb.f, yb.f) * f;
+          wsum[r] = wsum[r] + f;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        if (wsum[r] > 0.0f) {
+          const float d = fmaxf(wsum[r], FC(1e-9));
+          star[r] = {star[r].r + acc[r].r / d, star[r].g + acc[r].g / d,
+                     star[r].b + acc[r].b / d};
+        }
+      }
     }
-    if (wsum > 0.0f) {
-      const float d = fmaxf(wsum, FC(1e-9));
-      star = {star.r + acc.r / d, star.g + acc.g / d, star.b + acc.b / d};
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const F3 st = {divs(star[r].r, 6.0) * 3.0f, divs(star[r].g, 6.0) * 3.0f,
+                     divs(star[r].b, 6.0) * 3.0f};
+      flare[r] = {st.r * 1.0f * 3.5f, st.g * FC(0.95) * 3.5f, st.b * FC(0.85) * 3.5f};
     }
   }
-  star = {divs(star.r, 6.0) * 3.0f, divs(star.g, 6.0) * 3.0f, divs(star.b, 6.0) * 3.0f};
-  F3 flare = {star.r * 1.0f * 3.5f, star.g * FC(0.95) * 3.5f, star.b * FC(0.85) * 3.5f};
 
   // ---- inner starburst
-  F3 inner = {0.0f, 0.0f, 0.0f};
-  for (int spike = 0; spike < N_SPIKES; ++spike) {
-    F3 acc = {0.0f, 0.0f, 0.0f};
-    float wsum = 0.0f;
+  {
+    F3 inner[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) inner[r] = {0.0f, 0.0f, 0.0f};
+    for (int spike = 0; spike < N_SPIKES; ++spike) {
+      F3 acc[ROWS];
+      float wsum[ROWS];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) acc[r] = {0.0f, 0.0f, 0.0f}, wsum[r] = 0.0f;
 #pragma unroll 2
-    for (int t = 0; t < 2 * N_INNER; ++t) {
-      const int k = (spike * 2 * N_INNER + t) * 3;
-      const float uu = u + c_taps.inner[k], vv = v + c_taps.inner[k + 1];
-      if (!in_bounds(uu, vv)) continue;
-      const float f = c_taps.inner[k + 2];
-      const F3 s = tap3(thr, uu, vv);
-      acc = {acc.r + s.r * f, acc.g + s.g * f, acc.b + s.b * f};
-      wsum = wsum + f;
+      for (int t = 0; t < 2 * N_INNER; ++t) {
+        const float4 tt = reinterpret_cast<const float4*>(tb.inner)[spike * 2 * N_INNER + t];
+        const float uu = u + tt.x;
+        if (!in_unit(uu)) continue;
+        const Ax x = axis(uu);
+        const float4* col = opaque(thr4 + x.i);
+        const float f = tt.z;
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          const float vv = v[r] + tt.y;
+          if (!in_unit(vv)) continue;
+          const Ax y = axis(vv);
+          const F3 s = lerp3(col + (size_t)y.i * S, x.f, y.f);
+          acc[r] = {acc[r].r + s.r * f, acc[r].g + s.g * f, acc[r].b + s.b * f};
+          wsum[r] = wsum[r] + f;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        if (wsum[r] > 0.0f) {
+          const float d = fmaxf(wsum[r], FC(1e-9));
+          inner[r] = {inner[r].r + acc[r].r / d, inner[r].g + acc[r].g / d,
+                      inner[r].b + acc[r].b / d};
+        }
+      }
     }
-    if (wsum > 0.0f) {
-      const float d = fmaxf(wsum, FC(1e-9));
-      inner = {inner.r + acc.r / d, inner.g + acc.g / d, inner.b + acc.b / d};
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const F3 in = {divs(inner[r].r, 6.0) * 2.0f, divs(inner[r].g, 6.0) * 2.0f,
+                     divs(inner[r].b, 6.0) * 2.0f};
+      add_tinted(flare[r], in, 1.0f, FC(0.9), FC(0.8), 1.5f);
     }
   }
-  inner = {divs(inner.r, 6.0) * 2.0f, divs(inner.g, 6.0) * 2.0f, divs(inner.b, 6.0) * 2.0f};
-  add_tinted(flare, inner, 1.0f, FC(0.9), FC(0.8), 1.5f);
 
   // ---- radial glow
   {
-    F3 glow = tap3(thr, u, v);
-    glow = {glow.r * 2.0f, glow.g * 2.0f, glow.b * 2.0f};
-    float gw = 2.0f;
+    F3 glow[ROWS];
+    float gw[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const F3 c = tap3(thr4, u, v[r]);
+      glow[r] = {c.r * 2.0f, c.g * 2.0f, c.b * 2.0f};
+      gw[r] = 2.0f;
+    }
+#pragma unroll 2
     for (int t = 0; t < N_GLOW; ++t) {
-      const float uu = u + c_taps.glow[3 * t], vv = v + c_taps.glow[3 * t + 1];
-      if (!in_bounds(uu, vv)) continue;
-      const float w = c_taps.glow[3 * t + 2];
-      const F3 s = tap3(thr, uu, vv);
-      glow = {glow.r + s.r * w, glow.g + s.g * w, glow.b + s.b * w};
-      gw = gw + w;
+      const float4 tt = reinterpret_cast<const float4*>(tb.glow)[t];
+      const float uu = u + tt.x;
+      if (!in_unit(uu)) continue;
+      const Ax x = axis(uu);
+      const float4* col = opaque(thr4 + x.i);
+      const float w = tt.z;
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        const float vv = v[r] + tt.y;
+        if (!in_unit(vv)) continue;
+        const Ax y = axis(vv);
+        const F3 s = lerp3(col + (size_t)y.i * S, x.f, y.f);
+        glow[r] = {glow[r].r + s.r * w, glow[r].g + s.g * w, glow[r].b + s.b * w};
+        gw[r] = gw[r] + w;
+      }
     }
-    add_tinted(flare, {glow.r / gw, glow.g / gw, glow.b / gw}, 1.0f, FC(0.95), FC(0.9),
-               FC(0.4));
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+      add_tinted(flare[r], {glow[r].r / gw[r], glow[r].g / gw[r], glow[r].b / gw[r]}, 1.0f,
+                 FC(0.95), FC(0.9), FC(0.4));
   }
 
-  // ---- iris rings; the halos share their sample and centre distance
+  // ---- iris rings, ghosts and halos, one row at a time; the halos share
+  // the iris rings' sample and centre distance
   const float ua = (u - 0.5f) * aspect;
-  const float center_dist = sqrtf(sq(ua) + sq(v - 0.5f));
-  const F3 src = tap3(thr, fu, fv);
-  {
-    const float angle = atan2f(v - 0.5f, ua);
-    const float hex_mod = FC(0.9) + FC(0.1) * powf(fabsf(cosf(angle * 3.0f)), 4.0f);
-    // (ring radius, width, intensity); the widths divide as Python scalars
-    const float rf[4] = {expf(-sq(divs(center_dist - FC(0.15), 0.02))),
-                         expf(-sq(divs(center_dist - FC(0.25), 0.025))),
-                         expf(-sq(divs(center_dist - FC(0.35), 0.03))),
-                         expf(-sq(divs(center_dist - FC(0.48), 0.035)))};
-    const float inten[4] = {FC(0.4), FC(0.3), FC(0.2), FC(0.15)};
-    F3 iris = {0.0f, 0.0f, 0.0f};
+#pragma unroll 1
+  for (int r = 0; r < ROWS; ++r) {
+    const float vr = v[r], fv = 1.0f - vr;
+    const float center_dist = sqrtf(sq(ua) + sq(vr - 0.5f));
+    const F3 src = tap3(thr4, fu, fv);
+    {
+      const float angle = atan2f(vr - 0.5f, ua);
+      const float hex_mod = FC(0.9) + FC(0.1) * powf(fabsf(cosf(angle * 3.0f)), 4.0f);
+      // (ring radius, width, intensity); the widths divide as Python scalars
+      const float rf[4] = {expf(-sq(divs(center_dist - FC(0.15), 0.02))),
+                           expf(-sq(divs(center_dist - FC(0.25), 0.025))),
+                           expf(-sq(divs(center_dist - FC(0.35), 0.03))),
+                           expf(-sq(divs(center_dist - FC(0.48), 0.035)))};
+      const float inten[4] = {FC(0.4), FC(0.3), FC(0.2), FC(0.15)};
+      F3 iris = {0.0f, 0.0f, 0.0f};
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      iris = {iris.r + src.r * rf[r] * inten[r] * hex_mod,
-              iris.g + src.g * rf[r] * inten[r] * hex_mod,
-              iris.b + src.b * rf[r] * inten[r] * hex_mod};
+      for (int k = 0; k < 4; ++k) {
+        iris = {iris.r + src.r * rf[k] * inten[k] * hex_mod,
+                iris.g + src.g * rf[k] * inten[k] * hex_mod,
+                iris.b + src.b * rf[k] * inten[k] * hex_mod};
+      }
+      add_tinted(flare[r], iris, FC(0.7), FC(0.8), 1.0f, FC(0.2));
     }
-    add_tinted(flare, iris, FC(0.7), FC(0.8), 1.0f, FC(0.2));
+    // ghosts: (inverted uv, scale, vignette edges, tint, mult, gated)
+    {
+      struct Ghost {
+        bool inv;
+        float sc;
+        double e0, e1;
+        float tr, tg, tb, mult;
+        bool gated;
+      };
+      const Ghost ghosts[7] = {
+          {true, FC(0.75), 0.15, 0.6, 1.0f, FC(0.92), FC(0.85), FC(0.05), false},
+          {true, FC(0.4), 0.1, 0.45, FC(0.92), 1.0f, FC(0.95), FC(0.07), false},
+          {true, FC(0.2), 0.08, 0.35, FC(0.95), FC(0.97), 1.0f, FC(0.08), false},
+          {true, FC(0.12), 0.05, 0.25, 1.0f, 1.0f, FC(0.97), FC(0.07), false},
+          {false, FC(1.8), 0.25, 0.75, FC(0.85), FC(0.9), 1.0f, FC(0.03), true},
+          {true, FC(1.3), 0.2, 0.55, 1.0f, FC(0.9), FC(0.95), FC(0.03), true},
+          {true, FC(0.55), 0.2, 0.5, FC(0.97), FC(0.95), 1.0f, FC(0.04), false},
+      };
+#pragma unroll
+      for (int k = 0; k < 7; ++k) {
+        const Ghost& gh = ghosts[k];
+        const float gx = 0.5f + ((gh.inv ? fu : u) - 0.5f) * gh.sc;
+        const float gy = 0.5f + ((gh.inv ? fv : vr) - 0.5f) * gh.sc;
+        if (gh.gated && !(gx > 0.0f && gx < 1.0f && gy > 0.0f && gy < 1.0f)) continue;
+        const F3 g = tap3(thr4, gx, gy);
+        const float dist = sqrtf(sq((gx - 0.5f) * aspect) + sq(gy - 0.5f));
+        const float vig = 1.0f - ss(gh.e0, gh.e1, dist);
+        flare[r] = {flare[r].r + g.r * gh.tr * gh.mult * vig,
+                    flare[r].g + g.g * gh.tg * gh.mult * vig,
+                    flare[r].b + g.b * gh.tb * gh.mult * vig};
+      }
+    }
+    // halos: (radius, width, tint, mult), widths dividing as Python scalars
+    {
+      const float hf[3] = {expf(-sq(divs(center_dist - FC(0.4), 0.05))),
+                           expf(-sq(divs(center_dist - FC(0.22), 0.035))),
+                           expf(-sq(divs(center_dist - FC(0.55), 0.06)))};
+      const float tint[3][3] = {{FC(0.85), FC(0.92), 1.0f},
+                                {FC(0.92), FC(0.88), 1.0f},
+                                {FC(0.85), FC(0.95), FC(0.97)}};
+      const float mult[3] = {FC(0.07), FC(0.05), FC(0.03)};
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        flare[r] = {flare[r].r + src.r * tint[k][0] * hf[k] * mult[k],
+                    flare[r].g + src.g * tint[k][1] * hf[k] * mult[k],
+                    flare[r].b + src.b * tint[k][2] * hf[k] * mult[k]};
+      }
+    }
   }
 
-  // ---- ghosts: (inverted uv, scale, vignette edges, tint, mult, gated)
+  // ---- anamorphic streak: every tap samples at its row's v
   {
-    struct Ghost {
-      bool inv;
-      float sc;
-      double e0, e1;
-      float tr, tg, tb, mult;
-      bool gated;
-    };
-    const Ghost ghosts[7] = {
-        {true, FC(0.75), 0.15, 0.6, 1.0f, FC(0.92), FC(0.85), FC(0.05), false},
-        {true, FC(0.4), 0.1, 0.45, FC(0.92), 1.0f, FC(0.95), FC(0.07), false},
-        {true, FC(0.2), 0.08, 0.35, FC(0.95), FC(0.97), 1.0f, FC(0.08), false},
-        {true, FC(0.12), 0.05, 0.25, 1.0f, 1.0f, FC(0.97), FC(0.07), false},
-        {false, FC(1.8), 0.25, 0.75, FC(0.85), FC(0.9), 1.0f, FC(0.03), true},
-        {true, FC(1.3), 0.2, 0.55, 1.0f, FC(0.9), FC(0.95), FC(0.03), true},
-        {true, FC(0.55), 0.2, 0.5, FC(0.97), FC(0.95), 1.0f, FC(0.04), false},
-    };
+    F3 acc[ROWS];
+    float fy[ROWS];
+    const float *row_r[ROWS], *row_g[ROWS], *row_b[ROWS];
 #pragma unroll
-    for (int k = 0; k < 7; ++k) {
-      const Ghost& gh = ghosts[k];
-      const float gx = 0.5f + ((gh.inv ? fu : u) - 0.5f) * gh.sc;
-      const float gy = 0.5f + ((gh.inv ? fv : v) - 0.5f) * gh.sc;
-      if (gh.gated && !(gx > 0.0f && gx < 1.0f && gy > 0.0f && gy < 1.0f)) continue;
-      const F3 g = tap3(thr, gx, gy);
-      const float dist = sqrtf(sq((gx - 0.5f) * aspect) + sq(gy - 0.5f));
-      const float vig = 1.0f - ss(gh.e0, gh.e1, dist);
-      flare = {flare.r + g.r * gh.tr * gh.mult * vig, flare.g + g.g * gh.tg * gh.mult * vig,
-               flare.b + g.b * gh.tb * gh.mult * vig};
+    for (int r = 0; r < ROWS; ++r) {
+      const Ax y = axis(v[r]);
+      acc[r] = {0.0f, 0.0f, 0.0f};
+      fy[r] = y.f;
+      row_r[r] = opaque(thr + y.i * S);
+      row_g[r] = opaque(thr_g + y.i * S);
+      row_b[r] = opaque(thr_b + y.i * S);
     }
-  }
-
-  // ---- halos: (radius, width, tint, mult), widths dividing as Python scalars
-  {
-    const float hf[3] = {expf(-sq(divs(center_dist - FC(0.4), 0.05))),
-                         expf(-sq(divs(center_dist - FC(0.22), 0.035))),
-                         expf(-sq(divs(center_dist - FC(0.55), 0.06)))};
-    const float tint[3][3] = {{FC(0.85), FC(0.92), 1.0f},
-                              {FC(0.92), FC(0.88), 1.0f},
-                              {FC(0.85), FC(0.95), FC(0.97)}};
-    const float mult[3] = {FC(0.07), FC(0.05), FC(0.03)};
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      flare = {flare.r + src.r * tint[k][0] * hf[k] * mult[k],
-               flare.g + src.g * tint[k][1] * hf[k] * mult[k],
-               flare.b + src.b * tint[k][2] * hf[k] * mult[k]};
-    }
-  }
-
-  // ---- anamorphic streak
-  {
-    F3 acc = {0.0f, 0.0f, 0.0f};
 #pragma unroll 2
     for (int t = 0; t < N_STREAK; ++t) {
-      const float su = u + c_taps.streak[4 * t];
+      const float4 tt = reinterpret_cast<const float4*>(tb.streak)[t];
+      const float su = u + tt.x;
       if (!(su > 0.0f && su < 1.0f)) continue;
-      const float w = c_taps.streak[4 * t + 3];
-      acc.r = acc.r + tap1(thr, 0, u + c_taps.streak[4 * t + 1], v) * w;
-      acc.g = acc.g + tap1(thr, 1, su, v) * w;
-      acc.b = acc.b + tap1(thr, 2, u + c_taps.streak[4 * t + 2], v) * w;
+      const Ax xr = axis(u + tt.y), xg = axis(su), xb = axis(u + tt.z);
+      const float w = tt.w;
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        acc[r].r = acc[r].r + lerp1(row_r[r] + xr.i, xr.f, fy[r]) * w;
+        acc[r].g = acc[r].g + lerp1(row_g[r] + xg.i, xg.f, fy[r]) * w;
+        acc[r].b = acc[r].b + lerp1(row_b[r] + xb.i, xb.f, fy[r]) * w;
+      }
     }
-    const float inv = c_taps.total_w_inv;
-    add_tinted(flare, {acc.r * inv, acc.g * inv, acc.b * inv}, FC(0.85), FC(0.92), 1.0f, 1.0f);
+    const float inv = tb.total_w_inv;
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+      add_tinted(flare[r], {acc[r].r * inv, acc[r].g * inv, acc[r].b * inv}, FC(0.85), FC(0.92),
+                 1.0f, 1.0f);
   }
 
-  float* o = out + (((size_t)blockIdx.z * N + i) * N + j) * 3;
-  o[0] = flare.r * amount * 1.5f;
-  o[1] = flare.g * amount * 1.5f;
-  o[2] = flare.b * amount * 1.5f;
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    float* o = out + (((size_t)blockIdx.z * N + i0 + r) * N + j) * 3;
+    o[0] = flare[r].r * amount * 1.5f;
+    o[1] = flare[r].g * amount * 1.5f;
+    o[2] = flare[r].b * amount * 1.5f;
+  }
 }
 
 }  // namespace
@@ -366,21 +546,23 @@ extern "C" const char* rr_error_string(int err) {
 }
 
 // The flare maps of a (B, 3, H, W) batch: `fparams` (B, 4) holds each
-// image's flare amount, exposure, brightness and whites; `thr` is the
-// caller's (B, 3, 512, 512) scratch and `out` the (B, 512, 512, 3) maps.
-// The tap table is copied to constant memory on the stream first.
-extern "C" int rr_flare(const float* img, const float* fparams, float* thr, float* out,
-                        const FlareTaps* taps, int is_raw, int B, int H, int W, void* stream) {
+// image's flare amount, exposure, brightness and whites; `taps` is the
+// wrapper's device copy of the tap table (made once per aspect ratio);
+// `thr` (B, 3, N + 1, S) and `thr4` (B, N + 1, S) float4 are the caller's
+// scratch for the padded threshold map, `out` the (B, N, N, 3) maps.
+// `rows` and `grid_y` are the wrapper's launch plan (`flare_launch_plan`),
+// refused unless they are this build's.
+extern "C" int rr_flare(const float* img, const float* fparams, float* thr, float* thr4,
+                        float* out, const FlareTaps* taps, int is_raw, int rows, int grid_y,
+                        int B, int H, int W, void* stream) {
   if (B < 1 || B > 65535 || H < 1 || W < 1 || taps == nullptr) return (int)cudaErrorInvalidValue;
+  if (rows != ROWS || grid_y * BY * ROWS != N) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaMemcpyToSymbolAsync(c_taps, taps, sizeof(FlareTaps), 0,
-                                            cudaMemcpyHostToDevice, st);
+  threshold_kernel<<<dim3(N / BX, N / BY, B), dim3(BX, BY), 0, st>>>(
+      img, fparams, thr, reinterpret_cast<float4*>(thr4), is_raw, H, W);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 block(BX, BY);
-  const dim3 grid(N / BX, N / BY, B);
-  threshold_kernel<<<grid, block, 0, st>>>(img, fparams, thr, is_raw, H, W);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  composite_kernel<<<grid, block, 0, st>>>(thr, fparams, out);
+  composite_kernel<<<dim3(N / BX, grid_y, B), dim3(BX, BY), 0, st>>>(
+      thr, reinterpret_cast<const float4*>(thr4), fparams, taps, out);
   return (int)cudaGetLastError();
 }

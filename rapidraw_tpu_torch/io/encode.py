@@ -158,10 +158,33 @@ def _unfilter(raw: bytes, h: int, row_bytes: int, bpp: int) -> np.ndarray:
     return out[1:, bpp:].astype(np.uint8)
 
 
-def _decode_png(data: bytes) -> tuple[np.ndarray, int]:
-    """A non-interlaced 8-bit (or 16-bit colour) PNG -> ((H, W, C) uint8,
-    colour type), palette indices looked up to RGB, 16-bit samples cut to
-    their high byte, as PIL opens them."""
+# Adam7's seven passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+# the bit depths each colour type allows (PNG spec 11.2.2)
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# PIL's scale of a 1-, 2- or 4-bit grey sample to 8 bits
+_GREY_SCALE = {1: 255, 2: 85, 4: 17}
+
+
+def _samples(rows: np.ndarray, w: int, channels: int, depth: int) -> np.ndarray:
+    """Unfiltered rows (h, row bytes) -> (h, w, channels) samples: u16 from
+    big-endian pairs for 16-bit, u8 otherwise, sub-byte samples MSB first."""
+    h, n = rows.shape[0], w * channels
+    if depth == 16:
+        pairs = rows[:, :2 * n].reshape(h, n, 2).astype(np.uint16)
+        return ((pairs[..., 0] << 8) | pairs[..., 1]).reshape(h, w, channels)
+    if depth < 8:
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        rows = ((rows[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(h, -1)
+    return rows[:, :n].reshape(h, w, channels)
+
+
+def _decode_png(data: bytes) -> tuple[np.ndarray, int, int, np.ndarray | None]:
+    """A PNG -> ((H, W, C) samples as stored, colour type, bit depth,
+    palette or None), interlaced or not. Raises ValueError on data that is
+    not a valid PNG."""
     if data[:8] != b"\x89PNG\r\n\x1a\n":
         raise ValueError("not a PNG file")
     pos, idat, palette, head = 8, [], None, None
@@ -169,8 +192,12 @@ def _decode_png(data: bytes) -> tuple[np.ndarray, int]:
         (ln,) = struct.unpack_from(">I", data, pos)
         ctype, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + ln]
         if ctype == b"IHDR":
+            if len(body) != 13:
+                raise ValueError("bad PNG IHDR")
             head = struct.unpack(">IIBBBBB", body)
         elif ctype == b"PLTE":
+            if len(body) % 3:
+                raise ValueError("bad PNG palette")
             palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif ctype == b"IDAT":
             idat.append(body)
@@ -180,36 +207,76 @@ def _decode_png(data: bytes) -> tuple[np.ndarray, int]:
     if head is None:
         raise ValueError("PNG without IHDR")
     w, h, depth, ctype, _, _, interlace = head
-    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}.get(ctype)
-    if (channels is None or interlace or depth not in (8, 16)
-            or (depth == 16 and ctype not in (2, 6)) or (ctype == 3 and palette is None)):
-        raise NotImplementedError(
-            f"PNG colour type {ctype}, depth {depth}, interlace {interlace}: the port reads "
-            "8-bit and 16-bit colour non-interlaced PNGs (the LDR loader comes with slice A.10b)")
-    bpp = channels * depth // 8
-    px = _unfilter(zlib.decompress(b"".join(idat)), h, w * bpp, bpp).reshape(h, w, channels, -1)
-    px = px[..., 0]  # 16-bit samples: the high (first) byte
+    if (ctype not in _DEPTHS or depth not in _DEPTHS[ctype] or interlace not in (0, 1)
+            or w == 0 or h == 0):
+        raise ValueError(f"bad PNG header: colour type {ctype}, depth {depth}, "
+                         f"interlace {interlace}, {w}x{h}")
+    if ctype == 3 and palette is None:
+        raise ValueError("palette PNG without PLTE")
+    try:
+        raw = zlib.decompress(b"".join(idat))
+    except zlib.error as e:
+        raise ValueError(f"bad PNG image data: {e}") from e
+    channels = _CHANNELS[ctype]
+    bpp = max(1, channels * depth // 8)
+
+    def pass_samples(pw: int, ph: int, at: int) -> tuple[np.ndarray, int]:
+        row_bytes = (pw * channels * depth + 7) // 8
+        rows = _unfilter(raw[at:], ph, row_bytes, bpp)
+        return _samples(rows, pw, channels, depth), at + ph * (row_bytes + 1)
+
+    if not interlace:
+        px, _ = pass_samples(w, h, 0)
+    else:
+        px = np.zeros((h, w, channels), np.uint16 if depth == 16 else np.uint8)
+        at = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+            if pw > 0 and ph > 0:  # an empty pass has no bytes, not even filter bytes
+                px[y0::dy, x0::dx], at = pass_samples(pw, ph, at)
+    return px, ctype, depth, palette
+
+
+def _grey8(grey: np.ndarray, depth: int) -> np.ndarray:
+    """Grey samples as PIL opens them, then to 8 bits: 1/2/4-bit scaled to
+    0..255, 16-bit ("I;16") clamped to 255 by convert("L") / ("RGB")."""
+    if depth == 16:
+        return np.minimum(grey, 255).astype(np.uint8)
+    return (grey * _GREY_SCALE[depth]).astype(np.uint8) if depth < 8 else grey
+
+
+def _rgb8(data: bytes) -> tuple[np.ndarray, bool]:
+    """(samples as PIL's 8-bit modes hold them, grey?): grey (H, W) or
+    (H, W, 3) colour; 16-bit colour and grey-with-alpha keep their high
+    byte, palette indices look up PLTE (padded with black to 256)."""
+    px, ctype, depth, palette = _decode_png(data)
+    if ctype == 0:
+        return _grey8(px[..., 0], depth), True
+    if ctype == 4:
+        g = px[..., 0]
+        return (g >> 8).astype(np.uint8) if depth == 16 else g, True
     if ctype == 3:
-        return palette[px[..., 0]], 2
-    return px, ctype
+        lut = np.zeros((256, 3), np.uint8)
+        lut[:min(len(palette), 256)] = palette[:256]
+        return lut[px[..., 0]], False
+    rgb = px[..., :3]
+    return ((rgb >> 8).astype(np.uint8) if depth == 16 else rgb), False
 
 
 def decode_png_rgb(data: bytes) -> np.ndarray:
     """A PNG -> (H, W, 3) uint8, as PIL's `Image.open(...).convert("RGB")`
     gives it: grey replicated, palette looked up, alpha dropped."""
-    px, ctype = _decode_png(data)
-    if ctype in (0, 4):
-        return np.repeat(px[..., :1], 3, axis=2)
-    return np.ascontiguousarray(px[..., :3])
+    px, grey = _rgb8(data)
+    return np.repeat(px[..., None], 3, axis=2) if grey else np.ascontiguousarray(px)
 
 
 def decode_png_gray(data: bytes) -> np.ndarray:
     """A PNG -> (H, W) uint8, as PIL's `convert("L")` gives it: grey as
     stored, colour through PIL's fixed-point ITU-R 601 luma."""
-    px, ctype = _decode_png(data)
-    if ctype in (0, 4):
-        return np.ascontiguousarray(px[..., 0])
-    rgb = px[..., :3].astype(np.uint32)
+    px, grey = _rgb8(data)
+    if grey:
+        return np.ascontiguousarray(px)
+    rgb = px.astype(np.uint32)
     return ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471 + 0x8000)
             >> 16).astype(np.uint8)
 

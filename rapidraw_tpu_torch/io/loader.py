@@ -84,7 +84,7 @@ def load_image(path: str | Path, app_settings=None, fast: bool = False,
     if not is_raw_file(real):
         raise NotImplementedError(
             f"{real}: only RAW files load in rapidraw_tpu_torch so far; the LDR "
-            "loader (PIL, float images, JPEG XL, 16-bit PNG/TIFF) comes with slice A.10"
+            "loader (PIL, float images, JPEG XL, 16-bit PNG/TIFF) comes with slice A.10b"
         )
     from rapidraw_tpu_torch.io.dng import load_raw_file
     from rapidraw_tpu_torch.raw.enhance import remove_raw_artifacts_and_enhance

@@ -190,8 +190,6 @@ def _decode_data_url_gray(data_url: str) -> np.ndarray | None:
         raise NotImplementedError("a JPEG mask image needs the LDR loader (slice A.10b)")
     try:
         return decode_png_gray(raw)
-    except NotImplementedError:
-        raise
     except Exception:
         return None
 

@@ -364,27 +364,59 @@ def _check(images: torch.Tensor, fparams: torch.Tensor) -> None:
 
 
 class _Taps(ctypes.Structure):
-    """csrc/flare.cu's FlareTaps: every tap's float32 constants."""
+    """csrc/flare.cu's FlareTaps: every tap's float32 constants, each tap's
+    row padded to 16 bytes (star 8 floats, inner and glow 4), so the kernel
+    reads a tap with one or two vector loads."""
 
-    _fields_ = [("star", ctypes.c_float * (N_SPIKES * 2 * N_STAR * 7)),
-                ("inner", ctypes.c_float * (N_SPIKES * 2 * N_INNER * 3)),
-                ("glow", ctypes.c_float * (N_RINGS * N_RING_TAPS * 3)),
+    _fields_ = [("star", ctypes.c_float * (N_SPIKES * 2 * N_STAR * 8)),
+                ("inner", ctypes.c_float * (N_SPIKES * 2 * N_INNER * 4)),
+                ("glow", ctypes.c_float * (N_RINGS * N_RING_TAPS * 4)),
                 ("streak", ctypes.c_float * (N_STREAK * 4)),
-                ("aspect", ctypes.c_float), ("total_w_inv", ctypes.c_float)]
+                ("aspect", ctypes.c_float), ("total_w_inv", ctypes.c_float),
+                ("pad", ctypes.c_float * 2)]
 
 
-@functools.lru_cache(maxsize=16)
 def _taps_struct(aspect: float) -> _Taps:
     taps = flare_taps(aspect)
     s = _Taps()
-    for name in ("star", "inner", "glow", "streak"):
-        flat = np.asarray(taps[name], np.float64).astype(np.float32).reshape(-1)
-        getattr(s, name)[:] = flat.tolist()
+    for name, width in (("star", 8), ("inner", 4), ("glow", 4), ("streak", 4)):
+        rows = np.asarray(taps[name], np.float64).astype(np.float32)
+        padded = np.zeros((rows.shape[0], width), np.float32)
+        padded[:, :rows.shape[1]] = rows
+        getattr(s, name)[:] = padded.reshape(-1).tolist()
     s.aspect = aspect
     # the streak's `acc / total_w`: PyTorch's CUDA division by a Python
     # scalar multiplies by the reciprocal taken in double, rounded to f32
     s.total_w_inv = 1.0 / taps["total_w"]
     return s
+
+
+@functools.lru_cache(maxsize=16)
+def flare_table(aspect: float, device: torch.device) -> torch.Tensor:
+    """The tap table of one aspect ratio on `device`, as the kernel reads
+    it: uploaded once per aspect and device, then read by every call on any
+    stream."""
+    return torch.frombuffer(bytearray(_taps_struct(aspect)), dtype=torch.uint8).to(device)
+
+
+# The composite kernel's launch (csrc/flare.cu): 32 x 4 threads, each making
+# FLARE_ROWS map pixels of one column; the threshold map is padded by one
+# texel on the right and below (repeating the last ones) to a row stride of
+# FLARE_STRIDE texels.
+FLARE_BLOCK = (32, 4)
+FLARE_ROWS = 2
+FLARE_STRIDE = FLARE_MAP_SIZE + 4
+
+
+def flare_launch_plan(b: int) -> dict:
+    """The flare kernels' launch on a batch of b images: the composite grid
+    (FLARE_BLOCK threads, FLARE_ROWS map rows each: a block makes 32 x 8 map
+    pixels) and the padded threshold map's shape, planar and as float4
+    texels. rr_flare refuses rows or a grid that are not its build's."""
+    n, (bx, by) = FLARE_MAP_SIZE, FLARE_BLOCK
+    return {"block": FLARE_BLOCK, "rows": FLARE_ROWS,
+            "grid": (n // bx, n // (by * FLARE_ROWS), b),
+            "thr": (b, 3, n + 1, FLARE_STRIDE), "thr4": (b, n + 1, FLARE_STRIDE, 4)}
 
 
 def _flare_cuda(images: torch.Tensor, fparams: torch.Tensor, is_raw: bool) -> torch.Tensor:
@@ -395,15 +427,18 @@ def _flare_cuda(images: torch.Tensor, fparams: torch.Tensor, is_raw: bool) -> to
             raise ValueError(f"flare kernel: {name} must be on {images.device}")
     b, _, h, w = images.shape
     n = FLARE_MAP_SIZE
-    thr = torch.empty((b, 3, n, n), dtype=torch.float32, device=images.device)
+    plan = flare_launch_plan(b)
+    thr = torch.empty(plan["thr"], dtype=torch.float32, device=images.device)
+    thr4 = torch.empty(plan["thr4"], dtype=torch.float32, device=images.device)
     out = torch.empty((b, n, n, 3), dtype=torch.float32, device=images.device)
+    table = flare_table(w / h, images.device)
     fn = _KERNEL.lib().rr_flare
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(_Taps)] + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p])
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(images.device).cuda_stream
-    status = fn(images.data_ptr(), fparams.data_ptr(), thr.data_ptr(), out.data_ptr(),
-                ctypes.byref(_taps_struct(w / h)), int(is_raw), b, h, w, stream)
+    status = fn(images.data_ptr(), fparams.data_ptr(), thr.data_ptr(), thr4.data_ptr(),
+                out.data_ptr(), table.data_ptr(), int(is_raw), plan["rows"], plan["grid"][1],
+                b, h, w, stream)
     _KERNEL.check(status, "rr_flare")
     flare_maps.launches += 1
     return out

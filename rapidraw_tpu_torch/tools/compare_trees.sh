@@ -11,7 +11,8 @@
 # the profile's chrome traces) to OUT_DIR/<tag>/. The summary printed at the
 # end holds each run's exit code, the card's name, power limit and SM clock
 # before and after, and the lines to compare: the grade builds' registers and
-# spills, the B = 2 config-3 and config-5 grade times, the config-4 and
+# spills, the B = 2 config-3 and config-5 grade times, the NR and flare
+# builds and phase 13's flare and per-pixel NR lines, the config-4 and
 # config-2 (RAW: phase 11's DNG and RAF, phase 12's vendor files) lines and
 # the kernels JSON of the change's first run; a parent older than a phase
 # prints none of its lines. Exits non-zero
@@ -50,6 +51,9 @@ echo "[card] after: $(card)"
 for tag in parent1 change2 change3 parent4; do
     grep -E "^\[build\] grade|^\[grade\] B=2 (config3|config5_linear) dither=off" \
         "$out/$tag.log" | sed "s/^/$tag /"
+done
+for tag in parent1 change2 change3 parent4; do
+    grep -E "^\[build\] (nr|flare) |^\[flare\]|^\[nr-dyn\]" "$out/$tag.log" | sed "s/^/$tag /"
 done
 for tag in parent1 change2 change3 parent4 profile; do
     grep -E "^\[(masks|grade-masks|blur-bands|e2e4|raw|e2e2|vendor)\]|^\[profile\] config[42]|^\[time\] config [42]" \

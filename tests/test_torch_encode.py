@@ -332,3 +332,199 @@ def test_mask_overlay_matches_jax():
               for u in urls]
     assert pixels[0].shape == (60, 80, 4) and pixels[0][..., 3].max() > 0
     assert np.array_equal(pixels[0], pixels[1])
+
+
+# ---- PNGs that PIL reads and PIL cannot write: built here with NumPy + zlib
+
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def _chunk(ctype: bytes, payload: bytes) -> bytes:
+    import struct
+    import zlib
+
+    body = ctype + payload
+    return (struct.pack(">I", len(payload)) + body
+            + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF))
+
+
+def _packed_rows(samples: np.ndarray, depth: int) -> np.ndarray:
+    """(h, w, c) samples -> (h, row bytes): big-endian 16-bit, or sub-byte
+    samples packed MSB first, each row padded to a whole byte."""
+    h, w, c = samples.shape
+    flat = samples.reshape(h, w * c)
+    if depth == 16:
+        return flat.astype(">u2").view(np.uint8).reshape(h, -1)
+    if depth == 8:
+        return flat.astype(np.uint8)
+    per = 8 // depth
+    flat = np.pad(flat, ((0, 0), (0, -flat.shape[1] % per))).reshape(h, -1, per)
+    shifts = np.arange(8 - depth, -1, -depth)
+    return (flat.astype(np.int64) << shifts).sum(-1).astype(np.uint8)
+
+
+def _filtered(rows: np.ndarray, bpp: int, rng) -> bytes:
+    """Each row under a random filter of the five (None, Sub, Up, Average,
+    Paeth), so the decoder's every unfilter path runs."""
+    out, prior = [], np.zeros(rows.shape[1], np.int64)
+    for row in rows.astype(np.int64):
+        a = np.concatenate([np.zeros(bpp, np.int64), row])[:row.size]
+        c = np.concatenate([np.zeros(bpp, np.int64), prior])[:row.size]
+        pa, pb, pc = np.abs(prior - c), np.abs(a - c), np.abs(a + prior - 2 * c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, prior, c))
+        ftype = int(rng.integers(0, 5))
+        pred = (0, a, prior, (a + prior) // 2, paeth)[ftype]
+        out.append(bytes([ftype]) + ((row - pred) & 0xFF).astype(np.uint8).tobytes())
+        prior = row
+    return b"".join(out)
+
+
+def make_png(samples: np.ndarray, depth: int, ctype: int, interlace: bool, rng,
+             plte: bytes | None = None, trns: bytes | None = None) -> bytes:
+    """A PNG of (h, w, c) samples at this depth and colour type, plain or
+    Adam7 (each non-empty pass filtered and packed on its own)."""
+    import struct
+    import zlib
+
+    h, w, c = samples.shape
+    bpp = max(1, c * depth // 8)
+    passes = ([samples[y0::dy, x0::dx] for x0, y0, dx, dy in _ADAM7] if interlace
+              else [samples])
+    body = b"".join(_filtered(_packed_rows(p, depth), bpp, rng) for p in passes if p.size)
+    out = b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype,
+                                                             0, 0, int(interlace)))
+    if plte is not None:
+        out += _chunk(b"PLTE", plte)
+    if trns is not None:
+        out += _chunk(b"tRNS", trns)
+    return out + _chunk(b"IDAT", zlib.compress(body)) + _chunk(b"IEND", b"")
+
+
+def random_png(ctype: int, depth: int, interlace: bool, h: int, w: int, seed: int) -> bytes:
+    """Seeded samples of every value the depth holds; a palette of random
+    colours that leaves some indices past its end (PIL reads them black);
+    16-bit grey with 0, 255, 256 and 65535 among its samples."""
+    rng = np.random.default_rng(seed)
+    if ctype == 3:
+        plte = rng.integers(0, 256, (int(rng.integers(1, 2 ** depth + 1)), 3), np.uint8)
+        return make_png(rng.integers(0, 2 ** depth, (h, w, 1)), depth, 3, interlace, rng,
+                        plte=plte.tobytes())
+    samples = rng.integers(0, 1 << depth, (h, w, _CHANNELS[ctype]))
+    if depth == 16:
+        samples[..., 0].flat[:4] = [0, 255, 256, 65535][:samples[..., 0].size]
+    return make_png(samples, depth, ctype, interlace, rng)
+
+
+def assert_reads_as_pil(data: bytes) -> None:
+    im = Image.open(io.BytesIO(data))
+    for mode, fn in (("RGB", encode.decode_png_rgb), ("L", encode.decode_png_gray)):
+        want = np.asarray(im.convert(mode))
+        got = fn(data)
+        assert got.dtype == np.uint8 and got.shape == want.shape, (mode, im.mode)
+        assert np.array_equal(got, want), (mode, im.mode)
+
+
+PNG_KINDS = [(0, 1), (0, 2), (0, 4), (0, 8), (0, 16), (2, 8), (2, 16), (3, 1), (3, 2), (3, 4),
+             (3, 8), (4, 8), (4, 16), (6, 8), (6, 16)]
+# ragged sizes below one 8 x 8 Adam7 block (some passes empty), then larger
+PNG_SIZES = [(1, 1), (1, 7), (3, 5), (5, 2), (7, 9), (13, 17), (40, 33)]
+
+
+@pytest.mark.parametrize("interlace", [False, True], ids=["plain", "adam7"])
+@pytest.mark.parametrize("ctype,depth", PNG_KINDS, ids=[f"ct{c}-{d}bit" for c, d in PNG_KINDS])
+def test_png_decoder_reads_every_png_as_pil(ctype, depth, interlace):
+    """decode_png_rgb / decode_png_gray against PIL's convert('RGB') /
+    convert('L') on every colour type at every bit depth it allows, plain
+    and Adam7, at ragged sizes: 1/2/4-bit grey scaled to 0..255, 16-bit grey
+    (PIL's "I;16") clamped to 255, 16-bit grey with alpha and 16-bit colour
+    at their high byte, palette indices of every depth through PLTE."""
+    for i, (h, w) in enumerate(PNG_SIZES):
+        assert_reads_as_pil(random_png(ctype, depth, interlace, h, w, seed=100 * depth + i))
+
+
+TRNS_CASES = [(0, 1, b"\x00\x01"), (0, 8, b"\x00\x07"), (0, 16, b"\x01\x00"),
+              (2, 8, b"\x00\x01\x00\x02\x00\x03"), (2, 16, b"\x00\x01\x00\x02\x00\x03"),
+              (3, 4, b"\x00\x80"), (3, 8, bytes(range(0, 200, 7)))]
+
+
+@pytest.mark.parametrize("ctype,depth,trns", TRNS_CASES,
+                         ids=[f"ct{c}-{d}bit" for c, d, _ in TRNS_CASES])
+def test_png_transparency_reads_as_pil(ctype, depth, trns):
+    """A tRNS chunk changes none of convert('RGB') / convert('L')'s values."""
+    rng = np.random.default_rng(depth)
+    if ctype == 3:
+        plte = rng.integers(0, 256, (2 ** depth, 3), np.uint8).tobytes()
+        data = make_png(rng.integers(0, 2 ** depth, (9, 11, 1)), depth, 3, True, rng,
+                        plte=plte, trns=trns)
+    else:
+        data = make_png(rng.integers(0, 1 << depth, (9, 11, _CHANNELS[ctype])), depth, ctype,
+                        False, rng, trns=trns)
+    assert_reads_as_pil(data)
+
+
+def test_invalid_png_raises_value_error():
+    """Data that is no valid PNG raises ValueError (PIL refuses each too)."""
+    import struct
+    import zlib
+
+    good = random_png(2, 8, False, 4, 4, seed=1)
+    ihdr_at, idat_at = good.index(b"IHDR") - 4, good.index(b"IDAT") - 4
+    iend = good[-12:]
+
+    def with_ihdr(depth, ctype, interlace=0):
+        ihdr = struct.pack(">IIBBBBB", 4, 4, depth, ctype, 0, 0, interlace)
+        return good[:ihdr_at] + _chunk(b"IHDR", ihdr) + good[ihdr_at + 25:]
+
+    def with_rows(raw: bytes):
+        return good[:idat_at] + _chunk(b"IDAT", zlib.compress(raw)) + iend
+
+    cases = {
+        "signature": b"\x89PNX" + good[4:],
+        "no IHDR": good[:8] + good[ihdr_at + 25:],
+        "RGB at 4 bits": with_ihdr(4, 2),
+        "colour type 5": with_ihdr(8, 5),
+        "interlace 2": with_ihdr(8, 2, 2),
+        "palette without PLTE": with_ihdr(8, 3),
+        "bad zlib": good[:idat_at] + _chunk(b"IDAT", b"\x78\x9c\xff\xff") + iend,
+        "truncated rows": with_rows(b"\0" * 9),
+        "filter type 7": with_rows(b"\x07" + b"\0" * 51),
+    }
+    for name, data in cases.items():
+        with pytest.raises(ValueError):
+            encode.decode_png_rgb(data)
+        with pytest.raises(Exception):  # PIL refuses it too
+            Image.open(io.BytesIO(data)).convert("RGB")
+
+
+def test_interlaced_hald_png_lut_parses_as_jax(tmp_path):
+    """An Adam7 HALD LUT (PIL writes none) through io/lut.parse_lut_file,
+    against the JAX package's parse through PIL."""
+    from rapidraw_tpu.io import lut as jlut
+    from rapidraw_tpu_torch.io import lut
+
+    side = 64  # a 16^3 cube
+    hald = (np.arange(side * side * 3) * 37 % 256).reshape(side, side, 3)
+    (tmp_path / "look.png").write_bytes(make_png(hald, 8, 2, True, np.random.default_rng(5)))
+    got = lut.parse_lut_file(tmp_path / "look.png")
+    assert got.shape == (16, 16, 16, 3)
+    assert np.array_equal(got, jlut.parse_lut_file(tmp_path / "look.png"))
+
+
+@pytest.mark.parametrize("kind", ["grey16", "grey16-alpha", "adam7", "grey2-adam7"])
+def test_png_mask_data_urls_decode_as_jax(kind):
+    """AI-mask data URLs that the port once refused: 16-bit grey (with and
+    without alpha) and interlaced PNGs, against JAX's PIL decode."""
+    import base64
+
+    from rapidraw_tpu.masks import parametric as jparam
+    from rapidraw_tpu_torch.masks import parametric
+
+    ctype, depth, interlace = {"grey16": (0, 16, False), "grey16-alpha": (4, 16, False),
+                               "adam7": (2, 8, True), "grey2-adam7": (0, 2, True)}[kind]
+    url = "data:image/png;base64," + base64.b64encode(
+        random_png(ctype, depth, interlace, 21, 30, seed=7)).decode()
+    got = parametric._decode_data_url_gray(url)
+    assert got is not None and got.shape == (21, 30)
+    assert np.array_equal(got, jparam._decode_data_url_gray(url))

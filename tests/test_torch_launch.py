@@ -18,6 +18,15 @@ tiling, and the exact libm rewrite.
   step by step, H into each level's ring, min(., 65504), V from the ring,
   crop; two-pass: H tiles, then the V ring with the next step's rows
   loaded before each step computes) equals `gaussian_blur_multi_plain`.
+- The per-pixel NR kernel's fixed 16-pixel halo holds every offset the
+  plain version takes at the largest amounts and resolution factor, and
+  its folded tap tables (two rings, five distances) mirror `_OFFSETS`.
+- The flare kernel's launch plan (`flare.flare_launch_plan`) covers the
+  map once and mirrors the kernel's constants; its tap table is made once
+  per aspect and device and holds `flare_taps` rounded to float32; a
+  mirror of its padded map and index rule (one low clamp, the padding for
+  the high one, floor by a round-down add) samples as `_bilinear_uv` does,
+  bit for bit.
 - `mod360` in csrc/grade.cu replaces `fmodf(x, 360)` by exact subtractions
   on [0, 1080) and keeps `fmodf` elsewhere: a numpy mirror of it equals
   the plain chain's `torch.fmod` bit for bit on every float32 of that
@@ -35,7 +44,8 @@ import torch
 import chip_smoke
 from rapidraw_tpu_torch import parse_adjustments
 from rapidraw_tpu_torch.native import CSRC
-from rapidraw_tpu_torch.ops import blur, nr
+from rapidraw_tpu_torch.ops import blur, flare, nr
+from rapidraw_tpu_torch.ops.common import mix
 from rapidraw_tpu_torch.params import scales
 from rapidraw_tpu_torch.pipeline import fused
 
@@ -150,6 +160,181 @@ def test_nr_tap_offsets_stay_inside_the_staged_tile(amounts):
         np.testing.assert_array_equal(pos % sw, tx + halo + dx)
         assert pos.min() >= 0 and pos.max() < sh * sw
 
+
+def test_nr_dynamic_offsets_stay_inside_the_fixed_halo(monkeypatch):
+    """The per-pixel kernel stages a fixed 16-pixel halo: every tap offset
+    nr_dynamic_plain rounds (recorded from its own torch.round calls) at the
+    largest amounts and the largest resolution factor fits it, and the
+    largest reaches it (chroma: 2 * 3.5 * 2 + 1.75 rounds to 16)."""
+    offsets = []
+    real_round = torch.round
+
+    def recording_round(x, *a, **k):
+        out = real_round(x, *a, **k)
+        offsets.append(out.abs().max().item())
+        return out
+
+    g = torch.Generator().manual_seed(4)
+    img = torch.rand((3, 96, 128), generator=g)
+    center = torch.rand((3, 96, 128), generator=g)
+    monkeypatch.setattr(torch, "round", recording_round)
+    scale = 4.0  # resolution factor clip(sqrt(4), 0.5, 2) = 2
+    nr.nr_dynamic_plain(center, nr.nr_planes(img, False), torch.ones(96, 128),
+                        torch.ones(96, 128), scale)
+    assert len(offsets) == 4 * nr.NTAPS  # x and y of every luma and chroma tap
+    assert max(offsets) == nr.NR_HALO
+    src = (CSRC / "nr.cu").read_text()
+    assert f"constexpr int MAX_HALO = {nr.NR_HALO};" in src
+    assert f"constexpr int DYN_ROWS = {nr.NR_ROWS};" in src
+
+
+def test_nr_dynamic_tap_folding_mirrors_the_offsets():
+    """The kernel folds the 24 taps to two rings (the outer one has a
+    coordinate at +-2) and five squared distances (1, 2, 4, 5, 8): a mirror
+    of its constexpr tables, in tap order, equals nr._OFFSETS."""
+    def tap_dx(t):
+        return (t + (t >= 12)) % 5 - 2
+
+    def tap_dy(t):
+        return (t + (t >= 12)) // 5 - 2
+
+    dist2 = [1, 2, 4, 5, 8]
+    for t, (dx, dy) in enumerate(nr._OFFSETS):
+        assert (tap_dx(t), tap_dy(t)) == (dx, dy)
+        assert (2 in (abs(dx), abs(dy))) == (max(abs(dx), abs(dy)) == 2)
+        assert dx * dx + dy * dy in dist2
+    assert sorted({dx * dx + dy * dy for dx, dy in nr._OFFSETS}) == dist2
+    src = (CSRC / "nr.cu").read_text()
+    for piece in ("return (t + (t >= 12)) % 5 - 2;", "return (t + (t >= 12)) / 5 - 2;",
+                  "return d < 2 ? d + 1 : d < 4 ? d + 2 : 8;"):
+        assert piece in src, piece
+    assert [d + 1 if d < 2 else d + 2 if d < 4 else 8 for d in range(5)] == dist2
+
+
+# ---- flare ---------------------------------------------------------------
+
+@pytest.mark.parametrize("b", [1, 2, 3])
+def test_flare_plan_covers_the_map_once(b):
+    """The composite grid's threads, each FLARE_ROWS rows of one column,
+    make every map pixel of every image once."""
+    plan = flare.flare_launch_plan(b)
+    n = flare.FLARE_MAP_SIZE
+    (bx, by), rows = plan["block"], plan["rows"]
+    gx, gy, gz = plan["grid"]
+    seen = np.zeros((gz, n, n), np.int64)
+    for z in range(gz):
+        for bi in range(gy):
+            for ty in range(by):
+                for r in range(rows):
+                    i = (bi * by + ty) * rows + r
+                    seen[z, i, :gx * bx] += 1
+    np.testing.assert_array_equal(seen, 1)
+    assert plan["thr"] == (b, 3, n + 1, flare.FLARE_STRIDE)
+    assert plan["thr4"] == (b, n + 1, flare.FLARE_STRIDE, 4)
+    assert flare.FLARE_STRIDE % 4 == 0 and flare.FLARE_STRIDE >= n + 1  # 16-byte rows
+
+
+def test_flare_plan_mirrors_the_kernel_source():
+    src = (CSRC / "flare.cu").read_text()
+    (bx, by), rows = flare.FLARE_BLOCK, flare.FLARE_ROWS
+    assert f"constexpr int BX = {bx}, BY = {by};" in src
+    assert f"constexpr int ROWS = {rows};" in src
+    assert f"constexpr int N = {flare.FLARE_MAP_SIZE};" in src
+    assert f"constexpr int S = N + {flare.FLARE_STRIDE - flare.FLARE_MAP_SIZE};" in src
+
+
+def test_flare_table_is_made_once_per_aspect_and_device():
+    """One device copy per (aspect, device), reused by every call; its
+    bytes are the kernel's FlareTaps: each tap's row of flare_taps rounded
+    once to float32, padded with zeros to 16 bytes."""
+    import ctypes
+
+    cpu = torch.device("cpu")
+    a = flare.flare_table(1.5, cpu)
+    assert flare.flare_table(1.5, cpu) is a
+    assert flare.flare_table(4 / 3, cpu) is not a
+    assert a.numel() == ctypes.sizeof(flare._Taps) and a.numel() % 16 == 0
+    vals = a.numpy().view(np.float32)
+    taps = flare.flare_taps(1.5)
+    at = 0
+    for name, width in (("star", 8), ("inner", 4), ("glow", 4), ("streak", 4)):
+        rows = np.asarray(taps[name], np.float64).astype(np.float32)
+        got = vals[at:at + rows.shape[0] * width].reshape(-1, width)
+        np.testing.assert_array_equal(got[:, :rows.shape[1]], rows)
+        np.testing.assert_array_equal(got[:, rows.shape[1]:], 0.0)
+        assert getattr(flare._Taps, name).offset == 4 * at
+        at += rows.shape[0] * width
+    assert vals[at] == np.float32(1.5)
+    assert vals[at + 1] == np.float32(1.0 / taps["total_w"])
+
+
+def padded_map(thr: torch.Tensor) -> torch.Tensor:
+    """The threshold map as the kernel stores it: (3, N + 1, FLARE_STRIDE),
+    column N and row N repeating the last ones."""
+    n = thr.shape[-1]
+    out = thr.new_zeros((3, n + 1, flare.FLARE_STRIDE))
+    out[:, :n, :n] = thr
+    out[:, :n, n] = thr[:, :, n - 1]
+    out[:, n, :n + 1] = out[:, n - 1, :n + 1]
+    return out
+
+
+def kernel_floor(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """csrc/flare.cu `axis`'s floor: t = x + 1.5 * 2^23 rounded down, then
+    (t - 1.5 * 2^23, bits(t) - bits(1.5 * 2^23)); the round-down add is
+    taken exactly (x is float32, the sum's ulp is 1)."""
+    magic = np.float32(12582912.0)
+    t = (np.floor(x.astype(np.float64)) + 12582912.0).astype(np.float32)
+    return t - magic, t.view(np.int32) - magic.view(np.int32)
+
+
+def test_kernel_floor_is_floor_on_the_axis_range():
+    """On [-0.5, N - 0.5], where `axis` takes it, the bit trick gives
+    floor(x) as a float and as an integer: at every integer and its
+    neighbouring floats, and at random points."""
+    n = flare.FLARE_MAP_SIZE
+    k = np.arange(-1, n + 1, dtype=np.float32)
+    x = np.concatenate([k, np.nextafter(k, np.float32(-1e9)), np.nextafter(k, np.float32(1e9)),
+                        np.random.default_rng(0).uniform(-0.5, n - 0.5, 100000).astype(np.float32),
+                        np.float32([-0.5, -2.0 ** -25, 0.0, 2.0 ** -25, n - 0.5])])
+    x = x[(x >= -0.5) & (x <= n - 0.5)]
+    x0, xi = kernel_floor(x)
+    np.testing.assert_array_equal(x0, np.floor(x))
+    np.testing.assert_array_equal(xi, np.floor(x).astype(np.int64))
+
+
+def test_padded_map_taps_sample_as_the_plain_version():
+    """A mirror of the kernel's tap (saturated uv, one fma to texel space,
+    the floor above, the low index clamp only, the four texels of the padded
+    map) equals `_bilinear_uv` bit for bit, uv inside and outside [0, 1]:
+    at x0 = -1 both read texels 0 and 1 (JAX's rule), at the right and
+    bottom edges the padding repeats the last texel."""
+    g = torch.Generator().manual_seed(0)
+    n = flare.FLARE_MAP_SIZE
+    thr = torch.rand((3, n, n), generator=g)
+    u = torch.rand(200000, generator=g) * 1.4 - 0.2
+    v = torch.rand(200000, generator=g) * 1.4 - 0.2
+    edge = torch.tensor([0.0, 1.0, 0.5 / n, 0.99 / n, 511.6 / n, 1.0 - 1e-7])
+    u = torch.cat([u, edge, edge.flip(0)])
+    v = torch.cat([v, edge.flip(0), edge])
+    want = flare._bilinear_uv(thr, u, v)
+
+    def axis(c: torch.Tensor):
+        x = (torch.clamp(c, 0.0, 1.0) * n - 0.5).numpy()  # the fma: c * 512 is exact
+        x0, xi = kernel_floor(x)
+        return torch.from_numpy(np.maximum(xi, 0)), torch.from_numpy(x - x0)
+
+    (xi, fx), (yi, fy) = axis(u), axis(v)
+    flat = padded_map(thr).reshape(3, -1)
+
+    def tex(dy, dx):
+        return flat[:, (yi + dy) * flare.FLARE_STRIDE + xi + dx]
+
+    got = mix(mix(tex(0, 0), tex(0, 1), fx), mix(tex(1, 0), tex(1, 1), fx), fy)
+    assert torch.equal(got, want)
+
+
+# ---- grade: mod360 --------------------------------------------------------
 
 def mod360(x: np.ndarray) -> np.ndarray:
     """numpy mirror of `mod360` in csrc/grade.cu, in float32: x on [0, 360),
