@@ -25,12 +25,15 @@ develop_batch -> device_u8 -> host numpy, counters reset and read around
 it, plus its small-input check; (9) the profiling probes P1 and P2
 (rapidraw_tpu_torch/tools): their entry points' main() at 24 MP, counters
 reset just before and read just after; each times its variants (P1 at 1,
-8, 16, 32 and 64 rows per thread, P2 at 32x8 and 32x32 tiles; each the
-median of 5 chained measurements), holds them against its plain version
-and raises on a mismatch; (10) local masks, the config-4 path: the
-config-4 masks rasterized once on the host (timed), the grade kernel with
-masks against its plain version at 24 MP, B = 2, and at 1000 x 1503 on
-config 4 and on a five-mask document that turns on every mask stage
+8, 16, 32 and 64 rows per thread, P2 at its plan's band of one wave of
+resident blocks and at half of it; each the median of 5 chained
+measurements), holds them against its plain version and raises on a
+mismatch (P2 on any differing value); then P2 bit for bit against its
+plain version at 1000 x 1503, at (3, 5, 9), at a short band and at a
+16-byte-misaligned 1000 x 1504 (its edge path); (10) local masks, the
+config-4 path: the config-4 masks rasterized once on the host (timed), the
+grade kernel with masks against its plain version at 24 MP, B = 2, and at
+1000 x 1503 on config 4 and on a five-mask document that turns on every mask stage
 (dither off and on), config 4's band-restricted blur levels against the
 plain blur of the whole frame, and JSON -> rasterize_masks ->
 blur_band_rows -> stack_params -> develop_batch -> device_u8 -> host numpy
@@ -2748,6 +2751,21 @@ def main() -> int:
             min(rows, key=lambda r: r["ms"]),
             variants=[{k: r[k] for k in ("variant", "ms", "ms_range", "max_abs_err")}
                       for r in rows])
+    # P2 at the shapes its plan treats apart: a width that is no multiple of
+    # 4 (the edge path), an image smaller than the halo, a band shorter than
+    # the ring, and an aligned width read through a misaligned pointer
+    for shape, band, offset in (((3, RAGGED[0], RAGGED[1]), None, 0), ((3, 5, 9), None, 0),
+                                ((3, RAGGED[0], RAGGED[1]), 7, 0),
+                                ((3, RAGGED[0], RAGGED[1] + 1), None, 1)):
+        n = shape[0] * shape[1] * shape[2]
+        x = torch.rand(n + offset, generator=gen, device=dev)[offset:].view(shape)
+        d = (prof_nr_slices.slices(x, band) - prof_nr_slices.slices_plain(x)).abs()
+        ndiff = int((d > 0).sum())
+        log(f"[P2] {shape} band {band or 'planned'}{' misaligned' if offset else ''}: max|d| "
+            f"{float(d.max()):.1e}, {ndiff} values differ from the plain version [{card}]")
+        if ndiff:
+            raise AssertionError(f"P2 kernel differs from its plain version at {shape}, band "
+                                 f"{band}, offset {offset}: {ndiff} values")
     phase_done("probes")
 
     # ---- 10. local masks, the config-4 path ------------------------------------

@@ -12,7 +12,9 @@
 # end holds each run's exit code, the card's name, power limit and SM clock
 # before and after, and the lines to compare: the grade builds' registers and
 # spills, the B = 2 config-3 and config-5 grade times, the NR and flare
-# builds and phase 13's flare and per-pixel NR lines, the config-4 and
+# builds and phase 13's flare and per-pixel NR lines, probe P2's build and
+# its phase-9 lines (`[P2]`: each band's time, the plain version, the conv2d
+# yardstick and the bit-for-bit checks), the config-4 and
 # config-2 (RAW: phase 11's DNG and RAF, phase 12's vendor files) lines and
 # the kernels JSON of the change's first run; a parent older than a phase
 # prints none of its lines. Exits non-zero
@@ -54,6 +56,9 @@ for tag in parent1 change2 change3 parent4; do
 done
 for tag in parent1 change2 change3 parent4; do
     grep -E "^\[build\] (nr|flare) |^\[flare\]|^\[nr-dyn\]" "$out/$tag.log" | sed "s/^/$tag /"
+done
+for tag in parent1 change2 change3 parent4; do
+    grep -E "^\[build\] nr_slices|^\[P2\]" "$out/$tag.log" | sed "s/^/$tag /"
 done
 for tag in parent1 change2 change3 parent4 profile; do
     grep -E "^\[(masks|grade-masks|blur-bands|e2e4|raw|e2e2|vendor)\]|^\[profile\] config[42]|^\[time\] config [42]" \

@@ -1,14 +1,21 @@
-"""Design trials of the per-pixel NR kernel and the flare kernel on one card.
+"""Design trials of the per-pixel NR kernel, the flare kernel and probe P2's
+tap-sum kernel on one card.
 
-Each variant is the shipped source (csrc/nr.cu, csrc/flare.cu) with one
-design step undone or changed by a text substitution, built under its own
-name with the same flags; with --parent, a checkout's own sources and flare
-wrapper run beside them. Every variant is held against the plain version on
-chip_smoke.py's phase-13 inputs (24 MP and 1000 x 1503, B = 2: the masked and
-the mixed NR documents, FLARE_LUT_DOC's bright-spot batch), then each is
-timed at 24 MP in five rounds of shuffled order (median of 5 CUDA-event
-timings a round; the median of the rounds is printed with its range).
-ptxas's registers and spill bytes of every build come first.
+Each variant is the shipped source (csrc/nr.cu, csrc/flare.cu,
+csrc/nr_slices.cu) with one design step undone or changed by a text
+substitution, built under its own name with the same flags; P2's band
+variants run the shipped build at half and twice the plan's band, its
+block variants narrower blocks (the wrapper's plan following), and its two
+floors (no taps; no staging after the first ring) are wrong by design and
+bound what the design can reach. With
+--parent, a checkout's own sources and flare and P2 wrappers run beside
+them. Every variant is held against the plain version on chip_smoke.py's
+phase-13 inputs (24 MP and 1000 x 1503, B = 2: the masked and the mixed NR
+documents, FLARE_LUT_DOC's bright-spot batch) and P2's on random (3, H, W)
+images at both sizes, then each is timed at 24 MP in five rounds of
+shuffled order (median of 5 CUDA-event timings a round; the median of the
+rounds is printed with its range). ptxas's registers and spill bytes of
+every build come first.
 
     python -m rapidraw_tpu_torch.tools.kernel_variants [--parent DIR] [--quick]
 
@@ -30,6 +37,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from rapidraw_tpu_torch.tools import OFFSETS
+
 ROOT = Path(__file__).resolve().parents[2]
 
 NR_BOUND = "__launch_bounds__(BX* BY, 3)\n    nr_dynamic_kernel"
@@ -42,6 +51,47 @@ NR_STEPS = {
     "two_blocks": [(NR_BOUND, NR_BOUND.replace(", 3)", ")"))],
     "four_blocks": [(NR_BOUND, NR_BOUND.replace(", 3)", ", 4)"))],
 }
+# P2: the taps' reads of the window, and the window's five 16-byte loads
+P2_TAPS = "  (tap<J, K>(acc, win, w), ...);"
+P2_WINDOW = """    const float4 q = *reinterpret_cast<const float4*>(row + 4 * m);
+    win[4 * m] = q.x;
+    win[4 * m + 1] = q.y;
+    win[4 * m + 2] = q.z;
+    win[4 * m + 3] = q.w;"""
+P2_STEPS = {
+    "shipped": [],
+    # the x offsets read at run time (from constant memory): no tap can be
+    # mapped onto the window, so each is a 4-byte shared load at a run-time
+    # offset
+    "runtime_taps": [
+        ("constexpr int HALO = 7;",
+         "__constant__ int RUNTIME_DX[NTAPS] = {%s};\nconstexpr int HALO = 7;"
+         % ", ".join(str(dx) for dx, _ in OFFSETS)),
+        ("  constexpr int dx = TAP_DX[K], dy = TAP_DY[K];",
+         "  const int dx = RUNTIME_DX[K];\n  constexpr int dy = TAP_DY[K];"),
+        (P2_TAPS, "  (tap<J, K>(acc, row, w), ...);")],
+    # 4-byte copies of every staged value, and the window as 20 4-byte loads
+    "scalar_loads": [
+        ("  b.inner = b.vec && b.x0 >= PAD && b.x0 + ROWF - PAD <= W;", "  b.inner = false;"),
+        ("    if (b.vec && g >= 0 && g + 4 <= b.W) {", "    if (false) {"),
+        (P2_WINDOW, "    for (int e = 0; e < 4; ++e)\n"
+                    "      win[4 * m + e] = ((const volatile float*)row)[4 * m + e];")],
+    # no reuse of the window in registers: one 4-byte shared load per tap
+    "one_load_per_tap": [(P2_TAPS, "  (tap<J, K>(acc, (const volatile float*)row, w), ...);")],
+    # wait for every staged row before each step: no load in flight over the arithmetic
+    "no_overlap": [("  cp_wait<IN_FLIGHT>();", "  cp_wait<0>();")],
+    # narrower blocks (2 KB or 4 KB of a row per block and step), more of them an SM
+    "block_256": [("constexpr int THREADS = 512;", "constexpr int THREADS = 256;"),
+                  ("__launch_bounds__(THREADS, 1)", "__launch_bounds__(THREADS, 2)")],
+    "block_128": [("constexpr int THREADS = 512;", "constexpr int THREADS = 128;"),
+                  ("__launch_bounds__(THREADS, 1)", "__launch_bounds__(THREADS, 4)")],
+    # floors, wrong by design: the staging and stores without the taps, and
+    # the taps without staging rows after the first ring
+    "floor_no_taps": [("  scatter<J>(acc, row, w, std::make_integer_sequence<int, NTAPS>{});", "")],
+    "floor_no_staging": [("  if (u + RING - 1 < b.steps) stage_row(", "  if (false) stage_row(")],
+}
+P2_BANDS = {"band_half": 0.5, "band_double": 2.0}  # the shipped build, other bands
+P2_THREADS = {"block_256": 256, "block_128": 128}  # the wrapper's plan follows the block
 FLARE_STEPS = {
     "shipped": [],
     "floorf": [("  const float t = __fadd_rd(x, 12582912.0f);\n"
@@ -90,6 +140,7 @@ def main() -> int:
     from rapidraw_tpu_torch.params import scales
     from rapidraw_tpu_torch.pipeline import fused
     from rapidraw_tpu_torch.tools import card_line, require_cuda
+    from rapidraw_tpu_torch.tools import prof_nr_slices as tps
 
     dev = require_cuda()
     h, w = (1024, 1536) if args.quick else (4096, 6144)
@@ -103,9 +154,12 @@ def main() -> int:
     shapes = {f"flare_{k}": (1 if k == "one_row" else flare.FLARE_ROWS,
                              8 if k == "block_32x8" else flare.FLARE_BLOCK[1])
               for k in FLARE_STEPS}
+    texts.update({f"p2_{k}": v for k, v in variant_sources(
+        (csrc / "nr_slices.cu").read_text(), P2_STEPS).items()})
     if args.parent:
         texts["nr_parent"] = (args.parent / "rapidraw_tpu_torch/csrc/nr.cu").read_text()
         texts["flare_parent"] = (args.parent / "rapidraw_tpu_torch/csrc/flare.cu").read_text()
+        texts["p2_parent"] = (args.parent / "rapidraw_tpu_torch/csrc/nr_slices.cu").read_text()
     vdir = native.BUILD_DIR / "variants"
     vdir.mkdir(parents=True, exist_ok=True)
     for name, text in texts.items():
@@ -119,14 +173,17 @@ def main() -> int:
         native.CSRC = shipped_csrc
     for name, lib in libs.items():
         for entry, (regs, spill) in cs.ptxas_entries(lib.build_log).items():
-            if "dynamic" in entry or "composite" in entry:
+            if "dynamic" in entry or "composite" in entry or "slices" in entry:
                 print(f"[regs] {name} {entry}: {regs} registers, {spill} bytes spilled")
 
-    parent_flare = None
+    parent_flare = parent_p2 = None
     if args.parent:
         parent_flare = load_module("parent_flare",
                                    args.parent / "rapidraw_tpu_torch/ops/flare.py")
         parent_flare._KERNEL = libs["flare_parent"]
+        parent_p2 = load_module("parent_p2",
+                                args.parent / "rapidraw_tpu_torch/tools/prof_nr_slices.py")
+        parent_p2._KERNEL = libs["p2_parent"]
 
     def nr_variant(name):
         def run(*a):
@@ -142,6 +199,22 @@ def main() -> int:
         def run(*a):
             flare._KERNEL, flare.FLARE_ROWS, flare.FLARE_BLOCK = libs[name], rows, (32, by)
             return flare.flare_maps(*a)
+        return run
+
+    p2_names = [n for n in libs if n.startswith("p2_")] + [f"p2_{k}" for k in P2_BANDS]
+    shipped_threads = tps.THREADS
+
+    def p2_variant(name):
+        if name == "p2_parent":  # the parent's best tile, 32 x 32
+            return lambda x: parent_p2.slices(x, 32)
+        lib = libs.get(name, libs["p2_shipped"])
+        scale = P2_BANDS.get(name.removeprefix("p2_"), 1.0)
+        threads = P2_THREADS.get(name.removeprefix("p2_"), shipped_threads)
+
+        def run(x):
+            tps._KERNEL, tps.THREADS, tps.BLOCK_COLS = lib, threads, threads * tps.COLS
+            band = tps.slices_launch_plan(*x.shape, tps._slots(lib.lib(), x.device))["band_rows"]
+            return tps.slices(x, max(1, round(band * scale)))
         return run
 
     def stacked(docs):
@@ -173,8 +246,11 @@ def main() -> int:
         fp = fused.pack_rows(sp["glob"])[:, [fused.OFFSETS[k] for k in flare.FLARE_PARAMS]]
         a = (bright, fp.contiguous(), cfg.is_raw)
         cases.append(("flare", a, flare.flare_maps_plain(*a), "flare_", flare_variant))
+        x2 = torch.rand((3, hh, ww), generator=gen, device=dev)
+        cases.append(("p2", (x2,), tps.slices_plain(x2), "p2_", p2_variant))
         for label, a, ref, prefix, make in cases:
-            for name in (n for n in libs if n.startswith(prefix)):
+            names = p2_names if prefix == "p2_" else [n for n in libs if n.startswith(prefix)]
+            for name in names:
                 fn = make(name)
                 got = fn(*a)
                 torch.cuda.synchronize()

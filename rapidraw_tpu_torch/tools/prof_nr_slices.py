@@ -5,16 +5,20 @@ Counterpart of `tools/prof_nr_slices.py`, whose TPU kernel (`pallas_nr`)
 accumulated 24 shifted slices of 64-row tiles with 16-row halo strips:
 out = 0.5 x + sum_k f32(0.01 (k + 1)) x[c, clamp(y + dy_k), clamp(x + dx_k)]
 over the 5x5 grid without its centre at stride 7 (offsets 0, +-4, +-7).
-`slices` on a CUDA tensor is one launch of csrc/nr_slices.cu, whose blocks
-stage a 32-column tile of `tile_rows` rows plus the halo in shared memory,
-as csrc/nr.cu does; on a CPU tensor it is `slices_plain`, the probe's own
-reference (`xla_nr`).
+`slices` on a CUDA tensor is one launch of csrc/nr_slices.cu: each thread
+owns 4 adjacent columns of a band of rows, reads each input row of the band
+(plus the halo) once from a ring of rows staged in shared memory, and
+scatters it into a ring of 15 output rows of accumulators in tap order; the
+band height is the work split (`slices_launch_plan`). On a CPU tensor it is
+`slices_plain`, the probe's own reference (`xla_nr`).
 
     python -m rapidraw_tpu_torch.tools.prof_nr_slices
 
-times the kernel at nr.cu's 32x8 tile and at a 32x32 tile, the plain
-version and one depthwise conv2d (the library yardstick) at 24 MP on the
-card (CUDA events, chained calls; the median of REPEATS measurements). It raises without a CUDA device.
+times the kernel at the plan's band (one wave of resident blocks) and at
+half of it (two waves), the plain version and one depthwise conv2d (the
+library yardstick) at 24 MP on the card (CUDA events, chained calls; the
+median of REPEATS measurements), and holds each band bit for bit against
+the plain version. It raises without a CUDA device.
 """
 
 from __future__ import annotations
@@ -28,13 +32,17 @@ import torch.nn.functional as F
 
 from rapidraw_tpu_torch.native import KernelLibrary
 from rapidraw_tpu_torch.tools import (
-    HALO, H, OFFSETS, PROBE_TOL, SLICES_OPS_PER_ELEMENT, W, bound_ms, card_line, require_cuda,
+    HALO, H, OFFSETS, SLICES_OPS_PER_ELEMENT, W, bound_ms, card_line, require_cuda,
     time_chained)
 
 ITERS = 6
-TILE_ROWS = (8, 32)  # nr.cu's 32x8 tile, and a taller one
-MAX_TILE_ROWS = 128
+WAVES = (1, 2)  # the plan's band fills the resident blocks once; half of it, twice
 NTAPS = len(OFFSETS)
+# csrc/nr_slices.cu's block: threads, and the adjacent columns each one owns
+THREADS, COLS = 512, 4
+BLOCK_COLS = THREADS * COLS
+PAD = 8  # staged columns on each side of a block: HALO in whole 16-byte vectors
+MAX_GRID = 65536  # bands per column and planes: below CUDA's grid y / z limit
 
 # --fmad=false: each product and sum rounds on its own, as in the plain version
 _KERNEL = KernelLibrary("nr_slices", extra_flags=("--fmad=false",))
@@ -69,55 +77,119 @@ def conv_yardstick(x: torch.Tensor):
     return xp, k.to(x.device).expand(c, 1, *k.shape).contiguous()
 
 
-class _Taps(ctypes.Structure):
-    _fields_ = [("dx", ctypes.c_int * NTAPS), ("dy", ctypes.c_int * NTAPS),
-                ("w", ctypes.c_float * NTAPS)]
+def _check_band_rows(band_rows) -> None:
+    if band_rows is not None and (type(band_rows) is not int or band_rows < 1):
+        raise ValueError(f"slices takes bands of at least one row (an int), got {band_rows!r}")
 
 
-def _taps() -> _Taps:
-    taps = _Taps()
-    for k, (dx, dy) in enumerate(OFFSETS):
-        taps.dx[k], taps.dy[k], taps.w[k] = dx, dy, _weight(k)
-    return taps
+def slices_launch_plan(c: int, h: int, w: int, slots: int, band_rows: int | None = None,
+                       aligned: bool = True) -> dict:
+    """The kernel's launch on a (c, h, w) tensor when `slots` blocks fit on
+    the card at once: blocks of BLOCK_COLS columns, each a band of
+    `band_rows` rows (by default the shortest band whose grid fits in one
+    wave of `slots`), its input rows the band plus HALO on each side.
+    "vector": 16-byte copies and stores (w % 4 == 0 and `aligned` pointers),
+    else the edge path of 4-byte copies of clamped columns everywhere;
+    "edge_blocks": the column blocks whose staged halo crosses the image's
+    left or right edge and takes the edge path's copies there.
+    rr_nr_slices refuses a grid past MAX_GRID bands or planes."""
+    _check_band_rows(band_rows)
+    if min(c, h, w) < 1:
+        raise ValueError(f"slices kernel takes a non-empty tensor, got {(c, h, w)}")
+    col_blocks = -(-w // BLOCK_COLS)
+    if band_rows is None:
+        band_rows = -(-h // max(1, slots // (col_blocks * c)))
+    bands = -(-h // band_rows)
+    if bands >= MAX_GRID or c >= MAX_GRID:
+        raise ValueError(f"slices kernel takes fewer than {MAX_GRID} bands per column and "
+                         f"planes, got {(c, h, w)} with {band_rows}-row bands")
+    blocks = col_blocks * bands * c
+    return {
+        "band_rows": band_rows, "steps": band_rows + 2 * HALO, "grid": (col_blocks, bands, c),
+        "waves": -(-blocks // max(slots, 1)), "vector": aligned and w % 4 == 0,
+        "edge_blocks": [i for i in range(col_blocks)
+                        if i * BLOCK_COLS - PAD < 0 or (i + 1) * BLOCK_COLS + PAD > w],
+    }
 
 
-def _slices_cuda(x: torch.Tensor, tile_rows: int) -> torch.Tensor:
+class _Weights(ctypes.Structure):
+    _fields_ = [("w", ctypes.c_float * NTAPS)]
+
+
+def _weights() -> _Weights:
+    weights = _Weights()
+    for k in range(NTAPS):
+        weights.w[k] = _weight(k)
+    return weights
+
+
+_CHECKED: set = set()  # libraries whose compiled tap table matched OFFSETS
+
+
+def check_tap_table(lib) -> None:
+    """Raise unless the library's compiled tap table (rr_nr_slices_taps) is
+    OFFSETS, in table order; checked once per library."""
+    if id(lib) in _CHECKED:
+        return
+    dx, dy = (ctypes.c_int * NTAPS)(), (ctypes.c_int * NTAPS)()
+    n = lib.rr_nr_slices_taps(dx, dy)
+    table = list(zip(dx[:n], dy[:n]))
+    if table != OFFSETS:
+        raise ValueError(f"csrc/nr_slices.cu's compiled taps {table} are not OFFSETS {OFFSETS}")
+    _CHECKED.add(id(lib))
+
+
+_SLOTS: dict = {}  # (library, device index) -> resident blocks on the card
+
+
+def _slots(lib, device: torch.device) -> int:
+    key = (id(lib), device.index)
+    if key not in _SLOTS:
+        per_sm = ctypes.c_int()
+        _KERNEL.check(lib.rr_nr_slices_blocks_per_sm(ctypes.byref(per_sm)),
+                      "rr_nr_slices_blocks_per_sm")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _SLOTS[key] = sms * per_sm.value
+    return _SLOTS[key]
+
+
+def _slices_cuda(x: torch.Tensor, band_rows: int | None) -> torch.Tensor:
     if not x.is_contiguous():
         raise ValueError("slices kernel takes a contiguous tensor")
     c, h, w = x.shape
-    if -(-h // tile_rows) >= 65536 or c >= 65536:
-        raise ValueError(f"slices kernel takes fewer than 65536 tiles per column and planes, "
-                         f"got {tuple(x.shape)} with {tile_rows}-row tiles")
+    lib = _KERNEL.lib()
+    check_tap_table(lib)
     out = torch.empty_like(x)
-    fn = _KERNEL.lib().rr_nr_slices
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.POINTER(_Taps)] + [ctypes.c_int] * 5
+    plan = slices_launch_plan(c, h, w, _slots(lib, x.device), band_rows,
+                              aligned=x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    fn = lib.rr_nr_slices
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.POINTER(_Weights)] + [ctypes.c_int] * 5
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = fn(x.data_ptr(), out.data_ptr(), ctypes.byref(_taps()), HALO, tile_rows, c, h, w,
-                stream)
+    status = fn(x.data_ptr(), out.data_ptr(), ctypes.byref(_weights()), plan["band_rows"], c, h,
+                w, int(plan["vector"]), stream)
     _KERNEL.check(status, "rr_nr_slices")
     slices.launches += 1
     return out
 
 
-def slices(x: torch.Tensor, tile_rows: int = 8) -> torch.Tensor:
+def slices(x: torch.Tensor, band_rows: int | None = None) -> torch.Tensor:
     """The 24-tap weighted sum of a float32 (C, H, W) tensor: the kernel wrapper.
 
     CPU tensor -> `slices_plain`; CUDA tensor -> one launch of
-    csrc/nr_slices.cu with 32 x `tile_rows` tiles (a multiple of 8, <= 128).
+    csrc/nr_slices.cu in bands of `band_rows` rows (by default the plan's:
+    one wave of resident blocks).
     """
     if x.dtype != torch.float32 or x.ndim != 3:
         raise ValueError(f"slices takes a float32 (C, H, W) tensor, got {x.dtype} "
                          f"{tuple(x.shape)}")
-    if tile_rows % 8 or not 8 <= tile_rows <= MAX_TILE_ROWS:
-        raise ValueError(f"slices takes tiles of 8..{MAX_TILE_ROWS} rows in steps of 8, "
-                         f"got {tile_rows}")
+    _check_band_rows(band_rows)
     if x.device.type == "cpu":
         return slices_plain(x)
     if x.device.type != "cuda":
         raise ValueError(f"slices runs on CPU or CUDA tensors, got {x.device}")
-    return _slices_cuda(x, tile_rows)
+    return _slices_cuda(x, band_rows)
 
 
 # launch count of the slices kernel: one per rr_nr_slices call
@@ -125,9 +197,10 @@ slices.launches = 0
 
 
 def main() -> list[dict]:
-    """Time both tiles, the plain version and the conv2d at 24 MP on the
-    card and hold each tile against the plain version (raises on a
-    mismatch); returns one row per tile."""
+    """Time the kernel at the plan's band and at its half, the plain version
+    and the conv2d at 24 MP on the card, and hold each band bit for bit
+    against the plain version (raises on any difference); returns one row
+    per band."""
     dev = require_cuda()
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -143,18 +216,24 @@ def main() -> list[dict]:
           f"bound {bms:.3f} ms ({bby}); one depthwise conv2d {lms:.3f} ms, max|d| "
           f"{float((conv - ref).abs().max()):.1e} [{card}]", flush=True)
     del xp, k, conv
+    slots = _slots(_KERNEL.lib(), dev)
+    full = slices_launch_plan(*img.shape, slots)["band_rows"]
     rows = []
-    for tr in TILE_ROWS:
-        ts, out = time_chained(lambda y, tr=tr: slices(y, tr), img, 2, ITERS)
+    for waves in WAVES:
+        band = -(-full // waves)
+        plan = slices_launch_plan(*img.shape, slots, band)
+        ts, out = time_chained(lambda y, band=band: slices(y, band), img, 2, ITERS)
         ms = statistics.median(ts)
-        err = float((out - ref).abs().max())
-        staged = (32 + 2 * HALO) * (tr + 2 * HALO) / (32 * tr)
-        print(f"[P2] tile 32x{tr}: {ms:.3f} ms ({min(ts):.3f}-{max(ts):.3f} over {len(ts)}), "
-              f"roofline share {bms / ms:.0%}, {staged:.2f} staged values per output, "
-              f"max|d| {err:.1e} [{card}]", flush=True)
-        if err > PROBE_TOL:
-            raise AssertionError(f"P2 tile 32x{tr}: max|d| {err} > {PROBE_TOL}")
-        rows.append(dict(variant=f"tile32x{tr}", ms=ms, ms_range=[min(ts), max(ts)],
+        d = (out - ref).abs()
+        err, ndiff = float(d.max()), int((d > 0).sum())
+        print(f"[P2] band {band} rows ({plan['waves']} wave(s) of {slots} resident blocks, "
+              f"grid {plan['grid']}, {plan['steps'] / band:.3f} input rows per output row): "
+              f"{ms:.3f} ms ({min(ts):.3f}-{max(ts):.3f} over {len(ts)}), roofline share "
+              f"{bms / ms:.0%}, max|d| {err:.1e}, {ndiff} values differ [{card}]", flush=True)
+        if ndiff:
+            raise AssertionError(f"P2 band {band}: {ndiff} values differ from the plain "
+                                 f"version, max|d| {err}")
+        rows.append(dict(variant=f"band{band}", ms=ms, ms_range=[min(ts), max(ts)],
                          plain_ms=pms, bound_ms=bms, bound_by=bby, library_ms=lms,
                          max_abs_err=err))
     return rows

@@ -14,11 +14,18 @@ by op exactly (the same products and sums in the same order), and
 contracts a product and a sum into one fused multiply-add, which moves a
 third of the values by an ulp. The CUDA kernels themselves are held
 against these plain versions on the card by chip_smoke.py.
+
+P2's kernel (csrc/nr_slices.cu) sums each output's terms in another
+arrangement than the plain version: input row by input row, each row
+scattered into a ring of output rows. The order test replays that
+arrangement in NumPy float32 from the source's compiled tap table and the
+launch plan's bands, and holds it bit for bit to `slices_plain`.
 """
 
 from __future__ import annotations
 
 import importlib.util
+import re
 from pathlib import Path
 
 import numpy as np
@@ -37,6 +44,16 @@ from rapidraw_tpu_torch.tools import prof_nr_slices as tps
 torch.set_num_threads(2)
 
 TOOLS = Path(__file__).resolve().parent.parent / "tools"
+SLICES_CU = (Path(tps.__file__).resolve().parent.parent / "csrc" / "nr_slices.cu").read_text()
+
+
+def cu_array(name: str) -> list[int]:
+    body = re.search(rf"constexpr int {name}\[NTAPS\] = \{{([^}}]*)\}};", SLICES_CU).group(1)
+    return [int(v) for v in body.split(",")]
+
+
+def cu_int(name: str) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+);", SLICES_CU).group(1))
 
 
 def load_probe(name: str):
@@ -134,9 +151,127 @@ def test_probe_wrappers_reject_bad_work_splits():
     for rows in (0, 65):
         with pytest.raises(ValueError, match="rows per thread"):
             tpc.chain(x, rows)
-    for tile_rows in (0, 12, 136):
-        with pytest.raises(ValueError, match="tiles of"):
-            tps.slices(x, tile_rows)
+    for band_rows in (0, -15, 2.5, True):
+        with pytest.raises(ValueError, match="bands of at least one row"):
+            tps.slices(x, band_rows)
+    with pytest.raises(ValueError, match="bands of at least one row"):
+        tps.slices_launch_plan(3, 16, 32, 528, band_rows=0)
+    with pytest.raises(ValueError, match="fewer than 65536 bands"):
+        tps.slices_launch_plan(3, 65536, 32, 528, band_rows=1)
+    with pytest.raises(ValueError, match="fewer than 65536 bands"):
+        tps.slices_launch_plan(65536, 16, 32, 528)
+    with pytest.raises(ValueError, match="non-empty"):
+        tps.slices_launch_plan(3, 0, 32, 528)
+
+
+def ring_order(x: np.ndarray, band_rows: int) -> np.ndarray:
+    """csrc/nr_slices.cu's accumulation in NumPy float32, every column at
+    once: per band, input rows y0 - HALO .. y0 + rows + HALO - 1 in
+    increasing order (virtual rows outside the image are its edge rows,
+    each scattered as its own row); step u starts output row y0 + u with
+    0.5 x, then adds every tap of its row, in the compiled table's order, to
+    the output row it belongs to (ring slot (u + RING - HALO - dy) % RING),
+    and output row y0 + u - 2 HALO leaves the ring."""
+    c, h, w = x.shape
+    halo, ring = cu_int("HALO"), 2 * cu_int("HALO") + 1
+    table = list(zip(cu_array("TAP_DX"), cu_array("TAP_DY")))
+    weights = [np.float32(tps._weight(k)) for k in range(len(table))]
+    cols = np.arange(w)
+    out = np.full_like(x, np.nan)
+    for y0 in range(0, h, band_rows):
+        rows = min(band_rows, h - y0)
+        acc = np.zeros((ring, c, w), np.float32)
+        for u in range(rows + 2 * halo):
+            if u < rows:
+                acc[u % ring] = x[:, y0 + u] * np.float32(0.5)
+            row = x[:, min(max(y0 - halo + u, 0), h - 1)]
+            for k, (dx, dy) in enumerate(table):
+                slot = (u + ring - halo - dy) % ring
+                acc[slot] = acc[slot] + row[:, np.clip(cols + dx, 0, w - 1)] * weights[k]
+            if u >= 2 * halo:
+                out[:, y0 + u - 2 * halo] = acc[(u + 1) % ring]
+    return out
+
+
+@pytest.mark.parametrize("h,w", [(5, 9), (37, 95), (128, 256)])
+def test_slices_ring_order_matches_plain(h, w):
+    """The kernel's order of products and sums is the plain version's, bit
+    for bit: at the plan's band on a card of 132 SMs x 1 block (1-3 rows
+    here) and at bands that wrap the ring more than once or pass the
+    image's height."""
+    x = image(h, w, seed=h + w)
+    want = tps.slices_plain(torch.from_numpy(x)).numpy()
+    planned = tps.slices_launch_plan(3, h, w, 132)["band_rows"]
+    for band in sorted({planned, 20, 50}):
+        got = ring_order(x, band)
+        assert np.array_equal(got, want), (band, float(np.nanmax(np.abs(got - want))))
+
+
+def test_slices_launch_plan():
+    """Bands cover every row once, blocks every column; the default band is
+    the shortest whose grid fits one wave of resident blocks; 16-byte copies
+    and stores only for aligned rows (W % 4 == 0 and aligned pointers), and
+    the column blocks whose halo crosses an edge named."""
+    for c, h, w in ((3, 4096, 6144), (3, 1000, 1503), (3, 5, 9), (2, 37, 95), (1, 300, 1024)):
+        for slots in (132, 528, 1):
+            plan = tps.slices_launch_plan(c, h, w, slots)
+            cb, bands, planes = plan["grid"]
+            band = plan["band_rows"]
+            assert planes == c and cb * tps.BLOCK_COLS >= w > (cb - 1) * tps.BLOCK_COLS
+            assert bands * band >= h > (bands - 1) * band
+            assert plan["steps"] == band + 2 * tps.HALO
+            if cb * c <= slots:
+                assert cb * bands * c <= slots and plan["waves"] == 1
+            else:  # not even one band per column block and plane fits
+                assert band == h
+            if band > 1:  # one row less would need more blocks than fit
+                assert cb * -(-h // (band - 1)) * c > slots
+            assert plan["vector"] == (w % 4 == 0)
+            assert not tps.slices_launch_plan(c, h, w, slots, aligned=False)["vector"]
+            assert plan["edge_blocks"] == [i for i in range(cb) if i == 0 or i == cb - 1
+                                           or (i + 1) * tps.BLOCK_COLS + tps.PAD > w]
+    plan = tps.slices_launch_plan(3, 4096, 6144, 132)
+    assert plan["band_rows"] == 293 and plan["grid"] == (3, 14, 3)
+    assert plan["vector"] and plan["edge_blocks"] == [0, 2]
+    half = tps.slices_launch_plan(3, 4096, 6144, 132, band_rows=147)
+    assert half["grid"] == (3, 28, 3) and half["waves"] == 2
+    ragged = tps.slices_launch_plan(3, 1000, 1503, 132)
+    assert ragged["vector"] is False and ragged["grid"] == (1, 44, 3)
+
+
+def test_compiled_tap_table_is_offsets():
+    """csrc/nr_slices.cu's compile-time taps are OFFSETS in table order,
+    sorted by dy (the order proof's premise); its block and halo constants
+    are the wrapper's; the weights the wrapper passes are f32(0.01 (k + 1))."""
+    assert list(zip(cu_array("TAP_DX"), cu_array("TAP_DY"))) == tps.OFFSETS
+    assert cu_array("TAP_DY") == sorted(cu_array("TAP_DY"))
+    assert cu_int("HALO") == tps.HALO
+    assert (cu_int("THREADS"), cu_int("COLS"), cu_int("PAD")) == (tps.THREADS, tps.COLS, tps.PAD)
+    assert cu_int("NTAPS") == tps.NTAPS == 24
+    weights = np.array(tps._weights().w, np.float32)
+    assert np.array_equal(weights, [np.float32(0.01 * (k + 1)) for k in range(24)])
+
+
+class _FakeLibrary:
+    """Stands in for the built library: rr_nr_slices_taps writes `table`."""
+
+    def __init__(self, table):
+        self.table = table
+
+    def rr_nr_slices_taps(self, dx, dy):
+        for k, (a, b) in enumerate(self.table):
+            dx[k], dy[k] = a, b
+        return len(self.table)
+
+
+def test_wrapper_refuses_a_compiled_table_that_is_not_offsets():
+    tps.check_tap_table(_FakeLibrary(tps.OFFSETS))
+    swapped = list(tps.OFFSETS)
+    swapped[0], swapped[1] = swapped[1], swapped[0]
+    with pytest.raises(ValueError, match="not OFFSETS"):
+        tps.check_tap_table(_FakeLibrary(swapped))
+    with pytest.raises(ValueError, match="not OFFSETS"):
+        tps.check_tap_table(_FakeLibrary(tps.OFFSETS[:-1]))
 
 
 def test_probe_op_counts():
