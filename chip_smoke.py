@@ -3,10 +3,11 @@
     python3 chip_smoke.py [--quick] [--out DIR] [--profile] [--seed N]
 
 Phases: (1) the card's name and power limit; (2) build the seven CUDA
-sources of rapidraw_tpu_torch/csrc, one nvcc each, the five host decoders
+sources of rapidraw_tpu_torch/csrc, one nvcc each, the seven host decoders
 (csrc/host/: lossless JPEG, Nikon/Pentax Huffman, Panasonic/Olympus, crx,
-Phase One) and the export's JPEG encoder (csrc/host/jpeg_enc.cc), g++
-each, all started together;
+Phase One, the LDR loader's JPEG decoder and TIFF LZW/PackBits) and the
+export's JPEG encoder (csrc/host/jpeg_enc.cc), g++ each, all started
+together;
 (3) the blur kernel against its plain PyTorch version at 24 MP, with a
 case at each main path's shapes, one in each of its two regimes (the
 launch plan fuses small radii into one pass and gives larger ones two),
@@ -91,7 +92,19 @@ per CONFIG3_DOC chunk), images/s, the stage split, the device memory peak
 and the JPEG encoder alone on one frame; every result ok, the file names
 as _output_path gives them, the JPEG markers in order with the EXIF APP1
 and no GPS tag, a TIFF read back equal to its chunk's device_u16 frame,
-and a 1024 x 1536 export on the card against the plain CPU path.
+and a 1024 x 1536 export on the card against the plain CPU path; (15) LDR
+inputs and the rest of export (`phase_ldr`, `[ldr]` and `[ldr-export]`
+lines): a baseline 4:2:0 JPEG q90 with an Orientation = 6 APP1, a 16-bit
+PNG, a 16-bit TIFF and an 8-bit LZW TIFF from --seed, written with the
+port's own writers; the JPEG's host decode timed; each file's load_image
+on the card held to device="cpu" (max |d| 0); the blur and grade kernels
+against their plain versions on the loaded JPEG (is_raw False); export
+with CONFIG3_DOC sidecars to JPEG q90 (grade and blur once per chunk),
+then with long_edge 2048, an RGBA watermark and export_masks on a fifth
+file with a config-4 document (grade once per chunk and per mask image),
+images/s, stage seconds and the device memory peak of each; the outputs
+decoded and checked; and a 1024 x 1536 JPEG export with the watermark and
+masks on the card against the plain CPU path.
 Each kernel line carries its time, its plain version's time and its bound
 (bytes over the HBM rate or operations over the float32 peak, whichever is
 larger). It prints a kernels JSON line (top level: each kernel's numbers
@@ -102,7 +115,7 @@ then as its last line {"ok": true, "device": {...}}.
 Any failed check raises, so the process exits non-zero; without a CUDA
 device it exits non-zero before printing any result.
 
---quick runs phases 3-8 and 10-14 at 1024x1536 with fewer repetitions (a
+--quick runs phases 3-8 and 10-15 at 1024x1536 with fewer repetitions (a
 first check of a new kernel). --out DIR writes the nvcc/ptxas logs there.
 --profile adds a torch.profiler pass over the config-3, config-5,
 config-4 and config-2 main paths (config 2 from a DNG and from a NEF):
@@ -2255,6 +2268,294 @@ def phase_export(args, h, w, card, dev, reset_counts, read_counts):
     return launches
 
 
+LDR_SOURCES = ("shot.jpg", "deep.png", "deep.tif", "lzw.tif")  # phase 15's files
+
+
+def lzw_literal(data: bytes) -> bytes:
+    """TIFF LZW of `data` in 9-bit literal codes: a Clear code before every
+    253 bytes keeps the decoder's table under 511 entries, so no code
+    widens; an EndOfInformation code ends it. A valid stream that any TIFF
+    LZW decoder reads, written with NumPy alone (it compresses nothing)."""
+    d = np.frombuffer(data, np.uint8)
+    per, block = 253, 253 * 32768  # 32768 groups of 254 codes: whole bytes
+    shifts = np.arange(8, -1, -1, dtype=np.uint16)
+    out = []
+    for s0 in range(0, d.size, block):
+        chunk = d[s0:s0 + block]
+        groups = -(-chunk.size // per)
+        last = s0 + block >= d.size
+        codes = np.empty(chunk.size + groups + int(last), np.uint16)
+        i = np.arange(chunk.size)
+        codes[i + i // per + 1] = chunk
+        codes[np.arange(groups) * (per + 1)] = 256
+        if last:
+            codes[-1] = 257
+            codes = np.concatenate([codes, np.zeros((-codes.size) % 8, np.uint16)])
+        out.append(np.packbits(((codes[:, None] >> shifts) & 1).astype(np.uint8)).tobytes())
+    return b"".join(out)
+
+
+def ldr_rgb16(h: int, w: int, seed: int) -> np.ndarray:
+    """(h, w, 3) u16 of a photograph's statistics (three `photo_cfa` fields
+    over the full range)."""
+    return np.stack([photo_cfa(h, w, 0, 65535, seed + k, noise=300.0) for k in range(3)], -1)
+
+
+def write_ldr_sources(root: Path, h: int, w: int, seed: int) -> dict:
+    """Phase 15's files, written with the port's own writers: a baseline
+    4:2:0 JPEG q90 (jpeg_enc.cc) with an Orientation = 6 EXIF APP1, a
+    16-bit PNG (png_bytes), a 16-bit TIFF (write_tiff16) and an 8-bit LZW
+    TIFF (`lzw_literal`, one strip)."""
+    import struct
+
+    from rapidraw_tpu_torch import native
+    from rapidraw_tpu_torch.io import encode, exif
+
+    rgb16 = ldr_rgb16(h, w, seed)
+    rgb8 = (rgb16 >> 8).astype(np.uint8)
+    root.mkdir(parents=True, exist_ok=True)
+    paths = {name: root / name for name in LDR_SOURCES}
+    paths["shot.jpg"].write_bytes(native.jpeg_encode(rgb8, 90))
+    ifd = exif.TiffDir("<")
+    ifd[274] = 6
+    exif.splice_exif_into_jpeg(paths["shot.jpg"], b"Exif\x00\x00II*\x00" + struct.pack("<I", 8)
+                               + ifd.tobytes(8))
+    paths["deep.png"].write_bytes(encode.png_bytes(rgb16))
+    encode.write_tiff16(paths["deep.tif"], rgb16)
+    strip = lzw_literal(rgb8.tobytes())
+    paths["lzw.tif"].write_bytes(tiff_bytes([[
+        (256, 4, [w]), (257, 4, [h]), (258, 3, [8, 8, 8]), (259, 3, [5]), (262, 3, [2]),
+        (273, 4, ("blob", strip)), (277, 3, [3]), (278, 4, [h]), (279, 4, [len(strip)])]]))
+    return paths
+
+
+def phase_ldr(args, h, w, reps, card, dev, reset_counts, read_counts):
+    """Phase 15, LDR inputs and the rest of export (A.10b): the four
+    LDR_SOURCES at h x w from --seed (`write_ldr_sources`); the JPEG's host
+    decode timed (io/jpeg.py, median of 3); each file's load_image on the
+    card held to load_image(device="cpu") (max |d| 0); the blur and grade
+    kernels against their plain versions on the loaded JPEG (is_raw False,
+    CONFIG3_DOC); export_images on the card with CONFIG3_DOC sidecars,
+    JPEG q90, then long_edge 2048, an RGBA watermark PNG and export_masks
+    with a fifth file holding a config-4 document, counters reset and read
+    around each run (grade and blur once per CONFIG3_DOC chunk in the
+    first); images/s, STAGE_STATS seconds and the device memory peak; the
+    outputs decoded and checked; and a 1024 x 1536 JPEG export with the
+    watermark and masks on the card against the plain CPU path. Returns
+    (the launches of the first export run, {(kernel, path): numbers})."""
+    import shutil
+    import tempfile
+
+    import torch.nn.functional as F
+
+    from rapidraw_tpu_torch import load_image, parse_adjustments, stack_params
+    from rapidraw_tpu_torch.io import encode, jpeg
+    from rapidraw_tpu_torch.ops import blur
+    from rapidraw_tpu_torch.pipeline import export as ex
+    from rapidraw_tpu_torch.pipeline import fused
+    from rapidraw_tpu_torch.tools import bound_ms
+
+    report = {}
+    frames = []
+    real_render = ex._render_chunk
+
+    def spy(imgs, params, masks, lut, cfg, *a, **k):
+        out = real_render(imgs, params, masks, lut, cfg, *a, **k)
+        frames.append((tuple(imgs.shape), out))
+        return out
+
+    def run(paths, out_dir, device=dev, **kw):
+        frames.clear()
+        ex.reset_stage_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = ex.export_images(paths, out_dir, ex.ExportSettings(**kw), device=device)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        bad = [(r.source, r.error) for r in res if not r.ok]
+        if bad:
+            raise RuntimeError(f"LDR export failed: {bad}")
+        st = dict(ex.STAGE_STATS)
+        n = len(res)
+        return res, counts, (f"{n} images in {wall:.3f} s = {n / wall:.3f} images/s; stage "
+                             f"seconds (summed over threads) decode {st['decode_s']:.3f}, "
+                             f"prepare {st['prepare_s']:.3f}, render {st['render_s']:.3f}, "
+                             f"encode {st['encode_s']:.3f}; frames {st['frames']}; device "
+                             f"memory peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ldr_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        paths = write_ldr_sources(tmp / "src", h, w, args.seed + 15)
+        log(f"[ldr] wrote {', '.join(f'{n} {p.stat().st_size / 2**20:.1f} MiB' for n, p in paths.items())} "
+            f"({h}x{w}) in {time.perf_counter() - t0:.1f} s")
+
+        data = paths["shot.jpg"].read_bytes()
+        dts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            px = jpeg.decode_jpeg(data)
+            dts.append(time.perf_counter() - t0)
+        log(f"[ldr] JPEG decode (csrc/host/jpeg_dec.cc, one host thread) {h}x{w} 4:2:0 q90: "
+            f"{statistics.median(dts) * 1e3:.1f} ms (median of 3, {min(dts) * 1e3:.1f}-"
+            f"{max(dts) * 1e3:.1f}) [{card}]")
+        if px.shape != (h, w, 3):
+            raise RuntimeError(f"decoded JPEG shape {px.shape}")
+        del px
+
+        # each file on the card against the plain CPU path
+        images = {}
+        for name, p in paths.items():
+            t0 = time.perf_counter()
+            got, is_raw = load_image(p, device=dev)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            want, _ = load_image(p, device="cpu")
+            d = float((got.cpu() - want).abs().max())
+            log(f"[ldr] {name}: load_image on the card {dt * 1e3:.1f} ms, shape "
+                f"{tuple(got.shape)}, max|d| vs device='cpu' {d:g}")
+            if is_raw or d != 0.0 or got.device.type != "cuda" or got.dtype != torch.float32:
+                raise AssertionError(f"{name}: the card's load differs from the CPU's ({d})")
+            images[name] = got
+        if tuple(images["shot.jpg"].shape) != (3, w, h):
+            raise AssertionError("the JPEG's Orientation = 6 was not applied")
+
+        # the blur and grade kernels on the LDR image against their plain versions
+        x = images["shot.jpg"][None]
+        del images
+        p, c = parse_adjustments(CONFIG3_DOC, is_raw=False)
+        sp, cfg = stack_params([p], [c], device=dev)
+        radii = tuple(fused.blur_radii(cfg, h, w).values())
+        flat = x.reshape(3, w, h)
+        got = blur.gaussian_blur_multi(flat, radii)
+        ref, ops = count_ops(lambda: blur.gaussian_blur_multi_plain(flat, radii))
+        err = max(float(((a - b).abs() / b.abs().clamp(min=1.0)).max()) for a, b in zip(got, ref))
+        ms = time_ms(lambda: blur.gaussian_blur_multi(flat, radii), reps)
+        pms = time_ms(lambda: blur.gaussian_blur_multi_plain(flat, radii), reps)
+        bms, bby = bound_ms(nbytes(flat) * (1 + len(radii)), ops)
+        convs = []
+        for r in radii:
+            k1 = torch.from_numpy(blur._gauss_weights(r)).to(dev)
+            k2 = (k1[:, None] * k1[None, :]).expand(3, 1, 2 * r + 1, 2 * r + 1).contiguous()
+            convs.append((F.pad(flat[None], (r, r, r, r), mode="replicate"), k2))
+        lms = time_ms(lambda: [F.conv2d(xp, k2, groups=3) for xp, k2 in convs], reps)
+        del convs, got, ref
+        report["blur", "ldr_export"] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                                            library_ms=lms, max_abs_err=err)
+        log(f"[ldr] blur on the JPEG's image (3, {w}, {h}) r={radii}: max|d|/max(1,|ref|) "
+            f"{err:.3e} (bound {BLUR_TOL:g}) kernel {ms:.3f} ms plain {pms:.3f} ms bound "
+            f"{bms:.3f} ms ({bby}); library: one depthwise conv2d per radius {lms:.3f} ms "
+            f"[{card}]")
+        if err > BLUR_TOL:
+            raise AssertionError(f"blur on the LDR path: max|d| {err} > {BLUR_TOL}")
+        pmat = fused.pack_rows(sp["glob"])
+        levels = fused.blur_levels(x, cfg)
+        for dither in (False, True):
+            cd = dataclasses.replace(cfg, dither_active=dither)
+            got = fused.grade(x, levels, pmat, cd)
+            ref, ops = count_ops(lambda: fused.grade_plain(x, levels, pmat, cd))
+            err = float((got - ref).abs().max())
+            tol = GRADE_DITHER_TOL if dither else GRADE_TOL
+            line = (f"[ldr] grade B=1 config3 (is_raw False) dither={'on' if dither else 'off'}: "
+                    f"max|d| {err:.3e} (bound {tol:.3e})")
+            if not dither:
+                ms = time_ms(lambda: fused.grade(x, levels, pmat, cd), reps)
+                pms = time_ms(lambda: fused.grade_plain(x, levels, pmat, cd), reps)
+                bms, bby = bound_ms(nbytes(x, pmat, *levels.values()) + nbytes(x), ops)
+                report["grade", "ldr_export"] = dict(ms=ms, plain_ms=pms, bound_ms=bms,
+                                                     bound_by=bby, library_ms=None,
+                                                     max_abs_err=err)
+                line += f" kernel {ms:.3f} ms plain {pms:.3f} ms bound {bms:.3f} ms ({bby}) [{card}]"
+            log(line)
+            if not bool(torch.isfinite(got).all()) or err > tol:
+                raise AssertionError(f"grade on the LDR path: max|d| {err} > {tol}")
+            del got, ref
+        del levels, x, flat
+
+        # export: CONFIG3_DOC sidecars, JPEG q90
+        srcs = [str(q) for q in paths.values()]
+        for q in srcs:
+            Path(q + ".rrdata").write_text(json.dumps({"adjustments": CONFIG3_DOC}))
+        ex._render_chunk = spy
+        try:
+            res, launches, line = run(srcs, tmp / "jpeg")
+            log(f"[ldr-export] JPEG q90: {line} [{card}]")
+            want = {"grade": len(frames), "blur": len(frames)}
+            others = {k: v for k, v in launches.items() if k not in want and v}
+            log(f"[ldr-export] chunks {[s for s, _ in frames]}, launches {launches}")
+            if {k: launches[k] for k in want} != want or others:
+                raise RuntimeError(f"LDR export launches {launches}, expected {want} and no other")
+            for r in res:
+                out = jpeg.decode_jpeg(Path(r.output).read_bytes())
+                if out.shape not in ((h, w, 3), (w, h, 3)):
+                    raise RuntimeError(f"{r.output}: decoded shape {out.shape}")
+
+            # long_edge 2048, an RGBA watermark and the per-mask exports
+            logo = np.zeros((h // 16, w // 8, 4), np.uint8)
+            logo[..., 0], logo[..., 1] = 240, 200
+            logo[..., 3] = np.linspace(0, 255, logo.shape[1], dtype=np.uint8)
+            (tmp / "logo.png").write_bytes(encode.png_bytes(logo))
+            masked = tmp / "src" / "masks.png"
+            shutil.copy(paths["deep.png"], masked)
+            Path(str(masked) + ".rrdata").write_text(
+                json.dumps({"adjustments": config4_doc(h, w)}))
+            wm = ex.WatermarkSettings(path=str(tmp / "logo.png"), anchor="bottomRight",
+                                      scale=20.0, opacity=80.0)
+            res2, counts2, line = run(srcs + [str(masked)], tmp / "wm", long_edge=2048,
+                                      watermark=wm, export_masks=True)
+            log(f"[ldr-export] JPEG q90, long_edge 2048, watermark, export_masks: {line}; "
+                f"launches {counts2} (chunks {len(frames)}, plus one develop per mask "
+                f"image) [{card}]")
+            if counts2["grade"] != len(frames) + 3:
+                raise RuntimeError(f"watermark/masks run: launches {counts2}")
+            edge = 2048 if max(h, w) > 2048 else max(h, w)  # dont_enlarge
+            stem = Path(res2[-1].output).stem
+            for i in range(3):
+                img = jpeg.decode_jpeg((tmp / "wm" / f"{stem}_mask_{i}_image.jpg").read_bytes())
+                alpha = encode.decode_png_gray((tmp / "wm" / f"{stem}_mask_{i}_alpha.png")
+                                               .read_bytes())
+                if img.shape[:2] != alpha.shape or max(alpha.shape) != edge:
+                    raise RuntimeError(f"mask {i}: image {img.shape}, alpha {alpha.shape}")
+            for r in res2:
+                out = jpeg.decode_jpeg(Path(r.output).read_bytes())
+                if max(out.shape[:2]) != edge:
+                    raise RuntimeError(f"{r.output}: decoded shape {out.shape}")
+            log(f"[ldr-export] outputs: {len(res2)} JPEGs at long edge {edge} and "
+                f"{stem}_mask_0..2_image.jpg / _alpha.png, decoded and checked")
+        finally:
+            ex._render_chunk = real_render
+
+        # a small JPEG with the watermark and masks: the card against the CPU
+        ch, cw = CPU_CHECK
+        small = write_ldr_sources(tmp / "small", ch, cw, args.seed + 16)["shot.jpg"]
+        Path(str(small) + ".rrdata").write_text(json.dumps({"adjustments": config4_doc(ch, cw)}))
+        got = {}
+        ex._render_chunk = spy
+        try:
+            for name, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
+                frames.clear()
+                res = ex.export_images([str(small)], tmp / f"small_{name}", ex.ExportSettings(
+                    watermark=wm, export_masks=True), device=device)
+                if not res[0].ok:
+                    raise RuntimeError(f"{name} LDR export: {res[0].error}")
+                out = Path(res[0].output)
+                got[name] = (frames[0][1][0], [encode.decode_png_gray(
+                    (out.parent / f"{out.stem}_mask_{i}_alpha.png").read_bytes())
+                    for i in range(3)])
+        finally:
+            ex._render_chunk = real_render
+        d = np.abs(got["cuda"][0].astype(np.int16) - got["cpu"][0].astype(np.int16))
+        same_alpha = all(np.array_equal(a, b) for a, b in zip(got["cuda"][1], got["cpu"][1]))
+        log(f"[ldr-export] {ch}x{cw} JPEG + watermark + masks, card vs CPU: u8 frames max|d| "
+            f"{int(d.max())}, values off {(d > 0).mean():.2e}; alpha PNGs "
+            f"{'equal' if same_alpha else 'differ'}")
+        if d.max() > 1 or (d > 0).mean() > 1e-3 or not same_alpha:
+            raise RuntimeError("the card's LDR export differs from the CPU's")
+    return launches, report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true", help="1024x1536, fewer repetitions")
@@ -2316,7 +2617,8 @@ def main() -> int:
         return time.perf_counter() - t0
 
     # the host decoders and the export's JPEG encoder
-    hosts = ("ljpeg", "vendor_huff", "pana_oly", "crx", "phase_one", "jpeg_enc")
+    hosts = ("ljpeg", "vendor_huff", "pana_oly", "crx", "phase_one", "jpeg_enc", "jpeg_dec",
+             "tiff_codec")
     with ThreadPoolExecutor(len(libs) + len(hosts)) as pool:
         host = {name: pool.submit(build_host, name) for name in hosts}
         list(pool.map(lambda kl: kl.lib(), libs.values()))
@@ -2984,6 +3286,11 @@ def main() -> int:
     launches14 = phase_export(args, h, w, card, dev, reset_counts, read_counts)
     phase_done("batch export")
 
+    # ---- 15. LDR inputs and export with a watermark and per-mask files ---------
+    launches15, ldr_report = phase_ldr(args, h, w, reps, card, dev, reset_counts, read_counts)
+    report.update(ldr_report)
+    phase_done("LDR inputs and export")
+
     sources = {  # name -> (source, the TPU kernel it replaces, the path that runs it)
         "blur": ("rapidraw_tpu_torch/csrc/blur.cu", "rapidraw_tpu/ops/blur.py:242", "config5"),
         "grade": ("rapidraw_tpu_torch/csrc/grade.cu", "rapidraw_tpu/pipeline/fused.py:298",
@@ -3009,7 +3316,7 @@ def main() -> int:
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     counts = {"config3": launches3, "config5": launches5, "probes": launches_probes,
               "config4": launches4, **launches2, **launches12, **launches13,
-              "export": launches14}
+              "export": launches14, "ldr_export": launches15}
     library = {"nr_dynamic": "nr"}  # the kernels that share a source with another
     # a kernel that shares its source: its own entry's registers and spills
     entry = {"nr": "nr_kernel", "nr_dynamic": "nr_dynamic_kernel"}

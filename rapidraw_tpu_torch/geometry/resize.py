@@ -13,7 +13,10 @@ products run in plain PyTorch on the image's device, in float64.
 `resize(..., LANCZOS)`: PIL's coefficients (precompute_coeffs: support
 3 * max(scale, 1), centre (i + 0.5) * scale, weights normalized, in float64)
 and its two passes, horizontal then vertical, each summed tap by tap in
-float64 and stored as float32.
+float64 and stored as float32. `lanczos_resize_u8` is PIL's 8-bit
+LANCZOS on modes "L" and "RGBA" (the watermark and the mask alpha PNGs of
+the export): the same coefficients as integers at 22 fraction bits, the
+intermediate clipped to 8 bits, RGBA resampled premultiplied.
 """
 
 from __future__ import annotations
@@ -139,3 +142,65 @@ def lanczos_resize(image: torch.Tensor, width: int, height: int) -> torch.Tensor
     if height != h:
         out = _resample_last(out.transpose(1, 2), height).transpose(1, 2)
     return out.contiguous()
+
+
+_PRECISION_BITS = 32 - 8 - 2  # PIL's fixed point for 8-bit resampling
+
+
+@functools.lru_cache(maxsize=16)
+def _coeffs_8bpc(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
+    """PIL's normalize_coeffs_8bpc of `lanczos_coeffs`: (tap index (out,
+    ksize) clamped into the input, int64 weights at 22 fraction bits,
+    rounded half away from zero)."""
+    first, kk = lanczos_coeffs(in_size, out_size)
+    scaled = kk * (1 << _PRECISION_BITS)
+    k = np.trunc(np.where(kk < 0, scaled - 0.5, scaled + 0.5)).astype(np.int64)
+    idx = np.minimum(first[:, None] + np.arange(kk.shape[1]), in_size - 1)
+    return idx, k
+
+
+def _resample_u8_last(x: np.ndarray, out_size: int) -> np.ndarray:
+    """One 8-bit PIL pass (ImagingResampleHorizontal_8bpc) along the last
+    axis of (..., N) uint8: integer taps summed from a half, shifted down
+    by 22 bits and clipped to [0, 255]."""
+    idx, k = _coeffs_8bpc(x.shape[-1], out_size)
+    acc = np.full(x.shape[:-1] + (out_size,), 1 << (_PRECISION_BITS - 1), np.int64)
+    for t in range(k.shape[1]):
+        acc += x[..., idx[:, t]].astype(np.int64) * k[:, t]
+    return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+
+
+def _resize_planes_u8(planes: np.ndarray, width: int, height: int) -> np.ndarray:
+    """(C, H, W) uint8 -> (C, height, width): the horizontal pass, then the
+    vertical one on the clipped 8-bit intermediate; a pass whose size does
+    not change is skipped, as PIL skips it."""
+    out = planes
+    if width != out.shape[2]:
+        out = _resample_u8_last(out, width)
+    if height != out.shape[1]:
+        out = _resample_u8_last(out.transpose(0, 2, 1), height).transpose(0, 2, 1)
+    return np.ascontiguousarray(out)
+
+
+def _muldiv255(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    t = a.astype(np.uint32) * b + 128
+    return (((t >> 8) + t) >> 8).astype(np.uint8)
+
+
+def lanczos_resize_u8(image: np.ndarray, width: int, height: int) -> np.ndarray:
+    """PIL's `Image.resize((width, height), Image.LANCZOS)` of an 8-bit
+    image: (H, W) mode "L" or (H, W, 4) mode "RGBA". RGBA resamples as
+    premultiplied "RGBa" (PIL's rgbA2rgba, a * c / 255 rounded with its
+    MULDIV255) and converts back with rgba2rgbA (255 * c // a clipped,
+    colour kept where a is 0 or 255). The same size returns a copy."""
+    if image.shape[:2] == (height, width):
+        return image.copy()
+    if image.ndim == 2:
+        return _resize_planes_u8(image[None], width, height)[0]
+    a = image[..., 3]
+    premul = np.concatenate([_muldiv255(image[..., :3], a[..., None]), a[..., None]], axis=-1)
+    out = _resize_planes_u8(premul.transpose(2, 0, 1), width, height).transpose(1, 2, 0)
+    rgb, alpha = out[..., :3].astype(np.int32), out[..., 3:4].astype(np.int32)
+    straight = np.minimum(255 * rgb // np.maximum(alpha, 1), 255)
+    rgb = np.where((alpha == 0) | (alpha == 255), rgb, straight)
+    return np.concatenate([rgb, alpha], axis=-1).astype(np.uint8)

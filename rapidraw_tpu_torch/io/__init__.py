@@ -1,2 +1,3 @@
-"""File input of the port: RAW containers (DNG, RAF) decoded on the host,
-developed on the device; sidecars; the loader."""
+"""File input of the port: RAW containers decoded on the host and
+developed on the device, LDR images (JPEG, PNG, TIFF, float formats, JXL)
+through the port's own decoders; sidecars, EXIF, LUTs; the loader."""

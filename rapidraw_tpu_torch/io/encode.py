@@ -102,13 +102,15 @@ def _png_chunk(ctype: bytes, payload: bytes) -> bytes:
 
 
 def png_bytes(hwc: np.ndarray) -> bytes:
-    """(H, W, 3) RGB or (H, W, 4) RGBA, u8 or u16 -> a PNG of that depth
-    (non-interlaced, every row with the Sub filter, zlib as PNG_LEVEL and
-    PNG_STRATEGY say)."""
+    """(H, W) grey, (H, W, 3) RGB or (H, W, 4) RGBA, u8 or u16 -> a PNG of
+    that depth (non-interlaced, every row with the Sub filter, zlib as
+    PNG_LEVEL and PNG_STRATEGY say)."""
+    if hwc.ndim == 2:
+        hwc = hwc[..., None]
     h, w, c = hwc.shape
-    if c not in (3, 4) or hwc.dtype not in (np.uint8, np.uint16):
-        raise ValueError(f"png_bytes expects (H, W, 3 or 4) u8 or u16, got {hwc.dtype} "
-                         f"{hwc.shape}")
+    if c not in (1, 3, 4) or hwc.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f"png_bytes expects (H, W) or (H, W, 3 or 4) u8 or u16, got "
+                         f"{hwc.dtype} {hwc.shape}")
     depth = 8 * hwc.dtype.itemsize
     rows = np.ascontiguousarray(hwc, dtype=">u2" if depth == 16 else np.uint8)
     rows = rows.view(np.uint8).reshape(h, w * c * depth // 8)
@@ -117,7 +119,7 @@ def png_bytes(hwc: np.ndarray) -> bytes:
     filtered[:, 0] = 1  # Sub: each byte minus the byte one pixel to its left
     filtered[:, 1:bpp + 1] = rows[:, :bpp]
     np.subtract(rows[:, bpp:], rows[:, :-bpp], out=filtered[:, bpp + 1:])
-    ihdr = struct.pack(">IIBBBBB", w, h, depth, 2 if c == 3 else 6, 0, 0, 0)
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, {1: 0, 3: 2, 4: 6}[c], 0, 0, 0)
     z = zlib.compressobj(PNG_LEVEL, zlib.DEFLATED, 15, 9, PNG_STRATEGY)
     idat = z.compress(filtered) + z.flush()
     return (b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", ihdr) + _png_chunk(b"IDAT", idat)
@@ -274,11 +276,80 @@ def decode_png_gray(data: bytes) -> np.ndarray:
     """A PNG -> (H, W) uint8, as PIL's `convert("L")` gives it: grey as
     stored, colour through PIL's fixed-point ITU-R 601 luma."""
     px, grey = _rgb8(data)
-    if grey:
-        return np.ascontiguousarray(px)
-    rgb = px.astype(np.uint32)
-    return ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471 + 0x8000)
+    return np.ascontiguousarray(px) if grey else rgb_to_l(px)
+
+
+def rgb_to_l(rgb: np.ndarray) -> np.ndarray:
+    """PIL's convert("L") of (H, W, 3) u8: ITU-R 601 luma in 16-bit fixed
+    point."""
+    px = rgb.astype(np.uint32)
+    return ((px[..., 0] * 19595 + px[..., 1] * 38470 + px[..., 2] * 7471 + 0x8000)
             >> 16).astype(np.uint8)
+
+
+def decode_png_u16(data: bytes) -> np.ndarray | None:
+    """(H, W, 3) u16 of a 16-bit PNG as the JAX package's `_load_deep_u16`
+    reads it through cv2's IMREAD_UNCHANGED: grey stacked to three
+    channels, colour (and grey with alpha, which cv2 gives as BGRA) to RGB,
+    alpha dropped. None where that returns None: byte 24 (the IHDR bit
+    depth) is not 16, or the file does not decode."""
+    if len(data) < 26 or data[24] != 16:
+        return None
+    try:
+        px, ctype, depth, _ = _decode_png(data)
+    except ValueError:
+        return None
+    if depth != 16:
+        return None
+    if ctype in (0, 4):
+        return np.repeat(px[..., :1], 3, axis=2)
+    return np.ascontiguousarray(px[..., :3])
+
+
+def _png_trns(data: bytes) -> bytes | None:
+    """The tRNS chunk's payload, if the PNG has one before its IDAT."""
+    pos = 8
+    while pos + 8 <= len(data):
+        (ln,) = struct.unpack_from(">I", data, pos)
+        ctype = data[pos + 4:pos + 8]
+        if ctype == b"tRNS":
+            return bytes(data[pos + 8:pos + 8 + ln])
+        if ctype in (b"IDAT", b"IEND"):
+            return None
+        pos += 12 + ln
+    return None
+
+
+def decode_png_rgba(data: bytes) -> np.ndarray:
+    """A PNG -> (H, W, 4) uint8, as PIL's `convert("RGBA")` gives it: grey
+    and colour opaque except where an 8-bit tRNS colour key matches (alpha
+    0), grey with alpha replicated, palette entries with their tRNS alpha
+    (255 past its end), 16-bit samples at their high byte."""
+    px, ctype, depth, palette = _decode_png(data)
+    h, w = px.shape[:2]
+    alpha = np.full((h, w), 255, np.uint8)
+    trns = _png_trns(data)
+    if ctype == 3:
+        lut = np.zeros((256, 4), np.uint8)
+        lut[:, 3] = 255
+        lut[:min(len(palette), 256), :3] = palette[:256]
+        if trns:
+            a = np.frombuffer(trns[:256], np.uint8)
+            lut[:len(a), 3] = a
+        return lut[px[..., 0]]
+    if ctype in (4, 6):
+        hi = (px >> 8).astype(np.uint8) if depth == 16 else px
+        rgb = np.repeat(hi[..., :1], 3, axis=2) if ctype == 4 else hi[..., :3]
+        return np.concatenate([rgb, hi[..., -1:]], axis=-1)
+    if ctype == 0:
+        if trns and len(trns) >= 2 and depth == 8:
+            alpha[px[..., 0] == struct.unpack(">H", trns[:2])[0]] = 0
+        rgb = np.repeat(_grey8(px[..., :1], depth), 3, axis=2)
+    else:
+        rgb = (px >> 8).astype(np.uint8) if depth == 16 else px
+        if trns and len(trns) >= 6 and depth == 8:
+            alpha[(px == np.array(struct.unpack(">HHH", trns[:6]))).all(axis=-1)] = 0
+    return np.concatenate([rgb, alpha[..., None]], axis=-1)
 
 
 def _write_deep(arr16: np.ndarray, path: Path, fmt: str) -> None:

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import json
 import mmap
+import re
 import struct
 from fractions import Fraction
 from pathlib import Path
@@ -547,6 +548,61 @@ def _open_exif(buf) -> tuple[Exif | None, bytes | None]:
     else:
         return None, None
     return (Exif.from_payload(block) if block else Exif()), block
+
+
+_XMP_ORIENTATION = re.compile(rb'tiff:Orientation(="|>)([0-9])')
+_XMP_JPEG = b"http://ns.adobe.com/xap/1.0/\x00"
+
+
+def _xmp(buf) -> bytes | None:
+    """The XMP packet PIL keeps in `info`: a JPEG's APP1 XMP segment, a
+    PNG's "XML:com.adobe.xmp" iTXt chunk, a TIFF's tag 700."""
+    head = bytes(buf[:8])
+    if head[:3] == b"\xff\xd8\xff":
+        pos = 2
+        while pos + 4 <= len(buf) and buf[pos] == 0xFF:
+            marker = buf[pos + 1]
+            if marker in (0xDA, 0xD9):
+                break
+            (ln,) = struct.unpack_from(">H", buf, pos + 2)
+            seg = bytes(buf[pos + 4:pos + 2 + ln])
+            if marker == 0xE1 and seg.startswith(_XMP_JPEG):
+                return seg[len(_XMP_JPEG):]
+            pos += 2 + ln
+    elif head == b"\x89PNG\r\n\x1a\n":
+        pos = 8
+        while pos + 8 <= len(buf):
+            (ln,) = struct.unpack_from(">I", buf, pos)
+            if bytes(buf[pos + 4:pos + 8]) == b"iTXt":
+                body = bytes(buf[pos + 8:pos + 8 + ln])
+                key, _, rest = body.partition(b"\x00")
+                if key == b"XML:com.adobe.xmp" and len(rest) >= 2 and rest[0] == 0:
+                    # flag, method, language\0, translated keyword\0, text
+                    return rest[2:].split(b"\x00", 2)[-1]
+            pos += 12 + ln
+    elif head[:4] in _TIFF_PREFIXES:
+        found = tiff_first_ifd(buf)
+        value = found[1].get(700) if found else None
+        return value if isinstance(value, bytes) else None
+    return None
+
+
+def image_orientation(buf) -> int:
+    """PIL's `Image.open(f).getexif().get(0x0112, 1) or 1` for a JPEG, PNG
+    or TIFF file's bytes: IFD0's Orientation, else the XMP packet's
+    tiff:Orientation (as PIL's getexif falls back to it), else 1; 1 where
+    PIL would not open the file or its EXIF does not parse."""
+    try:
+        exif, _ = _open_exif(buf)
+        if exif is None:
+            return 1
+        if 0x0112 not in exif:
+            xmp = _xmp(buf)
+            match = _XMP_ORIENTATION.search(xmp) if xmp else None
+            return int(match[2]) if match else 1
+        return int(exif.get(0x0112, 1) or 1)
+    except Exception:  # noqa: BLE001 — an unreadable EXIF reads as orientation 1
+        return 1
 
 
 def _read_file(path, fn):

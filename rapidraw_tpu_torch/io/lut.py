@@ -4,9 +4,9 @@ A copy of `rapidraw_tpu/io/lut.py` (lut_processing.rs:22-187, identity and
 export helpers :285-328), with its two documented .3dl divergences.
 Returned arrays are (L, L, L, 3) float32 indexed [r, g, b], the layout
 `ops/lut3d.py` and the grade kernel sample (.cube's fastest axis, red, is
-the texture x axis). A HALD image is read by the port's PNG decoder
-(io/encode.decode_png_rgb); JPEG and TIFF HALD images wait for the LDR
-loader (slice A.10b) and raise NotImplementedError.
+the texture x axis). A HALD image (PNG, JPEG or TIFF) is read by the
+port's decoders as PIL's convert("RGB") reads it, at 8 bits
+(io/loader.decode_rgb8).
 """
 
 from __future__ import annotations
@@ -121,14 +121,10 @@ def parse_lut_file(path: str | Path) -> np.ndarray:
         return parse_cube(path.read_text(errors="replace"))
     if ext == "3dl":
         return parse_3dl(path.read_text(errors="replace"))
-    if ext == "png":
-        from rapidraw_tpu_torch.io.encode import decode_png_rgb
+    if ext in ("png", "jpg", "jpeg", "tiff"):
+        from rapidraw_tpu_torch.io.loader import decode_rgb8
 
-        return parse_hald(decode_png_rgb(path.read_bytes()))
-    if ext in ("jpg", "jpeg", "tiff"):
-        raise NotImplementedError(
-            f"{path}: a {ext} HALD image needs the LDR loader (slice A.10b); "
-            "rapidraw_tpu_torch reads PNG HALD images")
+        return parse_hald(decode_rgb8(path.read_bytes(), ext))
     raise LutError(f"Unsupported LUT file format: {ext}")
 
 

@@ -176,20 +176,17 @@ def generate_luminance_range(params, width, height, scale, crop_offset, warped_u
 
 
 def _decode_data_url_gray(data_url: str) -> np.ndarray | None:
-    """A PNG data URL -> (H, W) u8 (io/encode.decode_png_gray, PIL's
-    convert("L")); None for bad data. Other image formats need the LDR
-    loader (slice A.10b) and raise."""
+    """A PNG or JPEG data URL -> (H, W) u8, as PIL's convert("L") gives it
+    (io/encode.decode_png_gray, io/jpeg.decode_jpeg_gray); None for data
+    the port cannot decode, where the JAX package's PIL fails or returns
+    None."""
     from rapidraw_tpu_torch.io.encode import decode_png_gray
+    from rapidraw_tpu_torch.io.jpeg import decode_jpeg_gray
 
     b64 = data_url.split(",", 1)[1] if "," in data_url else data_url
     try:
         raw = base64.b64decode(b64)
-    except Exception:
-        return None
-    if raw[:8] != b"\x89PNG\r\n\x1a\n" and raw[:2] == b"\xff\xd8":
-        raise NotImplementedError("a JPEG mask image needs the LDR loader (slice A.10b)")
-    try:
-        return decode_png_gray(raw)
+        return decode_jpeg_gray(raw) if raw[:3] == b"\xff\xd8\xff" else decode_png_gray(raw)
     except Exception:
         return None
 

@@ -14,8 +14,10 @@ the next chunk renders.
 
 The device quantizers (`device_u8`, `device_u16`) round as the host encode
 does: clip(y, 0, 1) * max + 0.5, then truncate. One device only (the JAX
-package's mesh branch waits for slice A.14). Sources are RAW files (the
-LDR loader, watermarks and per-mask exports wait for slice A.10b).
+package's mesh branch waits for slice A.14). Sources are RAW and LDR files
+(io/loader.py); a watermark composites on the host after the resize
+(pipeline/watermark.py), and `export_masks` writes each visible mask's
+image and alpha PNG (`_export_masks_for_image`).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 from rapidraw_tpu_torch.params.parse import DevelopConfig
 from rapidraw_tpu_torch.pipeline.bands import blur_band_rows
 from rapidraw_tpu_torch.pipeline.batch import develop_batch, stack_params
+from rapidraw_tpu_torch.pipeline.watermark import WatermarkSettings, apply_watermark
 
 
 def device_u8(x: torch.Tensor) -> torch.Tensor:
@@ -62,18 +65,6 @@ def develop_single(image: torch.Tensor, params: dict, cfg: DevelopConfig,
 
 # the JAX package's name for the single-image render entry
 develop_single_compiled = develop_single
-
-
-@dataclasses.dataclass
-class WatermarkSettings:
-    """A watermark preset (a copy of the JAX package's dataclass, so that
-    presets parse; compositing one waits for slice A.10b)."""
-
-    path: str
-    anchor: str = "bottomRight"
-    scale: float = 15.0  # percent of the short edge
-    spacing: float = 2.0  # percent of the short edge
-    opacity: float = 100.0
 
 
 @dataclasses.dataclass
@@ -443,7 +434,7 @@ def export_images(
     prepare stage plus the accumulating chunk and the encode queue
     (≈ 2*window + 2*n_enc worst case); the whole job is never materialized.
     Failures are isolated per image (prepare, encode) and per bucket
-    (render). A watermark or per-mask exports raise NotImplementedError.
+    (render).
     """
     from concurrent.futures import ThreadPoolExecutor
 
@@ -454,12 +445,6 @@ def export_images(
     from rapidraw_tpu_torch.params.parse import merge_configs, parse_adjustments
 
     settings = settings or ExportSettings()
-    if settings.watermark is not None:
-        raise NotImplementedError(
-            "rapidraw_tpu_torch does not composite watermarks yet (slice A.10b)")
-    if settings.export_masks:
-        raise NotImplementedError(
-            "rapidraw_tpu_torch does not export per-mask images yet (slice A.10b)")
     device = torch.device(device if device is not None else "cuda")
     out_dir = Path(output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -499,7 +484,7 @@ def export_images(
         occ[real] = occ.get(real, 0) + 1
         appearance_by_idx[i] = occ[real]
 
-    def encode_one(idx, p, planar, dt, n_in_chunk):
+    def encode_one(idx, p, planar, dt, n_in_chunk, mask_prep=None):
         # output paths are claimed here, in the render loop (one thread), so
         # two sources that template to the same name can't overwrite each
         # other (2023/IMG_0001.CR2 + 2024/IMG_0001.CR2 without
@@ -523,14 +508,23 @@ def export_images(
             t_enc = time.perf_counter()
             try:
                 out = planar
-                if settings.long_edge:
+                if settings.long_edge or settings.watermark is not None:
                     scale = 255.0 if out.dtype == np.uint8 else 65535.0
-                    out = _resize_host(out.astype(np.float32) / np.float32(scale), settings)
+                    out = out.astype(np.float32) / np.float32(scale)
+                if settings.long_edge:
+                    out = _resize_host(out, settings)
+                if settings.watermark is not None:
+                    out = apply_watermark(out, settings.watermark)
                 encode_image(out, dst, settings.format, settings.quality)
                 if settings.copy_exif:
                     copy_exif(real, dst, strip_gps_data=settings.strip_gps)
                 if settings.preserve_timestamps:
                     _restore_timestamps(real, dst, created=created)
+                if settings.export_masks:
+                    # the render loop's decoded image and mask bitmaps: no
+                    # second decode of the source
+                    _export_masks_for_image(p, dst, settings, app_settings,
+                                            prepared=mask_prep, device=device)
                 r = ExportResult(p, str(dst), True, seconds=dt / n_in_chunk)
             except Exception as e:  # noqa: BLE001
                 r = ExportResult(p, None, False, f"encode failed: {e}")
@@ -610,7 +604,8 @@ def export_images(
         dt = time.perf_counter() - t0
         _stat_add("render_s", dt)
         _stat_add("frames", len(chunk))
-        tasks = [encode_one(c["idx"], c["path"], out[b], dt, len(chunk))
+        tasks = [encode_one(c["idx"], c["path"], out[b], dt, len(chunk),
+                            mask_prep=(c["timg"], c["masks"]) if settings.export_masks else None)
                  for b, c in enumerate(chunk)]
         for t in tasks:
             enc_sem.acquire()
@@ -689,6 +684,74 @@ def export_images(
     if progress:
         progress(total, total, "")
     return [results[i] for i in sorted(results)]
+
+
+def _export_masks_for_image(path: str, main_output: Path, settings: ExportSettings,
+                            app_settings=None, prepared=None, device=None) -> None:
+    """Per-mask image + alpha export (export_processing.rs:471-585), as JAX
+    `_export_masks_for_image` (export.py:826-924).
+
+    `prepared`: (timg, bitmaps) handed over from the render loop, which has
+    already decoded, transformed and rasterized this image; otherwise they
+    are made here on `device`. For each visible mask: the image rendered
+    with only that mask's adjustments, applied everywhere (a white
+    influence map), resized, watermarked and encoded as
+    `{stem}_mask_{i}_image.{ext}` with EXIF and timestamps, and the mask's
+    bitmap as an 8-bit grey `{stem}_mask_{i}_alpha.png`, resized to the
+    image's size with PIL's 8-bit LANCZOS (`lanczos_resize_u8`)."""
+    from rapidraw_tpu_torch.geometry.resize import lanczos_resize_u8
+    from rapidraw_tpu_torch.geometry.transforms import apply_all_transformations
+    from rapidraw_tpu_torch.io.encode import encode_image, png_bytes
+    from rapidraw_tpu_torch.io.exif import copy_exif
+    from rapidraw_tpu_torch.io.loader import is_raw_file, load_image, parse_virtual_path
+    from rapidraw_tpu_torch.io.sidecar import load_adjustments
+    from rapidraw_tpu_torch.masks.rasterize import rasterize_masks, resolve_warped_image
+    from rapidraw_tpu_torch.params.parse import parse_adjustments
+
+    real, _vc = parse_virtual_path(path)
+    is_raw = is_raw_file(real)
+    adj = dict(load_adjustments(path))
+    adj["showClipping"] = False
+    masks_json = [m for m in (adj.get("masks") or [])
+                  if isinstance(m, dict) and m.get("visible", False)]
+    if not masks_json:
+        return
+    if prepared is not None:
+        timg, bitmaps = prepared
+    else:
+        img, is_raw = load_image(path, app_settings=app_settings, device=device)
+        timg, crop_offset = apply_all_transformations(img, adj)
+        _, h, w = timg.shape
+        bitmaps = rasterize_masks(adj, w, h, scale=1.0, crop_offset=crop_offset,
+                                  warped_image=resolve_warped_image(img, adj, is_raw))
+    if bitmaps is None:
+        return
+    _, h, w = timg.shape
+    white = np.ones((1, h, w), np.float32)
+    out_dir, stem = main_output.parent, main_output.stem
+    ext = main_output.suffix.lstrip(".")
+    tm = app_settings.tonemapper_override(is_raw) if app_settings is not None else None
+    # rasterize_masks caps bitmaps at MAX_MASKS: export the same subset
+    for i, mdef in enumerate(masks_json[: bitmaps.shape[0]]):
+        single = dict(adj)
+        single["masks"] = [mdef]
+        params, cfg = parse_adjustments(single, is_raw=is_raw, tonemapper_override=tm)
+        out = develop_single(timg, params, cfg, masks=white).cpu().numpy()
+        if settings.long_edge:
+            out = _resize_host(out, settings)
+        if settings.watermark is not None:
+            out = apply_watermark(out, settings.watermark)
+        img_path = out_dir / f"{stem}_mask_{i}_image.{ext}"
+        encode_image(out, img_path, settings.format, settings.quality)
+        if settings.copy_exif:
+            # the real file: a virtual '?vc=N' path reads no EXIF
+            copy_exif(real, img_path, strip_gps_data=settings.strip_gps)
+        if settings.preserve_timestamps:
+            _restore_timestamps(real, img_path)
+        _, oh, ow = out.shape
+        alpha = (np.clip(bitmaps[i], 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+        (out_dir / f"{stem}_mask_{i}_alpha.png").write_bytes(
+            png_bytes(lanczos_resize_u8(alpha, ow, oh)))
 
 
 _ESTIMATE_DIM = 1280  # export_processing.rs:1118

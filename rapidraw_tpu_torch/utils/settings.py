@@ -74,6 +74,10 @@ class AppSettings(dict):
         v = self.get("rawPreprocessingSharpening")
         return 0.35 if v is None else float(v)
 
+    @property
+    def apply_preprocessing_to_non_raws(self) -> bool:
+        return bool(self.get("applyPreprocessingToNonRaws") or False)
+
     def preprocessing_amounts(self) -> tuple[float, float]:
         """(color_nr_inv_sigma, sharpening) for raw.enhance: the setting's
         0..1 slider maps to an inverse sigma via 12/x - 10

@@ -281,8 +281,8 @@ def test_png_decoder_reads_like_pil(mode, tmp_path):
 
 def test_hald_png_lut_parses_as_jax(tmp_path):
     """A HALD LUT read without PIL (the port once imported it for these,
-    which the card's machine lacks): the same cube as JAX's parse; a JPEG
-    HALD raises until the LDR loader exists."""
+    which the card's machine lacks): the same cube as JAX's parse, from a
+    PNG and (since the LDR loader) from a JPEG."""
     from rapidraw_tpu.io import lut as jlut
     from rapidraw_tpu_torch.io import lut
 
@@ -292,8 +292,8 @@ def test_hald_png_lut_parses_as_jax(tmp_path):
     assert np.array_equal(lut.parse_lut_file(tmp_path / "look.png"),
                           jlut.parse_lut_file(tmp_path / "look.png"))
     Image.fromarray(hald).save(tmp_path / "look.jpg")
-    with pytest.raises(NotImplementedError, match="A.10b"):
-        lut.parse_lut_file(tmp_path / "look.jpg")
+    assert np.array_equal(lut.parse_lut_file(tmp_path / "look.jpg"),
+                          jlut.parse_lut_file(tmp_path / "look.jpg"))
 
 
 @pytest.mark.parametrize("mode", ["L", "RGB", "RGBA", "P", "LA"])
@@ -314,6 +314,15 @@ def test_mask_data_urls_decode_as_jax(mode):
     url = "data:image/png;base64," + base64.b64encode(buf.getvalue()).decode()
     assert np.array_equal(parametric._decode_data_url_gray(url), jparam._decode_data_url_gray(url))
     assert parametric._decode_data_url_gray("data:image/png;base64,!!") is None
+    if mode in ("L", "RGB"):
+        # the same image as a JPEG data URL (the port once refused these)
+        buf = io.BytesIO()
+        im.save(buf, "JPEG", quality=85)
+        url = "data:image/jpeg;base64," + base64.b64encode(buf.getvalue()).decode()
+        got = parametric._decode_data_url_gray(url)
+        assert got is not None and np.array_equal(got, jparam._decode_data_url_gray(url))
+        cut = "data:image/jpeg;base64," + base64.b64encode(buf.getvalue()[:200]).decode()
+        assert parametric._decode_data_url_gray(cut) is None is jparam._decode_data_url_gray(cut)
 
 
 def test_mask_overlay_matches_jax():

@@ -39,6 +39,7 @@ import chip_smoke
 from rapidraw_tpu.io import encode as jencode
 from rapidraw_tpu.io import exif as jexif
 from rapidraw_tpu.pipeline import export as jexport
+from rapidraw_tpu.pipeline import watermark as jwatermark
 from rapidraw_tpu.utils.recovery import CancellationToken
 from rapidraw_tpu_torch.io import loader
 from rapidraw_tpu_torch.pipeline import export
@@ -227,10 +228,20 @@ def test_export_resizes_as_jax(sources, tmp_path, monkeypatch):
 
 
 def test_watermark_and_mask_exports_raise(sources, tmp_path):
-    wm = export.WatermarkSettings(path=str(tmp_path / "logo.png"))
-    for st in (export.ExportSettings(watermark=wm), export.ExportSettings(export_masks=True)):
-        with pytest.raises(NotImplementedError, match="A.10b"):
-            export.export_images(sources, tmp_path / "out", st, device="cpu")
+    """A watermark file that does not exist fails each image's encode, with
+    and without mask exports, as it fails JAX's (the export itself does not
+    raise: failures are per image)."""
+    for masks in (False, True):
+        kw = dict(export_masks=masks)
+        got = export.export_images(
+            sources[:2], tmp_path / f"port{masks}", export.ExportSettings(
+                watermark=export.WatermarkSettings(path=str(tmp_path / "logo.png")), **kw),
+            device="cpu")
+        want = jexport.export_images(
+            sources[:2], tmp_path / f"jax{masks}", jexport.ExportSettings(
+                watermark=jwatermark.WatermarkSettings(path=str(tmp_path / "logo.png")), **kw))
+        assert [r.ok for r in got] == [r.ok for r in want] == [False, False]
+        assert all(r.error.startswith("encode failed") for r in got + want)
 
 
 def test_export_defaults_to_the_card(sources, tmp_path):
@@ -392,3 +403,130 @@ def test_same_names_are_claimed_apart(tmp_path):
         res = mod.export_images(paths, tmp_path / mod.__name__, mod.ExportSettings(), **dev)
         names.append([os.path.basename(r.output) for r in res])
     assert names[0] == names[1] == ["img_000_edited.jpg", "img_000_edited-1.jpg"]
+
+
+# ---- LDR sources, watermarks, per-mask exports ---------------------------------------
+
+
+def make_ldr_sources(root, h=48, w=72) -> list[str]:
+    """A JPEG (EXIF orientation 6), an 8-bit PNG and a 16-bit TIFF, each
+    with a sidecar: CONFIG3_DOC, a light grade, and config 4's masks."""
+    import cv2
+
+    from test_torch_ldr import photo
+
+    root.mkdir(parents=True, exist_ok=True)
+    a = photo(h, w, 8)
+    ex = Image.Exif()
+    ex[0x0112] = 6
+    ex[0x010F] = "Maker"
+    Image.fromarray(a).save(root / "shot.jpg", quality=92, exif=ex.tobytes())
+    Image.fromarray(a[::-1]).save(root / "scan.png")
+    a16 = (a.astype(np.uint16) * 257) ^ np.uint16(0x55)
+    cv2.imwrite(str(root / "deep.tif"), a16[..., ::-1],
+                [cv2.IMWRITE_TIFF_COMPRESSION, cv2.IMWRITE_TIFF_COMPRESSION_LZW])
+    docs = {"shot.jpg": chip_smoke.CONFIG3_DOC, "scan.png": {"exposure": 0.3, "contrast": 20},
+            "deep.tif": chip_smoke.config4_doc(h, w)}
+    for name, doc in docs.items():
+        (root / f"{name}.rrdata").write_text(json.dumps({"version": 1, "adjustments": doc}))
+    return [str(root / n) for n in docs]
+
+
+@contextlib.contextmanager
+def ldr_op_by_op(monkeypatch):
+    """`op_by_op` for LDR sources: JAX's u8 / u16 uploads (jitted in the
+    prepare threads) and its single-image develop (jitted in the encode
+    threads that export the masks) run op by op too."""
+    import jax.numpy as jnp
+
+    from rapidraw_tpu.io import loader as jloader
+
+    with monkeypatch.context() as m:
+        m.setattr(jloader, "_U8_TO_PLANAR_JIT",
+                  lambda a: jnp.transpose(a.astype(jnp.float32), (2, 0, 1)) / 255.0)
+        m.setattr(jloader, "_U16_TO_PLANAR_JIT",
+                  lambda a: jnp.transpose(a.astype(jnp.float32), (2, 0, 1)) / 65535.0)
+        single = jexport.develop_single_compiled
+
+        def eager_single(*a, **k):
+            with jax.disable_jit():
+                return single(*a, **k)
+
+        m.setattr(jexport, "develop_single_compiled", eager_single)
+        with op_by_op(m):
+            yield
+
+
+@pytest.fixture(scope="module")
+def ldr_sources(tmp_path_factory):
+    root = tmp_path_factory.mktemp("ldr")
+    paths = make_ldr_sources(root)
+    logo = np.zeros((20, 36, 4), np.uint8)
+    logo[..., 0] = 230
+    logo[..., 3] = np.linspace(0, 255, 36, dtype=np.uint8)
+    logo[5:15, 8:28, 1:3] = 200
+    Image.fromarray(logo, "RGBA").save(root / "logo.png")
+    return paths, str(root / "logo.png")
+
+
+def _same_export(got_dir, want_dir, fmt):
+    """Every file of the two exports: the same names; JPEG byte for byte,
+    16-bit TIFF / PNG within TIFF_TOL, the alpha PNGs as decoded pixels."""
+    names = sorted(os.listdir(want_dir))
+    assert sorted(os.listdir(got_dir)) == names
+    for n in names:
+        g, w = os.path.join(got_dir, n), os.path.join(want_dir, n)
+        if n.endswith("_alpha.png"):
+            assert np.array_equal(np.asarray(Image.open(g)), np.asarray(Image.open(w))), n
+        elif fmt == "jpeg":
+            assert open(g, "rb").read() == open(w, "rb").read(), n
+        else:
+            a, b = pixels(g), pixels(w)
+            assert a.shape == b.shape and float(np.abs(a - b).max()) / 65535 <= TIFF_TOL, n
+    return names
+
+
+@pytest.mark.parametrize("fmt", ["jpeg", "tiff"])
+def test_ldr_export_matches_jax_op_by_op(fmt, ldr_sources, tmp_path, monkeypatch):
+    """JPEG, PNG and TIFF sources through export_images: the same files as
+    JAX's (its develop op by op), EXIF included."""
+    paths, _ = ldr_sources
+    kw = dict(format=fmt, batch_size=2)
+    with ldr_op_by_op(monkeypatch):
+        want = jexport.export_images(paths, tmp_path / "jax", jexport.ExportSettings(**kw))
+    got = export.export_images(paths, tmp_path / "port", export.ExportSettings(**kw),
+                               device="cpu")
+    assert [(r.ok, r.error) for r in got] == [(r.ok, r.error) for r in want]
+    assert all(r.ok for r in got)
+    _same_export(tmp_path / "port", tmp_path / "jax", fmt)
+    assert jexif.read_exif_tags(got[0].output) == jexif.read_exif_tags(want[0].output)
+    assert pixels(got[0].output).shape == (72, 48, 3)  # turned by its orientation
+
+
+@pytest.mark.parametrize("fmt", ["jpeg", "png"])
+def test_watermark_and_mask_export_match_jax(fmt, ldr_sources, tmp_path, monkeypatch):
+    """A watermark (RGBA PNG, resized by the 8-bit Lanczos), the long-edge
+    resize and `export_masks` on the config-4 document: every file equal to
+    JAX's, the per-mask images and the alpha PNGs (compared decoded)."""
+    paths, logo = ldr_sources
+    kw = dict(format=fmt, batch_size=2, long_edge=60, export_masks=True,
+              preserve_timestamps=True)
+    wm = dict(path=logo, anchor="bottomLeft", scale=30.0, opacity=70.0)
+    with ldr_op_by_op(monkeypatch):
+        want = jexport.export_images(paths, tmp_path / "jax", jexport.ExportSettings(
+            watermark=jwatermark.WatermarkSettings(**wm), **kw))
+    got = export.export_images(paths, tmp_path / "port", export.ExportSettings(
+        watermark=export.WatermarkSettings(**wm), **kw), device="cpu")
+    assert [(r.ok, r.error) for r in got] == [(r.ok, r.error) for r in want]
+    assert all(r.ok for r in got)
+    names = _same_export(tmp_path / "port", tmp_path / "jax", fmt)
+    ext = "jpg" if fmt == "jpeg" else fmt
+    assert [n for n in names if "_mask_" in n] == [
+        f"deep_edited_mask_{i}_{k}" for i in range(3)
+        for k in ("alpha.png", f"image.{ext}")]
+    for n in names:  # capture times stamped on the images (not the alpha PNGs)
+        if not n.endswith("_alpha.png"):
+            assert os.stat(tmp_path / "port" / n).st_mtime == \
+                os.stat(tmp_path / "jax" / n).st_mtime
+    alpha = np.asarray(Image.open(tmp_path / "port" / "deep_edited_mask_1_alpha.png"))
+    assert alpha.shape == (40, 60) and alpha.max() == 255 and alpha.min() == 0

@@ -121,6 +121,23 @@ def test_parse_lut_file_matches_jax(name, tmp_path):
     assert (got is None) == name.endswith(".xyz")
 
 
+@pytest.mark.parametrize("name", ["look.jpg", "look.jpeg", "look.tiff", "lzw.tiff", "grey.jpg",
+                                  "prog.jpg"])
+def test_hald_image_files_match_jax(name, tmp_path):
+    """JPEG and TIFF HALD images (PIL's files, 64 x 64: a 16^3 cube) read
+    at 8 bits through the port's decoders, as JAX's PIL convert("RGB")."""
+    from PIL import Image
+
+    side = 64
+    hald = (np.arange(side * side * 3) * 37 % 256).astype(np.uint8).reshape(side, side, 3)
+    im = Image.fromarray(hald[..., 0] if name.startswith("grey") else hald)
+    kw = {"lzw.tiff": {"compression": "tiff_lzw"}, "prog.jpg": {"progressive": True}}.get(name, {})
+    im.save(tmp_path / name, **kw)
+    got = _same_outcome(lambda: tlut.parse_lut_file(tmp_path / name),
+                        lambda: jlut.parse_lut_file(tmp_path / name))
+    assert got is not None and got.shape == (16, 16, 16, 3)
+
+
 def test_identity_and_cube_text_match_jax():
     for size in (2, 17):
         assert np.array_equal(tlut.identity_lut(size), jlut.identity_lut(size))

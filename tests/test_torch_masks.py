@@ -300,3 +300,29 @@ def test_masked_nr_still_raises():
     got = rt.develop(torch.from_numpy(x), p, c, masks=masks).numpy()
     want = np.asarray(jdevelop(jnp.asarray(x), jp, jc, masks=jnp.asarray(masks)))
     np.testing.assert_allclose(got, want, atol=TOL)
+
+
+@pytest.mark.parametrize("subsampling", [0, 2])
+def test_ai_mask_from_a_jpeg_data_url_matches_jax(subsampling):
+    """An AI mask whose image is a JPEG data URL (the port refused these
+    until the LDR loader): decoded to PIL's convert("L"), reprojected, grown
+    and feathered as JAX does."""
+    import base64
+    import io
+
+    from PIL import Image
+
+    from rapidraw_tpu.masks import parametric as jparam
+    from rapidraw_tpu_torch.masks import parametric
+
+    rng = np.random.default_rng(5)
+    yy, xx = np.mgrid[0:90, 0:120]
+    rgb = np.stack([(xx * 2) % 256, (yy * 3) % 256, (xx + yy) % 256], -1)
+    rgb = np.clip(rgb + rng.normal(0, 9, rgb.shape), 0, 255).astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(rgb).save(buf, "JPEG", quality=80, subsampling=subsampling)
+    params = {"maskDataBase64": "data:image/jpeg;base64," + base64.b64encode(buf.getvalue()).decode(),
+              "grow": 3.0, "feather": 0.4, "rotation": 4.0}
+    got = parametric.generate_ai_mask(params, 60, 45, 0.5, (0.0, 0.0))
+    want = jparam.generate_ai_mask(params, 60, 45, 0.5, (0.0, 0.0))
+    assert got is not None and np.array_equal(got, want)

@@ -378,8 +378,13 @@ def test_load_image_matches_jax(fast, tmp_path):
 
 
 def test_load_image_refuses_ldr_files_until_a10(tmp_path):
-    with pytest.raises(NotImplementedError, match="A.10"):
-        loader.load_image(tmp_path / "photo.jpg", device="cpu")
+    """The LDR formats the port does not decode yet (A.10c) raise; a BMP
+    that JAX's PIL opens among them."""
+    from PIL import Image
+
+    Image.new("RGB", (4, 3)).save(tmp_path / "photo.bmp")
+    with pytest.raises(NotImplementedError, match="A.10c"):
+        loader.load_image(tmp_path / "photo.bmp", device="cpu")
     assert loader.RAW_EXTENSIONS == jloader.RAW_EXTENSIONS
     for path in ("a.DNG", "b.raf?vc=3", "c.jpg", "d.tif"):
         assert loader.is_raw_file(loader.parse_virtual_path(path)[0]) == \
