@@ -104,7 +104,20 @@ then with long_edge 2048, an RGBA watermark and export_masks on a fifth
 file with a config-4 document (grade once per chunk and per mask image),
 images/s, stage seconds and the device memory peak of each; the outputs
 decoded and checked; and a 1024 x 1536 JPEG export with the watermark and
-masks on the card against the plain CPU path.
+masks on the card against the plain CPU path; (16) the preview service
+(`phase_preview`, `[preview]` and `[preview-kernel]` lines): a 16-bit DNG
+and a q90 JPEG (Orientation 6) from --seed through RenderService on the
+card at its default settings (1920 long edge): the cold render split by
+stage with the device memory peak, warm frames with the exposure changed,
+the interactive 'performance' frame, an odd ROI, the scopes, config 4's
+masks (a mask-cache hit), config 5 with its geometry, FLARE_LUT_DOC and
+masked_nr_doc, the uncropped, original, preset and geometry previews
+with the straightening guides, auto adjust, PreviewWorker on a burst of
+30 documents and AnalyticsWorker, each render with its launches (every
+develop kernel must run in the phase); the blur, grade, NR, resample
+and flare kernels against their plain versions at the preview's shape and
+the ROI's; and a 1024 x 1536 DNG through the service on the card against
+device="cpu" (u8 within 1 LSB).
 Each kernel line carries its time, its plain version's time and its bound
 (bytes over the HBM rate or operations over the float32 peak, whichever is
 larger). It prints a kernels JSON line (top level: each kernel's numbers
@@ -115,7 +128,7 @@ then as its last line {"ok": true, "device": {...}}.
 Any failed check raises, so the process exits non-zero; without a CUDA
 device it exits non-zero before printing any result.
 
---quick runs phases 3-8 and 10-15 at 1024x1536 with fewer repetitions (a
+--quick runs phases 3-8 and 10-16 at 1024x1536 with fewer repetitions (a
 first check of a new kernel). --out DIR writes the nvcc/ptxas logs there.
 --profile adds a torch.profiler pass over the config-3, config-5,
 config-4 and config-2 main paths (config 2 from a DNG and from a NEF):
@@ -2301,25 +2314,33 @@ def ldr_rgb16(h: int, w: int, seed: int) -> np.ndarray:
     return np.stack([photo_cfa(h, w, 0, 65535, seed + k, noise=300.0) for k in range(3)], -1)
 
 
+def write_oriented_jpeg(path: Path, rgb8: np.ndarray, orientation: int = 6) -> None:
+    """A baseline 4:2:0 JPEG q90 (jpeg_enc.cc) of (H, W, 3) u8 with an
+    EXIF APP1 holding only its Orientation."""
+    import struct
+
+    from rapidraw_tpu_torch import native
+    from rapidraw_tpu_torch.io import exif
+
+    path.write_bytes(native.jpeg_encode(rgb8, 90))
+    ifd = exif.TiffDir("<")
+    ifd[274] = orientation
+    exif.splice_exif_into_jpeg(path, b"Exif\x00\x00II*\x00" + struct.pack("<I", 8)
+                               + ifd.tobytes(8))
+
+
 def write_ldr_sources(root: Path, h: int, w: int, seed: int) -> dict:
     """Phase 15's files, written with the port's own writers: a baseline
     4:2:0 JPEG q90 (jpeg_enc.cc) with an Orientation = 6 EXIF APP1, a
     16-bit PNG (png_bytes), a 16-bit TIFF (write_tiff16) and an 8-bit LZW
     TIFF (`lzw_literal`, one strip)."""
-    import struct
-
-    from rapidraw_tpu_torch import native
-    from rapidraw_tpu_torch.io import encode, exif
+    from rapidraw_tpu_torch.io import encode
 
     rgb16 = ldr_rgb16(h, w, seed)
     rgb8 = (rgb16 >> 8).astype(np.uint8)
     root.mkdir(parents=True, exist_ok=True)
     paths = {name: root / name for name in LDR_SOURCES}
-    paths["shot.jpg"].write_bytes(native.jpeg_encode(rgb8, 90))
-    ifd = exif.TiffDir("<")
-    ifd[274] = 6
-    exif.splice_exif_into_jpeg(paths["shot.jpg"], b"Exif\x00\x00II*\x00" + struct.pack("<I", 8)
-                               + ifd.tobytes(8))
+    write_oriented_jpeg(paths["shot.jpg"], rgb8)
     paths["deep.png"].write_bytes(encode.png_bytes(rgb16))
     encode.write_tiff16(paths["deep.tif"], rgb16)
     strip = lzw_literal(rgb8.tobytes())
@@ -2556,6 +2577,563 @@ def phase_ldr(args, h, w, reps, card, dev, reset_counts, read_counts):
     return launches, report
 
 
+PREVIEW_ROI = (0.31, 0.22, 0.37, 0.41)  # phase 16's ROI: an odd crop of the preview
+PREVIEW_KERNELS = ("blur", "grade", "nr", "nr_dynamic", "flare", "resample")
+WORKER_JOBS = 30  # phase 16's PreviewWorker burst, one job every 5 ms
+
+
+def guide_scene(h: int, w: int, seed: int) -> np.ndarray:
+    """(3, h, w) u8 with straight edges for the guides: a horizon, a
+    vertical post, a slope tilted ~15 degrees, uniform noise."""
+    rng = np.random.default_rng(seed)
+    img = np.full((h, w), 90, np.int64)
+    img[h // 3:, :] = 170
+    img[:, w // 2: w // 2 + 5] = 30
+    yy, xx = np.mgrid[0:h, 0:w]
+    img[(yy - 0.27 * xx) > h * 0.55] = 220
+    img = np.clip(img + rng.integers(-10, 11, img.shape), 0, 255).astype(np.uint8)
+    return np.repeat(img[None], 3, 0)
+
+
+def resample_library_ms(src, e_arr, bases, stat, reps):
+    """The resample kernel's library yardstick: ms of one bilinear
+    grid_sample of the same source rows at the same (column, row + e)
+    points (zeros outside, as the kernel's sentinel)."""
+    import torch.nn.functional as F
+
+    from rapidraw_tpu_torch.geometry import warp_fast
+
+    hp, wp = e_arr.shape
+    rr = torch.arange(hp, device=src.device)[:, None]
+    base = bases.to(torch.int64).reshape(stat.nty, -1) * 8 - stat.pad_lo
+    base = base.repeat_interleave(warp_fast.TH, 0).repeat_interleave(warp_fast.TWH, 1)
+    row = (base + rr % warp_fast.TH).to(torch.float32) + e_arr
+    col = torch.arange(wp, device=src.device, dtype=torch.float32)[None].expand_as(row)
+    grid = torch.stack([col * (2.0 / (src.shape[2] - 1)) - 1.0,
+                        row * (2.0 / (src.shape[1] - 1)) - 1.0], -1)[None]
+    return time_ms(lambda: F.grid_sample(src[None], grid, mode="bilinear",
+                                         padding_mode="zeros", align_corners=True), reps)
+
+
+def preview_kernels_vs_plain(shapes, reps, card, dev, gen):
+    """Phase 16's kernels against their plain versions at the preview
+    service's shapes: blur (every level of FULL_DOC), grade (config 3, and
+    its masks build with config 4's masks), NR (config 5's amounts, and
+    masked_nr_doc's amount maps), the resample passes of config 5's warp
+    plan and the flare maps, each at
+    every (h, w) of `shapes`; the first shape's numbers are returned as
+    {(kernel, "preview"): numbers}."""
+    import torch.nn.functional as F
+
+    from rapidraw_tpu_torch import blur_band_rows, parse_adjustments, rasterize_masks, stack_params
+    from rapidraw_tpu_torch.geometry import warp_fast
+    from rapidraw_tpu_torch.geometry.params import geometry_params_from_json
+    from rapidraw_tpu_torch.ops import blur, flare, nr
+    from rapidraw_tpu_torch.ops.colorspace import srgb_to_linear
+    from rapidraw_tpu_torch.params import scales
+    from rapidraw_tpu_torch.pipeline import fused
+    from rapidraw_tpu_torch.tools import bound_ms
+
+    report = {}
+    for si, (sh, sw) in enumerate(shapes):
+        first = si == 0
+        x = torch.rand((1, 3, sh, sw), generator=gen, device=dev)
+
+        def keep(name, **numbers):
+            if first:
+                report[name, "preview"] = numbers
+
+        # blur: every level FULL_DOC takes at this size, one launch
+        radii = tuple(fused.blur_radii(parse_adjustments(FULL_DOC)[1], sh, sw).values())
+        flat = x[0]
+        got = blur.gaussian_blur_multi(flat, radii)
+        ref, ops = count_ops(lambda: blur.gaussian_blur_multi_plain(flat, radii))
+        err = max(float(((a - b).abs() / b.abs().clamp(min=1.0)).max()) for a, b in zip(got, ref))
+        ms = time_ms(lambda: blur.gaussian_blur_multi(flat, radii), reps)
+        pms = time_ms(lambda: blur.gaussian_blur_multi_plain(flat, radii), reps)
+        bms, bby = bound_ms(nbytes(flat) * (1 + len(radii)), ops)
+        convs = []
+        for r in radii:
+            k1 = torch.from_numpy(blur._gauss_weights(r)).to(dev)
+            k2 = (k1[:, None] * k1[None, :]).expand(3, 1, 2 * r + 1, 2 * r + 1).contiguous()
+            convs.append((F.pad(flat[None], (r, r, r, r), mode="replicate"), k2))
+        lms = time_ms(lambda: [F.conv2d(xp, k2, groups=3) for xp, k2 in convs], reps)
+        keep("blur", ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby, library_ms=lms,
+             max_abs_err=err)
+        log(f"[preview-kernel] blur (3,{sh},{sw}) r={radii}: max|d|/max(1,|ref|) {err:.3e} "
+            f"(bound {BLUR_TOL:g}) kernel {ms:.3f} ms plain {pms:.3f} ms bound {bms:.3f} ms "
+            f"({bby}); library: one depthwise conv2d per radius {lms:.3f} ms [{card}]")
+        if err > BLUR_TOL:
+            raise AssertionError(f"blur at the preview shape ({sh},{sw}): max|d| {err}")
+        del got, ref, convs
+
+        # grade: config 3 (no masks) and config 4 (the masks build), B = 1
+        docs = (("config3", CONFIG3_DOC, None), ("config4 masks", config4_doc(sh, sw), True))
+        for label, doc, with_masks in docs:
+            p, c = parse_adjustments(doc)
+            sp, cfg = stack_params([p], [c], device=dev)
+            cfg = dataclasses.replace(cfg, dither_active=False)
+            pmat = fused.pack_rows(sp["glob"])
+            mk = mm = None
+            bands = None
+            extra = ()
+            if with_masks:
+                bm = rasterize_masks(doc, sw, sh, scale=1.0)
+                mk = torch.from_numpy(bm[None]).to(dev)
+                mm = fused.pack_mask_rows(sp["mask"])
+                bands = blur_band_rows(cfg, bm)
+                extra = (mk, mm)
+            levels = fused.blur_levels(x, cfg, bands)
+            got = fused.grade(x, levels, pmat, cfg, masks=mk, mmat=mm)
+            ref, ops = count_ops(lambda: fused.grade_plain(x, levels, pmat, cfg, masks=mk,
+                                                           mmat=mm))
+            err = float((got - ref).abs().max())
+            ms = time_ms(lambda: fused.grade(x, levels, pmat, cfg, masks=mk, mmat=mm), reps)
+            pms = time_ms(lambda: fused.grade_plain(x, levels, pmat, cfg, masks=mk, mmat=mm),
+                          reps)
+            bms, bby = bound_ms(nbytes(x, pmat, *levels.values(), *extra) + nbytes(x), ops)
+            if label == "config3":
+                keep("grade", ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby, library_ms=None,
+                     max_abs_err=err)
+            log(f"[preview-kernel] grade {label} B=1 (3,{sh},{sw}): max|d| {err:.3e} (bound "
+                f"{GRADE_TOL:g}) kernel {ms:.3f} ms plain {pms:.3f} ms bound {bms:.3f} ms "
+                f"({bby}) [{card}]")
+            if not bool(torch.isfinite(got).all()) or err > GRADE_TOL:
+                raise AssertionError(f"grade {label} at ({sh},{sw}): max|d| {err}")
+            del got, ref, levels
+
+        # NR at config 5's amounts and this size's resolution scale
+        p5, _ = parse_adjustments(CONFIG5_DOC)
+        la, ca = float(p5["glob"]["luma_nr"]), float(p5["glob"]["color_nr"])
+        scale = scales.resolution_scale(sw, sh)
+        center = srgb_to_linear(x).contiguous()
+        planes = nr.nr_planes(x, False).contiguous()
+        got = nr.nr_static(center, planes, la, ca, scale)
+        ref, ops = count_ops(lambda: nr.nr_static_plain(center, planes, la, ca, scale))
+        err = float((got - ref).abs().max())
+        ms = time_ms(lambda: nr.nr_static(center, planes, la, ca, scale), reps)
+        pms = time_ms(lambda: nr.nr_static_plain(center, planes, la, ca, scale), reps)
+        bms, bby = bound_ms(nbytes(center, planes) + nbytes(center), ops)
+        keep("nr", ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby, library_ms=None,
+             max_abs_err=err)
+        log(f"[preview-kernel] nr config5 B=1 (3,{sh},{sw}) max offset "
+            f"{nr._consts(la, ca, scale)['max_off']}: max|d| {err:.3e} (bound {NR_TOL:g}) "
+            f"kernel {ms:.3f} ms plain {pms:.3f} ms bound {bms:.3f} ms ({bby}) [{card}]")
+        if not bool(torch.isfinite(got).all()) or err > NR_TOL:
+            raise AssertionError(f"nr at ({sh},{sw}): max|d| {err}")
+        del got, ref
+
+        # per-pixel NR: masked_nr_doc's amount maps at this size
+        ndoc = masked_nr_doc(sh, sw)
+        p, c = parse_adjustments(ndoc)
+        spn, cfgn = stack_params([p], [c], device=dev)
+        nmk = torch.from_numpy(rasterize_masks(ndoc, sw, sh, scale=1.0)[None]).to(dev)
+        la, ca = fused.nr_amounts(spn, cfgn, nmk, dev)
+        got = nr.nr_dynamic(center, planes, la, ca, scale)
+        ref, ops = count_ops(lambda: nr.nr_dynamic_plain(center, planes, la, ca, scale))
+        err = float((got - ref).abs().max())
+        ms = time_ms(lambda: nr.nr_dynamic(center, planes, la, ca, scale), reps)
+        pms = time_ms(lambda: nr.nr_dynamic_plain(center, planes, la, ca, scale), 1)
+        bms, bby = bound_ms(nbytes(center, planes, la, ca) + nbytes(center), ops)
+        keep("nr_dynamic", ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby, library_ms=None,
+             max_abs_err=err)
+        log(f"[preview-kernel] nr_dynamic masked_nr_doc B=1 (3,{sh},{sw}) amount maps: max|d| "
+            f"{err:.3e} (bound {NR_TOL:g}) kernel {ms:.3f} ms plain {pms:.3f} ms bound "
+            f"{bms:.3f} ms ({bby}) [{card}]")
+        if not bool(torch.isfinite(got).all()) or err > NR_TOL:
+            raise AssertionError(f"nr_dynamic at ({sh},{sw}): max|d| {err}")
+        del got, ref, center, planes, la, ca, nmk
+
+        # resample: every pass of config 5's warp plan at this size
+        plan = warp_fast.plan_warp(geometry_params_from_json(CONFIG5_GEOMETRY), sh, sw,
+                                   device=dev)
+        if plan is None:
+            raise AssertionError(f"the planner refused config 5's geometry at ({sh},{sw})")
+        st = plan.static
+        xp = F.pad(x, (0, st.wp - sw, 0, st.hp - sh))
+        rerr, rms, rpms, rlms, rbytes, rops = 0.0, 0.0, 0.0, 0.0, 0, 0
+        for mi, (channels, vstat, hstat) in enumerate(st.modes):
+            part = xp[:, list(channels)].reshape(-1, st.hp, st.wp).contiguous()
+            tmp_v = warp_fast.resample_rows(part, plan.arrays[f"ev{mi}"], plan.arrays[f"bv{mi}"],
+                                            vstat)
+            tmp_t = tmp_v.transpose(1, 2).contiguous()
+            for key, src, stat in (("v", part, vstat), ("h", tmp_t, hstat)):
+                e_arr, bases = plan.arrays[f"e{key}{mi}"], plan.arrays[f"b{key}{mi}"]
+                got = warp_fast.resample_rows(src, e_arr, bases, stat)
+                ref, ops = count_ops(lambda: warp_fast.resample_rows_plain(src, e_arr, bases,
+                                                                           stat))
+                rerr = max(rerr, float((got - ref).abs().max()))
+                rms += time_ms(lambda: warp_fast.resample_rows(src, e_arr, bases, stat), reps)
+                rpms += time_ms(lambda: warp_fast.resample_rows_plain(src, e_arr, bases, stat),
+                                reps)
+                rlms += resample_library_ms(src, e_arr, bases, stat, reps)
+                rbytes += nbytes(src, e_arr, bases, got)
+                rops += ops
+                del got, ref
+        rbms, rbby = bound_ms(rbytes, rops)
+        keep("resample", ms=rms, plain_ms=rpms, bound_ms=rbms, bound_by=rbby,
+             library_ms=rlms, max_abs_err=rerr)
+        log(f"[preview-kernel] resample config5 plan ({sh},{sw}), {2 * len(st.modes)} passes "
+            f"summed: max|d| {rerr:.3e} (bound {RESAMPLE_TOL:g}) kernel {rms:.3f} ms plain "
+            f"{rpms:.3f} ms bound {rbms:.3f} ms ({rbby}); library: one grid_sample per pass "
+            f"{rlms:.3f} ms [{card}]")
+        if rerr > RESAMPLE_TOL:
+            raise AssertionError(f"resample at ({sh},{sw}): max|d| {rerr}")
+        del xp, plan
+
+        # flare maps of one bright image at this size
+        b = x.clone() * 0.7
+        yy = torch.arange(sh, device=dev)[:, None]
+        xx = torch.arange(sw, device=dev)[None, :]
+        for cy, cx in ((0.3, 0.25), (0.6, 0.7)):
+            b[:, :, (yy - cy * sh) ** 2 + (xx - cx * sw) ** 2 <= (0.03 * sh) ** 2] = 1.0
+        spf, _ = stack_params([parse_adjustments(FLARE_LUT_DOC)[0]], [parse_adjustments(
+            FLARE_LUT_DOC)[1]], device=dev)
+        fp = fused.pack_rows(spf["glob"])[:, [fused.OFFSETS[k] for k in flare.FLARE_PARAMS]]
+        fp = fp.contiguous()
+        got = flare.flare_maps(b, fp, False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = flare.flare_maps_plain(b, fp, False)
+        torch.cuda.synchronize()
+        pms = (time.perf_counter() - t0) * 1e3
+        _, ops = count_ops(lambda: flare.flare_maps_plain(b, fp, False))
+        err = float(((got - ref).abs() / ref.abs().clamp(min=1.0)).max())
+        ms = time_ms(lambda: flare.flare_maps(b, fp, False), reps)
+        n = flare.FLARE_MAP_SIZE
+        bms, bby = bound_ms(n * n * (4 * 3 * 4 + 3 * 4) + nbytes(fp), ops)
+        keep("flare", ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby, library_ms=None,
+             max_abs_err=err)
+        log(f"[preview-kernel] flare B=1 ({sh},{sw}) -> (1,{n},{n},3): max|d|/max(1,|ref|) "
+            f"{err:.3e} (bound {FLARE_TOL:g}) kernel {ms:.3f} ms plain {pms:.1f} ms (one run) "
+            f"bound {bms:.3f} ms ({bby}) [{card}]")
+        if err > FLARE_TOL:
+            raise AssertionError(f"flare at ({sh},{sw}): max|d| {err}")
+        del got, ref, b, x
+    return report
+
+
+def phase_preview(args, h, w, reps, card, dev, reset_counts, read_counts):
+    """Phase 16, the preview service (A.11a): a 16-bit DNG (photograph-like,
+    with capture metadata) and a q90 JPEG (Orientation 6) at h x w from
+    --seed, in a temporary directory, through RenderService on the card
+    (default settings: 1920 long edge, quality "high"): the cold render
+    split by stage (decode + EXIF persist, transform + downscale, masks,
+    develop with its device ms from CUDA events, readback, encode) with the
+    device memory peak, warm frames with the exposure changed (median of
+    10), the interactive 'performance' frame (divisor 2, q65), PREVIEW_ROI,
+    the scopes, config 4's masks (a mask-cache hit on the second frame),
+    config 5 with its geometry (NR and the resample kernel), FLARE_LUT_DOC
+    (flare and the LUT) and masked_nr_doc (per-pixel NR); the uncropped,
+    original, preset and geometry previews, the guides, auto adjust;
+    PreviewWorker on a burst of WORKER_JOBS documents and AnalyticsWorker;
+    the kernels against their plain versions at the preview's shapes
+    (`preview_kernels_vs_plain`); a 1024 x 1536 source through the service
+    on the card against device="cpu". The counters are reset before the
+    renders and read after them: every kernel of PREVIEW_KERNELS must have
+    run. Returns (launches, {(kernel, "preview"): numbers})."""
+    import tempfile
+
+    from rapidraw_tpu_torch import AnalyticsWorker, PreviewWorker, RenderService
+    from rapidraw_tpu_torch.geometry.params import GeometryParams
+    from rapidraw_tpu_torch.io import jpeg
+    from rapidraw_tpu_torch.io.sidecar import load_sidecar
+    from rapidraw_tpu_torch.masks import rasterize as rz
+    from rapidraw_tpu_torch.pipeline import export as ex
+    from rapidraw_tpu_torch.pipeline import guides
+    from rapidraw_tpu_torch.utils.settings import DEFAULTS, AppSettings
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    seed = args.seed + 16
+    total = {}
+
+    def delta(before, after):
+        return {k: after[k] - before[k] for k in after if after[k] - before[k]}
+
+    def timed(label, fn, expect=None):
+        """One render: host ms to the result, the launches it made."""
+        before = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        made = delta(before, read_counts())
+        if expect is not None and {k: made.get(k, 0) for k in expect} != expect:
+            raise RuntimeError(f"[preview] {label}: launches {made}, expected {expect}")
+        return out, dt, made
+
+    def stages_line(res):
+        st = res.stages or {}
+        return ", ".join(f"{k} {v:.2f}" for k, v in st.items())
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_preview_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        dng = tmp / "shot.dng"
+        dng.write_bytes(raw_dng_bytes(photo_cfa(h, w, 64, 16383, seed), meta=EXPORT_META))
+        jpg = tmp / "shot.jpg"
+        write_oriented_jpeg(jpg, (ldr_rgb16(h, w, seed) >> 8).astype(np.uint8))
+        write_cube(tmp / "p16.cube")
+        log(f"[preview] wrote {dng.name} {dng.stat().st_size / 2**20:.1f} MiB and {jpg.name} "
+            f"{jpg.stat().st_size / 2**20:.1f} MiB ({h}x{w}) in {time.perf_counter() - t0:.1f} s")
+
+        svc = RenderService(device=dev, time_stages=True)
+        reset_counts()
+        start = read_counts()
+
+        # 1. cold: decode + EXIF persist, transform + downscale, develop, encode
+        dims = {}
+        for src in (dng, jpg):
+            torch.cuda.reset_peak_memory_stats()
+            res, ms, made = timed(f"cold {src.name}", lambda: svc.render_preview(
+                str(src), CONFIG3_DOC), {"grade": 1, "blur": 1})
+            log(f"[preview] cold {src.name} CONFIG3_DOC -> {res.width}x{res.height} JPEG q94 "
+                f"{len(res.jpeg) / 1024:.0f} KiB: {ms:.1f} ms; stage ms: {stages_line(res)}; "
+                f"launches {made}; device memory peak "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+            if max(res.width, res.height) != min(1920, max(h, w)):
+                raise RuntimeError(f"cold preview size {res.width}x{res.height}")
+            exif = load_sidecar(str(src)).get("exif") or {}
+            if src == dng and exif.get("Make") != EXPORT_META["make"]:
+                raise RuntimeError(f"the DNG's EXIF was not persisted: {exif}")
+            if src == jpg and res.height < res.width:
+                raise RuntimeError("the JPEG's Orientation = 6 was not applied")
+            dims[src] = (res.height, res.width)
+        p = str(dng)
+        ph, pw = dims[dng]
+
+        # 2. warm: the exposure changes, the transformed preview is cached
+        svc.time_stages = False
+        times = []
+        for i in range(10):
+            r, ms, made = timed("warm", lambda: svc.render_preview(
+                p, dict(CONFIG3_DOC, exposure=0.05 * i)), {"grade": 1, "blur": 1})
+            times.append(ms)
+        svc.time_stages = True
+        r, _, _ = timed("warm split", lambda: svc.render_preview(p, dict(CONFIG3_DOC,
+                                                                       exposure=0.61)))
+        log(f"[preview] warm {r.width}x{r.height} CONFIG3_DOC, exposure changed: median "
+            f"{statistics.median(times):.2f} ms of 10 ({min(times):.2f}-{max(times):.2f}); one "
+            f"more frame's stage ms: {stages_line(r)}; launches per frame grade 1, blur 1 "
+            f"[{card}]")
+
+        # 3. interactive under 'performance': divisor 2, q65
+        svc.settings["livePreviewQuality"] = "performance"
+        times = []
+        for i in range(10):
+            r, ms, _ = timed("interactive", lambda: svc.render_preview(
+                p, dict(CONFIG3_DOC, exposure=0.05 * i), interactive=True))
+            times.append(ms)
+        log(f"[preview] interactive 'performance' {r.width}x{r.height} q65: median "
+            f"{statistics.median(times):.2f} ms of 10 ({min(times):.2f}-{max(times):.2f}); "
+            f"stage ms: {stages_line(r)} [{card}]")
+        if (r.full_width, r.full_height) != (max(int(pw / 2), 1), max(int(ph / 2), 1)):
+            raise RuntimeError(f"interactive dims {r.full_width}x{r.full_height}")
+        svc.settings["livePreviewQuality"] = "high"
+
+        # 4. ROI; 5. scopes
+        times = []
+        for i in range(10):
+            r, ms, _ = timed("roi", lambda: svc.render_preview(
+                p, dict(CONFIG3_DOC, exposure=0.05 * i), roi=PREVIEW_ROI))
+            times.append(ms)
+        want_roi = (int(0.31 * pw), int(0.22 * ph), int(0.37 * pw), int(0.41 * ph))
+        log(f"[preview] ROI {PREVIEW_ROI} -> {r.roi}: median {statistics.median(times):.2f} ms "
+            f"of 10; stage ms: {stages_line(r)}; binary header {r.to_binary()[:24].hex()} "
+            f"[{card}]")
+        if r.roi != want_roi or (r.width, r.height) != want_roi[2:]:
+            raise RuntimeError(f"ROI {r.roi}, expected {want_roi}")
+        roi_shape = (r.height, r.width)
+        times = []
+        for i in range(5):
+            r, ms, _ = timed("scopes", lambda: svc.render_preview(
+                p, dict(CONFIG3_DOC, exposure=0.05 * i), compute_histogram=True,
+                compute_waveform=True))
+            times.append(ms)
+        if len(r.histogram["luma"]) != 256 or r.waveform["rgb"].shape != (256, 256, 4):
+            raise RuntimeError("scopes missing")
+        log(f"[preview] with histogram + waveform: median {statistics.median(times):.2f} ms of 5; "
+            f"stage ms: {stages_line(r)} [{card}]")
+
+        # 6. per document
+        calls = {"n": 0}
+        real_raster = rz.rasterize_masks
+
+        def counting(*a, **k):
+            calls["n"] += 1
+            return real_raster(*a, **k)
+
+        rz.rasterize_masks = counting
+        try:
+            d4 = config4_doc(h, w)
+            r1, ms1, made1 = timed("config4", lambda: svc.render_preview(p, d4),
+                                   {"grade": 1})
+            d4b = json.loads(json.dumps(d4))
+            d4b["masks"][0]["adjustments"]["exposure"] = 0.7
+            r2, ms2, made2 = timed("config4 warm", lambda: svc.render_preview(p, d4b),
+                                   {"grade": 1})
+        finally:
+            rz.rasterize_masks = real_raster
+        log(f"[preview] config 4 masks: first frame {ms1:.1f} ms (masks rasterized, stage ms: "
+            f"{stages_line(r1)}), a mask's grade changed {ms2:.1f} ms (stage ms: "
+            f"{stages_line(r2)}); rasterizations {calls['n']}; launches {made1}, {made2} "
+            f"[{card}]")
+        if calls["n"] != 1:
+            raise RuntimeError(f"the mask cache missed: {calls['n']} rasterizations")
+        docs = (("config5 + geometry", dict(CONFIG5_DOC, **CONFIG5_GEOMETRY),
+                 {"nr": 1, "grade": 1, "blur": 1}),
+                ("FLARE_LUT_DOC", dict(FLARE_LUT_DOC, lutPath=str(tmp / "p16.cube")),
+                 {"flare": 1, "grade": 1, "blur": 1}),
+                ("masked_nr_doc", masked_nr_doc(h, w), {"nr_dynamic": 1, "grade": 1}))
+        for label, doc, expect in docs:
+            r, ms, made = timed(label, lambda: svc.render_preview(p, doc), expect)
+            r2, ms2, made2 = timed(label, lambda: svc.render_preview(
+                p, dict(doc, exposure=0.41)), expect)
+            if label.startswith("config5") and made.get("resample", 0) < 2:
+                raise RuntimeError(f"config 5's preview did not resample: {made}")
+            log(f"[preview] {label}: first frame {ms:.1f} ms (stage ms: {stages_line(r)}; "
+                f"launches {made}), exposure changed {ms2:.1f} ms (stage ms: "
+                f"{stages_line(r2)}; launches {made2}) [{card}]")
+
+        # 7. the secondary previews
+        out, ms, made = timed("uncropped", lambda: svc.render_uncropped_preview(
+            p, dict(CONFIG3_DOC, crop={"x": 10, "y": 20, "width": w // 2, "height": h // 2})))
+        log(f"[preview] uncropped (crop ignored) {ms:.1f} ms, {len(out) / 1024:.0f} KiB; "
+            f"launches {made} [{card}]")
+        out, ms, made = timed("original", lambda: svc.render_original_preview(
+            p, dict(CONFIG3_DOC, rotation=2.0)))
+        log(f"[preview] original (RAW look, no grade) {ms:.1f} ms; launches {made} [{card}]")
+        out, ms, made = timed("preset", lambda: svc.render_preset_preview(p, CONFIG1_DOC),
+                              {"grade": 1})
+        dec = jpeg.decode_jpeg(out)
+        log(f"[preview] preset thumbnail {dec.shape[1]}x{dec.shape[0]} {ms:.1f} ms cold, "
+            f"launches {made} [{card}]")
+        if not 398 <= max(dec.shape[:2]) <= 400:  # the area downscale's rounded ratio
+            raise RuntimeError(f"preset thumbnail {dec.shape}")
+        gp = GeometryParams(rotate=2.5, vertical=8.0)
+        for lines in (False, True, False):
+            out, ms, made = timed("geometry", lambda: svc.preview_geometry_transform(
+                p, gp, CONFIG3_DOC, show_lines=lines))
+            log(f"[preview] geometry preview rotate 2.5, vertical 8, guides {lines}: "
+                f"{ms:.1f} ms; launches {made} [{card}]")
+        frame = np.ascontiguousarray(jpeg.decode_jpeg(out).transpose(2, 0, 1))
+        fh, fw = frame.shape[1:]
+        for label, f in (("the preview", frame), ("a scene with straight edges",
+                                                  guide_scene(fh, fw, seed))):
+            gms = median_host_ms(lambda: guides.draw_straightening_guides(f), 3)
+            drawn = int((guides.draw_straightening_guides(f) != f).any(0).sum())
+            log(f"[preview] straightening guides alone on {label} ({fw}x{fh}): {gms:.1f} ms "
+                f"host (median of 3), {drawn} pixels drawn [{card}]")
+            if label != "the preview" and not drawn:
+                raise RuntimeError("the guides found no line in the scene")
+
+        # 8. auto adjust
+        adj, ms, _ = timed("auto", lambda: svc.auto_adjustments(p))
+        log(f"[preview] auto_adjustments {ms:.1f} ms: exposure {adj['exposure']:.3f}, "
+            f"contrast {adj['contrast']:.2f}, whites {adj['whites']:.2f} [{card}]")
+
+        # 9. the workers: a burst of documents, then the scopes of the last frame
+        svc.time_stages = False
+        got = []
+        done = {"t": None}
+        last_doc = dict(CONFIG3_DOC, exposure=0.02 * (WORKER_JOBS - 1))
+
+        def on_result(res):
+            got.append(res)
+            done["t"] = time.perf_counter()
+
+        worker = PreviewWorker(svc, on_result)
+        try:
+            for i in range(WORKER_JOBS):
+                t_last = time.perf_counter()
+                worker.submit(p, dict(CONFIG3_DOC, exposure=0.02 * i))
+                time.sleep(0.005)
+            deadline = time.perf_counter() + 60
+            while time.perf_counter() < deadline:
+                time.sleep(0.01)
+                with worker._cond:
+                    idle = worker._pending is None
+                if idle and done["t"] is not None and done["t"] > t_last and len(got) and \
+                        time.perf_counter() - done["t"] > 0.3:
+                    break
+        finally:
+            worker.close()
+        bad = [g for g in got if isinstance(g, Exception)]
+        if bad or not got:
+            raise RuntimeError(f"PreviewWorker: {bad or 'no result'}")
+        direct = svc.render_preview(p, last_doc)
+        if got[-1].jpeg != direct.jpeg:
+            raise RuntimeError("the worker's last result is not the last document's render")
+        log(f"[preview] PreviewWorker: {WORKER_JOBS} documents submitted 5 ms apart, "
+            f"{len(got)} rendered (coalesced {WORKER_JOBS - len(got)}), the last one last; "
+            f"last submit to its callback {(done['t'] - t_last) * 1e3:.1f} ms [{card}]")
+        planar = np.ascontiguousarray(jpeg.decode_jpeg(direct.jpeg).transpose(2, 0, 1))
+        scopes = []
+        ev = {"t": None}
+
+        def on_scopes(s):
+            scopes.append(s)
+            ev["t"] = time.perf_counter()
+
+        aw = AnalyticsWorker(on_scopes)
+        try:
+            t0 = time.perf_counter()
+            aw.submit(planar)
+            while ev["t"] is None and time.perf_counter() - t0 < 30:
+                time.sleep(0.002)
+        finally:
+            aw.close()
+        if not scopes or isinstance(scopes[0], Exception) or "waveform" not in scopes[0]:
+            raise RuntimeError(f"AnalyticsWorker: {scopes}")
+        log(f"[preview] AnalyticsWorker on the last frame ({planar.shape[2]}x{planar.shape[1]}): "
+            f"histogram + waveform in {(ev['t'] - t0) * 1e3:.1f} ms [{card}]")
+
+        launches = delta(start, read_counts())
+        launches = {k: launches.get(k, 0) for k in read_counts()}
+        missing = [k for k in PREVIEW_KERNELS if not launches[k]]
+        log(f"[preview] launches over the phase's renders {launches}")
+        if missing:
+            raise RuntimeError(f"the preview path never launched {missing}")
+
+        # the kernels against their plain versions at the preview's shapes
+        report = preview_kernels_vs_plain([(ph, pw), roi_shape], reps, card, dev, gen)
+
+        # the card against the CPU at 1024 x 1536
+        ch, cw = CPU_CHECK
+        small = tmp / "small.dng"
+        small.write_bytes(raw_dng_bytes(photo_cfa(ch, cw, 64, 16383, seed + 1),
+                                        meta=EXPORT_META))
+        frames = {"card": [], "cpu": []}
+        real_u8 = ex.device_u8
+        side = ["card"]
+
+        def spy(x):
+            out = real_u8(x)
+            frames[side[0]].append(out.cpu().numpy())
+            return out
+
+        ex.device_u8 = spy
+        try:
+            for side[0], device in (("card", dev), ("cpu", torch.device("cpu"))):
+                s2 = RenderService(AppSettings(DEFAULTS), device=device)
+                s2.render_preview(str(small), CONFIG3_DOC)
+                s2.render_preview(str(small), config4_doc(ch, cw), roi=PREVIEW_ROI)
+                s2.render_preview(str(small), dict(CONFIG5_DOC, **CONFIG5_GEOMETRY),
+                                  interactive=True)
+        finally:
+            ex.device_u8 = real_u8
+        if len(frames["card"]) != len(frames["cpu"]) or not frames["cpu"]:
+            raise RuntimeError(f"card vs CPU: {len(frames['card'])} and {len(frames['cpu'])} frames")
+        for i, (a, b) in enumerate(zip(frames["card"], frames["cpu"])):
+            d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+            log(f"[preview] {ch}x{cw} card vs CPU, render {i} {a.shape}: u8 max|d| "
+                f"{int(d.max())}, values off {(d > 0).mean():.2e}")
+            if a.shape != b.shape or d.max() > 1:
+                raise RuntimeError("the card's preview differs from the CPU's")
+    return launches, report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true", help="1024x1536, fewer repetitions")
@@ -2618,7 +3196,7 @@ def main() -> int:
 
     # the host decoders and the export's JPEG encoder
     hosts = ("ljpeg", "vendor_huff", "pana_oly", "crx", "phase_one", "jpeg_enc", "jpeg_dec",
-             "tiff_codec")
+             "tiff_codec", "guides")
     with ThreadPoolExecutor(len(libs) + len(hosts)) as pool:
         host = {name: pool.submit(build_host, name) for name in hosts}
         list(pool.map(lambda kl: kl.lib(), libs.values()))
@@ -2925,25 +3503,10 @@ def main() -> int:
                 if err > RESAMPLE_TOL:
                     raise AssertionError(f"resample {gname} {pname}: max|d| {err}")
                 if gname == "config5" and pname == "v":
-                    # the library yardstick: one bilinear grid_sample of the
-                    # same rows at the same (column, row + e) points
-                    import torch.nn.functional as F
-
-                    rr = torch.arange(st.hp, device=dev)[:, None]
-                    base = (bases.to(torch.int64).reshape(stat.nty, -1) * 8 - stat.pad_lo)
-                    base = base.repeat_interleave(warp_fast.TH, 0).repeat_interleave(
-                        warp_fast.TWH, 1)
-                    row = (base + rr % warp_fast.TH).to(torch.float32) + e_arr
-                    col = torch.arange(st.wp, device=dev, dtype=torch.float32)[None].expand_as(row)
-                    grid = torch.stack([col * (2.0 / (st.wp - 1)) - 1.0,
-                                        row * (2.0 / (src.shape[1] - 1)) - 1.0], -1)[None]
-                    lms = time_ms(lambda: F.grid_sample(src[None], grid, mode="bilinear",
-                                                        padding_mode="zeros",
-                                                        align_corners=True), reps)
+                    lms = resample_library_ms(src, e_arr, bases, stat, reps)
                     report["resample", "config5"] = dict(ms=ms, plain_ms=pms, bound_ms=bms,
                                                          bound_by=bby, library_ms=lms)
                     log(f"[resample] library: one grid_sample {lms:.3f} ms [{card}]")
-                    del grid, row, col, base
                 del got, ref
             log(f"[resample] {gname} set {si}: transpose of the intermediate "
                 f"{tr_ms:.3f} ms (x2 per set) [{card}]")
@@ -3291,6 +3854,12 @@ def main() -> int:
     report.update(ldr_report)
     phase_done("LDR inputs and export")
 
+    # ---- 16. the preview service: RenderService, its workers, on the card -------
+    launches16, preview_report = phase_preview(args, h, w, reps, card, dev, reset_counts,
+                                               read_counts)
+    report.update(preview_report)
+    phase_done("preview service")
+
     sources = {  # name -> (source, the TPU kernel it replaces, the path that runs it)
         "blur": ("rapidraw_tpu_torch/csrc/blur.cu", "rapidraw_tpu/ops/blur.py:242", "config5"),
         "grade": ("rapidraw_tpu_torch/csrc/grade.cu", "rapidraw_tpu/pipeline/fused.py:298",
@@ -3316,7 +3885,7 @@ def main() -> int:
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     counts = {"config3": launches3, "config5": launches5, "probes": launches_probes,
               "config4": launches4, **launches2, **launches12, **launches13,
-              "export": launches14, "ldr_export": launches15}
+              "export": launches14, "ldr_export": launches15, "preview": launches16}
     library = {"nr_dynamic": "nr"}  # the kernels that share a source with another
     # a kernel that shares its source: its own entry's registers and spills
     entry = {"nr": "nr_kernel", "nr_dynamic": "nr_dynamic_kernel"}

@@ -12,7 +12,11 @@ and blended in the grade; a 3D LUT is parsed on the host (io/lut.py) and
 applied in the grade; lens flare is a 512^2 map per image sampled in the
 grade. Batch export (`export_images`) writes JPEG (csrc/host/jpeg_enc.cc),
 PNG, TIFF or JPEG XL files with their EXIF copied (io/encode.py,
-io/exif.py). On CUDA tensors it runs hand-written Hopper kernels (csrc/blur.cu
+io/exif.py). The preview service (`RenderService`: previews, ROI, the
+interactive divisor, scopes, auto adjust, the crop, original, geometry and
+preset previews with their caches; `PreviewWorker` and `AnalyticsWorker`
+on their own threads) renders through the same develop; AI patches
+composite before the transforms (masks/patches.py). On CUDA tensors it runs hand-written Hopper kernels (csrc/blur.cu
 for the blur pyramid, csrc/nr.cu for noise reduction, csrc/flare.cu for
 the flare maps, csrc/grade.cu for the whole per-pixel grade chain,
 csrc/resample.cu for the warp); on CPU tensors it runs their plain PyTorch
@@ -34,6 +38,12 @@ from rapidraw_tpu_torch.params.parse import (  # noqa: F401
 from rapidraw_tpu_torch.pipeline.bands import blur_band_rows  # noqa: F401
 from rapidraw_tpu_torch.pipeline.batch import develop_batch, stack_params  # noqa: F401
 from rapidraw_tpu_torch.pipeline.develop import develop  # noqa: F401
+from rapidraw_tpu_torch.pipeline.service import (  # noqa: F401
+    AnalyticsWorker,
+    PreviewResult,
+    PreviewWorker,
+    RenderService,
+)
 from rapidraw_tpu_torch.pipeline.export import (  # noqa: F401
     ExportResult,
     ExportSettings,

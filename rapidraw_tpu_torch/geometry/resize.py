@@ -14,8 +14,9 @@ products run in plain PyTorch on the image's device, in float64.
 3 * max(scale, 1), centre (i + 0.5) * scale, weights normalized, in float64)
 and its two passes, horizontal then vertical, each summed tap by tap in
 float64 and stored as float32. `lanczos_resize_u8` is PIL's 8-bit
-LANCZOS on modes "L" and "RGBA" (the watermark and the mask alpha PNGs of
-the export): the same coefficients as integers at 22 fraction bits, the
+LANCZOS on modes "L", "RGB" and "RGBA" (the watermark and the mask alpha
+PNGs of the export, the AI patches' colour and mask images): the same
+coefficients as integers at 22 fraction bits, the
 intermediate clipped to 8 bits, RGBA resampled premultiplied.
 """
 
@@ -189,7 +190,8 @@ def _muldiv255(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 
 def lanczos_resize_u8(image: np.ndarray, width: int, height: int) -> np.ndarray:
     """PIL's `Image.resize((width, height), Image.LANCZOS)` of an 8-bit
-    image: (H, W) mode "L" or (H, W, 4) mode "RGBA". RGBA resamples as
+    image: (H, W) mode "L", (H, W, 3) mode "RGB" (band by band, as PIL
+    resamples its 4-byte RGBX pixels) or (H, W, 4) mode "RGBA". RGBA resamples as
     premultiplied "RGBa" (PIL's rgbA2rgba, a * c / 255 rounded with its
     MULDIV255) and converts back with rgba2rgbA (255 * c // a clipped,
     colour kept where a is 0 or 255). The same size returns a copy."""
@@ -197,6 +199,9 @@ def lanczos_resize_u8(image: np.ndarray, width: int, height: int) -> np.ndarray:
         return image.copy()
     if image.ndim == 2:
         return _resize_planes_u8(image[None], width, height)[0]
+    if image.shape[2] == 3:
+        return np.ascontiguousarray(
+            _resize_planes_u8(image.transpose(2, 0, 1), width, height).transpose(1, 2, 0))
     a = image[..., 3]
     premul = np.concatenate([_muldiv255(image[..., :3], a[..., None]), a[..., None]], axis=-1)
     out = _resize_planes_u8(premul.transpose(2, 0, 1), width, height).transpose(1, 2, 0)

@@ -82,15 +82,19 @@ def apply_crop(image: torch.Tensor, crop: dict | None) -> torch.Tensor:
 
 
 def apply_all_transformations(
-    image: torch.Tensor, adjustments: dict
+    image: torch.Tensor, adjustments: dict, patch_scale: float = 1.0
 ) -> tuple[torch.Tensor, tuple[float, float]]:
-    """Warp -> coarse rotate -> flip -> fine rotate -> crop
+    """AI patches -> warp -> coarse rotate -> flip -> fine rotate -> crop
     (lib.rs:198-217 + adjustment_utils.rs:93-120). Returns (image,
-    unscaled crop offset). A CUDA image takes the planned two-pass warp
-    (exact path where the planner refuses the map), a CPU image the exact
-    path, as the JAX package routes TPU and CPU."""
+    unscaled crop offset). patch_scale: image resolution relative to
+    full-res subMask coordinates (downscaled-preview callers). A CUDA image
+    takes the planned two-pass warp (exact path where the planner refuses
+    the map), a CPU image the exact path, as the JAX package routes TPU
+    and CPU."""
     if adjustments.get("aiPatches"):
-        raise NotImplementedError("the PyTorch port does not composite AI patches yet (slice A.13)")
+        from rapidraw_tpu_torch.masks.patches import composite_patches_on_image
+
+        image = composite_patches_on_image(image, adjustments, scale=patch_scale)
     p = geometry_params_from_json(adjustments)
     if not is_geometry_identity(p):
         if image.device.type == "cuda":

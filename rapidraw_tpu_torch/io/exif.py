@@ -350,7 +350,13 @@ class Exif:
         return cls(data, struct.unpack(endian + "L", head[4:8])[0], endian)
 
     def keys(self) -> set:
-        return set(self._data) | set(self._raw)
+        # PIL's Exif.__iter__: set(_data), then its directory's keys added
+        # one by one from `set(_tagdata) | set(_tags_v2)`. The same set
+        # operations give the same iteration order, so a tag dict (and the
+        # sidecar written from it) lists its keys as PIL's does
+        keys = set(self._data)
+        keys.update(iter(set(self._raw) | set()))
+        return keys
 
     def __contains__(self, tag) -> bool:
         return tag in self._data or tag in self._raw
@@ -387,8 +393,13 @@ class Exif:
         if not isinstance(offset, int):
             return None
         entries, _ = _load_dir(self.buf, offset, self.endian)
-        return {tag: _fixup(_settle(tag, typ, _decode(typ, data, self.endian), group))
-                for tag, (typ, data) in entries.items()}
+        # PIL's dict(ImageFileDirectory_v2): keys in the order of
+        # set(_tagdata) | set(_tags_v2)
+        out = {}
+        for tag in set(entries) | set():
+            typ, data = entries[tag]
+            out[tag] = _fixup(_settle(tag, typ, _decode(typ, data, self.endian), group))
+        return out
 
     def get_ifd(self, tag: int) -> dict:
         if tag not in self._ifds:
@@ -1021,6 +1032,31 @@ def copy_exif(
         return True
     except Exception:
         return False
+
+
+def persist_exif_if_missing(image_path: str | Path) -> None:
+    """Store the source's EXIF tag dict into its .rrdata sidecar on first
+    load (exif_processing.rs:1151-1200 / image_loader.rs:81): EXIF then
+    survives even if another tool later strips the source. Migrates a
+    legacy .rrexif sidecar when present; no-op when the sidecar already
+    carries exif or the source has none. Never raises (read-only dirs,
+    malformed files)."""
+    try:
+        from rapidraw_tpu_torch.io.sidecar import load_sidecar, save_sidecar
+
+        meta = load_sidecar(image_path)
+        if meta.get("exif"):
+            return
+        legacy = load_rrexif_sidecar(image_path)
+        tags = (legacy or {}).get("exif") or read_exif_tags(image_path)
+        if not tags:
+            return
+        meta["exif"] = tags
+        save_sidecar(image_path, meta)
+        if legacy is not None:
+            Path(str(image_path) + RREXIF_EXT).unlink(missing_ok=True)
+    except Exception:  # noqa: BLE001 — preservation is best-effort
+        return
 
 
 def load_rrexif_sidecar(derived_file: str | Path) -> dict | None:

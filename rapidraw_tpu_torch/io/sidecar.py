@@ -1,5 +1,5 @@
-"""Non-destructive edit sidecars (read side; a copy of the JAX package's
-`rapidraw_tpu/io/sidecar.py` without the writer).
+"""Non-destructive edit sidecars (a copy of the JAX package's
+`rapidraw_tpu/io/sidecar.py`).
 
 The reference's checkpoint system (SURVEY.md §5.4): a `.rrdata` JSON file
 per image holding ImageMetadata {version, rating, adjustments, tags, exif}
@@ -61,6 +61,23 @@ def load_sidecar(image_path: str | Path) -> dict[str, Any]:
     out = default_metadata()
     out.update(meta)
     return out
+
+
+def save_sidecar(image_path: str | Path, metadata: dict[str, Any]) -> None:
+    sp = sidecar_path(image_path)
+    meta = dict(metadata)
+    meta.setdefault("version", CURRENT_VERSION)
+    # atomic replace: a crash mid-write must not leave truncated JSON that
+    # load_sidecar would silently replace with defaults (losing all edits);
+    # the name is unique per thread, as the preview workers may persist
+    # the same source's EXIF at once
+    import os
+    import tempfile
+
+    fd, tmp = tempfile.mkstemp(dir=sp.parent, prefix=f"{sp.name}.", suffix=".tmp")
+    with os.fdopen(fd, "w") as f:
+        f.write(json.dumps(meta, indent=2))
+    os.replace(tmp, sp)
 
 
 def load_adjustments(image_path: str | Path) -> dict:

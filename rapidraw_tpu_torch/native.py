@@ -25,6 +25,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -37,6 +39,31 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 class KernelBuildError(RuntimeError):
     pass
+
+
+_locks_guard = threading.Lock()
+_locks: dict[str, threading.Lock] = {}
+
+
+def _build_lock(out: Path) -> threading.Lock:
+    """One lock per library file: the threads of a process build it once."""
+    with _locks_guard:
+        return _locks.setdefault(str(out), threading.Lock())
+
+
+def _temp_name(out: Path) -> Path:
+    """A name beside `out` that no other thread or process uses; the
+    compiler writes there and `os.replace` publishes the whole file, so a
+    concurrent loader finds either no library or a complete one."""
+    fd, tmp = tempfile.mkstemp(dir=out.parent, prefix=f"{out.name}.", suffix=".tmp")
+    os.close(fd)
+    return Path(tmp)
+
+
+def _write_atomic(path: Path, text: str) -> None:
+    tmp = _temp_name(path)
+    tmp.write_text(text)
+    os.replace(tmp, path)
 
 
 def _nvcc() -> str:
@@ -60,6 +87,7 @@ class KernelLibrary:
         self.build_seconds = 0.0
         self.build_log = ""
         self._lib: ctypes.CDLL | None = None
+        self._lock = threading.Lock()
 
     def _build(self) -> Path:
         src = CSRC / f"{self.name}.cu"
@@ -71,40 +99,42 @@ class KernelLibrary:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         out = BUILD_DIR / f"lib{self.name}_{tag}.so"
         log = out.with_suffix(".log")
-        if out.exists():
-            self.build_log = log.read_text() if log.exists() else ""
+        with _build_lock(out):
+            if out.exists():
+                self.build_log = log.read_text() if log.exists() else ""
+                return out
+            inc = BUILD_DIR / f"inc_{self.name}_{tag}"
+            inc.mkdir(exist_ok=True)
+            _write_atomic(inc / f"{self.name}_gen.h", self.header)
+            tmp = _temp_name(out)
+            cmd = [
+                _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+                "-Xcompiler", "-fPIC", "-Xptxas", "-v", *self.extra_flags,
+                "-I", str(inc), "-o", str(tmp), str(src),
+            ]
+            t0 = time.perf_counter()
+            try:
+                proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+            except (OSError, subprocess.TimeoutExpired) as e:
+                tmp.unlink(missing_ok=True)
+                raise KernelBuildError(f"failed to run nvcc: {e}") from e
+            self.build_seconds = time.perf_counter() - t0
+            self.build_log = proc.stderr
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise KernelBuildError(f"nvcc failed on {src.name}:\n{proc.stderr[-4000:]}")
+            _write_atomic(log, proc.stderr)
+            os.replace(tmp, out)
             return out
-        inc = BUILD_DIR / f"inc_{self.name}_{tag}"
-        inc.mkdir(exist_ok=True)
-        (inc / f"{self.name}_gen.h").write_text(self.header)
-        # compile to a process-unique name and publish atomically, so a
-        # concurrent loader never maps a half-written library
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [
-            _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-            "-Xcompiler", "-fPIC", "-Xptxas", "-v", *self.extra_flags,
-            "-I", str(inc), "-o", str(tmp), str(src),
-        ]
-        t0 = time.perf_counter()
-        try:
-            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-        except (OSError, subprocess.TimeoutExpired) as e:
-            raise KernelBuildError(f"failed to run nvcc: {e}") from e
-        self.build_seconds = time.perf_counter() - t0
-        self.build_log = proc.stderr
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise KernelBuildError(f"nvcc failed on {src.name}:\n{proc.stderr[-4000:]}")
-        log.write_text(proc.stderr)
-        os.replace(tmp, out)
-        return out
 
     def lib(self) -> ctypes.CDLL:
         if self._lib is None:
-            lib = ctypes.CDLL(str(self._build()))
-            lib.rr_error_string.argtypes = [ctypes.c_int]
-            lib.rr_error_string.restype = ctypes.c_char_p
-            self._lib = lib
+            with self._lock:
+                if self._lib is None:
+                    lib = ctypes.CDLL(str(self._build()))
+                    lib.rr_error_string.argtypes = [ctypes.c_int]
+                    lib.rr_error_string.restype = ctypes.c_char_p
+                    self._lib = lib
         return self._lib
 
     def check(self, status: int, what: str) -> None:
@@ -119,28 +149,36 @@ _host_libs: dict[str, ctypes.CDLL] = {}
 
 def host_library(name: str) -> ctypes.CDLL:
     """csrc/host/<name>.cc compiled with g++ at first use into `_build/`,
-    named by a hash of the source. Compiled to a process-unique name and
-    published atomically, as several test workers may build it at once.
-    A failed build raises; nothing stands in for the decoder."""
-    if name in _host_libs:
-        return _host_libs[name]
+    named by a hash of the source. One build per process, behind a lock
+    held per library (the export's and the preview service's threads reach
+    it at once), compiled to a name unique to the thread and the process
+    and published atomically, as several test workers may build it at
+    once. A failed build raises; nothing stands in for the decoder."""
+    lib = _host_libs.get(name)
+    if lib is not None:
+        return lib
     src = CSRC / "host" / f"{name}.cc"
     tag = hashlib.blake2b(src.read_bytes(), digest_size=8).hexdigest()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = BUILD_DIR / f"lib{name}_host_{tag}.so"
-    if not out.exists():
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", str(src), "-o", str(tmp)]
-        try:
-            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
-        except (OSError, subprocess.TimeoutExpired) as e:
-            raise KernelBuildError(f"failed to run g++: {e}") from e
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise KernelBuildError(f"g++ failed on {src.name}:\n{proc.stderr[-4000:]}")
-        os.replace(tmp, out)
-    _host_libs[name] = ctypes.CDLL(str(out))
-    return _host_libs[name]
+    with _build_lock(out):
+        lib = _host_libs.get(name)
+        if lib is not None:
+            return lib
+        if not out.exists():
+            tmp = _temp_name(out)
+            cmd = ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", str(src), "-o", str(tmp)]
+            try:
+                proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+            except (OSError, subprocess.TimeoutExpired) as e:
+                tmp.unlink(missing_ok=True)
+                raise KernelBuildError(f"failed to run g++: {e}") from e
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise KernelBuildError(f"g++ failed on {src.name}:\n{proc.stderr[-4000:]}")
+            os.replace(tmp, out)
+        lib = _host_libs[name] = ctypes.CDLL(str(out))
+        return lib
 
 
 def ljpeg_decode(stream: bytes):

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import statistics
+import weakref
 
 import numpy as np
 import torch
@@ -123,34 +124,37 @@ def _weights() -> _Weights:
     return weights
 
 
-_CHECKED: set = set()  # libraries whose compiled tap table matched OFFSETS
+# libraries whose compiled tap table matched OFFSETS; held weakly, so a
+# freed library's id, reused by another object, is never taken as checked
+_CHECKED: weakref.WeakSet = weakref.WeakSet()
 
 
 def check_tap_table(lib) -> None:
     """Raise unless the library's compiled tap table (rr_nr_slices_taps) is
     OFFSETS, in table order; checked once per library."""
-    if id(lib) in _CHECKED:
+    if lib in _CHECKED:
         return
     dx, dy = (ctypes.c_int * NTAPS)(), (ctypes.c_int * NTAPS)()
     n = lib.rr_nr_slices_taps(dx, dy)
     table = list(zip(dx[:n], dy[:n]))
     if table != OFFSETS:
         raise ValueError(f"csrc/nr_slices.cu's compiled taps {table} are not OFFSETS {OFFSETS}")
-    _CHECKED.add(id(lib))
+    _CHECKED.add(lib)
 
 
-_SLOTS: dict = {}  # (library, device index) -> resident blocks on the card
+# library -> {device index: resident blocks on the card}, held weakly as _CHECKED
+_SLOTS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
 
 def _slots(lib, device: torch.device) -> int:
-    key = (id(lib), device.index)
-    if key not in _SLOTS:
+    slots = _SLOTS.setdefault(lib, {})
+    if device.index not in slots:
         per_sm = ctypes.c_int()
         _KERNEL.check(lib.rr_nr_slices_blocks_per_sm(ctypes.byref(per_sm)),
                       "rr_nr_slices_blocks_per_sm")
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        _SLOTS[key] = sms * per_sm.value
-    return _SLOTS[key]
+        slots[device.index] = sms * per_sm.value
+    return slots[device.index]
 
 
 def _slices_cuda(x: torch.Tensor, band_rows: int | None) -> torch.Tensor:

@@ -1,15 +1,19 @@
-"""Application settings: the defaults and the engine accessors the RAW
-load needs.
+"""Application settings.
 
-Port of the part of `rapidraw_tpu/utils/settings.py` (app_settings.rs,
-AppSettings :329-612) that the loader and the later export read: the
-shipped DEFAULTS document and the typed accessors of the RAW develop
-settings. Unknown keys round-trip untouched.
+Port of `rapidraw_tpu/utils/settings.py` (app_settings.rs, AppSettings
+:329-612): a JSON settings document with the defaults the reference
+ships, its load and save, the per-user app-data directory, and the typed
+accessors of the engine knobs (RAW develop, preview size and quality,
+cache size). UI-only knobs are carried as opaque fields, so settings files
+are interchangeable; unknown keys round-trip untouched.
 """
 
 from __future__ import annotations
 
 import copy
+import json
+import os
+from pathlib import Path
 from typing import Any
 
 DEFAULTS: dict[str, Any] = {
@@ -43,6 +47,29 @@ DEFAULTS: dict[str, Any] = {
 }
 
 
+# live_preview_quality -> (downscale divisor, jpeg quality), lib.rs:364-368
+LIVE_PREVIEW_QUALITY = {
+    "full": (1.0, 94),
+    "high": (1.0, 88),
+    "balanced": (1.5, 80),
+    "performance": (2.0, 65),
+}
+
+
+def app_data_dir() -> Path:
+    """Per-user app-data directory (the reference resolves Tauri's
+    app_data_dir, lib.rs; override with RAPIDRAW_DATA_DIR)."""
+    env = os.environ.get("RAPIDRAW_DATA_DIR")
+    if env:
+        d = Path(env)
+    else:
+        xdg = os.environ.get("XDG_DATA_HOME")
+        base = Path(xdg) if xdg else Path.home() / ".local" / "share"
+        d = base / "rapidraw_tpu"
+    d.mkdir(parents=True, exist_ok=True)
+    return d
+
+
 class AppSettings(dict):
     """Settings document with defaults; unknown keys round-trip untouched."""
 
@@ -53,6 +80,34 @@ class AppSettings(dict):
         for a in args:
             self.update(copy.deepcopy(a))
         self.update(copy.deepcopy(kwargs))
+
+    @classmethod
+    def load(cls, path: str | Path) -> "AppSettings":
+        s = cls(DEFAULTS)
+        p = Path(path)
+        if p.exists():
+            try:
+                data = json.loads(p.read_text())
+                if isinstance(data, dict):
+                    s.update(data)
+            except (OSError, json.JSONDecodeError):
+                pass
+        return s
+
+    def save(self, path: str | Path) -> None:
+        Path(path).write_text(json.dumps(self, indent=2, ensure_ascii=False))
+
+    @property
+    def editor_preview_resolution(self) -> int:
+        return int(self.get("editorPreviewResolution") or 1920)
+
+    @property
+    def thumbnail_resolution(self) -> int:
+        return int(self.get("thumbnailResolution") or 720)
+
+    @property
+    def image_cache_size(self) -> int:
+        return int(self.get("imageCacheSize") or 5)
 
     @property
     def raw_highlight_compression(self) -> float:
@@ -100,3 +155,12 @@ class AppSettings(dict):
             else self.get("defaultNonRawTonemapper") or "basic"
         )
         return 1 if tm == "agx" else 0
+
+    def preview_quality(self, interactive: bool) -> tuple[float, int]:
+        """(downscale divisor, JPEG quality) of a preview reply: full size
+        at q94 when settled, the livePreviewQuality entry while
+        interactive (lib.rs:364-368)."""
+        q = str(self.get("livePreviewQuality") or "high")
+        if not interactive:
+            return (1.0, 94)
+        return LIVE_PREVIEW_QUALITY.get(q, LIVE_PREVIEW_QUALITY["high"])

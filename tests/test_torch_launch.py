@@ -51,7 +51,10 @@ from rapidraw_tpu_torch.pipeline import fused
 
 RAGGED = [(1, 1), (1, 2, 3), (2, 1000, 1503), (1, 31, 33), (1, 32, 32), (3, 65, 97),
           (1, 257, 31)]
-RAGGED = [s if len(s) == 3 else (1, *s) for s in RAGGED]
+# the preview service's shapes: 1920 long edge, the 'performance' divisor,
+# a 400 px preset thumbnail, an odd ROI
+SERVICE = [(1280, 1920), (640, 960), (267, 400), (421, 593)]
+RAGGED = [s if len(s) == 3 else (1, *s) for s in RAGGED] + [(1, h, w) for h, w in SERVICE]
 
 
 def covered(plan: dict, h: int, w: int) -> np.ndarray:
@@ -140,14 +143,13 @@ def test_nr_plan_smem_within_limit_at_every_halo():
     assert nr.nr_launch_plan(1, 64, 64, nr.NR_HALO)["smem"] == nr.NR_SMEM_LIMIT
 
 
-@pytest.mark.parametrize("amounts", [(0.30, 0.25), (0.8, 0.6), (1.0, 1.0), (0.05, 0.0)])
-def test_nr_tap_offsets_stay_inside_the_staged_tile(amounts):
+def _check_nr_taps(amounts, h: int, w: int) -> None:
     """Each tap's flat offset (dy * staged width + dx, as the wrapper packs
     it) read from every pixel of the tile is the staged position of that
     pixel moved by (dx, dy), inside the staged tile (the taps of the passes
     the amounts turn on: the halo is the largest of their offsets)."""
-    k = nr._consts(*amounts, scales.resolution_scale(6144, 4096))
-    plan = nr.nr_launch_plan(2, 4096, 6144, max(k["max_off"], 1))
+    k = nr._consts(*amounts, scales.resolution_scale(w, h))
+    plan = nr.nr_launch_plan(2, h, w, max(k["max_off"], 1))
     (sh, sw), halo = plan["stage"], plan["halo"]
     th, tw = plan["tile"]
     ty, tx = np.meshgrid(np.arange(th), np.arange(tw), indexing="ij")
@@ -159,6 +161,11 @@ def test_nr_tap_offsets_stay_inside_the_staged_tile(amounts):
         np.testing.assert_array_equal(pos // sw, ty + halo + dy)
         np.testing.assert_array_equal(pos % sw, tx + halo + dx)
         assert pos.min() >= 0 and pos.max() < sh * sw
+
+
+@pytest.mark.parametrize("amounts", [(0.30, 0.25), (0.8, 0.6), (1.0, 1.0), (0.05, 0.0)])
+def test_nr_tap_offsets_stay_inside_the_staged_tile(amounts):
+    _check_nr_taps(amounts, 4096, 6144)
 
 
 def test_nr_dynamic_offsets_stay_inside_the_fixed_halo(monkeypatch):
@@ -468,13 +475,17 @@ def test_blur_plan_refuses_what_does_not_fit():
 @pytest.mark.parametrize("radii", BLUR_RADII + [(1,), (8,), (9,), (16, 1), (16,) * 4],
                          ids=lambda r: "-".join(map(str, r)))
 def test_blur_fused_stage_covers_every_tap(radii):
+    _check_fused_stage(radii)
+
+
+def _check_fused_stage(radii, n: int = 300, m: int = 400) -> None:
     """Each fused level's H chunks read stage columns off .. off + FX + tp - 1
     (the zero-weight padding included), off = col_halo(R) - r, and stage
     rows R - r on; its V pass of output
     block ob runs `delay` steps after the step that staged the block's first
     source rows, when H has written every ring entry it reads, and its ring
     still holds them (the same step's H pass writes F_STEP entries ahead)."""
-    plan = blur.blur_launch_plan(3, 300, 400, radii)
+    plan = blur.blur_launch_plan(3, n, m, radii)
     for g in plan["two_pass"]:
         assert plan["v_ring"] >= 2 * blur.V_STEP + blur.padded_taps(radii[g])
     if not plan["fused"]:
@@ -683,3 +694,25 @@ def test_blur_emulated_tiling_equals_the_plain_version(monkeypatch, shape, radii
     for r, a, b in zip(radii, got, want):
         assert not torch.isnan(a).any(), f"r={r}: a pixel never written"
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6, atol=1e-6, err_msg=f"r={r}")
+
+
+@pytest.mark.parametrize("h,w", SERVICE)
+def test_plans_at_the_service_shapes(h, w):
+    """The preview service's shapes (the grade and NR plans' coverage runs
+    over them in the RAGGED cases above): NR's taps inside the staged tile
+    at their resolution scale, and the blur plan of the radii each
+    document takes there (config 3, config 5, every level) writing every
+    pixel of every level once, within shared memory, its fused stage
+    covering every tap."""
+    for amounts in ((0.30, 0.25), (0.8, 0.6), (1.0, 1.0)):
+        _check_nr_taps(amounts, h, w)
+    for doc in (chip_smoke.CONFIG3_DOC, chip_smoke.CONFIG5_DOC, chip_smoke.FULL_DOC):
+        radii = tuple(fused.blur_radii(parse_adjustments(doc)[1], h, w).values())
+        for c in (3, 6):
+            plan = blur.blur_launch_plan(c, h, w, radii)
+            for key in ("fused_smem", "h_smem", "v_smem"):
+                assert plan.get(key, 0) <= blur.SMEM_LIMIT
+        plan = blur.blur_launch_plan(3, h, w, radii)
+        for g, counts in blur_written(plan, h, w).items():
+            np.testing.assert_array_equal(counts, 1, err_msg=f"level {g} r={radii[g]}")
+        _check_fused_stage(radii, h, w)

@@ -274,6 +274,21 @@ def test_wrapper_refuses_a_compiled_table_that_is_not_offsets():
         tps.check_tap_table(_FakeLibrary(tps.OFFSETS[:-1]))
 
 
+def test_tap_table_check_outlives_a_freed_library():
+    """A library that passed the check and was freed lends its address to
+    the next object of its size: that object is checked on its own."""
+    swapped = list(tps.OFFSETS)
+    swapped[0], swapped[1] = swapped[1], swapped[0]
+    good = _FakeLibrary(tps.OFFSETS)
+    tps.check_tap_table(good)
+    freed = id(good)
+    del good
+    bad = _FakeLibrary(swapped)  # CPython usually reuses the freed block at once
+    with pytest.raises(ValueError, match="not OFFSETS"):
+        tps.check_tap_table(bad)
+    assert freed not in {id(lib) for lib in tps._CHECKED}
+
+
 def test_probe_op_counts():
     """chip_smoke.count_ops gives the probes' bounds: 104 operations per
     element for P1, 49 for P2 (each output read and written once)."""

@@ -184,5 +184,11 @@ def test_apply_all_transformations_on_cpu_matches_jax(name):
 
 
 def test_ai_patches_raise():
-    with pytest.raises(NotImplementedError, match="A.13"):
-        ttr.apply_all_transformations(torch.zeros((3, 8, 8)), {"aiPatches": [{"id": 1}]})
+    """A document with aiPatches no longer raises (the port composites
+    them since slice A.11a, tests/test_torch_patches.py): a patch without
+    image data leaves the image as JAX leaves it."""
+    x = noise((3, 8, 8), seed=5)
+    doc = {"aiPatches": [{"id": 1}]}
+    want, woff = jtr.apply_all_transformations(jnp.asarray(x), doc)
+    got, goff = ttr.apply_all_transformations(torch.from_numpy(x), doc)
+    assert goff == woff and np.array_equal(got.numpy(), np.asarray(want))
