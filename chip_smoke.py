@@ -117,7 +117,20 @@ with the straightening guides, auto adjust, PreviewWorker on a burst of
 develop kernel must run in the phase); the blur, grade, NR, resample
 and flare kernels against their plain versions at the preview's shape and
 the ROI's; and a 1024 x 1536 DNG through the service on the card against
-device="cpu" (u8 within 1 LSB).
+device="cpu" (u8 within 1 LSB); its resample rows at the preview's shapes
+time a shape no caller runs (the service warps at the source's size: phase
+7's case is the preview path's); (17) the CLI and the tiled develop
+(`phase_cli`, `[tiled-kernel]`, `[tiled]` and `[cli]` lines): the grade
+and per-pixel NR kernels on a 2304 x 2304 tile at (4096, 2048) of a
+12000 x 8000 image against their plain versions (config 3, FULL_DOC with
+grain and flare, FLARE_LUT_DOC; masked_nr_doc's amounts), a 96 MP 16-bit
+TIFF from --seed through `python -m rapidraw_tpu_torch develop` in a child
+process (24 tiles; stages, per-tile ms, launches, memory peak), the same
+image through develop_tiled in this process (host-device copies counted)
+against the whole-image develop (tile interiors within 1e-5), a 24 MP DNG
+through the CLI's develop and export (the same bytes), and auto,
+histogram, lut-export (card against CPU), lib dims on the RAW layouts,
+preset import and exif --set.
 Each kernel line carries its time, its plain version's time and its bound
 (bytes over the HBM rate or operations over the float32 peak, whichever is
 larger). It prints a kernels JSON line (top level: each kernel's numbers
@@ -2620,9 +2633,10 @@ def preview_kernels_vs_plain(shapes, reps, card, dev, gen):
     service's shapes: blur (every level of FULL_DOC), grade (config 3, and
     its masks build with config 4's masks), NR (config 5's amounts, and
     masked_nr_doc's amount maps), the resample passes of config 5's warp
-    plan and the flare maps, each at
-    every (h, w) of `shapes`; the first shape's numbers are returned as
-    {(kernel, "preview"): numbers}."""
+    plan (a shape no caller runs: the service warps at the source's size,
+    so these rows are held and timed but not returned) and the flare maps,
+    each at every (h, w) of `shapes`; the first shape's numbers are
+    returned as {(kernel, "preview"): numbers}."""
     import torch.nn.functional as F
 
     from rapidraw_tpu_torch import blur_band_rows, parse_adjustments, rasterize_masks, stack_params
@@ -2771,9 +2785,10 @@ def preview_kernels_vs_plain(shapes, reps, card, dev, gen):
                 rops += ops
                 del got, ref
         rbms, rbby = bound_ms(rbytes, rops)
-        keep("resample", ms=rms, plain_ms=rpms, bound_ms=rbms, bound_by=rbby,
-             library_ms=rlms, max_abs_err=rerr)
-        log(f"[preview-kernel] resample config5 plan ({sh},{sw}), {2 * len(st.modes)} passes "
+        # no caller: the service warps the source at its own size (phase 7's
+        # shape) and downscales after; held here, but not the preview's case
+        log(f"[preview-kernel] resample config5 plan ({sh},{sw}) (no caller: the service "
+            f"warps at the source's size), {2 * len(st.modes)} passes "
             f"summed: max|d| {rerr:.3e} (bound {RESAMPLE_TOL:g}) kernel {rms:.3f} ms plain "
             f"{rpms:.3f} ms bound {rbms:.3f} ms ({rbby}); library: one grid_sample per pass "
             f"{rlms:.3f} ms [{card}]")
@@ -3131,6 +3146,394 @@ def phase_preview(args, h, w, reps, card, dev, reset_counts, read_counts):
                 f"{int(d.max())}, values off {(d > 0).mean():.2e}")
             if a.shape != b.shape or d.max() > 1:
                 raise RuntimeError("the card's preview differs from the CPU's")
+    return launches, report
+
+
+# ---- phase 17: the CLI and the tiled develop ---------------------------------
+
+TILED_SHAPE = (8000, 12000)  # 96 MP: a stitched panorama's size
+TILE_ORIGIN = (4096, 2048)  # (x, y) of the tile the kernel checks place
+TILE_SHAPE = (2304, 2304)  # a tile of 2048 with its 128-pixel halo on both sides
+TILED_TOL = 1e-5  # tiled against whole in the tile interiors (tests/test_tiled.py)
+PRESET_XMP = """<x:xmpmeta xmlns:x="adobe:ns:meta/"><rdf:RDF
+ xmlns:rdf="http://www.w3.org/1999/02/22-rdf-syntax-ns#">
+ <rdf:Description xmlns:crs="http://ns.adobe.com/camera-raw-settings/1.0/"
+  crs:Exposure2012="+0.50" crs:Contrast2012="+15" crs:Shadows2012="+20" crs:Vibrance="+10">
+  <crs:Name><rdf:Alt><rdf:li xml:lang="x-default">Phase 17</rdf:li></rdf:Alt></crs:Name>
+ </rdf:Description></rdf:RDF></x:xmpmeta>"""
+
+
+def photo_rgb16(h: int, w: int, seed: int, dev) -> np.ndarray:
+    """(h, w, 3) u16 of photograph-like content, made on the card from
+    `seed`: per channel four low-frequency waves and three soft highlights
+    over the full range, plus noise of 300 DN (`photo_cfa`'s recipe)."""
+    g = torch.Generator().manual_seed(seed)
+    gd = torch.Generator(device=dev).manual_seed(seed)
+    y = torch.linspace(0.0, 1.0, h, device=dev)[:, None]
+    x = torch.linspace(0.0, 1.0, w, device=dev)[None, :]
+    out = torch.empty((h, w, 3), dtype=torch.int32, device=dev)
+
+    def uniform(lo, hi):
+        lo, hi = torch.tensor(lo), torch.tensor(hi)
+        return (lo + (hi - lo) * torch.rand(len(lo), generator=g, dtype=torch.float64)).tolist()
+
+    for c in range(3):
+        f = torch.zeros((h, w), device=dev)
+        for _ in range(4):
+            fy, fx, py, px, a = uniform((0.5, 0.5, 0, 0, 0.3), (3, 3, 2 * np.pi, 2 * np.pi, 1))
+            f += a * torch.sin(2 * np.pi * fy * y + py) * torch.cos(2 * np.pi * fx * x + px)
+        for _ in range(3):
+            cy, cx, s, a = uniform((0.1, 0.1, 0.05, 0.5), (0.9, 0.9, 0.2, 1.5))
+            f += a * torch.exp(((y - cy) ** 2 + (x - cx) ** 2) * (-0.5 / (s * s)))
+        f = (f - f.min()) / (f.max() - f.min()) * 65535.0
+        f += 300.0 * torch.randn((h, w), generator=gd, device=dev)
+        out[..., c] = torch.clamp(torch.round(f), 0, 65535).to(torch.int32)
+    return out.cpu().numpy().astype(np.uint16)
+
+
+def run_cli(argv: list, label: str) -> tuple[dict, float, float]:
+    """`python -m rapidraw_tpu_torch <argv> --timings` as a child process
+    from the repository's root: (its --timings JSON, wall seconds, seconds
+    from the spawn to the verb's start: process start and imports). A
+    failed verb fails the phase."""
+    import subprocess
+
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "rapidraw_tpu_torch", *argv, "--timings"],
+                          cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                          timeout=900)
+    wall = time.time() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"CLI {label} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    lines = [ln for ln in proc.stderr.splitlines() if ln.startswith('{"timings"')]
+    if len(lines) != 1:
+        raise AssertionError(f"CLI {label}: no --timings line in {proc.stderr[-2000:]}")
+    timings = json.loads(lines[0])["timings"]
+    return timings, wall, timings["main_at"] - t0
+
+
+def phase_cli(args, h, w, reps, card, dev, reset_counts, read_counts):
+    """Phase 17, the CLI and the tiled develop (A.11b): (a) tile placement,
+    the grade kernel (config 3, FULL_DOC with grain and flare,
+    FLARE_LUT_DOC with its map and cube, config 4's masks at the tile's
+    size with vignette and grain through the masks build; dither off and
+    on) and the
+    per-pixel NR kernel (masked_nr_doc's amount maps) on a TILE_SHAPE tile
+    at TILE_ORIGIN of a TILED_SHAPE image against their plain versions,
+    timed beside their bounds; (b) a TILED_SHAPE 16-bit TIFF of
+    photograph-like content from --seed (`photo_rgb16`, the port's
+    write_tiff16) through `python -m rapidraw_tpu_torch develop` in a child
+    process (config 3: tiles of 2048 with a 128-pixel halo), its stages,
+    launches and device memory peak; then in this process develop_tiled on
+    the same loaded image (counters reset and read around it, host-device
+    copies counted by torch.profiler; each tile's develop between two CUDA
+    events; its memory peak above the image) against the whole-image
+    develop (the same): max |d| overall and in the tile interiors (pixels
+    farther than the largest blur radius from a seam, held to TILED_TOL);
+    (c) a 24 MP DNG with a config-3 sidecar through the CLI's `develop` and
+    `export` in child processes, the files equal byte for byte (the DNG
+    carries no EXIF for the export to copy), the develop's wall time split
+    by stage; (d) the
+    other verbs once each in this process: auto, histogram, lut-export
+    (L = 33, on the card and on the CPU, held to GRADE_TOL), `lib dims` on
+    every RAW layout phases 11-12 write (small frames; the CR2 writer's
+    file has no dimensioned IFD, which JAX refuses too), `preset import` of
+    an XMP and `exif --set` read back. Returns ({path: launches},
+    {(kernel, "tiled"): numbers})."""
+    import contextlib
+    import io
+    import tempfile
+
+    from rapidraw_tpu_torch import cli, load_image, parse_adjustments, rasterize_masks
+    from rapidraw_tpu_torch import stack_params
+    from rapidraw_tpu_torch.io import encode
+    from rapidraw_tpu_torch.io.lut import parse_cube, parse_lut_file
+    from rapidraw_tpu_torch.io.sidecar import save_sidecar
+    from rapidraw_tpu_torch.ops import flare, nr
+    from rapidraw_tpu_torch.ops.colorspace import srgb_to_linear
+    from rapidraw_tpu_torch.params import scales
+    from rapidraw_tpu_torch.pipeline import develop as develop_module
+    from rapidraw_tpu_torch.pipeline import fused, tiled
+    from rapidraw_tpu_torch.pipeline.develop import develop
+    from rapidraw_tpu_torch.raw.xtrans import DEFAULT_XTRANS
+    from rapidraw_tpu_torch.tools import bound_ms
+
+    report, launches = {}, {}
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    # --quick: a 600 x 8200 image (still past the CLI's 8192) and a 512 tile
+    full_h, full_w = (600, 8200) if args.quick else TILED_SHAPE
+    th, tw = (512, 512) if args.quick else TILE_SHAPE
+    ox, oy = (4096, 64) if args.quick else TILE_ORIGIN
+    place = {"tile_offset": (ox, oy), "full_size": (full_w, full_h)}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+
+    # ---- (a) tile placement: grade and per-pixel NR, kernel vs plain
+    x = torch.rand((1, 3, th, tw), generator=gen, device=dev)
+    write_cube(tmp / "phase13.cube")
+    cube = torch.from_numpy(parse_lut_file(tmp / "phase13.cube")).to(dev)
+    # FLARE_LUT_DOC's map from a bright-spot proxy of the full image
+    ph, pw = max(1, round(1024 * full_h / full_w)), 1024
+    proxy = torch.rand((1, 3, ph, pw), generator=gen, device=dev) * 0.7
+    yy, xx = torch.arange(ph, device=dev)[:, None], torch.arange(pw, device=dev)[None]
+    for cy, cx in ((0.3, 0.25), (0.6, 0.7)):
+        proxy[:, :, (yy - cy * ph) ** 2 + (xx - cx * pw) ** 2 <= (0.03 * ph) ** 2] = 1.0
+    spf, _ = stack_params([parse_adjustments(FLARE_LUT_DOC)[0]], [parse_adjustments(
+        FLARE_LUT_DOC)[1]], device=dev)
+    fp = fused.pack_rows(spf["glob"])[:, [fused.OFFSETS[k] for k in flare.FLARE_PARAMS]]
+    fmap = flare.flare_maps(proxy, fp.contiguous(), False)
+    docs = (("config3", CONFIG3_DOC), ("FULL_DOC+grain+flare",
+                                       dict(FULL_DOC, grainAmount=30, flareAmount=50)),
+            ("FLARE_LUT_DOC", FLARE_LUT_DOC),
+            # config 4 reads no coordinate: vignette and grain make the placement show
+            ("config4 masks+vignette+grain",
+             dict(config4_doc(th, tw), vignetteAmount=-30, grainAmount=25)))
+    for label, doc in docs:
+        p, c = parse_adjustments(doc)
+        sp, cfg = stack_params([p], [c], device=dev)
+        pmat = fused.pack_rows(sp["glob"])
+        levels = fused.blur_levels(x, cfg, full_size=(full_w, full_h))
+        kw = dict(place, flare=fmap if cfg.flare_active else None,
+                  lut=cube if cfg.has_lut else None)
+        if cfg.mask_count:  # the tile's own influences and the mask params
+            bitmaps = rasterize_masks(doc, tw, th, scale=1.0)
+            kw.update(masks=torch.from_numpy(bitmaps[None]).to(dev),
+                      mmat=fused.pack_mask_rows(sp["mask"]))
+        for dither in (False, True):
+            cd = dataclasses.replace(cfg, dither_active=dither)
+            got = fused.grade(x, levels, pmat, cd, **kw)
+            ref, ops = count_ops(lambda: fused.grade_plain(x, levels, pmat, cd, **kw))
+            d = (got - ref).abs()
+            err, share = float(d.max()), float((d > GRADE_TOL).float().mean())
+            tol = GRADE_DITHER_TOL if dither else GRADE_TOL
+            line = (f"[tiled-kernel] grade {label} tile (3,{th},{tw}) at {(ox, oy)} of "
+                    f"{full_w}x{full_h} dither={'on' if dither else 'off'}: max|d| {err:.3e} "
+                    f"(bound {tol:.3e}), share>{GRADE_TOL:g} {share:.2e}")
+            if not dither:
+                at_zero = fused.grade(x, levels, pmat, cd,
+                                      **{k: v for k, v in kw.items() if k not in place})
+                moved = float((at_zero - got).abs().max())
+                ms = time_ms(lambda: fused.grade(x, levels, pmat, cd, **kw), reps)
+                pms = time_ms(lambda: fused.grade_plain(x, levels, pmat, cd, **kw), 1)
+                extra = [kw[k] for k in ("flare", "lut", "masks", "mmat")
+                         if kw.get(k) is not None]
+                bms, bby = bound_ms(nbytes(x, pmat, *levels.values(), *extra) + nbytes(x), ops)
+                line += (f"; the placement moves the output by {moved:.3e}; kernel {ms:.3f} ms "
+                         f"plain {pms:.3f} ms bound {bms:.3f} ms ({bby}) [{card}]")
+                if moved == 0.0:
+                    raise AssertionError(f"grade {label}: the tile offset changed nothing")
+                if label == "config3":
+                    report["grade", "tiled"] = dict(ms=ms, plain_ms=pms, bound_ms=bms,
+                                                    bound_by=bby, library_ms=None,
+                                                    max_abs_err=err)
+            log(line)
+            if not bool(torch.isfinite(got).all()) or err > tol:
+                raise AssertionError(f"grade {label} at a tile offset: max|d| {err} > {tol}")
+            del got, ref
+        del levels, kw
+    ndoc = masked_nr_doc(th, tw)
+    p, c = parse_adjustments(ndoc)
+    spn, cfgn = stack_params([p], [c], device=dev)
+    nmk = torch.from_numpy(rasterize_masks(ndoc, tw, th, scale=1.0)[None]).to(dev)
+    la, ca = fused.nr_amounts(spn, cfgn, nmk, dev)
+    center, planes = srgb_to_linear(x).contiguous(), nr.nr_planes(x, False).contiguous()
+    scale = scales.resolution_scale(full_w, full_h)
+    nkw = {"tile_offset": (ox, oy)}
+    got = nr.nr_dynamic(center, planes, la, ca, scale, **nkw)
+    ref, ops = count_ops(lambda: nr.nr_dynamic_plain(center, planes, la, ca, scale, **nkw))
+    err = float((got - ref).abs().max())
+    moved = float((nr.nr_dynamic(center, planes, la, ca, scale) - got).abs().max())
+    ms = time_ms(lambda: nr.nr_dynamic(center, planes, la, ca, scale, **nkw), reps)
+    pms = time_ms(lambda: nr.nr_dynamic_plain(center, planes, la, ca, scale, **nkw), 1)
+    bms, bby = bound_ms(nbytes(center, planes, la, ca) + nbytes(center), ops)
+    report["nr_dynamic", "tiled"] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                                         library_ms=None, max_abs_err=err)
+    log(f"[tiled-kernel] nr_dynamic masked_nr_doc tile (3,{th},{tw}) at {(ox, oy)}: max|d| "
+        f"{err:.3e} (bound {NR_TOL:g}); the placement moves the output by {moved:.3e}; kernel "
+        f"{ms:.3f} ms plain {pms:.3f} ms bound {bms:.3f} ms ({bby}) [{card}]")
+    if not bool(torch.isfinite(got).all()) or err > NR_TOL or moved == 0.0:
+        raise AssertionError(f"nr_dynamic at a tile offset: max|d| {err}, moved {moved}")
+    del x, got, ref, center, planes, la, ca, nmk, proxy
+
+    # ---- (b) the tiled develop: the CLI on a 96 MP 16-bit TIFF
+    t0 = time.perf_counter()
+    tif = tmp / "panorama.tif"
+    encode.write_tiff16(tif, photo_rgb16(full_h, full_w, args.seed, dev))
+    log(f"[tiled] wrote {tif.name} {full_w}x{full_h} 16-bit: {tif.stat().st_size / 1e6:.0f} MB "
+        f"in {time.perf_counter() - t0:.1f} s")
+    adj = tmp / "config3.json"
+    adj.write_text(json.dumps(CONFIG3_DOC))
+    tm, wall, start = run_cli(["develop", str(tif), "-a", str(adj), "-o", str(tmp / "pano.jpg")],
+                              "develop (tiled)")
+    n_tiles = len(tiled.tile_windows(full_h, full_w))
+    launches["tiled_cli"] = dict.fromkeys(read_counts(), 0) | tm["launches"]
+    stages = ", ".join(f"{k} {v / 1e3:.2f} s" for k, v in tm["stages_ms"].items())
+    log(f"[tiled] CLI develop {full_w}x{full_h} TIFF: wall {wall:.2f} s (process start and "
+        f"imports {start:.2f} s; {stages}); {n_tiles} tiles; device memory peak "
+        f"{tm.get('peak_bytes', 0) / 2**30:.2f} GiB; launches {tm['launches']} [{card}]")
+    if tm["launches"]["grade"] != n_tiles or tm["launches"]["blur"] != n_tiles:
+        raise AssertionError(f"the CLI's tiled develop launched {tm['launches']} for "
+                             f"{n_tiles} tiles")
+    img, _ = load_image(tif, device=dev)
+    p, c = parse_adjustments(CONFIG3_DOC)
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out_t = tiled.develop_tiled(img, p, c)
+        torch.cuda.synchronize()
+    launches["tiled"] = read_counts()
+    copies = {}
+    for ev in prof.key_averages():
+        for kind in ("HtoD", "DtoH"):
+            if f"Memcpy {kind}" in ev.key:
+                copies[kind] = copies.get(kind, 0) + ev.count
+    # each tile's develop between two CUDA events (recorded, not waited on)
+    events = []
+
+    def develop_between_events(*a, **kw):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        res = develop(*a, **kw)
+        ev[1].record()
+        events.append(ev)
+        return res
+
+    del out_t
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    develop_module.develop = develop_between_events
+    try:
+        t0 = time.perf_counter()
+        out_t = tiled.develop_tiled(img, p, c)
+        torch.cuda.synchronize()
+        tiled_s = time.perf_counter() - t0
+    finally:
+        develop_module.develop = develop
+    tiled_peak = torch.cuda.max_memory_allocated(dev) - base
+    tile_ms = [a.elapsed_time(b) for a, b in events]
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    out_w = develop(img, p, c)
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t0
+    whole_peak = torch.cuda.max_memory_allocated(dev) - base
+    d = (out_t - out_w).abs().amax(0)
+    rmax = max(fused.blur_radii(c, full_w, full_h).values())
+
+    def clear_of_seams(n):
+        keep = torch.ones(n, dtype=torch.bool, device=dev)
+        for seam in range(tiled.TILE_SIZE, n, tiled.TILE_SIZE):
+            keep[max(0, seam - rmax):seam + rmax] = False
+        return keep
+
+    interior = clear_of_seams(full_h)[:, None] & clear_of_seams(full_w)[None]
+    dmax, dint = float(d.max()), float(d[interior].max())
+    log(f"[tiled] develop_tiled in-process {full_w}x{full_h} config 3: {tiled_s * 1e3:.1f} ms, "
+        f"{len(tile_ms)} tiles between CUDA events median {statistics.median(tile_ms):.3f} ms "
+        f"(min {min(tile_ms):.3f}, max {max(tile_ms):.3f}, sum {sum(tile_ms):.1f}), its memory "
+        f"peak above the image {tiled_peak / 2**30:.2f} GiB, launches {launches['tiled']}, "
+        f"host-device copies during it {copies}; whole-image develop {whole_s * 1e3:.1f} ms, "
+        f"its memory peak above the image {whole_peak / 2**30:.2f} GiB; tiled vs whole max|d| "
+        f"{dmax:.3e} overall, "
+        f"{dint:.3e} in the tile interiors (> r={rmax} from a seam; bound {TILED_TOL:g}) "
+        f"[{card}]")
+    if not bool(torch.isfinite(out_t).all()) or dint > TILED_TOL:
+        raise AssertionError(f"tiled develop: interior max|d| {dint} > {TILED_TOL}")
+    if launches["tiled"]["grade"] != n_tiles or len(tile_ms) != n_tiles:
+        raise AssertionError(f"develop_tiled launched {launches['tiled']} in {len(tile_ms)} "
+                             f"tile develops for {n_tiles} tiles")
+    del img, out_t, out_w, d, interior
+    tif.unlink()
+
+    # ---- (c) a 24 MP DNG: `develop X` equals `export X`
+    dng = tmp / "shot.dng"
+    dng.write_bytes(raw_dng_bytes(photo_cfa(h, w, 0, 16000, args.seed)))
+    save_sidecar(dng, {"adjustments": CONFIG3_DOC})
+    tm, wall, start = run_cli(["develop", str(dng), "-o", str(tmp / "dev.jpg")], "develop")
+    launches["cli_develop"] = dict.fromkeys(read_counts(), 0) | tm["launches"]
+    stages = ", ".join(f"{k} {v:.0f} ms" for k, v in tm["stages_ms"].items())
+    log(f"[cli] develop {w}x{h} DNG: wall {wall:.2f} s (process start and imports {start:.2f} s; "
+        f"{stages}); launches {tm['launches']} [{card}]")
+    ex_out = tmp / "export"
+    _, ex_wall, ex_start = run_cli(["export", str(dng), "-o", str(ex_out)], "export")
+    dev_jpg, exp_jpg = (tmp / "dev.jpg").read_bytes(), (ex_out / "shot_edited.jpg").read_bytes()
+    same = dev_jpg == exp_jpg
+    log(f"[cli] export of the same DNG: wall {ex_wall:.2f} s (start {ex_start:.2f} s); develop "
+        f"{len(dev_jpg)} bytes, export {len(exp_jpg)} bytes, equal byte for byte: {same}")
+    if not same or tm["launches"]["grade"] != 1 or tm["launches"]["blur"] != 1:
+        raise AssertionError(f"develop and export disagree ({same}) or launches {tm['launches']}")
+
+    # ---- (d) the other verbs, once each, in this process
+    def verb(argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        if rc != 0:
+            raise AssertionError(f"CLI {argv[:2]} exited {rc}")
+        return out.getvalue()
+
+    t0 = time.perf_counter()
+    auto = json.loads(verb(["auto", str(dng)]))
+    hist = json.loads(verb(["histogram", str(dng)]))
+    if "exposure" not in auto or sorted(hist) != ["blue", "green", "luma", "red"] or \
+            any(len(v) != 256 for v in hist.values()):
+        raise AssertionError("auto or histogram gave a malformed JSON")
+    log(f"[cli] auto and histogram on the DNG: {time.perf_counter() - t0:.2f} s, auto "
+        f"{ {k: auto[k] for k in ('exposure', 'contrast') if k in auto} }")
+    reset_counts()
+    t0 = time.perf_counter()
+    verb(["lut-export", "-a", str(adj), "--size", "33", "-o", str(tmp / "card.cube")])
+    torch.cuda.synchronize()
+    lut_s = time.perf_counter() - t0
+    launches["lut_export"] = read_counts()
+    verb(["lut-export", "-a", str(adj), "--size", "33", "-o", str(tmp / "cpu.cube"),
+          "--device", "cpu"])
+    lc = parse_cube((tmp / "card.cube").read_text())
+    lp = parse_cube((tmp / "cpu.cube").read_text())
+    lerr = float(np.abs(lc - lp).max())
+    log(f"[cli] lut-export L=33 on the card {lut_s * 1e3:.0f} ms, launches "
+        f"{launches['lut_export']}; card vs CPU max|d| {lerr:.3e} (bound {GRADE_TOL:g})")
+    if lc.shape != (33, 33, 33, 3) or lerr > GRADE_TOL or launches["lut_export"]["grade"] != 1:
+        raise AssertionError(f"lut-export: shape {lc.shape}, card vs CPU {lerr}")
+    raws = {"dng16": raw_dng_bytes(photo_cfa(256, 384, 0, 16000, 1)),
+            "dng14": raw_dng_bytes(photo_cfa(256, 384, 0, 16000, 1), bits=14),
+            "dng_orient6": raw_dng_bytes(photo_cfa(256, 384, 0, 16000, 1), orientation=6),
+            "dng_ljpeg": raw_dng_bytes(np.tile(photo_cfa(128, 128, 0, 16000, 1), (2, 3)),
+                                       ljpeg_tile=128),
+            "raf": raw_raf_bytes(photo_cfa(256, 384, 0, 4000, 2), DEFAULT_XTRANS)}
+    for kind in ("cr2", *VENDOR_MAIN[1:], *VENDOR_OTHER):
+        size = {"orf_predictive": (128, 192), "rw2": (256, 378)}.get(kind, (256, 384))
+        raws[kind] = vendor_file(kind, *size, args.seed)[0]
+    ext = {**{k: k for k in VENDOR_MAIN}, **{k: e for k, (e, _) in VENDOR_OTHER.items()},
+           "dng16": "dng", "dng14": "dng", "dng_orient6": "dng", "dng_ljpeg": "dng",
+           "raf": "raf"}
+    paths = []
+    for name, data in raws.items():
+        paths.append(tmp / f"{name}.{ext[name]}")
+        paths[-1].write_bytes(data)
+    dims = verb(["lib", "dims", *[str(q) for q in paths if q.stem != "cr2"]]).splitlines()
+    with contextlib.suppress(ValueError):  # JAX refuses this CR2 the same way
+        cr2 = verb(["lib", "dims", str(tmp / "cr2.cr2")])
+        raise AssertionError(f"lib dims read the CR2 writer's file: {cr2}")
+    log(f"[cli] lib dims on {len(dims)} RAW layouts: "
+        + "; ".join(line.rsplit("/", 1)[1] for line in dims) + " (cr2: no dimensioned IFD)")
+    if len(dims) != len(paths) - 1:
+        raise AssertionError(f"lib dims printed {dims}")
+    store = tmp / "presets.json"
+    (tmp / "look.xmp").write_text(PRESET_XMP)
+    verb(["preset", "--store", str(store), "import", str(tmp / "look.xmp")])
+    shown = json.loads(verb(["preset", "--store", str(store), "show", "Phase 17"]))
+    verb(["exif", str(dng), "--set", "Artist=Phase 17", "Copyright=CC0"])
+    tags = json.loads(verb(["exif", str(dng)]))[str(dng)]
+    log(f"[cli] preset import of an XMP: {shown}; exif --set read back: "
+        f"{ {k: tags.get(k) for k in ('Artist', 'Copyright')} }")
+    if shown.get("contrast") != 15 or tags.get("Artist") != "Phase 17":
+        raise AssertionError("preset import or exif --set did not read back")
+    import shutil
+
+    shutil.rmtree(tmp)
     return launches, report
 
 
@@ -3858,7 +4261,15 @@ def main() -> int:
     launches16, preview_report = phase_preview(args, h, w, reps, card, dev, reset_counts,
                                                read_counts)
     report.update(preview_report)
+    # the service warps at the source's size (phase 7's 24 MP case), never
+    # at the preview's: phase 16's resample rows time a shape no caller runs
+    report["resample", "preview"] = report["resample", "config5"]
     phase_done("preview service")
+
+    # ---- 17. the CLI and the tiled develop ------------------------------------
+    launches17, cli_report = phase_cli(args, h, w, reps, card, dev, reset_counts, read_counts)
+    report.update(cli_report)
+    phase_done("CLI and tiled develop")
 
     sources = {  # name -> (source, the TPU kernel it replaces, the path that runs it)
         "blur": ("rapidraw_tpu_torch/csrc/blur.cu", "rapidraw_tpu/ops/blur.py:242", "config5"),
@@ -3885,7 +4296,8 @@ def main() -> int:
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     counts = {"config3": launches3, "config5": launches5, "probes": launches_probes,
               "config4": launches4, **launches2, **launches12, **launches13,
-              "export": launches14, "ldr_export": launches15, "preview": launches16}
+              "export": launches14, "ldr_export": launches15, "preview": launches16,
+              **launches17}
     library = {"nr_dynamic": "nr"}  # the kernels that share a source with another
     # a kernel that shares its source: its own entry's registers and spills
     entry = {"nr": "nr_kernel", "nr_dynamic": "nr_dynamic_kernel"}

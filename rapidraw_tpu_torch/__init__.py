@@ -16,7 +16,10 @@ io/exif.py). The preview service (`RenderService`: previews, ROI, the
 interactive divisor, scopes, auto adjust, the crop, original, geometry and
 preset previews with their caches; `PreviewWorker` and `AnalyticsWorker`
 on their own threads) renders through the same develop; AI patches
-composite before the transforms (masks/patches.py). On CUDA tensors it runs hand-written Hopper kernels (csrc/blur.cu
+composite before the transforms (masks/patches.py). The CLI
+(`python -m rapidraw_tpu_torch`, cli.py) develops, exports, analyses and
+manages a library of files; an image past 8192 px develops tile by tile
+(pipeline/tiled.py). On CUDA tensors it runs hand-written Hopper kernels (csrc/blur.cu
 for the blur pyramid, csrc/nr.cu for noise reduction, csrc/flare.cu for
 the flare maps, csrc/grade.cu for the whole per-pixel grade chain,
 csrc/resample.cu for the warp); on CPU tensors it runs their plain PyTorch

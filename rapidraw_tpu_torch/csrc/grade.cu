@@ -81,6 +81,15 @@
 // corners from the (L, L, L, 3) cube (L <= 65, <= 3.3 MB, read through the
 // read-only cache) and blends them in the plain version's order, so its
 // result is the `where`-selected one bit for bit.
+//
+// Tile placement: a batch may be one tile of a larger image (the tiled
+// develop, pipeline/tiled.py). Its origin (x_off, y_off) and the full
+// image's size arrive as arguments, and every coordinate the spatial stages
+// read is absolute: the vignette's and the centre mask's tables, grain,
+// dither and the flare sample, each from (float)(x + x_off) as JAX builds
+// arange(w) + x_off in float32 (exact below 2^24) and divided by the full
+// size (JAX fused.py:224-256, :320-325). A whole image is the tile at
+// (0, 0) of its own size, which computes what it did before.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -745,7 +754,8 @@ __device__ F3 glow_bloom(F3 c, F3 blur, float amount, float exp, float bright, f
 }
 
 // the flare contribution of one pixel: its image's (512, 512, 3) map
-// sampled bilinearly at u = x / W, v = y / H, times 1.4, squared
+// sampled bilinearly at u = x / W, v = y / H (absolute coordinates over the
+// full image's size), times 1.4, squared
 // (ops/flare.py `sample_flare`)
 __device__ F3 flare_sample(const float* __restrict__ map, float xs, float ys, int W, int H) {
   constexpr int FN = 512;
@@ -1023,8 +1033,8 @@ __global__ void __launch_bounds__(BX* BY, MIN_BLOCKS)
                  const float* __restrict__ l_tonal, const float* __restrict__ l_clarity,
                  const float* __restrict__ l_structure, const float* __restrict__ params,
                  float* __restrict__ out, unsigned flags, int nseg, unsigned bands, int rows,
-                 int H, int W, float inv_w, float inv_h, float inv_scale, float aspect,
-                 const float* __restrict__ infl, const float* __restrict__ mparams, int nmask,
+                 int H, int W, int x_off, int y_off, int W_full, int H_full, float inv_w,
+                 float inv_h, float inv_scale, float aspect, const float* __restrict__ infl, const float* __restrict__ mparams, int nmask,
                  MaskBlend blend, const float* __restrict__ flare_map,
                  const float* __restrict__ lut, int lut_size) {
   // per block: the image's param row and Uniforms, and the x-only and
@@ -1052,12 +1062,12 @@ __global__ void __launch_bounds__(BX* BY, MIN_BLOCKS)
   }
   const float v_round = 1.0f - __ldg(p + P_VIGNETTE_ROUNDNESS);
   if (tid < BX) {
-    const float xs = (float)(blockIdx.x * BX + tid);
+    const float xs = (float)(blockIdx.x * BX + tid + x_off);
     if (ON(F_VIGNETTE_ACTIVE)) vig_x[tid] = vignette_u(xs, inv_w, v_round);
     if (ON(F_CENTRE_ACTIVE)) cen_x[tid] = (xs * inv_w - 0.5f) * 2.0f;
   }
   if (tid < tile_h) {
-    const float ys = (float)(blockIdx.y * tile_h + tid);
+    const float ys = (float)(blockIdx.y * tile_h + tid + y_off);
     if (ON(F_VIGNETTE_ACTIVE)) vig_y[tid] = vignette_u(ys, inv_h, v_round) * aspect;
     if (ON(F_CENTRE_ACTIVE)) cen_y[tid] = ((ys * inv_h - 0.5f) * 2.0f) * aspect;
   }
@@ -1068,7 +1078,7 @@ __global__ void __launch_bounds__(BX* BY, MIN_BLOCKS)
   const size_t plane = (size_t)H * W;
   const size_t base = (size_t)blockIdx.z * 3 * plane + x;
   const bool is_raw = ON(F_IS_RAW);
-  const float xs = (float)x;
+  const float xs = (float)(x + x_off);
   const float ux = ON(F_VIGNETTE_ACTIVE) ? vig_x[threadIdx.x] : 0.0f;
   const float un = ON(F_CENTRE_ACTIVE) ? cen_x[threadIdx.x] : 0.0f;
 
@@ -1083,7 +1093,7 @@ __global__ void __launch_bounds__(BX* BY, MIN_BLOCKS)
     const int y = blockIdx.y * tile_h + ty;
     if (x >= W || y >= H) continue;
     const size_t i = base + (size_t)y * W;
-    const float ys = (float)y;
+    const float ys = (float)(y + y_off);
     PixelMasks pm;
     Uniforms lu;  // MASKS: the block's Uniforms, blended fields' values per pixel
     if constexpr (MASKS) {
@@ -1143,7 +1153,7 @@ __global__ void __launch_bounds__(BX* BY, MIN_BLOCKS)
       c = halation(c, b_clarity, EFF(P_HALATION, M_HALATION), exposure, brightness, whites, U);
     if (ON(F_FLARE_ACTIVE)) {
       const float* map = flare_map + (size_t)blockIdx.z * (512 * 512 * 3);
-      c = flare(c, flare_sample(map, xs, ys, W, H), EFF(P_FLARE, M_FLARE));
+      c = flare(c, flare_sample(map, xs, ys, W_full, H_full), EFF(P_FLARE, M_FLARE));
     }
     if (ON(F_DEHAZE_ACTIVE)) c = dehaze(c, b_structure, EFF(P_DEHAZE, M_DEHAZE));
     if (ON(F_CENTRE_ACTIVE)) c = centre_tonal_and_color(c, PV(P_CENTRE), cm);
@@ -1271,7 +1281,10 @@ extern "C" const char* rr_error_string(int err) {
 // `nmask` > 0 masks: the (B, nmask, H, W) influences, the (B, nmask, M_K)
 // mask params, the blend sets and the plan's `mask_smem` bytes of dynamic
 // shared memory. With F_FLARE_ACTIVE the (B, 512, 512, 3) flare maps, with
-// F_HAS_LUT the (lut_size^3, 3) cube. A plan that leaves a pixel uncovered,
+// F_HAS_LUT the (lut_size^3, 3) cube. The batch is a W x H tile whose
+// origin sits at (x_off, y_off) in a W_full x H_full image (0, 0 and the
+// tile's own size for a whole image); inv_w, inv_h, inv_scale and aspect
+// are the full image's. A plan that leaves a pixel uncovered,
 // names another build or another shared-memory size, or passes the block's
 // shared memory, and flags whose inputs are missing, are refused before
 // launch.
@@ -1279,7 +1292,7 @@ extern "C" int rr_grade(const float* img, const float* l_sharp, const float* l_t
                         const float* l_clarity, const float* l_structure, const float* params,
                         float* out, unsigned flags, int nseg, unsigned bands,
                         int min_blocks, int rows, int grid_x, int grid_y, int B, int H, int W,
-                        float inv_w, float inv_h, float inv_scale, float aspect,
+                        int x_off, int y_off, int W_full, int H_full, float inv_w, float inv_h, float inv_scale, float aspect,
                         const float* infl, const float* mparams, int nmask,
                         const MaskBlend* blend, int mask_smem, const float* flare_map,
                         const float* lut, int lut_size, void* stream) {
@@ -1287,6 +1300,10 @@ extern "C" int rr_grade(const float* img, const float* l_sharp, const float* l_t
     return (int)cudaErrorInvalidValue;
   if ((size_t)grid_x * BX < (size_t)W || (size_t)grid_y * BY * rows < (size_t)H ||
       grid_y > 65535 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  // the tile lies inside its image, whose coordinates float32 holds exactly
+  if (x_off < 0 || y_off < 0 || (long long)x_off + W > W_full ||
+      (long long)y_off + H > H_full || W_full > (1 << 24) || H_full > (1 << 24))
     return (int)cudaErrorInvalidValue;
   if (nmask < 0 || nmask > MAX_MASKS || blend == nullptr ||
       mask_smem != nmask * M_SCALARS * (int)sizeof(float) ||
@@ -1310,6 +1327,6 @@ extern "C" int rr_grade(const float* img, const float* l_sharp, const float* l_t
   dim3 grid(grid_x, grid_y, B);
   kernel<<<grid, block, mask_smem, (cudaStream_t)stream>>>(
       img, l_sharp, l_tonal, l_clarity, l_structure, params, out, flags, nseg, bands, rows, H, W,
-      inv_w, inv_h, inv_scale, aspect, infl, mparams, nmask, *blend, flare_map, lut, lut_size);
+      x_off, y_off, W_full, H_full, inv_w, inv_h, inv_scale, aspect, infl, mparams, nmask, *blend, flare_map, lut, lut_size);
   return (int)cudaGetLastError();
 }

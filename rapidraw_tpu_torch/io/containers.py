@@ -11,8 +11,9 @@ host parser producing a `RawFile` (io/dng.py), as in the JAX package:
   (csrc/host/crx.cc); payloads that do not match refuse precisely.
   IIQ (Phase One): io/iiq.py + csrc/host/phase_one.cc.
 X3F, CRW, ARRIRAW, bare BMFF and the extension tail are refused as the JAX
-package refuses them. The metadata-only dimension queries
-(`raw_dimensions`) are not ported yet.
+package refuses them. `raw_dimensions` reads width and height from the
+container's metadata with no decode, X3F (io/x3f.py) and CRW (io/ciff.py)
+included, for the catalog's dimension query.
 """
 
 from __future__ import annotations
@@ -242,3 +243,91 @@ def _ari_dimensions_or_zero(data: bytes) -> tuple[int, int]:
     except struct.error:
         pass
     return 0, 0
+
+
+def raw_dimensions(data: bytes, ext: str = "") -> tuple[int, int]:
+    """(width, height) from container METADATA only — no pixel decode.
+
+    Serves dimension queries (lib.rs:232-238) cheaply: a CR2/NEF/ARW
+    bitstream decode takes seconds per 24MP file, and CR3 dims live in the
+    stsd box even though the crx payload may be refused."""
+    kind = sniff_container(data, ext)
+    if kind == "bmff":
+        raise UnsupportedRawFormat(kind)
+    try:
+        if kind == "ari":
+            w, h = _ari_dimensions_or_zero(data)
+            if w and h:
+                return w, h
+            raise DngError("ARRIRAW header truncated")
+        if kind == "x3f":
+            from rapidraw_tpu_torch.io.x3f import x3f_dimensions
+
+            return x3f_dimensions(data)
+        if kind == "crw":
+            from rapidraw_tpu_torch.io.ciff import crw_dimensions
+
+            return crw_dimensions(data)
+        if kind == "iiq":
+            from rapidraw_tpu_torch.io.iiq import iiq_dimensions
+
+            return iiq_dimensions(data)
+        if kind == "cr3":
+            from rapidraw_tpu_torch.io.cr3 import parse_cr3_info
+
+            info = parse_cr3_info(data)
+            if info.width and info.height:
+                return int(info.width), int(info.height)
+            raise DngError("CR3 missing raw dimensions")
+        if kind == "raf":
+            from rapidraw_tpu_torch.io.raf import raf_dimensions
+
+            return raf_dimensions(data)
+        if kind == "mrw":
+            # PRD sensor descriptor fields (io/makers.py parse_mrw layout)
+            (hdr_len,) = struct.unpack_from(">I", data, 4)
+            pos = 8
+            while pos + 8 <= min(8 + hdr_len, len(data)):
+                name = data[pos : pos + 4]
+                (blen,) = struct.unpack_from(">I", data, pos + 4)
+                if name == b"\x00PRD" and pos + 24 <= len(data):
+                    ch, cw, ih, iw = struct.unpack_from(">HHHH", data, pos + 16)
+                    w, h = (iw or cw), (ih or ch)
+                    if w and h:
+                        return int(w), int(h)
+                pos += 8 + blen
+            raise DngError("MRW missing PRD sensor descriptor")
+        if kind == "unknown":
+            raise DngError(
+                f"unrecognized RAW container (extension {ext or '?'})"
+            )
+        # TIFF-family (incl. ORF/RW2 magics): IFD dims. RW2 uses vendor
+        # sensor-border tags; everything else reports the largest
+        # ImageWidth x ImageLength among all IFDs (the raw plane).
+        endian = "<" if data[:2] == b"II" else ">"
+        from rapidraw_tpu_torch.io.dng import _collect_ifds, _T
+
+        first = struct.unpack_from(endian + "HI", data, 2)[1]
+        ifds = _collect_ifds(data, endian, first)
+        if kind == "rw2":
+            ifd0 = ifds[0] if ifds else {}
+            borders = [ifd0.get(t, [0])[0] for t in (0x0004, 0x0005, 0x0006, 0x0007)]
+            top, left, bottom, right = borders
+            if right > left and bottom > top:
+                return int(right - left), int(bottom - top)
+            w = ifd0.get(0x0002, [0])[0]
+            h = ifd0.get(0x0003, [0])[0]
+            if w and h:
+                return int(w), int(h)
+            raise DngError("RW2 missing sensor dimensions")
+        best = (0, 0)
+        for i in ifds:
+            w = i.get(_T["ImageWidth"], [0])
+            h = i.get(_T["ImageLength"], [0])
+            if w and h and w[0] * h[0] > best[0] * best[1]:
+                best = (int(w[0]), int(h[0]))
+        if best[0] and best[1]:
+            return best
+        raise DngError("no dimensioned IFD found")
+    except (KeyError, IndexError, struct.error, OverflowError, TypeError) as e:
+        raise DngError(f"malformed {kind} file: {type(e).__name__}: {e}") from e

@@ -1103,3 +1103,30 @@ def effective_exif_tags(path: str | Path) -> dict:
     if rr and isinstance(rr.get("exif"), dict):
         return dict(rr["exif"])
     return read_exif_tags(path)
+
+
+def update_exif_fields(paths: list[str | Path], updates: dict[str, str]) -> None:
+    """Field-level EXIF edits persisted to the .rrdata sidecar
+    (file_management.rs:235-277; JAX io/exif.py:550): seed the dict from the
+    sidecar's exif block, else the .rrexif companion, else the file's own
+    EXIF; apply `updates` (trimmed; an empty value deletes the key); write
+    back."""
+    from rapidraw_tpu_torch.io.sidecar import load_sidecar, save_sidecar
+
+    for path in paths:
+        meta = load_sidecar(path)
+        exif = meta.get("exif")
+        if not isinstance(exif, dict):
+            rr = load_rrexif_sidecar(path)
+            if rr and isinstance(rr.get("exif"), dict):
+                exif = dict(rr["exif"])
+            else:
+                exif = read_exif_tags(path)
+        for k, v in updates.items():
+            trimmed = str(v).strip()
+            if not trimmed:
+                exif.pop(k, None)
+            else:
+                exif[k] = trimmed
+        meta["exif"] = exif
+        save_sidecar(path, meta)

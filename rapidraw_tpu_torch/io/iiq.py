@@ -92,6 +92,17 @@ def _floats(data: bytes, base: int, big: bool, entry, n: int) -> np.ndarray:
     return np.array(struct.unpack_from(e + f"{n}f", data, off), np.float64)
 
 
+def iiq_dimensions(data: bytes) -> tuple[int, int]:
+    """(width, height) of the active area from directory metadata only."""
+    base, big = _find_base(data)
+    d = _parse_dir(data, base, big)
+    w = d.get(0x10C, (0, 0, 0, 0))[2] or d.get(0x108, (0, 0, 0, 0))[2]
+    h = d.get(0x10D, (0, 0, 0, 0))[2] or d.get(0x109, (0, 0, 0, 0))[2]
+    if not (w and h):
+        raise DngError("IIQ missing dimensions")
+    return int(w), int(h)
+
+
 # dcraw phase_one_correct neighbor table: 4 diagonals, 4 straight-2s,
 # 4 diagonal-2s.
 _DEFECT_DIRS = (

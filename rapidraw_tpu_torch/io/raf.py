@@ -165,3 +165,36 @@ def parse_raf(data: bytes) -> RawFile:
         orientation=1,
         xtrans=np.asarray(xtrans, np.int32),
     )
+
+
+def raf_dimensions(data: bytes) -> tuple[int, int]:
+    """(width, height) from the CFA header records / FujiIFD — metadata
+    only, no sample decode (dimension queries, lib.rs:232-238)."""
+    if data[:16] != _MAGIC:
+        raise DngError("not a RAF file")
+    try:
+        cfa_hdr_off, cfa_hdr_len = struct.unpack_from(">II", data, 0x5C)
+        cfa_off, cfa_len = struct.unpack_from(">II", data, 0x64)
+    except struct.error as e:
+        raise DngError("truncated RAF directory") from e
+    recs = _cfa_records(data, cfa_hdr_off, cfa_hdr_len) if cfa_hdr_off else {}
+    # embedded-TIFF CFA block FIRST: parse_raf decodes the FujiIFD shape
+    # for these files, so the dimension query must agree with the raster
+    # it will actually produce (the 0x0100 record can carry the sensor
+    # full size instead)
+    if cfa_off and data[cfa_off : cfa_off + 2] in (b"II", b"MM"):
+        endian = "<" if data[cfa_off : cfa_off + 2] == b"II" else ">"
+        sub = data[cfa_off : cfa_off + cfa_len if cfa_len else len(data)]
+        try:
+            first = struct.unpack_from(endian + "HI", sub, 2)[1]
+            ifds = _collect_ifds(sub, endian, first)
+        except struct.error as e:
+            raise DngError("malformed RAF embedded TIFF") from e
+        for i in ifds:
+            if _F_WIDTH in i and _F_HEIGHT in i:
+                return int(i[_F_WIDTH][0]), int(i[_F_HEIGHT][0])
+    if 0x0100 in recs and len(recs[0x0100]) >= 4:
+        height, width = struct.unpack_from(">HH", recs[0x0100], 0)
+        if width and height:
+            return int(width), int(height)
+    raise DngError("RAF missing raw dimensions")

@@ -33,10 +33,13 @@ def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
     return x / torch.full((), c, dtype=torch.float32, device=x.device)
 
 
-def coord_maps(h: int, w: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """Pixel-coordinate maps (xs, ys), each (H, W) float32."""
-    ys = torch.arange(h, dtype=torch.float32, device=device)[:, None].expand(h, w)
-    xs = torch.arange(w, dtype=torch.float32, device=device)[None, :].expand(h, w)
+def coord_maps(h: int, w: int, device, offset=(0, 0)) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pixel-coordinate maps (xs, ys), each (H, W) float32: arange in
+    float32 plus the (x, y) `offset` of a tile's origin in its image, as JAX
+    builds them (exact below 2^24)."""
+    x_off, y_off = offset
+    ys = (torch.arange(h, dtype=torch.float32, device=device) + float(y_off))[:, None].expand(h, w)
+    xs = (torch.arange(w, dtype=torch.float32, device=device) + float(x_off))[None, :].expand(h, w)
     return xs, ys
 
 

@@ -29,7 +29,7 @@ import torch
 
 from rapidraw_tpu_torch.native import KernelLibrary
 from rapidraw_tpu_torch.ops import colorspace as cs
-from rapidraw_tpu_torch.ops.common import as_t, luma, mix, smoothstep, true_div
+from rapidraw_tpu_torch.ops.common import as_t, coord_maps, luma, mix, smoothstep, true_div
 
 FLARE_MAP_SIZE = 512
 # the global params a flare map is made from, in the order the kernel reads
@@ -314,15 +314,19 @@ def generate_flare_map(image: torch.Tensor, amount, exposure, brightness, whites
     return out.movedim(0, -1).contiguous()  # (512, 512, 3): the develop chain binds a texture
 
 
-def sample_flare(fmap: torch.Tensor, h: int, w: int) -> torch.Tensor:
+def sample_flare(fmap: torch.Tensor, h: int, w: int, tile_offset=(0, 0),
+                 full_size: tuple[int, int] | None = None) -> torch.Tensor:
     """The flare contribution of each pixel of an (h, w) image from its
     (512, 512, 3) map: a clamp-to-edge bilinear sample at u = x / w,
     v = y / h (uv not clamped), times 1.4, squared (JAX develop.py:36-67,
-    :207-217). Returns (3, h, w)."""
+    :207-217). For one tile of a larger image, x and y are absolute (the
+    tile's `tile_offset` added) and w, h the `full_size` (w, h). Returns
+    (3, h, w)."""
     ht, wt, nc = fmap.shape
-    dev = fmap.device
-    ys = true_div(torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w), h)
-    xs = true_div(torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w), w)
+    w_full, h_full = full_size if full_size is not None else (w, h)
+    xs, ys = coord_maps(h, w, fmap.device, tile_offset)
+    ys = true_div(ys, h_full)
+    xs = true_div(xs, w_full)
     x = xs * wt - 0.5
     y = ys * ht - 0.5
     x0 = torch.floor(x)

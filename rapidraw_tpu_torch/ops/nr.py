@@ -333,10 +333,11 @@ nr_static.launches = 0
 
 
 def _nr_dynamic_one(center: torch.Tensor, planes: torch.Tensor, luma_amount, color_amount,
-                    scale: float) -> torch.Tensor:
+                    scale: float, tile_offset=(0, 0)) -> torch.Tensor:
     """JAX's per-pixel gather path (nr.py:108-254) on one (3, H, W) image:
-    amounts 0-d or (H, W), taps hash-jittered per pixel, gathered from the
-    neighbour planes with the indices clamped to the image."""
+    amounts 0-d or (H, W), taps hash-jittered per pixel (the hash reads
+    absolute coordinates: the tile's origin `tile_offset` added), gathered
+    from the neighbour planes with the indices clamped to the image."""
     _, h, w = center.shape
     luma_a = torch.clamp(as_t(luma_amount, center), 0.0, 1.0)
     color_a = torch.clamp(as_t(color_amount, center), 0.0, 1.0)
@@ -346,6 +347,8 @@ def _nr_dynamic_one(center: torch.Tensor, planes: torch.Tensor, luma_amount, col
     res_factor = float(min(max(scale**0.5, 0.5), 2.0))
     xs, ys = coord_maps(h, w, center.device)
     xi, yi = xs.to(torch.int64), ys.to(torch.int64)
+    # hash coordinates are absolute (JAX nr.py:130-133); the gather stays local
+    xs, ys = coord_maps(h, w, center.device, tile_offset)
 
     def index(dx: int, dy: int, stride, jx, jy) -> torch.Tensor:
         off_x = torch.round(dx * stride + jx).to(torch.int64)
@@ -454,22 +457,23 @@ def _amounts(a, b: int, h: int, w: int, device) -> torch.Tensor:
 
 
 def nr_dynamic_plain(center: torch.Tensor, planes: torch.Tensor, luma_amount, color_amount,
-                     scale: float) -> torch.Tensor:
+                     scale: float, tile_offset=(0, 0)) -> torch.Tensor:
     """Plain version of the per-pixel NR kernel: center (B, 3, H, W) linear
     pixels, planes (B, 3, H, W) from `nr_planes`, amounts (B,) per image
-    or (B, H, W) per pixel (for a (3, H, W) image: 0-d or (H, W))."""
+    or (B, H, W) per pixel (for a (3, H, W) image: 0-d or (H, W));
+    `tile_offset` the (x, y) origin of a tile in its image."""
     _check(center, planes)
     if center.ndim == 3:
-        return _nr_dynamic_one(center, planes, luma_amount, color_amount, scale)
+        return _nr_dynamic_one(center, planes, luma_amount, color_amount, scale, tile_offset)
     b, _, h, w = center.shape
     la = _amounts(luma_amount, b, h, w, center.device)
     ca = _amounts(color_amount, b, h, w, center.device)
-    return torch.stack([_nr_dynamic_one(c, p, la[i], ca[i], scale)
+    return torch.stack([_nr_dynamic_one(c, p, la[i], ca[i], scale, tile_offset)
                         for i, (c, p) in enumerate(zip(center, planes))])
 
 
 def _nr_dynamic_cuda(center: torch.Tensor, planes: torch.Tensor, luma_amount, color_amount,
-                     scale: float) -> torch.Tensor:
+                     scale: float, tile_offset) -> torch.Tensor:
     one = center.ndim == 3
     if one:
         center, planes = center[None], planes[None]
@@ -487,14 +491,14 @@ def _nr_dynamic_cuda(center: torch.Tensor, planes: torch.Tensor, luma_amount, co
     out = torch.empty_like(center)
     fn = _KERNEL.lib().rr_nr_dynamic
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_size_t]
-                   + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(center.device).cuda_stream
     gx, gy, _ = plan["grid"]
     status = fn(
         center.data_ptr(), planes.data_ptr(), la.data_ptr(), ca.data_ptr(), out.data_ptr(),
         int(la.ndim == 3), int(ca.ndim == 3), plan["halo"], plan["rows"], gx, gy,
-        plan["smem"], b, h, w, float(min(max(scale**0.5, 0.5), 2.0)), stream,
+        plan["smem"], b, h, w, *tile_offset, float(min(max(scale**0.5, 0.5), 2.0)), stream,
     )
     _KERNEL.check(status, "rr_nr_dynamic")
     nr_dynamic.launches += 1
@@ -502,20 +506,27 @@ def _nr_dynamic_cuda(center: torch.Tensor, planes: torch.Tensor, luma_amount, co
 
 
 def nr_dynamic(center: torch.Tensor, planes: torch.Tensor, luma_amount, color_amount,
-               scale: float) -> torch.Tensor:
+               scale: float, tile_offset=(0, 0)) -> torch.Tensor:
     """NR with per-pixel amounts and hash-jittered taps of (3, H, W) or
     (B, 3, H, W): the kernel wrapper. Amounts: per image ((B,) or a float)
-    or per pixel ((B, H, W)).
+    or per pixel ((B, H, W)). `scale` is the full image's resolution scale;
+    a tile of a larger image gives its origin `tile_offset` (x, y), which
+    the jitter's hash coordinates add (JAX nr.py:131-133).
 
     CPU tensor -> `nr_dynamic_plain`; CUDA tensor -> one launch of
     csrc/nr.cu's `rr_nr_dynamic` for the whole batch.
     """
     _check(center, planes)
+    x_off, y_off = (int(v) for v in tile_offset)
+    if x_off < 0 or y_off < 0 or max(x_off + center.shape[-1],
+                                     y_off + center.shape[-2]) > 1 << 24:
+        raise ValueError(f"NR: tile offset {tuple(tile_offset)} outside [0, 2^24)")
     if center.device.type == "cpu":
-        return nr_dynamic_plain(center, planes, luma_amount, color_amount, scale)
+        return nr_dynamic_plain(center, planes, luma_amount, color_amount, scale,
+                                (x_off, y_off))
     if center.device.type != "cuda":
         raise ValueError(f"NR runs on CPU or CUDA tensors, got {center.device}")
-    return _nr_dynamic_cuda(center, planes, luma_amount, color_amount, scale)
+    return _nr_dynamic_cuda(center, planes, luma_amount, color_amount, scale, (x_off, y_off))
 
 
 # launch count of the per-pixel NR kernel: one per rr_nr_dynamic call
@@ -525,15 +536,17 @@ nr_dynamic.launches = 0
 def apply_noise_reduction(center_linear: torch.Tensor, input_rgb: torch.Tensor,
                           scale: float, is_raw: bool, static_luma: float | None,
                           static_color: float | None, luma_amount=None,
-                          color_amount=None) -> torch.Tensor:
+                          color_amount=None, tile_offset=(0, 0)) -> torch.Tensor:
     """NR of (..., 3, H, W) linear pixels, neighbours from the input-space
     `input_rgb`, routed as JAX routes it (nr.py:73-108): document-static
     amounts (both `static_*` set) take the static grid; otherwise the
     per-pixel path takes `luma_amount` / `color_amount`, per image or per
-    pixel."""
+    pixel. The static grid reads no coordinate; the per-pixel path's
+    jitter takes a tile's origin `tile_offset`."""
     planes = nr_planes(input_rgb, is_raw).contiguous()
     if static_luma is not None and static_color is not None:
         return nr_static(center_linear.contiguous(), planes, static_luma, static_color, scale)
     if luma_amount is None or color_amount is None:
         raise ValueError("NR with per-pixel amounts takes luma_amount and color_amount")
-    return nr_dynamic(center_linear.contiguous(), planes, luma_amount, color_amount, scale)
+    return nr_dynamic(center_linear.contiguous(), planes, luma_amount, color_amount, scale,
+                      tile_offset)

@@ -22,7 +22,8 @@ from rapidraw_tpu_torch.pipeline.fused import develop_fused
 
 
 def develop(image: torch.Tensor, params: dict, cfg: DevelopConfig,
-            masks=None, lut=None, flare=None, blur_bands: tuple | None = None) -> torch.Tensor:
+            masks=None, lut=None, flare=None, blur_bands: tuple | None = None,
+            tile_offset=(0, 0), full_size: tuple[int, int] | None = None) -> torch.Tensor:
     """Develop one planar (3, H, W) float32 image in input space (sRGB for
     LDR sources, scene-linear for RAW) to clamped sRGB (3, H, W).
 
@@ -32,6 +33,12 @@ def develop(image: torch.Tensor, params: dict, cfg: DevelopConfig,
     (io/lut.parse_lut_file; without it the LUT is skipped, as in JAX);
     flare: a (512, 512, 3) flare map (made from the image when None);
     blur_bands: blur_band_rows(cfg, masks).
+    tile_offset/full_size: when `image` is one tile of a larger image (the
+    tiled develop, pipeline/tiled.py), its origin (x, y) and the image's
+    (w, h): vignette, the centre mask, grain, dither, the flare sample and
+    the NR jitter read absolute coordinates, the blur radii and resolution
+    scale are the full image's, CA centres on the full image and no blur
+    band applies.
     """
     if image.ndim != 3 or image.shape[0] != 3:
         raise ValueError(
@@ -39,4 +46,4 @@ def develop(image: torch.Tensor, params: dict, cfg: DevelopConfig,
             "convert interleaved (H, W, C) with np.moveaxis(img, -1, 0) (and drop alpha)"
         )
     return develop_fused(image, params, cfg, masks=masks, blur_bands=blur_bands, lut=lut,
-                         flare=flare)
+                         flare=flare, tile_offset=tile_offset, full_size=full_size)

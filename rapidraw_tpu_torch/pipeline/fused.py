@@ -297,6 +297,19 @@ def blur_radii(cfg: DevelopConfig, w: int, h: int) -> dict:
     return {k: scales.blur_radius(base, scale) for k, flag, base in need if flag}
 
 
+def check_placement(tile_offset, full_size, w: int, h: int) -> tuple:
+    """((x, y), (w_full, h_full)) of a (h, w) tile: its origin and its
+    image's size, (0, 0) and (w, h) for a whole image. The tile must lie
+    inside the image, whose coordinates float32 holds exactly."""
+    x_off, y_off = (int(v) for v in tile_offset)
+    w_full, h_full = (int(v) for v in full_size) if full_size is not None else (w, h)
+    if (x_off < 0 or y_off < 0 or x_off + w > w_full or y_off + h > h_full
+            or max(w_full, h_full) > 1 << 24):
+        raise ValueError(f"a {w}x{h} tile at {(x_off, y_off)} does not lie inside a "
+                         f"{w_full}x{h_full} image")
+    return (x_off, y_off), (w_full, h_full)
+
+
 def gate_influences(masks: torch.Tensor) -> torch.Tensor:
     """Mask influences below the support threshold become exactly 0 (JAX
     develop.py:120); the kernel does the same on load."""
@@ -308,18 +321,22 @@ def grade_plain(images: torch.Tensor, levels: dict, pmat: torch.Tensor,
                 masks: torch.Tensor | None = None,
                 mmat: torch.Tensor | None = None,
                 flare: torch.Tensor | None = None,
-                lut: torch.Tensor | None = None) -> torch.Tensor:
+                lut: torch.Tensor | None = None,
+                tile_offset=(0, 0), full_size: tuple[int, int] | None = None) -> torch.Tensor:
     """Plain version of the grade kernel, on the kernel's own inputs.
 
     images: (B, 3, H, W) in input space (sRGB, or linear when RAW), or
     linear when `image_linear`; levels: {key: (B, 3, H, W)} blur levels in
     input space; pmat: (B, K); with masks, masks: (B, N, H, W) influences
     (gated here) and mmat: (B, N, KM) mask params; with flare, flare:
-    (B, 512, 512, 3) maps; with a LUT, lut: the (L, L, L, 3) cube.
+    (B, 512, 512, 3) maps; with a LUT, lut: the (L, L, L, 3) cube. A tile
+    of a larger image gives its origin `tile_offset` (x, y) and the image's
+    `full_size` (w, h): the spatial stages read absolute coordinates.
     """
     b, _, h, w = images.shape
-    scale = scales.resolution_scale(w, h)
-    xs, ys = coord_maps(h, w, images.device)
+    w_full, h_full = full_size if full_size is not None else (w, h)
+    scale = scales.resolution_scale(w_full, h_full)
+    xs, ys = coord_maps(h, w, images.device, tile_offset)
     gated = gate_influences(masks) if cfg.mask_count > 0 else None
 
     def lin(x):
@@ -333,9 +350,10 @@ def grade_plain(images: torch.Tensor, levels: dict, pmat: torch.Tensor,
         image = images[i] if image_linear else lin(images[i])
         final = grade_chain(
             image, blurs["sharp"], blurs["tonal"], blurs["clarity"],
-            blurs["structure"], g, cfg, xs, ys, w, h,
+            blurs["structure"], g, cfg, xs, ys, w_full, h_full,
             m=m, gated_infl=gated[i] if gated is not None else None,
-            flare_rgb=sample_flare(flare[i], h, w) if flare is not None else None,
+            flare_rgb=(sample_flare(flare[i], h, w, tile_offset, (w_full, h_full))
+                       if flare is not None else None),
         )
         outs.append(finish_chain(final, g, cfg, xs, ys, scale, lut=lut))
     return torch.stack(outs)
@@ -349,8 +367,9 @@ class _Blend(ctypes.Structure):
 
 def _grade_cuda(images: torch.Tensor, levels: dict, pmat: torch.Tensor,
                 cfg: DevelopConfig, image_linear: bool, masks, mmat, flare,
-                lut) -> torch.Tensor:
+                lut, tile_offset, full_size) -> torch.Tensor:
     b, c, h, w = images.shape
+    w_full, h_full = full_size
     extra = [("masks", masks), ("mask params", mmat)] if cfg.mask_count > 0 else []
     extra += [(name, t) for name, t in (("flare maps", flare), ("LUT", lut)) if t is not None]
     for name, t in [("images", images), ("params", pmat), *levels.items(), *extra]:
@@ -374,7 +393,7 @@ def _grade_cuda(images: torch.Tensor, levels: dict, pmat: torch.Tensor,
     fn.argtypes = (
         [ctypes.c_void_p] * 7
         + [ctypes.c_uint, ctypes.c_int, ctypes.c_uint]
-        + [ctypes.c_int] * 7
+        + [ctypes.c_int] * 11
         + [ctypes.c_float] * 4
         + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(_Blend), ctypes.c_int]
         + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
@@ -389,7 +408,9 @@ def _grade_cuda(images: torch.Tensor, levels: dict, pmat: torch.Tensor,
         plan["min_blocks"], plan["rows"], gx, gy,
         # reciprocals taken in double, as PyTorch's CUDA division by a Python
         # scalar does in the plain chain
-        b, h, w, 1.0 / w, 1.0 / h, 1.0 / scales.resolution_scale(w, h), h / w,
+        b, h, w, *tile_offset, w_full, h_full,
+        1.0 / w_full, 1.0 / h_full, 1.0 / scales.resolution_scale(w_full, h_full),
+        h_full / w_full,
         masks.data_ptr() if cfg.mask_count > 0 else None,
         mmat.data_ptr() if cfg.mask_count > 0 else None,
         plan["masks"], ctypes.byref(blend), plan["mask_smem"],
@@ -405,7 +426,8 @@ def _grade_cuda(images: torch.Tensor, levels: dict, pmat: torch.Tensor,
 def grade(images: torch.Tensor, levels: dict, pmat: torch.Tensor,
           cfg: DevelopConfig, image_linear: bool = False,
           masks: torch.Tensor | None = None, mmat: torch.Tensor | None = None,
-          flare: torch.Tensor | None = None, lut: torch.Tensor | None = None) -> torch.Tensor:
+          flare: torch.Tensor | None = None, lut: torch.Tensor | None = None,
+          tile_offset=(0, 0), full_size: tuple[int, int] | None = None) -> torch.Tensor:
     """Grade + finish chain of a (B, 3, H, W) batch: the kernel wrapper.
 
     CPU tensor -> `grade_plain`; CUDA tensor -> one launch of
@@ -415,11 +437,16 @@ def grade(images: torch.Tensor, levels: dict, pmat: torch.Tensor,
     (N = cfg.mask_count; gated by the kernel) and the (B, N, KM) mask
     params `mmat`; one with flare the (B, 512, 512, 3) maps `flare`
     (`ops/flare.flare_maps`); one with a LUT the (L, L, L, 3) cube `lut`
-    (without it the LUT stage is skipped, as in JAX).
+    (without it the LUT stage is skipped, as in JAX). A batch that is one
+    tile of a larger image gives the tile's origin `tile_offset` (x, y) and
+    the image's `full_size` (w, h) (JAX fused.py:224-256): vignette, the
+    centre mask, grain, dither and the flare sample read absolute
+    coordinates, and the resolution scale is the full image's.
     """
     if images.ndim != 4 or images.shape[1] != 3:
         raise ValueError(f"grade takes (B, 3, H, W) images, got {tuple(images.shape)}")
     b, _, h, w = images.shape
+    tile_offset, full_size = check_placement(tile_offset, full_size, w, h)
     want = set(blur_radii(cfg, w, h))
     if set(levels) != want:
         raise ValueError(f"grade: config reads blur levels {sorted(want)}, got {sorted(levels)}")
@@ -442,17 +469,20 @@ def grade(images: torch.Tensor, levels: dict, pmat: torch.Tensor,
                             not lut.shape[0] == lut.shape[1] == lut.shape[2] >= 2):
         raise ValueError(f"grade: a LUT is (L, L, L, 3) with L >= 2, got {tuple(lut.shape)}")
     if images.device.type == "cpu":
-        return grade_plain(images, levels, pmat, cfg, image_linear, masks, mmat, flare, lut)
+        return grade_plain(images, levels, pmat, cfg, image_linear, masks, mmat, flare, lut,
+                           tile_offset, full_size)
     if images.device.type != "cuda":
         raise ValueError(f"grade runs on CPU or CUDA tensors, got {images.device}")
-    return _grade_cuda(images, levels, pmat, cfg, image_linear, masks, mmat, flare, lut)
+    return _grade_cuda(images, levels, pmat, cfg, image_linear, masks, mmat, flare, lut,
+                       tile_offset, full_size)
 
 
 # launch count of the grade kernel: one per rr_grade call
 grade.launches = 0
 
 
-def blur_levels(images: torch.Tensor, cfg: DevelopConfig, blur_bands=None) -> dict:
+def blur_levels(images: torch.Tensor, cfg: DevelopConfig, blur_bands=None,
+                full_size: tuple[int, int] | None = None) -> dict:
     """The pyramid levels of a (B, 3, H, W) batch in input space, batched
     by folding B into the channel axis: one blur launch for the full-height
     levels, and one per band group.
@@ -462,16 +492,20 @@ def blur_levels(images: torch.Tensor, cfg: DevelopConfig, blur_bands=None) -> di
     band rows equal the full-image blur (the edge clamp only ever lands in
     the halo); its other rows are zeros, which the amount-gated consumers
     never select. Levels share a launch only where their bands coincide
-    (JAX develop.py:172-195).
+    (JAX develop.py:172-195). On one tile of a larger image (`full_size`,
+    the image's (w, h), not the tile's) the radii are the full image's and
+    no band applies: bands are rows of the full image (JAX develop.py:91).
     """
     b, c, h, w = images.shape
-    radii = blur_radii(cfg, w, h)
+    w_full, h_full = full_size if full_size is not None else (w, h)
+    radii = blur_radii(cfg, w_full, h_full)
     if not radii:
         return {}
     # the bands that apply: levels this config reads, inside the image and
     # shorter than it (JAX develop.py:164-171)
     bands = {k: (y0, y1) for k, y0, y1 in (blur_bands or ())
-             if k in radii and 0 <= y0 < y1 <= h and (y1 - y0) < h}
+             if k in radii and 0 <= y0 < y1 <= h and (y1 - y0) < h
+             and (w_full, h_full) == (w, h)}
     flat = images.reshape(b * c, h, w)
     out = {}
     full = [k for k in radii if k not in bands]
@@ -514,7 +548,8 @@ def nr_amounts(params: dict, cfg: DevelopConfig, masks: torch.Tensor | None, dev
 
 
 def prepare_inputs(images: torch.Tensor, cfg: DevelopConfig, params: dict | None = None,
-                   masks: torch.Tensor | None = None) -> tuple[torch.Tensor, bool]:
+                   masks: torch.Tensor | None = None, tile_offset=(0, 0),
+                   full_size: tuple[int, int] | None = None) -> tuple[torch.Tensor, bool]:
     """Front half of the chain for a (B, 3, H, W) batch in input space:
     CA, then linearize and NR when NR is active (JAX develop.py:101-141).
 
@@ -525,12 +560,17 @@ def prepare_inputs(images: torch.Tensor, cfg: DevelopConfig, params: dict | None
     blur levels (`blur_levels`) are taken from the original `images` too,
     not from this result. NR with per-pixel amounts (`cfg.nr_static_*`
     None) takes them from the stacked `params` and the (B, N, H, W)
-    influences `masks` (`nr_amounts`).
+    influences `masks` (`nr_amounts`). One tile of a larger image gives its
+    origin `tile_offset` (x, y) and the image's `full_size` (w, h): CA
+    centres on the full image, NR's resolution scale is the full image's
+    and its jitter hashes read absolute coordinates.
     """
     h, w = images.shape[-2:]
+    w_full, h_full = full_size if full_size is not None else (w, h)
     image = images
     if cfg.ca_active:
-        image = apply_ca_correction(image, cfg.ca_static_rc, cfg.ca_static_by)
+        image = apply_ca_correction(image, cfg.ca_static_rc, cfg.ca_static_by,
+                                    tile_offset=tile_offset, full_size=(w_full, h_full))
     if not cfg.nr_active:
         return image, False
     linear = image if cfg.is_raw else cs.srgb_to_linear(image)
@@ -540,8 +580,8 @@ def prepare_inputs(images: torch.Tensor, cfg: DevelopConfig, params: dict | None
             raise ValueError("NR with per-pixel amounts needs the stacked params")
         amounts = nr_amounts(params, cfg, masks, images.device)
     nr = apply_noise_reduction(
-        linear, images, scales.resolution_scale(w, h), cfg.is_raw,
-        cfg.nr_static_luma, cfg.nr_static_color, *amounts,
+        linear, images, scales.resolution_scale(w_full, h_full), cfg.is_raw,
+        cfg.nr_static_luma, cfg.nr_static_color, *amounts, tile_offset=tile_offset,
     )
     return nr, True
 
@@ -568,7 +608,8 @@ def flare_inputs(images: torch.Tensor, pmat: torch.Tensor, cfg: DevelopConfig,
 
 def develop_fused_batch(images: torch.Tensor, params: dict, cfg: DevelopConfig,
                         masks: torch.Tensor | None = None, blur_bands=None,
-                        lut=None, flare=None) -> torch.Tensor:
+                        lut=None, flare=None, tile_offset=(0, 0),
+                        full_size: tuple[int, int] | None = None) -> torch.Tensor:
     """Develop a (B, 3, H, W) batch: CA and NR (`prepare_inputs`), the
     blur pyramid of the original images (band-restricted levels per
     `blur_bands`), the flare maps (`flare_inputs`), one grade launch.
@@ -582,7 +623,13 @@ def develop_fused_batch(images: torch.Tensor, params: dict, cfg: DevelopConfig,
     The JAX package develops a CA, NR, LUT or flare batch image by image
     (`fusable_batched`); the params are per row here, so one launch of
     each kernel serves the whole batch with the same per-image results.
+    A batch that is one tile of a larger image gives the tile's origin
+    `tile_offset` (x, y) and the image's `full_size` (w, h) (JAX
+    develop.py:70-140): pass its flare map too, made from the whole image
+    (pipeline/tiled.py).
     """
+    h, w = images.shape[-2:]
+    tile_offset, full_size = check_placement(tile_offset, full_size, w, h)
     pmat = pack_rows(params["glob"]).to(images.device)
     mmat = None
     if cfg.mask_count > 0:
@@ -591,26 +638,28 @@ def develop_fused_batch(images: torch.Tensor, params: dict, cfg: DevelopConfig,
                              "and stacked mask params")
         mmat = pack_mask_rows(params["mask"]).to(images.device)
         masks = torch.as_tensor(masks, dtype=torch.float32, device=images.device).contiguous()
-    image, linear = prepare_inputs(images, cfg, params, masks)
-    levels = blur_levels(images, cfg, blur_bands)
+    image, linear = prepare_inputs(images, cfg, params, masks, tile_offset, full_size)
+    levels = blur_levels(images, cfg, blur_bands, full_size)
     fmaps = flare_inputs(images, pmat, cfg, flare) if cfg.flare_active else None
     cube = None
     if cfg.has_lut and lut is not None:
         cube = torch.as_tensor(lut, dtype=torch.float32, device=images.device).contiguous()
     return grade(image, levels, pmat, cfg, image_linear=linear, masks=masks, mmat=mmat,
-                 flare=fmaps, lut=cube)
+                 flare=fmaps, lut=cube, tile_offset=tile_offset, full_size=full_size)
 
 
 def develop_fused(image: torch.Tensor, params: dict, cfg: DevelopConfig,
                   masks: torch.Tensor | None = None, blur_bands=None,
-                  lut=None, flare=None) -> torch.Tensor:
+                  lut=None, flare=None, tile_offset=(0, 0),
+                  full_size: tuple[int, int] | None = None) -> torch.Tensor:
     """One (3, H, W) image (masks (N, H, W)) through the batched path with
-    B = 1."""
+    B = 1; a tile of a larger image as `develop_fused_batch` takes it."""
     batched = {"glob": _add_batch_axis(params["glob"]),
                "mask": None if params["mask"] is None else _add_batch_axis(params["mask"])}
     mk = None if masks is None else torch.as_tensor(masks)[None]
     return develop_fused_batch(image[None], batched, cfg, masks=mk, blur_bands=blur_bands,
-                               lut=lut, flare=flare)[0]
+                               lut=lut, flare=flare, tile_offset=tile_offset,
+                               full_size=full_size)[0]
 
 
 def _add_batch_axis(tree):

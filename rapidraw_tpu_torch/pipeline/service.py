@@ -39,6 +39,7 @@ import torch
 
 from rapidraw_tpu_torch.utils.hashing import LruCache, calculate_transform_hash
 from rapidraw_tpu_torch.utils.settings import DEFAULTS, AppSettings
+from rapidraw_tpu_torch.utils.trace import Stages, mark_stage
 
 
 @dataclasses.dataclass
@@ -66,28 +67,6 @@ class PreviewResult:
             "<6I", x, y, self.width, self.height, self.full_width, self.full_height
         )
         return header + self.jpeg
-
-
-class _Stages:
-    """Host ms between marks; on a CUDA device each mark first synchronizes
-    (so device work is charged to the stage that queued it)."""
-
-    def __init__(self, device: torch.device):
-        self.sync = device.type == "cuda"
-        self.ms: dict[str, float] = {}
-        self._t = time.perf_counter()
-
-    def mark(self, name: str) -> None:
-        if self.sync:
-            torch.cuda.synchronize()
-        now = time.perf_counter()
-        self.ms[name] = self.ms.get(name, 0.0) + (now - self._t) * 1e3
-        self._t = now
-
-
-def _mark(stages: _Stages | None, name: str) -> None:
-    if stages is not None:
-        stages.mark(name)
 
 
 class RenderService:
@@ -128,7 +107,7 @@ class RenderService:
 
     # -- caches -----------------------------------------------------------
     def _transformed_preview(self, path: str, adjustments: dict, long_edge: int,
-                             stages: _Stages | None = None):
+                             stages: Stages | None = None):
         from rapidraw_tpu_torch.geometry.resize import downscale_to_long_edge
         from rapidraw_tpu_torch.geometry.transforms import apply_all_transformations
 
@@ -137,7 +116,7 @@ class RenderService:
         if hit is not None:
             return hit
         img, is_raw = self.load(path)
-        _mark(stages, "load")
+        mark_stage(stages, "load")
         x, crop_offset = apply_all_transformations(img, adjustments)
         full_h, full_w = int(x.shape[1]), int(x.shape[2])
         # the DEVICE tensor is cached: a host copy would re-upload the f32
@@ -146,7 +125,7 @@ class RenderService:
         x = downscale_to_long_edge(x, long_edge).contiguous()
         entry = (x, crop_offset, (full_w, full_h), is_raw)
         self._transformed.put(key, entry)
-        _mark(stages, "transform")
+        mark_stage(stages, "transform")
         return entry
 
     def _warped_for_masks(self, path: str, adjustments: dict):
@@ -207,7 +186,7 @@ class RenderService:
         return masks
 
     def _develop(self, x: torch.Tensor, adjustments: dict, is_raw: bool, masks,
-                 stages: _Stages | None = None) -> np.ndarray:
+                 stages: Stages | None = None) -> np.ndarray:
         """parse -> LUT -> develop on x's device -> device_u8 -> host
         (3, H, W) u8. masks: host (N, H, W) bitmaps, uploaded once."""
         from rapidraw_tpu_torch.params.parse import parse_adjustments
@@ -222,7 +201,7 @@ class RenderService:
         mk = None
         if masks is not None:
             mk = torch.from_numpy(np.ascontiguousarray(masks, np.float32)).to(x.device)
-        _mark(stages, "parse")
+        mark_stage(stages, "parse")
         events = None
         if stages is not None and x.device.type == "cuda":
             events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
@@ -230,9 +209,9 @@ class RenderService:
         y = device_u8(develop(x, params, cfg, masks=mk, lut=lut))
         if events is not None:
             events[1].record()
-        _mark(stages, "develop")
+        mark_stage(stages, "develop")
         out = y.cpu().numpy()
-        _mark(stages, "readback")
+        mark_stage(stages, "readback")
         if events is not None:
             stages.ms["develop_device"] = events[0].elapsed_time(events[1])
         return out
@@ -252,7 +231,7 @@ class RenderService:
         from rapidraw_tpu_torch.io.sidecar import load_adjustments
 
         t0 = time.perf_counter()
-        stages = _Stages(self.device) if self.time_stages else None
+        stages = Stages(self.device) if self.time_stages else None
         adjustments = adjustments if adjustments is not None else load_adjustments(path)
 
         long_edge = self.settings.editor_preview_resolution
@@ -267,7 +246,7 @@ class RenderService:
         masks = self._masks(
             path, adjustments, w, h, scale, crop_offset, warped_image=warped
         )
-        _mark(stages, "masks")
+        mark_stage(stages, "masks")
 
         # the reference applies the interactive quality divisor BEFORE ROI
         # normalization (lib.rs:430-457): ROI x/y/w/h, the render, and the
@@ -312,7 +291,7 @@ class RenderService:
             xj = xj[:, ry : ry + rh, rx : rx + rw].contiguous()
             if masks is not None:
                 masks = masks[:, ry : ry + rh, rx : rx + rw]
-        _mark(stages, "divisor_roi")
+        mark_stage(stages, "divisor_roi")
 
         out = self._develop(xj, adjustments, is_raw, masks, stages)
 
@@ -324,10 +303,10 @@ class RenderService:
                 histogram = calculate_histogram(out)
             if compute_waveform:
                 waveform = calculate_waveform(out)
-            _mark(stages, "scopes")
+            mark_stage(stages, "scopes")
 
         jpeg = encode_jpeg_bytes(out, quality=quality)
-        _mark(stages, "encode")
+        mark_stage(stages, "encode")
         return PreviewResult(
             jpeg=jpeg,
             width=out.shape[2],

@@ -6,12 +6,15 @@ edge). The JAX package opens the watermark with PIL's
 `Image.open(p).convert("RGBA")` and resizes it with PIL's 8-bit LANCZOS;
 the port decodes it with its own decoders (PNG: RGB, RGBA, grey, grey with
 alpha, palette with tRNS; JPEG; TIFF) to the same RGBA samples and resizes
-it with `geometry.resize.lanczos_resize_u8`, which equals PIL's. The
-adjustments-as-LUT export (`export_adjustments_as_lut`) is ROADMAP A.11.
+it with `geometry.resize.lanczos_resize_u8`, which equals PIL's.
+`export_adjustments_as_lut` bakes a grade into a .cube through the port's
+develop on the caller's device (the CUDA device unless asked), where JAX
+pins that job to its CPU backend.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -111,3 +114,50 @@ def apply_watermark(planar: np.ndarray, settings: WatermarkSettings) -> np.ndarr
     region = out[:, y0:y1, x0:x1]
     out[:, y0:y1, x0:x1] = region * (1.0 - alpha) + rgb * alpha
     return out
+
+
+def export_adjustments_as_lut(adjustments: dict, lut_size: int = 33, device=None) -> str:
+    """Bake a grade into a .cube by rendering the identity LUT, unrolled to
+    a (3, L^2, L) image, through the develop chain with every spatial and
+    random stage zeroed (export_processing.rs:600-617; JAX watermark.py:85).
+    Runs on `device`, the CUDA device unless the caller asks for another
+    (the grade kernel B4 on the card). Returns the .cube text."""
+    import torch
+
+    from rapidraw_tpu_torch.io.lut import identity_lut, lut_to_cube_text
+    from rapidraw_tpu_torch.params.parse import parse_adjustments
+    from rapidraw_tpu_torch.pipeline.develop import develop
+
+    adj = dict(adjustments)
+    # masks are spatial (meaningless for a LUT) and would ask for bitmaps
+    adj.pop("masks", None)
+    adj.pop("aiPatches", None)
+    adj["showClipping"] = False
+    for key in (
+        "vignetteAmount", "grainAmount", "sharpness", "clarity", "dehaze",
+        "structure", "centré", "glowAmount", "halationAmount", "flareAmount",
+        "lumaNoiseReduction", "colorNoiseReduction",
+        "chromaticAberrationRedCyan", "chromaticAberrationBlueYellow",
+    ):
+        adj[key] = 0
+    params, cfg = parse_adjustments(adj, is_raw=False)
+    cfg = dataclasses.replace(cfg, dither_active=False)
+
+    # the identity LUT unrolled to an image: width = size, height = size^2
+    # (lut_processing.rs:285-303), sRGB-encoded as a normal input
+    ident = identity_lut(lut_size)  # (L, L, L, 3) [r, g, b]
+    img = ident.transpose(2, 1, 0, 3).reshape(lut_size * lut_size, lut_size, 3)
+    planar = torch.from_numpy(np.ascontiguousarray(img.transpose(2, 0, 1), np.float32))
+    planar = planar.to(device if device is not None else "cuda")
+
+    lut = None
+    if cfg.has_lut and isinstance(adj.get("lutPath"), str):
+        from rapidraw_tpu_torch.io.lut import parse_lut_file
+
+        try:
+            lut = parse_lut_file(adj["lutPath"])
+        except Exception:
+            cfg = dataclasses.replace(cfg, has_lut=False)
+    out = develop(planar, params, cfg, lut=lut).cpu().numpy()
+    baked = out.transpose(1, 2, 0).reshape(lut_size, lut_size, lut_size, 3).transpose(2, 1, 0, 3)
+    return lut_to_cube_text(baked)

@@ -5,8 +5,9 @@ FPS gpu_processing.rs:1990-2014; per-job timing lib.rs:584-601).
 Port of `rapidraw_tpu/utils/trace.py`. The deep profile comes from
 `torch.profiler` (`profiler_trace`: CPU and CUDA activity around a
 workload, written as a chrome trace); this module also covers the
-always-on lightweight layer: stage timers that log at debug level and a
-render FPS line at info level.
+always-on lightweight layer: stage timers that log at debug level, the
+per-stage split of a preview render or a CLI verb (`Stages`), and a render
+FPS line at info level.
 """
 
 from __future__ import annotations
@@ -48,6 +49,33 @@ def stage_timer(name: str):
     finally:
         out["seconds"] = time.perf_counter() - t0
         log.debug("%s: %.1f ms", name, out["seconds"] * 1e3)
+
+
+class Stages:
+    """Host ms between marks, summed per stage name in `ms`; on a CUDA
+    device each mark first synchronizes (so device work is charged to the
+    stage that queued it)."""
+
+    def __init__(self, device):
+        self.sync = device.type == "cuda"
+        self.ms: dict[str, float] = {}
+        self._t = time.perf_counter()
+
+    def mark(self, name: str) -> None:
+        if self.sync:
+            import torch
+
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.ms[name] = self.ms.get(name, 0.0) + (now - self._t) * 1e3
+        self._t = now
+
+
+def mark_stage(stages: Stages | None, name: str) -> None:
+    """`stages.mark(name)` where the caller times its stages (`stages` is
+    None where it does not: no mark, no synchronize)."""
+    if stages is not None:
+        stages.mark(name)
 
 
 _fps_state = {"count": 0, "t0": None, "acc": 0.0}
