@@ -2628,15 +2628,30 @@ def resample_library_ms(src, e_arr, bases, stat, reps):
                                          padding_mode="zeros", align_corners=True), reps)
 
 
-def preview_kernels_vs_plain(shapes, reps, card, dev, gen):
-    """Phase 16's kernels against their plain versions at the preview
-    service's shapes: blur (every level of FULL_DOC), grade (config 3, and
-    its masks build with config 4's masks), NR (config 5's amounts, and
-    masked_nr_doc's amount maps), the resample passes of config 5's warp
-    plan (a shape no caller runs: the service warps at the source's size,
-    so these rows are held and timed but not returned) and the flare maps,
-    each at every (h, w) of `shapes`; the first shape's numbers are
-    returned as {(kernel, "preview"): numbers}."""
+def blur_library_ms(flat, radii, reps) -> float:
+    """The blur's library yardstick: ms of one depthwise 2-D conv2d per
+    radius of the same (N, H, W) planes, edge-replicated."""
+    import torch.nn.functional as F
+
+    from rapidraw_tpu_torch.ops import blur
+
+    n = flat.shape[0]
+    convs = []
+    for r in radii:
+        k1 = torch.from_numpy(blur._gauss_weights(r)).to(flat.device)
+        k2 = (k1[:, None] * k1[None, :]).expand(n, 1, 2 * r + 1, 2 * r + 1).contiguous()
+        convs.append((F.pad(flat[None], (r, r, r, r), mode="replicate"), k2))
+    return time_ms(lambda: [F.conv2d(xp, k2, groups=n) for xp, k2 in convs], reps)
+
+
+def preview_kernels_vs_plain(cases, reps, card, dev, gen):
+    """The develop kernels against their plain versions on random images:
+    blur (every level of FULL_DOC), grade (config 3, and its masks build
+    with config 4's masks), NR (config 5's amounts, and masked_nr_doc's
+    amount maps), the resample passes of config 5's warp plan and the
+    flare maps, each at the (h, w) of every case of `cases`, a list of
+    ((h, w), path, kept): the numbers of the kernels in `kept` are
+    returned as {(kernel, path): numbers}."""
     import torch.nn.functional as F
 
     from rapidraw_tpu_torch import blur_band_rows, parse_adjustments, rasterize_masks, stack_params
@@ -2649,13 +2664,13 @@ def preview_kernels_vs_plain(shapes, reps, card, dev, gen):
     from rapidraw_tpu_torch.tools import bound_ms
 
     report = {}
-    for si, (sh, sw) in enumerate(shapes):
-        first = si == 0
+    for (sh, sw), path, kept in cases:
         x = torch.rand((1, 3, sh, sw), generator=gen, device=dev)
+        tag = f"[{path or 'preview'}-kernel]"
 
         def keep(name, **numbers):
-            if first:
-                report[name, "preview"] = numbers
+            if name in kept:
+                report[name, path] = numbers
 
         # blur: every level FULL_DOC takes at this size, one launch
         radii = tuple(fused.blur_radii(parse_adjustments(FULL_DOC)[1], sh, sw).values())
@@ -2666,20 +2681,15 @@ def preview_kernels_vs_plain(shapes, reps, card, dev, gen):
         ms = time_ms(lambda: blur.gaussian_blur_multi(flat, radii), reps)
         pms = time_ms(lambda: blur.gaussian_blur_multi_plain(flat, radii), reps)
         bms, bby = bound_ms(nbytes(flat) * (1 + len(radii)), ops)
-        convs = []
-        for r in radii:
-            k1 = torch.from_numpy(blur._gauss_weights(r)).to(dev)
-            k2 = (k1[:, None] * k1[None, :]).expand(3, 1, 2 * r + 1, 2 * r + 1).contiguous()
-            convs.append((F.pad(flat[None], (r, r, r, r), mode="replicate"), k2))
-        lms = time_ms(lambda: [F.conv2d(xp, k2, groups=3) for xp, k2 in convs], reps)
+        lms = blur_library_ms(flat, radii, reps)
         keep("blur", ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby, library_ms=lms,
              max_abs_err=err)
-        log(f"[preview-kernel] blur (3,{sh},{sw}) r={radii}: max|d|/max(1,|ref|) {err:.3e} "
+        log(f"{tag} blur (3,{sh},{sw}) r={radii}: max|d|/max(1,|ref|) {err:.3e} "
             f"(bound {BLUR_TOL:g}) kernel {ms:.3f} ms plain {pms:.3f} ms bound {bms:.3f} ms "
             f"({bby}); library: one depthwise conv2d per radius {lms:.3f} ms [{card}]")
         if err > BLUR_TOL:
-            raise AssertionError(f"blur at the preview shape ({sh},{sw}): max|d| {err}")
-        del got, ref, convs
+            raise AssertionError(f"blur at ({sh},{sw}): max|d| {err}")
+        del got, ref
 
         # grade: config 3 (no masks) and config 4 (the masks build), B = 1
         docs = (("config3", CONFIG3_DOC, None), ("config4 masks", config4_doc(sh, sw), True))
@@ -2709,7 +2719,7 @@ def preview_kernels_vs_plain(shapes, reps, card, dev, gen):
             if label == "config3":
                 keep("grade", ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby, library_ms=None,
                      max_abs_err=err)
-            log(f"[preview-kernel] grade {label} B=1 (3,{sh},{sw}): max|d| {err:.3e} (bound "
+            log(f"{tag} grade {label} B=1 (3,{sh},{sw}): max|d| {err:.3e} (bound "
                 f"{GRADE_TOL:g}) kernel {ms:.3f} ms plain {pms:.3f} ms bound {bms:.3f} ms "
                 f"({bby}) [{card}]")
             if not bool(torch.isfinite(got).all()) or err > GRADE_TOL:
@@ -2730,7 +2740,7 @@ def preview_kernels_vs_plain(shapes, reps, card, dev, gen):
         bms, bby = bound_ms(nbytes(center, planes) + nbytes(center), ops)
         keep("nr", ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby, library_ms=None,
              max_abs_err=err)
-        log(f"[preview-kernel] nr config5 B=1 (3,{sh},{sw}) max offset "
+        log(f"{tag} nr config5 B=1 (3,{sh},{sw}) max offset "
             f"{nr._consts(la, ca, scale)['max_off']}: max|d| {err:.3e} (bound {NR_TOL:g}) "
             f"kernel {ms:.3f} ms plain {pms:.3f} ms bound {bms:.3f} ms ({bby}) [{card}]")
         if not bool(torch.isfinite(got).all()) or err > NR_TOL:
@@ -2751,7 +2761,7 @@ def preview_kernels_vs_plain(shapes, reps, card, dev, gen):
         bms, bby = bound_ms(nbytes(center, planes, la, ca) + nbytes(center), ops)
         keep("nr_dynamic", ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby, library_ms=None,
              max_abs_err=err)
-        log(f"[preview-kernel] nr_dynamic masked_nr_doc B=1 (3,{sh},{sw}) amount maps: max|d| "
+        log(f"{tag} nr_dynamic masked_nr_doc B=1 (3,{sh},{sw}) amount maps: max|d| "
             f"{err:.3e} (bound {NR_TOL:g}) kernel {ms:.3f} ms plain {pms:.3f} ms bound "
             f"{bms:.3f} ms ({bby}) [{card}]")
         if not bool(torch.isfinite(got).all()) or err > NR_TOL:
@@ -2785,13 +2795,12 @@ def preview_kernels_vs_plain(shapes, reps, card, dev, gen):
                 rops += ops
                 del got, ref
         rbms, rbby = bound_ms(rbytes, rops)
-        # no caller: the service warps the source at its own size (phase 7's
-        # shape) and downscales after; held here, but not the preview's case
-        log(f"[preview-kernel] resample config5 plan ({sh},{sw}) (no caller: the service "
-            f"warps at the source's size), {2 * len(st.modes)} passes "
-            f"summed: max|d| {rerr:.3e} (bound {RESAMPLE_TOL:g}) kernel {rms:.3f} ms plain "
+        keep("resample", ms=rms, plain_ms=rpms, bound_ms=rbms, bound_by=rbby, library_ms=rlms,
+             max_abs_err=rerr)
+        log(f"{tag} resample config5 plan ({sh},{sw}), {2 * len(st.modes)} passes summed: "
+            f"max|d| {rerr:.3e} (bound {RESAMPLE_TOL:g}) kernel {rms:.3f} ms plain "
             f"{rpms:.3f} ms bound {rbms:.3f} ms ({rbby}); library: one grid_sample per pass "
-            f"{rlms:.3f} ms [{card}]")
+            f"{rlms:.3f} ms; kernel/library {rms / rlms:.2f} [{card}]")
         if rerr > RESAMPLE_TOL:
             raise AssertionError(f"resample at ({sh},{sw}): max|d| {rerr}")
         del xp, plan
@@ -2819,7 +2828,7 @@ def preview_kernels_vs_plain(shapes, reps, card, dev, gen):
         bms, bby = bound_ms(n * n * (4 * 3 * 4 + 3 * 4) + nbytes(fp), ops)
         keep("flare", ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby, library_ms=None,
              max_abs_err=err)
-        log(f"[preview-kernel] flare B=1 ({sh},{sw}) -> (1,{n},{n},3): max|d|/max(1,|ref|) "
+        log(f"{tag} flare B=1 ({sh},{sw}) -> (1,{n},{n},3): max|d|/max(1,|ref|) "
             f"{err:.3e} (bound {FLARE_TOL:g}) kernel {ms:.3f} ms plain {pms:.1f} ms (one run) "
             f"bound {bms:.3f} ms ({bby}) [{card}]")
         if err > FLARE_TOL:
@@ -3112,7 +3121,11 @@ def phase_preview(args, h, w, reps, card, dev, reset_counts, read_counts):
             raise RuntimeError(f"the preview path never launched {missing}")
 
         # the kernels against their plain versions at the preview's shapes
-        report = preview_kernels_vs_plain([(ph, pw), roi_shape], reps, card, dev, gen)
+        # the service warps at the source's size (phase 7's shape), so the
+        # resample rows at these shapes are held but are not the preview's
+        report = preview_kernels_vs_plain(
+            [((ph, pw), "preview", ("blur", "grade", "nr", "nr_dynamic", "flare")),
+             (roi_shape, None, ())], reps, card, dev, gen)
 
         # the card against the CPU at 1024 x 1536
         ch, cw = CPU_CHECK
@@ -3533,6 +3546,389 @@ def phase_cli(args, h, w, reps, card, dev, reset_counts, read_counts):
         raise AssertionError("preset import or exif --set did not read back")
     import shutil
 
+    shutil.rmtree(tmp)
+    return launches, report
+
+
+# ---- phase 18: thumbnails, community previews and the compositions -----------
+
+THUMB_RES = 720  # the thumbnail resolution (the library's default)
+COMMUNITY_TILE = 360  # PREVIEW_TILE_DIM: sources developed at 2 x 360 = 720 px
+PANO_CROP = (3000, 4200)  # each panorama frame, 12.6 MP
+PANO_STEP = 2400  # columns between the frames' origins: 1800 px of overlap
+BM3D_SHAPES = ((4096, 6144), (2828, 4243), (2000, 3000), (1024, 1024), (512, 512))
+BM3D_BUDGET_S = 60.0
+COMMUNITY_PRESETS = [
+    {"name": "Config 3", "adjustments": CONFIG3_DOC},
+    {"name": "Config 5", "adjustments": dict(CONFIG5_DOC, **CONFIG5_GEOMETRY)},
+    {"name": "Cropped", "adjustments": dict(FULL_DOC, crop={"x": 600, "y": 400,
+                                                          "width": 3600, "height": 2400})},
+]
+
+
+def write_exif_jpeg(path: Path, rgb8: np.ndarray, exposure: tuple, iso: int) -> None:
+    """A baseline 4:2:0 JPEG q95 (jpeg_enc.cc) whose EXIF APP1 holds an
+    Exif IFD with ExposureTime (num, den) and ISOSpeedRatings."""
+    import struct
+
+    from rapidraw_tpu_torch import native
+    from rapidraw_tpu_torch.io import exif
+
+    path.write_bytes(native.jpeg_encode(rgb8, 95))
+    ifd = exif.TiffDir("<")
+    ifd[34665] = {33434: exif.Rational(*exposure), 34855: iso}
+    exif.splice_exif_into_jpeg(path, b"Exif\x00\x00II*\x00" + struct.pack("<I", 8)
+                               + ifd.tobytes(8))
+
+
+def textured_scene(h: int, w: int, seed: int, dev) -> np.ndarray:
+    """(h, w, 3) u8: `photo_rgb16`'s content plus a texture of 12-px cells
+    of random brightness (+-45 levels), made on the card: corners for the
+    panorama's features at every scale it detects on."""
+    base = torch.from_numpy(photo_rgb16(h, w, seed, dev).astype(np.float32) / 257.0).to(dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    cells = torch.rand((h // 12 + 1, w // 12 + 1), generator=g, device=dev) * 90.0 - 45.0
+    tex = cells.repeat_interleave(12, 0)[:h].repeat_interleave(12, 1)[:, :w]
+    return torch.clamp(base * 0.7 + 38.0 + tex[..., None], 0, 255).to(torch.uint8).cpu().numpy()
+
+
+def develop_calls_vs_plain(calls, path, reps, card) -> dict:
+    """Every develop_fused_batch call a path made, replayed kernel by kernel
+    on its own inputs: the blur (every level of its config, one launch),
+    NR (static amounts) and the grade (dither off), each against its plain
+    version (BLUR_TOL, NR_TOL, GRADE_TOL) and timed beside its bound; the
+    numbers of the first call that runs each kernel are returned as
+    {(kernel, path): numbers}. Phase 18's documents have no masks, flare,
+    LUT or per-pixel NR; a call with one is refused."""
+    from rapidraw_tpu_torch.ops import blur, nr
+    from rapidraw_tpu_torch.ops.ca import apply_ca_correction
+    from rapidraw_tpu_torch.ops.colorspace import srgb_to_linear
+    from rapidraw_tpu_torch.params import scales
+    from rapidraw_tpu_torch.pipeline import fused
+    from rapidraw_tpu_torch.tools import bound_ms
+
+    report = {}
+
+    def check(name, label, run, plain, nbytes_io, tol, rel=False, library=None):
+        got = run()
+        ref, ops = count_ops(plain)
+        got, ref = (got, ref) if isinstance(got, (list, tuple)) else ([got], [ref])
+        err = max(float(((a - b).abs() / (b.abs().clamp(min=1.0) if rel else 1.0)).max())
+                  for a, b in zip(got, ref))
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        ms, pms = time_ms(run, reps), time_ms(plain, reps)
+        bms, bby = bound_ms(nbytes_io, ops)
+        lms = library() if library is not None else None
+        report.setdefault((name, path), dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                                             library_ms=lms, max_abs_err=err))
+        log(f"[{path}-kernel] {name} {label}: max|d|{'/max(1,|ref|)' if rel else ''} "
+            f"{err:.3e} (bound {tol:g}) kernel {ms:.3f} ms plain {pms:.3f} ms bound {bms:.3f} "
+            f"ms ({bby})" + (f"; library {lms:.3f} ms" if lms is not None else "")
+            + f" [{card}]")
+        if not finite or err > tol:
+            raise AssertionError(f"{name} on the {path} path, {label}: max|d| {err}")
+
+    for ci, (args, kw) in enumerate(calls):
+        images, params, cfg = args[0].contiguous(), args[1], args[2]
+        b, _, h, w = images.shape
+        label = f"call {ci} B={b} (3,{h},{w})"
+        if cfg.mask_count or cfg.flare_active or cfg.has_lut or \
+                (cfg.nr_active and cfg.nr_static_luma is None):
+            raise AssertionError(f"{path} {label}: masks, flare, a LUT or per-pixel NR")
+        pmat = fused.pack_rows(params["glob"]).to(images.device)
+
+        radii = tuple(fused.blur_radii(cfg, w, h).values())
+        if radii:
+            flat = images.reshape(-1, h, w)
+            check("blur", f"{label} r={radii}",
+                  lambda: blur.gaussian_blur_multi(flat, radii),
+                  lambda: blur.gaussian_blur_multi_plain(flat, radii),
+                  nbytes(flat) * (1 + len(radii)), BLUR_TOL, rel=True,
+                  library=lambda: blur_library_ms(flat, radii, reps))
+
+        if cfg.nr_active:
+            image = images
+            if cfg.ca_active:
+                image = apply_ca_correction(images, cfg.ca_static_rc, cfg.ca_static_by,
+                                            full_size=(w, h))
+            center = (image if cfg.is_raw else srgb_to_linear(image)).contiguous()
+            planes = nr.nr_planes(images, cfg.is_raw).contiguous()
+            scale = scales.resolution_scale(w, h)
+            la, ca = cfg.nr_static_luma, cfg.nr_static_color
+            check("nr", f"{label} amounts {la:g}/{ca:g}",
+                  lambda: nr.nr_static(center, planes, la, ca, scale),
+                  lambda: nr.nr_static_plain(center, planes, la, ca, scale),
+                  nbytes(center, planes) + nbytes(center), NR_TOL)
+
+        image, linear = fused.prepare_inputs(images, cfg, params)
+        levels = fused.blur_levels(images, cfg)
+        gcfg = dataclasses.replace(cfg, dither_active=False)
+        check("grade", label,
+              lambda: fused.grade(image, levels, pmat, gcfg, image_linear=linear),
+              lambda: fused.grade_plain(image, levels, pmat, gcfg, image_linear=linear),
+              nbytes(image, pmat, *levels.values()) + nbytes(image), GRADE_TOL)
+    return report
+
+
+def phase_library(args, h, w, reps, card, dev, reset_counts, read_counts):
+    """Phase 18, the rest of the library and the compositions (A.11c,
+    A.12): (a) generate_thumbnails at THUMB_RES over 8 files of (h, w) from
+    --seed: 16-bit DNGs (the fast RAW path: half-size speed demosaic) and
+    q95 JPEGs, edited (CONFIG3_DOC; config 5's document with its geometry,
+    which warps at the loaded size and runs NR) and unedited, timed per
+    thumbnail as prep (load, transform, downscale, masks), develop and
+    encode, with the launches of blur, grade, NR and resample (each must
+    run) and the device memory peak; the batched results equal to one
+    generate_thumbnail per file byte for byte, or, for a document whose
+    bucket merges its config with another's, to a serial develop under
+    the merged config; (b) the kernels against their plain versions at
+    this slice's shapes: each batched develop of (a) replayed kernel by
+    kernel on its own inputs (blur, NR, grade), and every kernel on random
+    images at the fast RAW path's half-size frame, where thumbnails warp
+    (the resample numbers kept), and at the community previews' 720 px;
+    (c) generate_community_previews of COMMUNITY_PRESETS over a DNG and a
+    JPEG with their launches, each develop then replayed as in (b); (d) the
+    compositions through `python -m rapidraw_tpu_torch` in child processes
+    with --timings: hdr of three bracketed JPEGs carrying ExposureTime and
+    ISO, negative, cull over (a)'s files, panorama of three overlapping
+    PANO_CROP crops of one textured scene (the output's size checked), and
+    denoise (BM3D, NumPy on the host) at the largest of BM3D_SHAPES that
+    the rate of a 512 x 512 run says finishes within BM3D_BUDGET_S. Returns
+    ({"thumbnails", "community"}: launches, {(kernel, path): numbers})."""
+    import shutil
+    import tempfile
+
+    from rapidraw_tpu_torch.io.sidecar import save_sidecar
+    from rapidraw_tpu_torch.library import community, thumbnails
+    from rapidraw_tpu_torch.pipeline import batch, develop as develop_mod
+    from rapidraw_tpu_torch.utils.settings import DEFAULTS, AppSettings
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    launches, report = {}, {}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_library_"))
+    settings = AppSettings(DEFAULTS)
+
+    # ---- (a) thumbnails of 8 files
+    t0 = time.perf_counter()
+    cfa = [photo_cfa(h, w, RAW_BLACK, RAW_WHITE, args.seed + k) for k in range(2)]
+    rgb = [(photo_rgb16(h, w, args.seed + 10 + k, dev) >> 8).astype(np.uint8) for k in range(2)]
+    geo5 = dict(CONFIG5_DOC, **CONFIG5_GEOMETRY)
+    files = [("r_c3.dng", CONFIG3_DOC), ("r_plain.dng", {}), ("r_c5a.dng", geo5),
+             ("r_c5b.dng", geo5), ("j_c3.jpg", CONFIG3_DOC), ("j_plain.jpg", {}),
+             ("j_c5.jpg", geo5), ("j_c3b.jpg", dict(CONFIG3_DOC, exposure=0.6))]
+    paths = []
+    from rapidraw_tpu_torch import native
+
+    for i, (name, doc) in enumerate(files):
+        p = tmp / name
+        if name.endswith(".dng"):
+            p.write_bytes(raw_dng_bytes(np.roll(cfa[i % 2], 2 * i, axis=1)))
+        else:
+            p.write_bytes(native.jpeg_encode(np.ascontiguousarray(np.roll(rgb[i % 2], i, 1)), 95))
+        if doc:
+            save_sidecar(p, {"adjustments": doc})
+        paths.append(str(p))
+    log(f"[thumbs] wrote {len(paths)} files of {h}x{w} (4 DNG, 4 JPEG q95) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    spent = {"prep": 0.0, "develop": 0.0, "encode": 0.0}
+    real = {"prep": thumbnails._prep_thumbnail, "finish": thumbnails._finish_thumbnail,
+            "batch": batch.develop_batch, "develop": develop_mod.develop}
+
+    def timed(key, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t
+            return out
+        return run
+
+    # each develop_fused_batch call a path makes, kept to replay its kernels
+    # against their plain versions on the same inputs after the run
+    calls = {"thumbnails": [], "community": []}
+    into = calls["thumbnails"]
+    real_fused = batch.develop_fused_batch
+
+    def record(*a, **k):
+        into.append((a, k))
+        return real_fused(*a, **k)
+
+    thumbnails._prep_thumbnail = timed("prep", real["prep"])
+    thumbnails._finish_thumbnail = timed("encode", real["finish"])
+    batch.develop_batch = timed("develop", real["batch"])
+    develop_mod.develop = timed("develop", real["develop"])
+    batch.develop_fused_batch = record
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        thumbs = thumbnails.generate_thumbnails(paths, THUMB_RES, app_settings=settings,
+                                                device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches["thumbnails"] = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        thumbnails._prep_thumbnail, thumbnails._finish_thumbnail = real["prep"], real["finish"]
+        batch.develop_batch, develop_mod.develop = real["batch"], real["develop"]
+        batch.develop_fused_batch = real_fused
+    n = len(paths)
+    log(f"[thumbs] generate_thumbnails of {n} files at {THUMB_RES}: wall {wall:.2f} s, "
+        f"{wall / n * 1e3:.1f} ms/thumbnail = prep {spent['prep'] / n * 1e3:.1f} + develop "
+        f"{spent['develop'] / n * 1e3:.1f} + encode {spent['encode'] / n * 1e3:.1f} (+ the "
+        f"batches' u8 and readback); launches {launches['thumbnails']}; device memory peak "
+        f"{peak / 2**30:.2f} GiB [{card}]")
+    lt = launches["thumbnails"]
+    if set(thumbs) != set(paths) or min(lt["blur"], lt["grade"], lt["nr"], lt["resample"]) < 1:
+        raise AssertionError(f"thumbnails: {sorted(thumbs)} launches {lt}")
+    t0 = time.perf_counter()
+    serial = {p: thumbnails.generate_thumbnail(p, THUMB_RES, app_settings=settings, device=dev)
+              for p in paths}
+    same = [p for p in paths if serial[p] == thumbs[p]]
+    sizes = {Path(p).name: len(thumbs[p]) for p in paths}
+    log(f"[thumbs] serial generate_thumbnail x{n}: {time.perf_counter() - t0:.2f} s; batched "
+        f"equal to serial byte for byte on {len(same)} of {n}; JPEG bytes {sizes}")
+    # a bucket develops its documents under their merged config (as JAX
+    # does): a stage another member turns on runs with neutral values,
+    # which is exact only up to an ulp. A batched thumbnail that differs
+    # from its serial one must equal a serial develop under its bucket's
+    # merged config byte for byte; its u8 distance from its own is reported
+    from rapidraw_tpu_torch.pipeline.export import device_u8
+
+    preps = {p: real["prep"](p, THUMB_RES, app_settings=settings, device=dev) for p in paths}
+    buckets = {}
+    for p, pr in preps.items():
+        if not isinstance(pr, bytes):
+            buckets.setdefault(thumbnails._bucket_key(pr), []).append(p)
+    for p in sorted(set(paths) - set(same)):
+        pr, group = preps[p], next(g for g in buckets.values() if p in g)
+        _, merged = batch.stack_params([preps[q]["params"] for q in group],
+                                       [preps[q]["cfg"] for q in group], device=dev)
+        if len(group) == 1 or merged == pr["cfg"] or pr["masks"] is not None:
+            raise AssertionError(f"batched thumbnail of {p} differs from its serial one")
+        under = develop_mod.develop(pr["x"], pr["params"], merged)
+        own = develop_mod.develop(pr["x"], pr["params"], pr["cfg"])
+        d = (device_u8(under).int() - device_u8(own).int()).abs()
+        equal = thumbnails._finish_thumbnail(under, None) == thumbs[p]
+        log(f"[thumbs] {Path(p).name} shares a bucket with "
+            f"{[Path(q).name for q in group if q != p]}: batched equal to a serial develop "
+            f"under the merged config byte for byte: {equal}; against its own config the u8 "
+            f"frames differ by max {int(d.max())} LSB on {float((d > 0).float().mean()):.2e}")
+        if not equal:
+            raise AssertionError(f"batched thumbnail of {p} differs from a serial develop "
+                                 "under its bucket's config")
+
+    # ---- (b) the kernels at this slice's shapes against their plain versions
+    # the thumbnails' batched develops (chunks of 4 at 720 px) on their
+    # own inputs; every kernel at the fast RAW path's half-size frame, where
+    # thumbnails warp, and at the community previews' 720 px
+    report.update(develop_calls_vs_plain(calls["thumbnails"], "thumbnails", reps, card))
+    half = (h // 2, w // 2)
+    small = (round(h * 2 * COMMUNITY_TILE / max(h, w)), 2 * COMMUNITY_TILE)
+    report.update(preview_kernels_vs_plain(
+        [(half, "thumbnails", ("resample",)), (small, "community", ("resample",))],
+        reps, card, dev, gen))
+
+    # ---- (c) community previews: 3 presets over a DNG and a JPEG
+    presets = community.parse_manifest(json.dumps(COMMUNITY_PRESETS))
+    into = calls["community"]
+    batch.develop_fused_batch = record
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        previews = community.generate_community_previews([paths[1], paths[5]], presets,
+                                                         device=dev)
+        torch.cuda.synchronize()
+        cwall = time.perf_counter() - t0
+        launches["community"] = read_counts()
+    finally:
+        batch.develop_fused_batch = real_fused
+    lc = launches["community"]
+    log(f"[community] {len(presets)} presets x 2 sources of {h}x{w} (tile {COMMUNITY_TILE}): "
+        f"wall {cwall:.2f} s; launches {lc}; strips "
+        f"{ {k: len(v) for k, v in previews.items()} } bytes [{card}]")
+    if sorted(previews) != sorted(p.name for p in presets) or \
+            min(lc["blur"], lc["grade"], lc["nr"], lc["resample"]) < 1 or \
+            any(v[:2] != b"\xff\xd8" for v in previews.values()):
+        raise AssertionError(f"community previews: {sorted(previews)}, launches {lc}")
+    report.update(develop_calls_vs_plain(calls["community"], "community", reps, card))
+    del calls
+
+    # ---- (d) the compositions through the CLI, each in a child process
+    def cli(argv, label):
+        timings, wall, start = run_cli(argv, label)
+        stages = " ".join(f"{k} {v / 1e3:.2f}" for k, v in timings["stages_ms"].items())
+        log(f"[compositions] {label}: wall {wall:.2f} s = start and imports {start:.2f} s + "
+            f"{stages} (s) [{card}]")
+        return timings
+
+    rng = np.random.default_rng(args.seed)
+    scene = photo_rgb16(h, w, args.seed + 20, dev).astype(np.float64) / 65535.0
+    lin = scene ** 2.2
+    bracket = []
+    for i, (den, iso) in enumerate([(500, 100), (125, 100), (30, 200)]):
+        expo = np.clip(lin * (iso / 100) * 60.0 / den, 0, 1) ** (1 / 2.2)
+        rgb8 = np.clip(expo * 255 + rng.normal(0, 1.0, expo.shape), 0, 255).astype(np.uint8)
+        p = tmp / f"bracket_{i}.jpg"
+        write_exif_jpeg(p, rgb8, (1, den), iso)
+        bracket.append(str(p))
+    cli(["hdr", *bracket, "-o", str(tmp / "merged.png")], f"hdr (3 x {h}x{w} JPEG)")
+    cli(["negative", paths[5], "-o", str(tmp / "positive.tiff")], f"negative ({h}x{w} JPEG)")
+    import subprocess
+
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "rapidraw_tpu_torch", "cull", *paths,
+                           "--timings"], cwd=Path(__file__).resolve().parent,
+                          capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"CLI cull exited {proc.returncode}: {proc.stderr[-2000:]}")
+    culled = json.loads(proc.stdout)
+    timings = next(json.loads(ln)["timings"] for ln in proc.stderr.splitlines()
+                   if ln.startswith('{"timings"'))
+    log(f"[compositions] cull of (a)'s {n} files: wall {time.time() - t0:.2f} s = start and "
+        f"imports {timings['main_at'] - t0:.2f} s + cull {timings['stages_ms']['cull'] / 1e3:.2f}"
+        f" (s); {len(culled['groups'])} groups, best "
+        f"{[Path(b).name for b in culled['best']]}, failed {culled['failed']} [{card}]")
+    if culled["failed"] or sum(len(g) for g in culled["groups"]) != n:
+        raise AssertionError(f"cull: {culled}")
+    ph, pw = PANO_CROP
+    if args.quick:
+        ph, pw = h, w * 2 // 3
+    step = pw * 4 // 7
+    big = textured_scene(ph, step * 2 + pw, args.seed + 30, dev)
+    crops = []
+    for i in range(3):
+        p = tmp / f"pano_{i}.jpg"
+        p.write_bytes(native.jpeg_encode(np.ascontiguousarray(big[:, i * step:i * step + pw]), 95))
+        crops.append(str(p))
+    tm = cli(["panorama", *crops, "-o", str(tmp / "pano.png")],
+             f"panorama (3 x {ph}x{pw} JPEG, {step} px apart)")
+    pw_out, ph_out = tm["size"]
+    want_w = step * 2 + pw
+    log(f"[compositions] panorama output {pw_out}x{ph_out} (the scene: {want_w}x{ph})")
+    if abs(pw_out - want_w) > 4 or abs(ph_out - ph) > 4:
+        raise AssertionError(f"panorama size {pw_out}x{ph_out}, the scene {want_w}x{ph}")
+    # BM3D runs on the host: time a 512 x 512 frame, then the largest shape
+    # its rate says fits the budget
+    def denoise(shape):
+        src = tmp / f"noisy_{shape[0]}x{shape[1]}.jpg"
+        crop = rgb[0][: shape[0], : shape[1]]
+        src.write_bytes(native.jpeg_encode(np.ascontiguousarray(crop), 90))
+        return cli(["denoise", str(src), "-o", str(tmp / "denoised.png")],
+                   f"denoise BM3D {shape[0]}x{shape[1]}")["stages_ms"]["bm3d"] / 1e3
+    small_s = denoise((512, 512))
+    rate = small_s / (512 * 512)
+    fits = [s for s in BM3D_SHAPES if s[0] * s[1] * rate <= BM3D_BUDGET_S and
+            s[0] <= h and s[1] <= w]
+    log(f"[compositions] BM3D rate {rate * 1e6:.1f} s/MP: 24 MP would take "
+        f"{rate * h * w:.0f} s; the largest of {BM3D_SHAPES} within {BM3D_BUDGET_S:.0f} s: "
+        f"{fits[0] if fits else 'none'}")
+    if fits and fits[0] != (512, 512):
+        denoise(fits[0])
     shutil.rmtree(tmp)
     return launches, report
 
@@ -4271,6 +4667,12 @@ def main() -> int:
     report.update(cli_report)
     phase_done("CLI and tiled develop")
 
+    # ---- 18. thumbnails, community previews and the compositions -------------
+    launches18, library_report = phase_library(args, h, w, reps, card, dev, reset_counts,
+                                               read_counts)
+    report.update(library_report)
+    phase_done("thumbnails, community, compositions")
+
     sources = {  # name -> (source, the TPU kernel it replaces, the path that runs it)
         "blur": ("rapidraw_tpu_torch/csrc/blur.cu", "rapidraw_tpu/ops/blur.py:242", "config5"),
         "grade": ("rapidraw_tpu_torch/csrc/grade.cu", "rapidraw_tpu/pipeline/fused.py:298",
@@ -4297,7 +4699,7 @@ def main() -> int:
     counts = {"config3": launches3, "config5": launches5, "probes": launches_probes,
               "config4": launches4, **launches2, **launches12, **launches13,
               "export": launches14, "ldr_export": launches15, "preview": launches16,
-              **launches17}
+              **launches17, **launches18}
     library = {"nr_dynamic": "nr"}  # the kernels that share a source with another
     # a kernel that shares its source: its own entry's registers and spills
     entry = {"nr": "nr_kernel", "nr_dynamic": "nr_dynamic_kernel"}

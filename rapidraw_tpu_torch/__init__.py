@@ -29,6 +29,16 @@ package never imports it or JAX.
 
 __version__ = "0.1.0"
 
+import torch
+
+# MKL's vector math, behind PyTorch's CPU exp, log, log2, sqrt, sin, cos,
+# tanh and erf in float32 and float64, sets itself up on its first call in
+# a process. When that first call is split over intra-op threads, the
+# threads that did not set it up return their share up to ~3e-4 off, that
+# one time. One call of one element runs on this thread alone and sets it
+# up before any of the port's CPU ops run.
+torch.sqrt(torch.ones(1))
+
 from rapidraw_tpu_torch.io.containers import parse_raw  # noqa: F401
 from rapidraw_tpu_torch.io.loader import load_image  # noqa: F401
 from rapidraw_tpu_torch.masks.rasterize import rasterize_masks  # noqa: F401

@@ -9,15 +9,17 @@ Tauri command layer for batch use), on the port's own modules:
   python -m rapidraw_tpu_torch histogram IMG       # scope stats to stdout
   python -m rapidraw_tpu_torch lut-export -a adj.json -o grade.cube
   python -m rapidraw_tpu_torch lib|exif|preset ...
+  python -m rapidraw_tpu_torch negative IMG | cull IMG... | hdr IMG... |
+      denoise IMG | panorama IMG...                # the compositions
 
 Every verb that develops or analyses an image runs on `--device`, the CUDA
 device unless the caller asks for another (`--device cpu`): without a card
 such a verb fails, it never carries on on the CPU. `develop` of an image
 whose long edge passes 8192 px goes through the tiled develop
 (pipeline/tiled.py); a smaller one through the export's single-image entry,
-so `develop X` and `export X` write the same pixels. The verbs of later
-slices (`negative`, `cull`, `hdr`, `denoise`, `panorama`: A.12; `tag`,
-`lib clear-ai-tags`: A.13) take JAX's arguments and exit with status 2.
+so `develop X` and `export X` write the same pixels. The AI verbs (`tag`,
+`lib clear-ai-tags`, `denoise --method ai`) wait for slice A.13: they take
+JAX's arguments and exit with status 2.
 JAX's persistent compile cache has no counterpart: native.py keeps the
 built kernels on disk.
 """
@@ -35,8 +37,7 @@ _EXPORT_FORMATS = ("jpeg", "jpg", "png", "tiff", "tif", "webp", "avif", "jxl")
 # is the tiled one, whose seams JAX's output has too (pipeline/tiled.py)
 TILED_ABOVE = 8192
 # the verbs that wait for a later slice -> that slice
-_LATER = {"negative": "A.12", "cull": "A.12", "hdr": "A.12", "denoise": "A.12",
-          "panorama": "A.12", "tag": "A.13", "clear-ai-tags": "A.13"}
+_LATER = {"tag": "A.13", "clear-ai-tags": "A.13", "denoise": "A.13"}
 
 
 def _require_file(path: str) -> None:
@@ -256,6 +257,150 @@ def _cmd_auto(args) -> int:
     return 0
 
 
+def _cmd_negative(args) -> int:
+    from rapidraw_tpu_torch.compositions.negative import (
+        NegativeConversionParams, convert_negative,
+    )
+    from rapidraw_tpu_torch.io.encode import encode_image
+    from rapidraw_tpu_torch.io.loader import load_image
+    from rapidraw_tpu_torch.utils.trace import mark_stage
+
+    _require_file(args.image)
+    dev = _device(args)
+    main_at, stages = time.time(), _stages(args, dev)
+    img, _ = load_image(args.image, app_settings=_app_settings(), device=dev)
+    mark_stage(stages, "load")
+    params = NegativeConversionParams(
+        red_weight=args.red, green_weight=args.green, blue_weight=args.blue,
+        exposure=args.exposure, contrast=args.contrast,
+    )
+    out = convert_negative(img, params).cpu().numpy()
+    mark_stage(stages, "convert")
+    dst = args.output or _default_output(args.image, "Positive", "tiff")
+    encode_image(out, dst, quality=95)
+    mark_stage(stages, "encode")
+    _report(stages, main_at)
+    print(dst)
+    return 0
+
+
+def _cmd_cull(args) -> int:
+    from rapidraw_tpu_torch.compositions.culling import cull_images
+    from rapidraw_tpu_torch.utils.trace import mark_stage
+
+    for p in args.images:
+        _require_file(p)
+    dev = _device(args)
+    main_at, stages = time.time(), _stages(args, dev)
+    res = cull_images(args.images, group_similar_images=not args.no_group, device=dev)
+    mark_stage(stages, "cull")
+    out = {
+        "groups": [
+            [
+                {
+                    "path": a.path,
+                    "qualityScore": round(a.quality_score, 4),
+                    "sharpness": round(a.sharpness_metric, 2),
+                    "exposure": round(a.exposure_metric, 4),
+                }
+                for a in g
+            ]
+            for g in res["groups"]
+        ],
+        "best": res["best"],
+        "failed": res["failed"],
+    }
+    _report(stages, main_at)
+    print(json.dumps(out, indent=2))
+    return 0
+
+
+def _cmd_hdr(args) -> int:
+    from rapidraw_tpu_torch.compositions.hdr import merge_hdr, read_exif_exposure
+    from rapidraw_tpu_torch.io.encode import encode_image
+    from rapidraw_tpu_torch.io.loader import load_image
+    from rapidraw_tpu_torch.ops.colorspace import linear_to_srgb, srgb_to_linear
+    from rapidraw_tpu_torch.utils.trace import mark_stage
+
+    if len(args.images) < 2:
+        raise SystemExit("error: need at least two images to merge")
+    dev = _device(args)
+    main_at, stages = time.time(), _stages(args, dev)
+    imgs, exps, isos = [], [], []
+    app_settings = _app_settings()
+    for p in args.images:
+        _require_file(p)
+        img, is_raw = load_image(p, app_settings=app_settings, device=dev)
+        if not is_raw:
+            img = srgb_to_linear(img)  # lib.rs:1433-1435
+        exp, iso = read_exif_exposure(p)
+        if exp is None or iso is None:
+            raise SystemExit(f"error: {p} is missing ExposureTime/ISO EXIF data")
+        imgs.append(img)
+        exps.append(exp)
+        isos.append(iso)
+    mark_stage(stages, "load")
+    out = linear_to_srgb(merge_hdr(imgs, exps, isos)).cpu().numpy()
+    mark_stage(stages, "merge")
+    dst = args.output or "hdr_merged.png"
+    encode_image(out, dst)
+    mark_stage(stages, "encode")
+    _report(stages, main_at)
+    print(dst)
+    return 0
+
+
+def _cmd_denoise(args) -> int:
+    from rapidraw_tpu_torch.compositions.bm3d import run_bm3d
+    from rapidraw_tpu_torch.io.encode import encode_image
+    from rapidraw_tpu_torch.io.loader import load_image
+    from rapidraw_tpu_torch.utils.trace import mark_stage
+
+    if args.method == "ai":  # the AI denoiser comes with slice A.13
+        return _cmd_later(args)
+    _require_file(args.image)
+    dev = _device(args)
+    main_at, stages = time.time(), _stages(args, dev)
+    img, _ = load_image(args.image, app_settings=_app_settings(), device=dev)
+    img = img.cpu().numpy()
+    mark_stage(stages, "load")
+    out = run_bm3d(img, intensity=args.intensity)  # NumPy on the host, as in JAX
+    mark_stage(stages, "bm3d")
+    dst = args.output or _default_output(args.image, "denoised", "png")
+    encode_image(out, dst)
+    mark_stage(stages, "encode")
+    _report(stages, main_at)
+    print(dst)
+    return 0
+
+
+def _cmd_panorama(args) -> int:
+    from rapidraw_tpu_torch.compositions.panorama import PanoramaError, stitch_panorama
+    from rapidraw_tpu_torch.io.encode import encode_image
+    from rapidraw_tpu_torch.io.loader import load_image
+    from rapidraw_tpu_torch.utils.trace import mark_stage
+
+    app_settings = _app_settings()
+    for p in args.images:
+        _require_file(p)
+    dev = _device(args)
+    main_at, stages = time.time(), _stages(args, dev)
+    imgs = [load_image(p, app_settings=app_settings, device=dev)[0] for p in args.images]
+    mark_stage(stages, "load")
+    try:
+        pano = stitch_panorama(imgs)
+    except PanoramaError as e:
+        raise SystemExit(f"error: {e}") from e
+    mark_stage(stages, "stitch")
+    pano = pano.cpu().numpy()
+    dst = args.output or "panorama.png"
+    encode_image(pano, dst)
+    mark_stage(stages, "encode")
+    _report(stages, main_at, size=[int(pano.shape[2]), int(pano.shape[1])])
+    print(dst)
+    return 0
+
+
 def _cmd_lut_export(args) -> int:
     from rapidraw_tpu_torch.pipeline.watermark import export_adjustments_as_lut
 
@@ -289,7 +434,8 @@ def _cmd_histogram(args) -> int:
 
 def _cmd_later(args) -> int:
     verb = args.op if args.cmd == "lib" else args.cmd
-    print(f"error: '{verb}' is not ported yet; it waits for slice {_LATER[verb]}",
+    what = "denoise --method ai" if verb == "denoise" else verb
+    print(f"error: '{what}' is not ported yet; it waits for slice {_LATER[verb]}",
           file=sys.stderr)
     return 2
 
@@ -436,7 +582,7 @@ def main(argv=None) -> int:
 
     verb(sub, "auto", _cmd_auto, help="compute auto adjustments").add_argument("image")
 
-    n = verb(sub, "negative", _cmd_later, help="convert film negative to positive (A.12)")
+    n = verb(sub, "negative", _cmd_negative, help="convert film negative to positive")
     n.add_argument("image")
     n.add_argument("-o", "--output")
     for c in ("red", "green", "blue"):
@@ -446,21 +592,21 @@ def main(argv=None) -> int:
 
     verb(sub, "histogram", _cmd_histogram, help="print histogram JSON").add_argument("image")
 
-    c = verb(sub, "cull", _cmd_later, help="group similar images and rank quality (A.12)")
+    c = verb(sub, "cull", _cmd_cull, help="group similar images and rank quality")
     c.add_argument("images", nargs="+")
     c.add_argument("--no-group", action="store_true")
 
-    m = verb(sub, "hdr", _cmd_later, help="merge bracketed exposures (A.12)")
+    m = verb(sub, "hdr", _cmd_hdr, help="merge bracketed exposures")
     m.add_argument("images", nargs="+")
     m.add_argument("-o", "--output")
 
-    dn = verb(sub, "denoise", _cmd_later, help="denoise an image, BM3D or AI (A.12)")
+    dn = verb(sub, "denoise", _cmd_denoise, help="denoise an image, BM3D (AI: A.13)")
     dn.add_argument("image")
     dn.add_argument("-o", "--output")
     dn.add_argument("--intensity", type=float, default=0.5)
     dn.add_argument("--method", choices=("bm3d", "ai"), default="bm3d")
 
-    pa = verb(sub, "panorama", _cmd_later, help="stitch overlapping frames (A.12)")
+    pa = verb(sub, "panorama", _cmd_panorama, help="stitch overlapping frames")
     pa.add_argument("images", nargs="+")
     pa.add_argument("-o", "--output")
 

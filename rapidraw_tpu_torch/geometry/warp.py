@@ -339,3 +339,83 @@ def warp_image_geometry(image: torch.Tensor, p: GeometryParams) -> torch.Tensor:
 
     # pixels whose homography z ~ 0 stay black (:718)
     return torch.where(z_ok, out, 0.0)
+
+
+def unwarp_image_geometry(image: torch.Tensor, p: GeometryParams) -> torch.Tensor:
+    """Exact inverse of warp_image_geometry (image_processing.rs:805-938):
+    undoes the manual distortion (Newton on k r^3 + r = r_target, 10
+    steps), the lensfun distortion (8 Newton steps on the blended radius),
+    the auto-crop and the forward homography, in JAX's float32 op order on
+    the image's device."""
+    h, w = image.shape[-2:]
+    cx, cy = w / 2.0, h / 2.0
+    fwd = [[float(v) for v in row] for row in build_transform_matrix(p, float(w), float(h))]
+    half_diag = float(np.sqrt(cx * cx + cy * cy))
+    max_radius_sq_inv = 1.0 / (cx * cx + cy * cy)
+    k_distortion = (p.distortion / 100.0) * 2.5
+    lens_amt = p.lens_distortion_amount * 2.5
+    has_lens = p.lens_distortion_enabled and (
+        abs(p.lens_dist_k1) > 1e-6 or abs(p.lens_dist_k2) > 1e-6 or abs(p.lens_dist_k3) > 1e-6
+    )
+    auto_crop = (compute_lens_auto_crop_scale(p, float(w), float(h))
+                 if (has_lens or abs(k_distortion) > 1e-5) else 1.0)
+    cur_x, cur_y = coord_maps(h, w, image.device)
+
+    if abs(k_distortion) > 1e-5:
+        dx = cur_x - cx
+        dy = cur_y - cy
+        r_dist = sqrt_rn(dx * dx + dy * dy)
+        k_eff = k_distortion * max_radius_sq_inv
+        r = r_dist
+        for _ in range(10):
+            val = k_eff * r**3 + r - r_dist
+            slope = 3.0 * k_eff * r * r + 1.0
+            r = r - torch.where(torch.abs(slope) > 1e-9, val / slope, 0.0)
+        apply = r_dist > 1e-6
+        s = r / torch.where(apply, r_dist, 1.0)
+        cur_x = torch.where(apply, cx + dx * s, cur_x)
+        cur_y = torch.where(apply, cy + dy * s, cur_y)
+
+    if has_lens:
+        dx = cur_x - cx
+        dy = cur_y - cy
+        rd = sqrt_rn(dx * dx + dy * dy)
+        ru = rd
+        k1, k2, k3 = p.lens_dist_k1, p.lens_dist_k2, p.lens_dist_k3
+        for _ in range(8):
+            ru_n = true_div(ru, half_diag)
+            ru_n2 = ru_n * ru_n
+            if p.lens_model == 1:
+                a, b, c = k1, k2, k3
+                d = 1.0 - a - b - c
+                poly = a * ru_n2 * ru_n + b * ru_n2 + c * ru_n + d
+                f_val = ru * poly
+                f_prime = 4.0 * a * ru_n2 * ru_n + 3.0 * b * ru_n2 + 2.0 * c * ru_n + d
+            else:
+                poly = 1.0 + k1 * ru_n2 + k2 * ru_n2**2 + k3 * ru_n2**3
+                f_val = ru * poly
+                poly_prime = (2.0 * k1 * ru_n + 4.0 * k2 * ru_n2 * ru_n
+                              + 6.0 * k3 * ru_n2**2 * ru_n)
+                f_prime = poly + ru_n * poly_prime
+            g_val = ru + (f_val - ru) * lens_amt - rd
+            g_prime = 1.0 + (f_prime - 1.0) * lens_amt
+            ru = ru - torch.where(torch.abs(g_prime) > 1e-7, g_val / g_prime, 0.0)
+        apply = rd > 1e-6
+        s = ru / torch.where(apply, rd, 1.0)
+        cur_x = torch.where(apply, cx + dx * s, cur_x)
+        cur_y = torch.where(apply, cy + dy * s, cur_y)
+
+    if auto_crop > 1.0:
+        cur_x = cx + (cur_x - cx) * auto_crop
+        cur_y = cy + (cur_y - cy) * auto_crop
+
+    hx = fwd[0][0] * cur_x + fwd[0][1] * cur_y + fwd[0][2]
+    hy = fwd[1][0] * cur_x + fwd[1][1] * cur_y + fwd[1][2]
+    hz = fwd[2][0] * cur_x + fwd[2][1] * cur_y + fwd[2][2]
+    z_ok = torch.abs(hz) > 1e-6
+    inv_z = 1.0 / torch.where(z_ok, hz, 1.0)
+    src_x = hx * inv_z
+    src_y = hy * inv_z
+    planes = [image[..., c, :, :] for c in range(3)]
+    out = torch.stack([_bilinear_zero_outside(f, src_x, src_y, w, h) for f in planes], dim=-3)
+    return torch.where(z_ok, out, 0.0)

@@ -29,7 +29,9 @@ import torch
 
 from rapidraw_tpu_torch.native import KernelLibrary
 from rapidraw_tpu_torch.ops import colorspace as cs
-from rapidraw_tpu_torch.ops.common import as_t, coord_maps, luma, mix, smoothstep, true_div
+from rapidraw_tpu_torch.ops.common import (
+    as_t, coord_maps, luma, mix, smoothstep, sqrt_rn, true_div,
+)
 
 FLARE_MAP_SIZE = 512
 # the global params a flare map is made from, in the order the kernel reads
@@ -271,7 +273,7 @@ def generate_flare_map(image: torch.Tensor, amount, exposure, brightness, whites
     flare = flare + (glow / gw) * _tint(_TINT_GLOW, u) * 0.4
 
     # ---- iris rings (:269-289)
-    center_dist = torch.sqrt(((u - 0.5) * aspect) ** 2 + (v - 0.5) ** 2)
+    center_dist = sqrt_rn(((u - 0.5) * aspect) ** 2 + (v - 0.5) ** 2)
     src = sample(fu, fv)
     angle = torch.atan2(v - 0.5, (u - 0.5) * aspect)
     hex_mod = 0.9 + 0.1 * torch.pow(torch.abs(torch.cos(angle * 3.0)), 4.0)
@@ -287,7 +289,7 @@ def generate_flare_map(image: torch.Tensor, amount, exposure, brightness, whites
         gx = 0.5 + (gu - 0.5) * sc
         gy = 0.5 + (gv - 0.5) * sc
         ghost = sample(gx, gy)
-        dist = torch.sqrt(((gx - 0.5) * aspect) ** 2 + (gy - 0.5) ** 2)
+        dist = sqrt_rn(((gx - 0.5) * aspect) ** 2 + (gy - 0.5) ** 2)
         vig = 1.0 - smoothstep(e0, e1, dist)
         term = ghost * _tint(tint, u) * mult * vig
         if gated:

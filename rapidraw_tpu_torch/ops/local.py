@@ -12,7 +12,9 @@ import torch
 
 from rapidraw_tpu_torch.ops import tone
 from rapidraw_tpu_torch.ops.color import apply_creative_color
-from rapidraw_tpu_torch.ops.common import as_t, bcast3, fpow_lt1, luma, mix, smoothstep
+from rapidraw_tpu_torch.ops.common import (
+    as_t, bcast3, fpow_lt1, luma, mix, smoothstep, sqrt_rn,
+)
 
 
 def apply_local_contrast(
@@ -43,7 +45,7 @@ def apply_local_contrast(
         threshold = as_t(threshold, rgb)
         edge_magnitude = torch.abs(log_ratio)
         normalized_edge = torch.clamp(edge_magnitude / 3.0, 0.0, 1.0)
-        edge_dampener = 1.0 - torch.sqrt(normalized_edge)
+        edge_dampener = 1.0 - sqrt_rn(normalized_edge)
         edge_mask = smoothstep(threshold * 0.5, threshold * 1.5, edge_magnitude)
         effective_amount = amount * edge_dampener * edge_mask * 0.8
     else:
@@ -64,7 +66,7 @@ def centre_mask_from_coords(xs, ys, w_full: int, h_full: int) -> torch.Tensor:
     un = (xs / w_full - 0.5) * 2.0
     vn = (ys / h_full - 0.5) * 2.0
     aspect = h_full / w_full
-    d = torch.sqrt(un * un + (vn * aspect) ** 2) * 0.5
+    d = sqrt_rn(un * un + (vn * aspect) ** 2) * 0.5
     vignette_mask = smoothstep(0.4 - 0.375, 0.4 + 0.375, d)
     return 1.0 - vignette_mask
 
@@ -107,8 +109,8 @@ def apply_dehaze(
     pixel_luma = luma(torch.clamp_min(rgb, 0.0))
     blurred_luma = luma(torch.clamp_min(blurred_linear, 0.0))
     edge_diff = torch.abs(
-        torch.sqrt(torch.clamp_min(pixel_luma, 0.0))
-        - torch.sqrt(torch.clamp_min(blurred_luma, 0.0))
+        sqrt_rn(torch.clamp_min(pixel_luma, 0.0))
+        - sqrt_rn(torch.clamp_min(blurred_luma, 0.0))
     )
     halo_protection = smoothstep(0.02, 0.15, edge_diff)
     spatial_dark = mix(regional_dark, pixel_dark, halo_protection)
@@ -170,7 +172,7 @@ def apply_glow_bloom(
     bloom_color = torch.where(linear_luma > 0.01, color_ratio * warm, dark_default)
 
     luma_factor = fpow_lt1(torch.clamp_min(linear_luma, 0.0), 0.6)
-    black_gate = torch.sqrt(smoothstep(0.0, 0.5, linear_luma))
+    black_gate = sqrt_rn(smoothstep(0.0, 0.5, linear_luma))
     bloom_color = bloom_color * (bloom_intensity * luma_factor * cutoff_fade * black_gate)
 
     current_luma = luma(torch.clamp_min(rgb, 0.0))

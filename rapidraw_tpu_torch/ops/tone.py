@@ -20,6 +20,7 @@ from rapidraw_tpu_torch.ops.common import (
     mat3_apply,
     mix,
     smoothstep,
+    sqrt_rn,
 )
 from rapidraw_tpu_torch.params import agx as agx_c
 
@@ -113,8 +114,8 @@ def apply_tonal_adjustments(
         safe_pixel_luma = torch.clamp_min(pixel_luma, 0.0001)
         safe_blurred_luma = torch.clamp_min(blurred_luma, 0.0001)
 
-        perc_pixel = torch.sqrt(safe_pixel_luma)
-        perc_blurred = torch.sqrt(safe_blurred_luma)
+        perc_pixel = sqrt_rn(safe_pixel_luma)
+        perc_blurred = sqrt_rn(safe_blurred_luma)
         halo_protection = smoothstep(0.05, 0.25, torch.abs(perc_pixel - perc_blurred))
 
         spatial_mult = get_shadow_mult(safe_blurred_luma, sh, bl)

@@ -626,8 +626,10 @@ def develop_fused_batch(images: torch.Tensor, params: dict, cfg: DevelopConfig,
     A batch that is one tile of a larger image gives the tile's origin
     `tile_offset` (x, y) and the image's `full_size` (w, h) (JAX
     develop.py:70-140): pass its flare map too, made from the whole image
-    (pipeline/tiled.py).
+    (pipeline/tiled.py). A strided view (a crop) is copied once: the
+    kernels take contiguous tensors.
     """
+    images = images.contiguous()
     h, w = images.shape[-2:]
     tile_offset, full_size = check_placement(tile_offset, full_size, w, h)
     pmat = pack_rows(params["glob"]).to(images.device)

@@ -19,7 +19,7 @@ from rapidraw_tpu_torch.ops import colorspace as cs
 from rapidraw_tpu_torch.ops import curves as curve_ops
 from rapidraw_tpu_torch.ops import local as local_ops
 from rapidraw_tpu_torch.ops import tone as tone_ops
-from rapidraw_tpu_torch.ops.common import as_t, fpow, luma, mix, smoothstep
+from rapidraw_tpu_torch.ops.common import as_t, fpow, luma, mix, smoothstep, sqrt_rn
 from rapidraw_tpu_torch.ops.grain import apply_grain, dither_from_coords
 from rapidraw_tpu_torch.ops.lut3d import apply_lut
 from rapidraw_tpu_torch.params.parse import DevelopConfig
@@ -71,7 +71,7 @@ def apply_vignette(rgb, xs, ys, w_full, h_full, amount, midpoint, roundness, fea
     aspect = h_full / w_full
     ux = torch.sign(un) * fpow(torch.abs(un), v_round)
     uy = torch.sign(vn) * fpow(torch.abs(vn), v_round)
-    d = torch.sqrt(ux * ux + (uy * aspect) ** 2) * 0.5
+    d = sqrt_rn(ux * ux + (uy * aspect) ** 2) * 0.5
     vmask = smoothstep(midpoint - v_feather, midpoint + v_feather, d)
     darken = rgb * (1.0 + amount * vmask)
     lighten = mix(rgb, 1.0, amount * vmask)
