@@ -19,8 +19,11 @@ to end: adjustment JSON -> stack_params -> develop_batch -> device_u8 ->
 host numpy (configs 1 and 3), with the kernels' launch counters reset just
 before and read just after, plus a small-input check against the plain CPU
 path; (6) the NR kernel against its plain version on a 24 MP B = 2 batch,
-as config 5 runs it, and at the ragged size; (7) the resample kernel against its plain version on
-the 24 MP config-5 and TCA plans; (8) the stencil export path end to end
+as config 5 runs it, and at the ragged size; (7) the warp kernel (both
+passes of every channel set, the batch, the crop and the post gain in one
+launch) against warp_with_plan_plain on the 24 MP B = 2 batch with the
+config-5 and TCA plans, beside its bytes bound, one grid_sample per pass
+and the plain time; (8) the stencil export path end to end
 (config 5): JSON + geometry -> plan_warp -> warp_with_plan ->
 develop_batch -> device_u8 -> host numpy, counters reset and read around
 it, plus its small-input check; (9) the profiling probes P1 and P2
@@ -117,9 +120,9 @@ with the straightening guides, auto adjust, PreviewWorker on a burst of
 develop kernel must run in the phase); the blur, grade, NR, resample
 and flare kernels against their plain versions at the preview's shape and
 the ROI's; and a 1024 x 1536 DNG through the service on the card against
-device="cpu" (u8 within 1 LSB); its resample rows at the preview's shapes
-time a shape no caller runs (the service warps at the source's size: phase
-7's case is the preview path's); (17) the CLI and the tiled develop
+device="cpu" (u8 within 1 LSB); its warp at the preview's shapes is held
+but times a shape no caller runs (the service warps at the source's size:
+phase 7's case is the preview path's); (17) the CLI and the tiled develop
 (`phase_cli`, `[tiled-kernel]`, `[tiled]` and `[cli]` lines): the grade
 and per-pixel NR kernels on a 2304 x 2304 tile at (4096, 2048) of a
 12000 x 8000 image against their plain versions (config 3, FULL_DOC with
@@ -252,7 +255,7 @@ CONFIG5_GEOMETRY = {
     "lensDistortionAmount": 100.0,
     "lensVignetteAmount": 100.0,
 }
-# TCA + rotation: three clamp-mode channel sets, six resample launches.
+# TCA + rotation: three clamp-mode channel sets, one warp launch.
 TCA_GEOMETRY = {
     "transformRotate": 2.0,
     "lensDistortionParams": {"k1": -0.05, "tca_vr": 1.002, "tca_vb": 0.998},
@@ -1286,6 +1289,19 @@ def profile_run(label, run, out_dir, card) -> None:
     if out_dir:
         Path(out_dir).mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(Path(out_dir) / f"trace_{label.split()[0]}.json"))
+
+
+def host_ms(fn, calls: int = 1000) -> float:
+    """Mean host ms of one call of fn over `calls` calls with no sync
+    between them: what the host spends to dispatch it (the card may lag)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt * 1e3 / calls
 
 
 def median_host_ms(fn, reps: int) -> float:
@@ -2628,6 +2644,78 @@ def resample_library_ms(src, e_arr, bases, stat, reps):
                                          padding_mode="zeros", align_corners=True), reps)
 
 
+def warp_bytes(images, arrays, static) -> int:
+    """Bytes the whole warp must move: the image and each set's bases read
+    once, each set's two e-maps read once where the kernel reads them (at
+    the image's h x w: it never reads their padding), the post gain read
+    once where the plan has it, the output written once."""
+    keys = [f"{k}{si}" for si in range(len(static.modes)) for k in ("bv", "bh")]
+    keys += ["post"] if static.has_post else []
+    emaps = 2 * len(static.modes) * static.h * static.w * 4
+    return 2 * nbytes(images) + emaps + nbytes(*(arrays[k] for k in keys))
+
+
+def warp_library_ms(images, arrays, static, reps) -> float:
+    """The warp's library yardstick: one bilinear grid_sample per pass of
+    every channel set, summed, each on its pass's own source (the zero-padded
+    planes; the plain intermediate, transposed)."""
+    import torch.nn.functional as F
+
+    from rapidraw_tpu_torch.geometry import warp_fast
+
+    imgs = images if images.ndim == 4 else images[None]
+    xp = F.pad(imgs, (0, static.wp - static.w, 0, static.hp - static.h))
+    total = 0.0
+    for si, (channels, vstat, hstat) in enumerate(static.modes):
+        part = xp[:, list(channels)].reshape(-1, static.hp, static.wp).contiguous()
+        ev, bv, eh, bh = (arrays[f"{k}{si}"] for k in ("ev", "bv", "eh", "bh"))
+        tmp_t = warp_fast.resample_rows_plain(part, ev, bv, vstat).transpose(1, 2).contiguous()
+        total += resample_library_ms(part, ev, bv, vstat, reps)
+        total += resample_library_ms(tmp_t, eh, bh, hstat, reps)
+        del part, tmp_t
+    return total
+
+
+def check_warp(tag, label, images, arrays, static, reps, card, host=False) -> dict:
+    """The warp kernel (one launch: both passes of every channel set, the
+    batch, the crop and the post gain) against warp_with_plan_plain on the
+    same inputs, bit for bit expected (RESAMPLE_TOL), timed beside its bound
+    (warp_bytes), one grid_sample per pass and, with `host`, the host's
+    dispatch time of one call. Returns its numbers."""
+    from rapidraw_tpu_torch.geometry import warp_fast
+    from rapidraw_tpu_torch.tools import bound_ms
+
+    def run():
+        return warp_fast.warp_with_plan(images, arrays, static)
+
+    def plain():
+        return warp_fast.warp_with_plan_plain(images, arrays, static)
+
+    got = run()
+    ref, ops = count_ops(plain)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    differ = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+    finite = bool(torch.isfinite(got).all())
+    del got, ref
+    ms, pms = time_ms(run, reps), time_ms(plain, reps)
+    bms, bby = bound_ms(warp_bytes(images, arrays, static), ops)
+    lms = warp_library_ms(images, arrays, static, reps)
+    hms = host_ms(run) if host else None
+    spans = [(v.span, hh.span) for _, v, hh in static.modes]
+    log(f"{tag} warp {label} {tuple(images.shape)}, {len(static.modes)} set(s), spans v/h "
+        f"{spans}, post {static.has_post}: max|d| {err:.3e} (bound {RESAMPLE_TOL:g}), "
+        f"{differ} values differ in their bits; kernel {ms:.3f} ms plain {pms:.3f} ms bound "
+        f"{bms:.3f} ms ({bby}); library: one grid_sample per pass {lms:.3f} ms; "
+        f"kernel/library {ms / lms:.2f}"
+        + (f"; host dispatch {hms:.4f} ms/call (1000 calls, no sync)" if host else "")
+        + f" [{card}]")
+    if not finite or err > RESAMPLE_TOL:
+        raise AssertionError(f"warp {label}: max|d| {err}, finite {finite}")
+    return dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby, library_ms=lms,
+                max_abs_err=err, **({"host_ms": hms} if host else {}))
+
+
 def blur_library_ms(flat, radii, reps) -> float:
     """The blur's library yardstick: ms of one depthwise 2-D conv2d per
     radius of the same (N, H, W) planes, edge-replicated."""
@@ -2648,12 +2736,10 @@ def preview_kernels_vs_plain(cases, reps, card, dev, gen):
     """The develop kernels against their plain versions on random images:
     blur (every level of FULL_DOC), grade (config 3, and its masks build
     with config 4's masks), NR (config 5's amounts, and masked_nr_doc's
-    amount maps), the resample passes of config 5's warp plan and the
+    amount maps), the warp on config 5's plan (`check_warp`) and the
     flare maps, each at the (h, w) of every case of `cases`, a list of
     ((h, w), path, kept): the numbers of the kernels in `kept` are
     returned as {(kernel, path): numbers}."""
-    import torch.nn.functional as F
-
     from rapidraw_tpu_torch import blur_band_rows, parse_adjustments, rasterize_masks, stack_params
     from rapidraw_tpu_torch.geometry import warp_fast
     from rapidraw_tpu_torch.geometry.params import geometry_params_from_json
@@ -2768,42 +2854,14 @@ def preview_kernels_vs_plain(cases, reps, card, dev, gen):
             raise AssertionError(f"nr_dynamic at ({sh},{sw}): max|d| {err}")
         del got, ref, center, planes, la, ca, nmk
 
-        # resample: every pass of config 5's warp plan at this size
+        # the warp: config 5's plan at this size, one launch for the whole warp
         plan = warp_fast.plan_warp(geometry_params_from_json(CONFIG5_GEOMETRY), sh, sw,
                                    device=dev)
         if plan is None:
             raise AssertionError(f"the planner refused config 5's geometry at ({sh},{sw})")
-        st = plan.static
-        xp = F.pad(x, (0, st.wp - sw, 0, st.hp - sh))
-        rerr, rms, rpms, rlms, rbytes, rops = 0.0, 0.0, 0.0, 0.0, 0, 0
-        for mi, (channels, vstat, hstat) in enumerate(st.modes):
-            part = xp[:, list(channels)].reshape(-1, st.hp, st.wp).contiguous()
-            tmp_v = warp_fast.resample_rows(part, plan.arrays[f"ev{mi}"], plan.arrays[f"bv{mi}"],
-                                            vstat)
-            tmp_t = tmp_v.transpose(1, 2).contiguous()
-            for key, src, stat in (("v", part, vstat), ("h", tmp_t, hstat)):
-                e_arr, bases = plan.arrays[f"e{key}{mi}"], plan.arrays[f"b{key}{mi}"]
-                got = warp_fast.resample_rows(src, e_arr, bases, stat)
-                ref, ops = count_ops(lambda: warp_fast.resample_rows_plain(src, e_arr, bases,
-                                                                           stat))
-                rerr = max(rerr, float((got - ref).abs().max()))
-                rms += time_ms(lambda: warp_fast.resample_rows(src, e_arr, bases, stat), reps)
-                rpms += time_ms(lambda: warp_fast.resample_rows_plain(src, e_arr, bases, stat),
-                                reps)
-                rlms += resample_library_ms(src, e_arr, bases, stat, reps)
-                rbytes += nbytes(src, e_arr, bases, got)
-                rops += ops
-                del got, ref
-        rbms, rbby = bound_ms(rbytes, rops)
-        keep("resample", ms=rms, plain_ms=rpms, bound_ms=rbms, bound_by=rbby, library_ms=rlms,
-             max_abs_err=rerr)
-        log(f"{tag} resample config5 plan ({sh},{sw}), {2 * len(st.modes)} passes summed: "
-            f"max|d| {rerr:.3e} (bound {RESAMPLE_TOL:g}) kernel {rms:.3f} ms plain "
-            f"{rpms:.3f} ms bound {rbms:.3f} ms ({rbby}); library: one grid_sample per pass "
-            f"{rlms:.3f} ms; kernel/library {rms / rlms:.2f} [{card}]")
-        if rerr > RESAMPLE_TOL:
-            raise AssertionError(f"resample at ({sh},{sw}): max|d| {rerr}")
-        del xp, plan
+        keep("resample", **check_warp(tag, "config5 plan B=1", x, plan.arrays, plan.static,
+                                      reps, card, host=True))
+        del plan
 
         # flare maps of one bright image at this size
         b = x.clone() * 0.7
@@ -3014,7 +3072,7 @@ def phase_preview(args, h, w, reps, card, dev, reset_counts, read_counts):
             r, ms, made = timed(label, lambda: svc.render_preview(p, doc), expect)
             r2, ms2, made2 = timed(label, lambda: svc.render_preview(
                 p, dict(doc, exposure=0.41)), expect)
-            if label.startswith("config5") and made.get("resample", 0) < 2:
+            if label.startswith("config5") and made.get("resample", 0) < 1:
                 raise RuntimeError(f"config 5's preview did not resample: {made}")
             log(f"[preview] {label}: first frame {ms:.1f} ms (stage ms: {stages_line(r)}; "
                 f"launches {made}), exposure changed {ms2:.1f} ms (stage ms: "
@@ -3122,7 +3180,7 @@ def phase_preview(args, h, w, reps, card, dev, reset_counts, read_counts):
 
         # the kernels against their plain versions at the preview's shapes
         # the service warps at the source's size (phase 7's shape), so the
-        # resample rows at these shapes are held but are not the preview's
+        # warp at these shapes is held but is not the preview's
         report = preview_kernels_vs_plain(
             [((ph, pw), "preview", ("blur", "grade", "nr", "nr_dynamic", "flare")),
              (roi_shape, None, ())], reps, card, dev, gen)
@@ -3670,6 +3728,25 @@ def develop_calls_vs_plain(calls, path, reps, card) -> dict:
     return report
 
 
+def warp_calls_vs_plain(calls, path, reps, card) -> None:
+    """Every warp a path made (the image and its GeometryParams, as
+    warp_image_fast took them), replayed: the warp kernel on the plan that
+    call used against warp_with_plan_plain (`check_warp`). A path that
+    warped nothing, or that the planner sent to the exact path, is
+    refused."""
+    from rapidraw_tpu_torch.geometry import warp_fast
+
+    if not calls:
+        raise AssertionError(f"the {path} path made no planned warp")
+    for ci, (image, p) in enumerate(calls):
+        h, w = image.shape[-2:]
+        plan = warp_fast._cached_plan(p, int(h), int(w), str(image.device))
+        if plan is None:
+            raise AssertionError(f"{path} call {ci}: the planner refused its geometry")
+        check_warp(f"[{path}-kernel]", f"call {ci}", image, plan.arrays, plan.static, reps,
+                   card)
+
+
 def phase_library(args, h, w, reps, card, dev, reset_counts, read_counts):
     """Phase 18, the rest of the library and the compositions (A.11c,
     A.12): (a) generate_thumbnails at THUMB_RES over 8 files of (h, w) from
@@ -3683,11 +3760,13 @@ def phase_library(args, h, w, reps, card, dev, reset_counts, read_counts):
     bucket merges its config with another's, to a serial develop under
     the merged config; (b) the kernels against their plain versions at
     this slice's shapes: each batched develop of (a) replayed kernel by
-    kernel on its own inputs (blur, NR, grade), and every kernel on random
-    images at the fast RAW path's half-size frame, where thumbnails warp
-    (the resample numbers kept), and at the community previews' 720 px;
-    (c) generate_community_previews of COMMUNITY_PRESETS over a DNG and a
-    JPEG with their launches, each develop then replayed as in (b); (d) the
+    kernel on its own inputs (blur, NR, grade), each planned warp of (a)
+    replayed on its own image and plan against warp_with_plan_plain, and
+    every kernel on random images at the fast RAW path's half-size frame,
+    where thumbnails warp (the resample numbers kept), and at the community
+    previews' 720 px; (c) generate_community_previews of COMMUNITY_PRESETS
+    over a DNG and a JPEG with their launches, each develop and each warp
+    then replayed as in (b); (d) the
     compositions through `python -m rapidraw_tpu_torch` in child processes
     with --timings: hdr of three bracketed JPEGs carrying ExposureTime and
     ISO, negative, cull over (a)'s files, panorama of three overlapping
@@ -3698,6 +3777,7 @@ def phase_library(args, h, w, reps, card, dev, reset_counts, read_counts):
     import shutil
     import tempfile
 
+    from rapidraw_tpu_torch.geometry import transforms
     from rapidraw_tpu_torch.io.sidecar import save_sidecar
     from rapidraw_tpu_torch.library import community, thumbnails
     from rapidraw_tpu_torch.pipeline import batch, develop as develop_mod
@@ -3755,11 +3835,22 @@ def phase_library(args, h, w, reps, card, dev, reset_counts, read_counts):
         into.append((a, k))
         return real_fused(*a, **k)
 
+    # and each image the paths warp with their geometry, to replay its
+    # planned warp against warp_with_plan_plain
+    warps = {"thumbnails": [], "community": []}
+    into_warp = warps["thumbnails"]
+    real_warp = transforms.warp_image_fast
+
+    def record_warp(image, p):
+        into_warp.append((image, p))
+        return real_warp(image, p)
+
     thumbnails._prep_thumbnail = timed("prep", real["prep"])
     thumbnails._finish_thumbnail = timed("encode", real["finish"])
     batch.develop_batch = timed("develop", real["batch"])
     develop_mod.develop = timed("develop", real["develop"])
     batch.develop_fused_batch = record
+    transforms.warp_image_fast = record_warp
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3775,6 +3866,7 @@ def phase_library(args, h, w, reps, card, dev, reset_counts, read_counts):
         thumbnails._prep_thumbnail, thumbnails._finish_thumbnail = real["prep"], real["finish"]
         batch.develop_batch, develop_mod.develop = real["batch"], real["develop"]
         batch.develop_fused_batch = real_fused
+        transforms.warp_image_fast = real_warp
     n = len(paths)
     log(f"[thumbs] generate_thumbnails of {n} files at {THUMB_RES}: wall {wall:.2f} s, "
         f"{wall / n * 1e3:.1f} ms/thumbnail = prep {spent['prep'] / n * 1e3:.1f} + develop "
@@ -3826,6 +3918,7 @@ def phase_library(args, h, w, reps, card, dev, reset_counts, read_counts):
     # own inputs; every kernel at the fast RAW path's half-size frame, where
     # thumbnails warp, and at the community previews' 720 px
     report.update(develop_calls_vs_plain(calls["thumbnails"], "thumbnails", reps, card))
+    warp_calls_vs_plain(warps["thumbnails"], "thumbnails", reps, card)
     half = (h // 2, w // 2)
     small = (round(h * 2 * COMMUNITY_TILE / max(h, w)), 2 * COMMUNITY_TILE)
     report.update(preview_kernels_vs_plain(
@@ -3834,8 +3927,9 @@ def phase_library(args, h, w, reps, card, dev, reset_counts, read_counts):
 
     # ---- (c) community previews: 3 presets over a DNG and a JPEG
     presets = community.parse_manifest(json.dumps(COMMUNITY_PRESETS))
-    into = calls["community"]
+    into, into_warp = calls["community"], warps["community"]
     batch.develop_fused_batch = record
+    transforms.warp_image_fast = record_warp
     try:
         torch.cuda.synchronize()
         reset_counts()
@@ -3847,6 +3941,7 @@ def phase_library(args, h, w, reps, card, dev, reset_counts, read_counts):
         launches["community"] = read_counts()
     finally:
         batch.develop_fused_batch = real_fused
+        transforms.warp_image_fast = real_warp
     lc = launches["community"]
     log(f"[community] {len(presets)} presets x 2 sources of {h}x{w} (tile {COMMUNITY_TILE}): "
         f"wall {cwall:.2f} s; launches {lc}; strips "
@@ -3856,7 +3951,8 @@ def phase_library(args, h, w, reps, card, dev, reset_counts, read_counts):
             any(v[:2] != b"\xff\xd8" for v in previews.values()):
         raise AssertionError(f"community previews: {sorted(previews)}, launches {lc}")
     report.update(develop_calls_vs_plain(calls["community"], "community", reps, card))
-    del calls
+    warp_calls_vs_plain(warps["community"], "community", reps, card)
+    del calls, warps
 
     # ---- (d) the compositions through the CLI, each in a child process
     def cli(argv, label):
@@ -4159,7 +4255,7 @@ def main() -> int:
         blur.gaussian_blur_multi.launches = 0
         fused.grade.launches = 0
         nr.nr_static.launches = 0
-        warp_fast.resample_rows.launches = 0
+        warp_fast.warp_with_plan.launches = 0
         prof_chunked.chain.launches = 0
         prof_nr_slices.slices.launches = 0
         flare.flare_maps.launches = 0
@@ -4167,7 +4263,7 @@ def main() -> int:
 
     def read_counts() -> dict:
         return {"blur": blur.gaussian_blur_multi.launches, "grade": fused.grade.launches,
-                "nr": nr.nr_static.launches, "resample": warp_fast.resample_rows.launches,
+                "nr": nr.nr_static.launches, "resample": warp_fast.warp_with_plan.launches,
                 "chunked": prof_chunked.chain.launches,
                 "nr_slices": prof_nr_slices.slices.launches,
                 "flare": flare.flare_maps.launches, "nr_dynamic": nr.nr_dynamic.launches}
@@ -4269,50 +4365,18 @@ def main() -> int:
     del center, planes, ragged
     phase_done("nr")
 
-    # ---- 7. resample kernel vs plain ------------------------------------------
-    rs_err = {}  # plan -> max|d| over its passes
+    # ---- 7. the warp kernel vs plain ---------------------------------------------
+    # the whole planned warp of the B = 2 batch in one launch: config 5's
+    # plan (one set of three channels) and the TCA plan (three sets)
     for gname, geom in (("config5", CONFIG5_GEOMETRY), ("tca_rotate", TCA_GEOMETRY)):
         plan = warp_fast.plan_warp(geometry_params_from_json(geom), h, w, device=dev)
         if plan is None:
             raise AssertionError(f"the planner refused the {gname} geometry")
-        st = plan.static
-        x = torch.nn.functional.pad(img2, (0, st.wp - w, 0, st.hp - h))
-        for si, (channels, vstat, hstat) in enumerate(st.modes):
-            part = x[:, list(channels)].reshape(-1, st.hp, st.wp).contiguous()
-            tmp = warp_fast.resample_rows(part, plan.arrays[f"ev{si}"], plan.arrays[f"bv{si}"],
-                                          vstat)
-            tr_ms = time_ms(lambda: tmp.transpose(1, 2).contiguous(), reps)
-            tmp_t = tmp.transpose(1, 2).contiguous()
-            for pname, src, key, stat in (("v", part, "v", vstat), ("h", tmp_t, "h", hstat)):
-                e_arr, bases = plan.arrays[f"e{key}{si}"], plan.arrays[f"b{key}{si}"]
-                got = warp_fast.resample_rows(src, e_arr, bases, stat)
-                ref, ops = count_ops(lambda: warp_fast.resample_rows_plain(src, e_arr, bases,
-                                                                           stat))
-                torch.cuda.synchronize()
-                err = float((got - ref).abs().max())
-                rs_err[gname] = max(rs_err.get(gname, 0.0), err)
-                ms = time_ms(lambda: warp_fast.resample_rows(src, e_arr, bases, stat), reps)
-                pms = time_ms(lambda: warp_fast.resample_rows_plain(src, e_arr, bases, stat),
-                              reps)
-                bms, bby = bound_ms(nbytes(src, e_arr, bases, got), ops)
-                log(f"[resample] {gname} set {si} {channels} pass {pname} "
-                    f"({src.shape[0]},{src.shape[1]},{src.shape[2]}) span {stat.span}: "
-                    f"max|d| {err:.3e} (bound {RESAMPLE_TOL:g}) kernel {ms:.3f} ms plain "
-                    f"{pms:.3f} ms bound {bms:.3f} ms ({bby}) [{card}]")
-                if err > RESAMPLE_TOL:
-                    raise AssertionError(f"resample {gname} {pname}: max|d| {err}")
-                if gname == "config5" and pname == "v":
-                    lms = resample_library_ms(src, e_arr, bases, stat, reps)
-                    report["resample", "config5"] = dict(ms=ms, plain_ms=pms, bound_ms=bms,
-                                                         bound_by=bby, library_ms=lms)
-                    log(f"[resample] library: one grid_sample {lms:.3f} ms [{card}]")
-                del got, ref
-            log(f"[resample] {gname} set {si}: transpose of the intermediate "
-                f"{tr_ms:.3f} ms (x2 per set) [{card}]")
-            del part, tmp, tmp_t
-        del x, plan
-    report["resample", "config5"]["max_abs_err"] = rs_err["config5"]
-    log(f"[resample] max|d| over every pass {max(rs_err.values()):.3e}")
+        numbers = check_warp("[resample]", f"{gname} B=2", img2, plan.arrays, plan.static,
+                             reps, card, host=True)
+        if gname == "config5":
+            report["resample", "config5"] = numbers
+        del plan
     phase_done("resample")
 
     # ---- 8. end to end, the stencil export path (config 5) ------------------------
@@ -4350,8 +4414,7 @@ def main() -> int:
     torch.cuda.synchronize()
     launches5 = read_counts()
     log(f"[e2e5] config5 B=2 launches {launches5} u8 {u85.shape} {u85.dtype}")
-    if min(launches5["blur"], launches5["grade"], launches5["nr"]) < 1 \
-            or launches5["resample"] < 2:
+    if min(launches5["blur"], launches5["grade"], launches5["nr"], launches5["resample"]) < 1:
         raise AssertionError(f"a kernel of the stencil path never launched: {launches5}")
     if not bool(torch.isfinite(out5).all()) or u85.shape != (2, 3, h, w) \
             or u85.min() == u85.max():
@@ -4658,7 +4721,7 @@ def main() -> int:
                                                read_counts)
     report.update(preview_report)
     # the service warps at the source's size (phase 7's 24 MP case), never
-    # at the preview's: phase 16's resample rows time a shape no caller runs
+    # at the preview's: phase 16's warp times a shape no caller runs
     report["resample", "preview"] = report["resample", "config5"]
     phase_done("preview service")
 

@@ -102,7 +102,7 @@ def _launches() -> dict:
 
     return {"blur": blur.gaussian_blur_multi.launches, "grade": fused.grade.launches,
             "nr": nr.nr_static.launches, "nr_dynamic": nr.nr_dynamic.launches,
-            "flare": flare.flare_maps.launches, "resample": warp_fast.resample_rows.launches}
+            "flare": flare.flare_maps.launches, "resample": warp_fast.warp_with_plan.launches}
 
 
 def _cmd_develop(args) -> int:

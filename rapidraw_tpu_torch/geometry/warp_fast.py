@@ -16,9 +16,12 @@ per-tile minima and maxima to the host. The plan layout is the JAX
 package's (TH x TW tiles, bases per TW/2-wide half tile, stored / 8), so a
 JAX plan carries across unchanged (`plan_from_arrays`).
 
-`resample_rows` is the kernel wrapper: a CPU tensor runs
-`resample_rows_plain` (a gather plus lerp), a CUDA tensor launches
-csrc/resample.cu, which replaces the TPU kernel B6 (`_resample_rows`).
+`warp_with_plan` is the kernel wrapper: a CPU tensor runs
+`warp_with_plan_plain` (pad, a `resample_rows_plain` gather plus lerp per
+pass, the transposes between them, the channel-set order, the crop and the
+post gain), a CUDA tensor makes one launch of csrc/resample.cu, which
+replaces the TPU kernel B6 (`_resample_rows`, both passes) and that glue
+for every channel set and the whole batch, on `warp_launch_plan`.
 """
 
 from __future__ import annotations
@@ -44,6 +47,15 @@ TW = 256
 TWH = TW // 2  # bases are planned per half tile
 MAX_SPAN = 128  # fall back to the exact path past this per-tile span
 SENTINEL = -1e6
+
+# The warp kernel's launch (csrc/resample.cu holds the same constants and
+# checks each plan against them): output rows of a block, the most planes
+# a block resamples, the channel sets of a plan, a block's shared-memory
+# limit on sm_90.
+WARP_ROWS = 32
+WARP_GROUP = 3
+MAX_SETS = 3
+SMEM_LIMIT = 232448
 
 # --fmad=false: the lerp s0 + frac * (s1 - s0) rounds its product and its
 # sum apart, as the plain version's PyTorch ops do
@@ -335,46 +347,10 @@ def resample_rows_plain(img: torch.Tensor, e_arr: torch.Tensor, bases: torch.Ten
     return s0 + frac * (s1 - s0)
 
 
-def _resample_cuda(img, e_arr, bases, st: PassStatic) -> torch.Tensor:
-    for name, t in (("image", img), ("e", e_arr), ("bases", bases)):
-        if not t.is_contiguous() or t.device != img.device:
-            raise ValueError(f"resample kernel: {name} must be contiguous on {img.device}")
-    if e_arr.dtype != torch.float32 or bases.dtype != torch.int32:
-        raise ValueError("resample kernel: e must be float32 and bases int32")
-    c, nrows, _ = img.shape
-    hp, wp = e_arr.shape
-    out = torch.empty((c, hp, wp), dtype=torch.float32, device=img.device)
-    fn = _KERNEL.lib().rr_resample_rows
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(img.device).cuda_stream
-    status = fn(img.data_ptr(), e_arr.data_ptr(), bases.data_ptr(), out.data_ptr(),
-                c, nrows, hp, wp, st.pad_lo, 2 * st.ntx, stream)
-    _KERNEL.check(status, "rr_resample_rows")
-    resample_rows.launches += 1
-    return out
-
-
-def resample_rows(img: torch.Tensor, e_arr: torch.Tensor, bases: torch.Tensor,
-                  st: PassStatic) -> torch.Tensor:
-    """Row-axis resample of (C, R, L) planar data on one pass's plan: the
-    kernel wrapper. CPU tensor -> `resample_rows_plain`; CUDA tensor -> one
-    launch of csrc/resample.cu."""
-    _check_resample(img, e_arr, bases, st)
-    if img.device.type == "cpu":
-        return resample_rows_plain(img, e_arr, bases, st)
-    if img.device.type != "cuda":
-        raise ValueError(f"resample runs on CPU or CUDA tensors, got {img.device}")
-    return _resample_cuda(img, e_arr, bases, st)
-
-
-# launch count of the resample kernel: one per rr_resample_rows call
-resample_rows.launches = 0
-
-
-def warp_with_plan(image: torch.Tensor, arrays: dict, static: WarpStatic) -> torch.Tensor:
-    """Apply a planned two-pass warp to (3, H, W) or a batch (B, 3, H, W).
-    A batch folds into the resample's leading channel axis."""
+def warp_with_plan_plain(image: torch.Tensor, arrays: dict, static: WarpStatic) -> torch.Tensor:
+    """Plain version of the warp kernel: the planned two-pass warp of (3, H,
+    W) or a batch (B, 3, H, W), as JAX's `warp_with_plan` runs it. A batch
+    folds into the resample's leading channel axis."""
     batched = image.ndim == 4
     imgs = image if batched else image[None]
     b = imgs.shape[0]
@@ -387,10 +363,10 @@ def warp_with_plan(image: torch.Tensor, arrays: dict, static: WarpStatic) -> tor
         part = imgs[:, list(channels)] if len(channels) < 3 else imgs
         nc = part.shape[1]
         part = part.reshape(b * nc, hp, wp).contiguous()
-        tmp = resample_rows(part, arrays[f"ev{si}"], arrays[f"bv{si}"], vstat)
+        tmp = resample_rows_plain(part, arrays[f"ev{si}"], arrays[f"bv{si}"], vstat)
         # the horizontal pass runs on the transposed intermediate
         tmp_t = tmp.transpose(1, 2).contiguous()
-        res_t = resample_rows(tmp_t, arrays[f"eh{si}"], arrays[f"bh{si}"], hstat)
+        res_t = resample_rows_plain(tmp_t, arrays[f"eh{si}"], arrays[f"bh{si}"], hstat)
         outs.append(res_t.transpose(1, 2).reshape(b, nc, hp, wp))
         order.extend(channels)
     out = torch.cat(outs, dim=1)
@@ -402,6 +378,155 @@ def warp_with_plan(image: torch.Tensor, arrays: dict, static: WarpStatic) -> tor
         out = out * arrays["post"]
     out = out.contiguous()
     return out if batched else out[0]
+
+
+def warp_launch_plan(static: WarpStatic, n_channels: int) -> dict:
+    """The warp kernel's launch on a batch of n_channels planes (3 per
+    image). A block writes a TH-column by WARP_ROWS-row output tile, which
+    lies in one horizontal half tile and so shares one base, for a group of
+    up to WARP_GROUP planes of one channel set: it stages the vertical pass
+    at the intermediate columns its tile's lanes read, at most `sw` = TH +
+    span of them, in shared memory beside the tile's e. Each set splits its
+    planes (images x its channels) into `ngroups` groups of `group` planes
+    or fewer, as even as they come. Grid: x = column tiles x the most
+    groups of any set, y = row tiles, z = sets. rr_warp recomputes every
+    count and size from the fields and refuses a plan that differs or
+    passes SMEM_LIMIT; this function raises first."""
+    if n_channels < 3 or n_channels % 3:
+        raise ValueError(f"the warp takes 3 planes per image, got {n_channels}")
+    if not 1 <= len(static.modes) <= MAX_SETS:
+        raise ValueError(f"the warp takes 1 to {MAX_SETS} channel sets, got {len(static.modes)}")
+    images = n_channels // 3
+    sets = []
+    for channels, vstat, hstat in static.modes:
+        if not 1 <= hstat.span <= MAX_SPAN:
+            raise ValueError(f"the warp's span {hstat.span} lies outside [1, {MAX_SPAN}]")
+        planes = images * len(channels)
+        ngroups = -(-planes // WARP_GROUP)
+        group = -(-planes // ngroups)
+        sets.append(dict(planes=planes, nc=len(channels), ch=tuple(channels),
+                         pad_v=vstat.pad_lo, pad_h=hstat.pad_lo, span_h=hstat.span,
+                         sw=TH + hstat.span, group=group, ngroups=ngroups))
+    group = max(st["group"] for st in sets)
+    ngroups = max(st["ngroups"] for st in sets)
+    sw_max = max(st["sw"] for st in sets)
+    smem = 4 * (TH * (WARP_ROWS + 1) + group * WARP_ROWS * sw_max)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"the warp's staged tile takes {smem} B, past {SMEM_LIMIT}")
+    grid = (-(-static.w // TH) * ngroups, -(-static.h // WARP_ROWS), len(sets))
+    return dict(sets=sets, group=group, ngroups=ngroups, rows=WARP_ROWS, sw_max=sw_max,
+                smem=smem, grid=grid)
+
+
+class _Set(ctypes.Structure):
+    """csrc/resample.cu's WarpSet, field for field."""
+
+    _fields_ = ([(k, ctypes.c_int) for k in ("planes", "nc")] + [("ch", ctypes.c_int * 3)]
+                + [(k, ctypes.c_int) for k in ("group", "ngroups", "pad_v", "pad_h", "span_h",
+                                                "sw")])
+
+
+class _Plan(ctypes.Structure):
+    """csrc/resample.cu's WarpPlan, field for field."""
+
+    _fields_ = ([(k, ctypes.c_int) for k in ("nsets", "group", "ngroups", "rows", "sw_max",
+                                             "smem", "gx", "gy", "gz", "b", "h", "w", "hp",
+                                             "wp")]
+                + [("set", _Set * MAX_SETS)])
+
+
+class _Ptrs(ctypes.Structure):
+    """csrc/resample.cu's WarpPtrs: each set's e-maps and bases."""
+
+    _fields_ = [(k, ctypes.c_void_p * MAX_SETS) for k in ("ev", "bv", "eh", "bh")]
+
+
+@functools.lru_cache(maxsize=64)
+def _packed_plan(static: WarpStatic, n_channels: int) -> _Plan:
+    """The launch plan of a warp and batch as rr_warp's struct, built once."""
+    plan = warp_launch_plan(static, n_channels)
+    packed = _Plan(nsets=len(plan["sets"]), group=plan["group"], ngroups=plan["ngroups"],
+                   rows=plan["rows"], sw_max=plan["sw_max"], smem=plan["smem"],
+                   b=n_channels // 3, h=static.h, w=static.w, hp=static.hp, wp=static.wp)
+    packed.gx, packed.gy, packed.gz = plan["grid"]
+    for i, st in enumerate(plan["sets"]):
+        packed.set[i] = _Set(planes=st["planes"], nc=st["nc"], group=st["group"],
+                             ngroups=st["ngroups"], pad_v=st["pad_v"], pad_h=st["pad_h"],
+                             span_h=st["span_h"], sw=st["sw"])
+        for j, c in enumerate(st["ch"]):
+            packed.set[i].ch[j] = c
+    return packed
+
+
+def _warp_args(image: torch.Tensor, arrays: dict, static: WarpStatic):
+    """rr_warp's arguments for a (3, H, W) or (B, 3, H, W) float32 image:
+    the batch (contiguous), the packed launch plan, each set's e-map and
+    base pointers and the post gain (or None), every array checked against
+    the plan on the image's device. It touches no device memory, so the
+    CPU tests run it on the paths' own inputs."""
+    imgs = image if image.ndim == 4 else image[None]
+    if imgs.ndim != 4 or tuple(imgs.shape[1:]) != (3, static.h, static.w) \
+            or imgs.dtype != torch.float32:
+        raise ValueError(f"the warp takes a float32 (B, 3, {static.h}, {static.w}) or "
+                         f"(3, {static.h}, {static.w}) image, got {image.dtype} "
+                         f"{tuple(image.shape)}")
+    dev = imgs.device
+    ptrs = _Ptrs()
+    hp, wp = static.hp, static.wp
+    for si in range(len(static.modes)):
+        # e-maps by shape, bases by count (a plan may keep them 1-D or 2-D)
+        for key, shape, dtype in (("ev", (hp, wp), torch.float32),
+                                  ("bv", hp // TH * (wp // TWH), torch.int32),
+                                  ("eh", (wp, hp), torch.float32),
+                                  ("bh", wp // TH * (hp // TWH), torch.int32)):
+            t = arrays[f"{key}{si}"]
+            if t.device != dev or t.dtype != dtype or not t.is_contiguous() or (
+                    tuple(t.shape) != shape if dtype == torch.float32 else t.numel() != shape):
+                raise ValueError(f"warp kernel: {key}{si} must be a contiguous {dtype} tensor "
+                                 f"of {shape} on {dev}, got {t.dtype} {tuple(t.shape)} on "
+                                 f"{t.device}")
+            getattr(ptrs, key)[si] = t.data_ptr()
+    post = None
+    if static.has_post:
+        post = arrays["post"]
+        if post.device != dev or post.dtype != torch.float32 or not post.is_contiguous() \
+                or tuple(post.shape) != (static.h, static.w):
+            raise ValueError(f"warp kernel: post must be a contiguous float32 "
+                             f"({static.h}, {static.w}) tensor on {dev}")
+    return imgs.contiguous(), _packed_plan(static, 3 * imgs.shape[0]), ptrs, post
+
+
+@functools.cache
+def _rr_warp():
+    """The kernel's entry point, its ctypes signature set once at load."""
+    fn = _KERNEL.lib().rr_warp
+    fn.argtypes = [ctypes.c_void_p] * 6
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def warp_with_plan(image: torch.Tensor, arrays: dict, static: WarpStatic) -> torch.Tensor:
+    """Apply a planned two-pass warp to (3, H, W) or a batch (B, 3, H, W):
+    the kernel wrapper. CPU tensor -> `warp_with_plan_plain`; CUDA tensor ->
+    one launch of csrc/resample.cu for every channel set and the whole
+    batch (a float32 image, the plan's arrays on its device)."""
+    if image.device.type == "cpu":
+        return warp_with_plan_plain(image, arrays, static)
+    if image.device.type != "cuda":
+        raise ValueError(f"the warp runs on CPU or CUDA tensors, got {image.device}")
+    imgs, packed, ptrs, post = _warp_args(image, arrays, static)
+    out = torch.empty_like(imgs)
+    status = _rr_warp()(imgs.data_ptr(), post.data_ptr() if post is not None else None,
+                        out.data_ptr(), ctypes.byref(packed), ctypes.byref(ptrs),
+                        torch.cuda.current_stream(imgs.device).cuda_stream)
+    _KERNEL.check(status, "rr_warp")
+    warp_with_plan.launches += 1
+    return out if image.ndim == 4 else out[0]
+
+
+# launch count of the warp kernel: one per rr_warp call (every channel set
+# and the whole batch of one warp)
+warp_with_plan.launches = 0
 
 
 @functools.lru_cache(maxsize=4)

@@ -43,6 +43,8 @@ import torch
 
 import chip_smoke
 from rapidraw_tpu_torch import parse_adjustments
+from rapidraw_tpu_torch.geometry import warp_fast as twf
+from rapidraw_tpu_torch.geometry.params import geometry_params_from_json as tgeom
 from rapidraw_tpu_torch.native import CSRC
 from rapidraw_tpu_torch.ops import blur, flare, nr
 from rapidraw_tpu_torch.ops.common import mix
@@ -716,3 +718,271 @@ def test_plans_at_the_service_shapes(h, w):
         for g, counts in blur_written(plan, h, w).items():
             np.testing.assert_array_equal(counts, 1, err_msg=f"level {g} r={radii[g]}")
         _check_fused_stage(radii, h, w)
+
+
+# ---- the warp ------------------------------------------------------------
+
+WARP_GEOMS = {
+    "config5": chip_smoke.CONFIG5_GEOMETRY,
+    "tca_rotate": chip_smoke.TCA_GEOMETRY,
+    "perspective": {"transformVertical": 40.0, "transformHorizontal": -25.0,
+                    "transformScale": 90.0, "transformAspect": -10.0},
+}
+
+
+def _vertical(src, ev, bv, pad_v, ys, ks, h, w):
+    """The kernel's vertical pass at intermediate pixels (ys, ks) of the
+    (P, h, w) planes `src`, in its float32 operations: 0 outside the
+    source's columns and at rows y >= h (never read)."""
+    ok = (ys < h) & (ks >= 0) & (ks < w)
+    yc, kc = ys.clamp(0, h - 1), ks.clamp(0, w - 1)
+    e = ev[yc, kc]
+    e0 = torch.floor(e)
+    frac = e - e0
+    k0 = bv[yc // twf.TH, kc // twf.TWH].to(torch.int64) * 8 - pad_v + yc % twf.TH \
+        + e0.clamp(-2.0**30, 2.0**30).to(torch.int64)
+
+    def rows(k):
+        return torch.where(ok & (k >= 0) & (k < h), src[:, k.clamp(0, h - 1), kc], 0.0)
+
+    s0, s1 = rows(k0), rows(k0 + 1)
+    return torch.where(ok, s0 + frac * (s1 - s0), 0.0)
+
+
+def emulate_warp(imgs: torch.Tensor, arrays: dict, static, plan: dict):
+    """The warp kernel's blocks on the CPU, from the plan: block (bx, by, z)
+    takes set z's plane group bx mod ngroups and the TH-column tile bx div
+    ngroups, stages the vertical pass at its rows and at the window of
+    intermediate columns its lanes read (from its tile's e: within the
+    set's `sw` columns from kb, its half tile's base), lerps the tile's
+    outputs from the stage (a column outside it from the source), applies
+    the post gain and writes its pixels of its group's planes. Returns the
+    output and how often each value was written."""
+    b, _, h, w = imgs.shape
+    hp, wp = static.hp, static.wp
+    rows, ngroups = plan["rows"], plan["ngroups"]
+    gx, gy, gz = plan["grid"]
+    assert gz == len(static.modes) == len(plan["sets"])
+    src = imgs.reshape(b * 3, h, w)
+    out = torch.full_like(src, float("nan"))
+    count = torch.zeros(src.shape, dtype=torch.int64)
+    for z, st in enumerate(plan["sets"]):
+        assert st["ch"] == static.modes[z][0] and st["sw"] == twf.TH + static.modes[z][2].span
+        assert st["group"] <= plan["group"] and st["sw"] <= plan["sw_max"]
+        ev, eh = arrays[f"ev{z}"], arrays[f"eh{z}"]
+        bv = arrays[f"bv{z}"].reshape(hp // twf.TH, wp // twf.TWH)
+        bh = arrays[f"bh{z}"].reshape(wp // twf.TH, hp // twf.TWH)
+        for bx in range(gx):
+            grp, xt = bx % ngroups, bx // ngroups
+            if grp >= st["ngroups"]:
+                continue
+            first = grp * st["group"]
+            cgs = range(first, min(first + st["group"], st["planes"]))
+            planes = torch.tensor([cg // st["nc"] * 3 + st["ch"][cg % st["nc"]] for cg in cgs])
+            psrc = src[planes]
+            lanes = torch.arange(twf.TH)
+            xs = xt * twf.TH + lanes
+            for by in range(gy):
+                y0 = by * rows
+                ys = y0 + torch.arange(rows)
+                kb = int(bh[xt, y0 // twf.TWH]) * 8 - st["pad_h"]
+                ky, kx = ys < h, xs < w
+                yy, xx = ys[ky][:, None], xs[kx][None, :]
+                e = eh[xx, yy]
+                e0 = torch.floor(e)
+                frac = e - e0
+                lc = lanes[kx][None, :] + e0.clamp(-2.0**30, 2.0**30).to(torch.int64)
+                # the window: the staged columns (from kb) the tile's lanes
+                # read, within the plan's sw
+                band = (lc >= 0) & (lc + 1 < st["sw"])
+                lo = int(lc[band].min()) if band.any() else 0
+                hi = int(lc[band].max()) if band.any() else -1
+                assert hi + 2 - lo <= st["sw"]
+                # (two columns at least, read only where `staged`)
+                stage = _vertical(psrc, ev, bv, st["pad_v"], ys[:, None],
+                                  kb + lo + torch.arange(max(hi + 2 - lo, 2))[None, :], h, w)
+                staged = (lc >= lo) & (lc <= hi)
+                assert torch.equal(staged, band)
+                yl, li = (yy - y0).expand_as(lc), (lc - lo).clamp(0, max(hi - lo, 0))
+
+                def col(d):
+                    return torch.where(staged, stage[:, yl, li + d],
+                                       _vertical(psrc, ev, bv, st["pad_v"], yy.expand_as(lc),
+                                                 kb + lc + d, h, w))
+
+                t0, t1 = col(0), col(1)
+                r = t0 + frac * (t1 - t0)
+                if static.has_post:
+                    r = r * arrays["post"][yy, xx]
+                idx = (planes[:, None, None], yy[None], xx[None])
+                out[idx] = r
+                count[idx] += 1
+    return out.reshape(imgs.shape), count.reshape(imgs.shape)
+
+
+@pytest.mark.parametrize("geom,h,w,b", [
+    ("config5", 64, 1024, 2), ("tca_rotate", 64, 1024, 2), ("config5", 100, 300, 1),
+    ("perspective", 100, 300, 2), ("config5", 64, 1024, 4), ("tca_rotate", 100, 300, 5),
+    ("config5", 512, 768, 1), ("config5", 480, 720, 1),
+])
+def test_warp_emulated_tiling_equals_the_plain_version(geom, h, w, b):
+    """The kernel's tiling from warp_launch_plan writes every output value
+    once and equals warp_with_plan_plain bit for bit: config 5's plan and
+    the TCA plan (three sets), a ragged 100 x 300 (the pad and the crop),
+    a perspective plan with its post gain, B = 4 (four groups of three
+    planes), five TCA images a set (groups of three and two), and the
+    thumbnails' and community previews' own warps: one image of config 5's
+    geometry at the half-size frame of a 1024 x 1536 RAW file (no pad) and
+    at 480 x 720."""
+    plan = twf.plan_warp(tgeom(WARP_GEOMS[geom]), h, w, device="cpu")
+    assert plan is not None
+    st = plan.static
+    assert st.has_post or geom != "perspective"
+    x = torch.from_numpy(np.random.default_rng(h + w + b).random((b, 3, h, w), np.float32))
+    lp = twf.warp_launch_plan(st, 3 * b)
+    assert lp["group"] == min(3 * b // len(st.modes), twf.WARP_GROUP)
+    got, count = emulate_warp(x, plan.arrays, st, lp)
+    np.testing.assert_array_equal(count.numpy(), 1)
+    want = twf.warp_with_plan_plain(x, plan.arrays, st)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _plan_ok(p) -> bool:
+    """csrc/resample.cu's plan_ok, statement for statement: the plan the
+    entry point accepts."""
+    if not (1 <= p.nsets <= twf.MAX_SETS and 1 <= p.group <= twf.WARP_GROUP):
+        return False
+    if p.rows != twf.WARP_ROWS:
+        return False
+    if p.b < 1 or p.h < 1 or p.w < 1 or p.hp % 256 or p.wp % 256 or p.h > p.hp or p.w > p.wp:
+        return False
+    group = ngroups = sw_max = 0
+    for s in p.set[:p.nsets]:
+        if not 1 <= s.nc <= 3 or s.planes != p.b * s.nc or s.group < 1:
+            return False
+        if any(not 0 <= s.ch[j] <= 2 for j in range(s.nc)):
+            return False
+        if s.ngroups != -(-s.planes // s.group):
+            return False
+        if not 1 <= s.span_h <= twf.MAX_SPAN or s.sw != twf.TH + s.span_h:
+            return False
+        if s.pad_v < 0 or s.pad_h < 0:
+            return False
+        group, ngroups, sw_max = max(group, s.group), max(ngroups, s.ngroups), max(sw_max, s.sw)
+    smem = 4 * (twf.TH * (p.rows + 1) + group * p.rows * sw_max)
+    return (group == p.group and ngroups == p.ngroups and sw_max == p.sw_max and smem == p.smem
+            and smem <= twf.SMEM_LIMIT and p.gx == -(-p.w // twf.TH) * ngroups
+            and p.gy == -(-p.h // p.rows) and p.gz == p.nsets)
+
+
+@pytest.mark.parametrize("geom,h,w,b", [
+    ("config5", 512, 768, 0), ("config5", 1024, 1536, 0), ("config5", 480, 720, 0),
+    ("config5", 524, 710, 1), ("tca_rotate", 100, 300, 5), ("perspective", 100, 300, 2),
+])
+def test_warp_args_are_a_plan_the_kernel_accepts(geom, h, w, b):
+    """The wrapper's host side (`_warp_args`: everything warp_with_plan does
+    before the launch) on the paths' own inputs: the thumbnails' and
+    community previews' one (3, H, W) image (b = 0) of config 5's geometry
+    at the half-size frame and the whole frame of a 1024 x 1536 file and
+    at 480 x 720, phase 16's 524 x 710 preview, five TCA images, a
+    perspective plan with its post gain. The packed plan is
+    warp_launch_plan's and one the entry point's checks (`_plan_ok`)
+    accept, every pointer is its array's, and a wrong image raises."""
+    plan = twf.plan_warp(tgeom(WARP_GEOMS[geom]), h, w, device="cpu")
+    assert plan is not None
+    st = plan.static
+    shape = (3, h, w) if b == 0 else (b, 3, h, w)
+    x = torch.from_numpy(np.random.default_rng(h + w).random(shape, np.float32))
+    imgs, packed, ptrs, post = twf._warp_args(x, plan.arrays, st)
+    assert imgs.shape == (max(b, 1), 3, h, w) and imgs.is_contiguous()
+    assert torch.equal(imgs.reshape(shape), x)
+    assert _plan_ok(packed)
+    lp = twf.warp_launch_plan(st, 3 * max(b, 1))
+    assert (packed.nsets, packed.group, packed.ngroups, packed.rows, packed.sw_max,
+            packed.smem) == (len(lp["sets"]), lp["group"], lp["ngroups"], lp["rows"],
+                             lp["sw_max"], lp["smem"])
+    assert (packed.gx, packed.gy, packed.gz) == lp["grid"]
+    assert (packed.b, packed.h, packed.w, packed.hp, packed.wp) == (max(b, 1), h, w, st.hp,
+                                                                   st.wp)
+    for si, s in enumerate(lp["sets"]):
+        got = packed.set[si]
+        assert tuple(got.ch[:s["nc"]]) == s["ch"]
+        for k in ("planes", "nc", "group", "ngroups", "pad_v", "pad_h", "span_h", "sw"):
+            assert getattr(got, k) == s[k], k
+        for k in ("ev", "bv", "eh", "bh"):
+            assert getattr(ptrs, k)[si] == plan.arrays[f"{k}{si}"].data_ptr()
+    assert (post is plan.arrays["post"]) if st.has_post else post is None
+    with pytest.raises(ValueError, match="float32"):
+        twf._warp_args(x.double(), plan.arrays, st)
+    with pytest.raises(ValueError, match="float32"):
+        twf._warp_args(x[..., :-1], plan.arrays, st)
+
+
+def test_warp_plan_smem_within_limit_at_every_span():
+    """Every span the planner admits (1 to MAX_SPAN) in either pass, one
+    set of three channels or three TCA sets of one, 1 to 12 images (1 to
+    36 planes a set): the staged tile fits SMEM_LIMIT, and the grid covers
+    every column and row tile once per group."""
+    for span in range(1, twf.MAX_SPAN + 1):
+        for sv, sh in ((span, 8), (8, span)):
+            pv, ph = (twf.PassStatic(span=s, band=-(-(twf.TH + s + 9) // 8) * 8, pad_lo=8,
+                                     extent=4096, nty=128, ntx=24) for s in (sv, sh))
+            for modes in ((((0, 1, 2), pv, ph),), tuple(((c,), pv, ph) for c in range(3))):
+                st = twf.WarpStatic(p=None, h=4096, w=6144, hp=4096, wp=6144, modes=modes)
+                for images in range(1, 13):
+                    lp = twf.warp_launch_plan(st, 3 * images)
+                    assert lp["smem"] <= twf.SMEM_LIMIT
+                    assert lp["sw_max"] == twf.TH + sh and lp["group"] <= twf.WARP_GROUP
+                    assert lp["grid"] == (192 * lp["ngroups"], 4096 // twf.WARP_ROWS, len(modes))
+                    for s in lp["sets"]:
+                        assert s["ngroups"] * s["group"] >= s["planes"] > (s["ngroups"] - 1) \
+                            * s["group"]
+    with pytest.raises(ValueError, match="3 planes"):
+        twf.warp_launch_plan(st, 4)
+
+
+def test_warp_plan_at_the_paths_shapes():
+    """24 MP, B = 2 (config 5): two groups of three planes a tile; the TCA
+    plan: one group of the two images a set; the community previews' 480 x
+    720: one group, 345 blocks for the 132 streaming multiprocessors."""
+    def plan(modes, h, w, images):
+        ps = twf.PassStatic(span=33, band=80, pad_lo=8, extent=4096, nty=1, ntx=1)
+        st = twf.WarpStatic(p=None, h=h, w=w, hp=-(-h // 256) * 256, wp=-(-w // 256) * 256,
+                            modes=tuple((m, ps, ps) for m in modes))
+        return twf.warp_launch_plan(st, 3 * images)
+
+    big = plan([(0, 1, 2)], 4096, 6144, 2)
+    assert (big["group"], big["ngroups"], big["grid"]) == (3, 2, (384, 128, 1))
+    tca = plan([(0,), (1,), (2,)], 4096, 6144, 2)
+    assert (tca["group"], tca["ngroups"], tca["grid"]) == (2, 1, (192, 128, 3))
+    small = plan([(0, 1, 2)], 480, 720, 1)
+    assert (small["group"], small["ngroups"], small["grid"]) == (3, 1, (23, 15, 1))
+    assert small["smem"] == 4 * (twf.TH * (twf.WARP_ROWS + 1) + 3 * twf.WARP_ROWS * (twf.TH + 33))
+
+
+def test_warp_plan_mirrors_the_kernel_source():
+    """warp_fast's constants are resample.cu's, ctypes' structs list
+    WarpSet's, WarpPlan's and WarpPtrs' fields in the same order, and the
+    entry point checks the plan's sizes with the formulas warp_launch_plan
+    uses."""
+    import re
+
+    src = (CSRC / "resample.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (\w+) = ([^;]+);", src))
+    assert consts["TH"] == str(twf.TH) and consts["TWH"] == str(twf.TWH)
+    assert consts["MAX_SPAN"] == str(twf.MAX_SPAN) and consts["MAX_SETS"] == str(twf.MAX_SETS)
+    assert consts["MAX_GROUP"] == str(twf.WARP_GROUP)
+    assert consts["SMEM_MAX"] == str(twf.SMEM_LIMIT)
+    assert consts["ROWS"] == str(twf.WARP_ROWS) and twf.TWH % twf.WARP_ROWS == 0
+    assert twf.TH * twf.WARP_ROWS % int(consts["NT"]) == 0  # the e tile's load steps
+
+    def fields(name):
+        body = src[src.index(f"struct {name} {{"):]
+        body = "\n".join(line.split("//")[0] for line in body[:body.index("};")].splitlines()[1:])
+        return re.findall(r"(\w+)(?:\[\w+\])?\s*;", body)
+
+    assert fields("WarpSet") == [f for f, _ in twf._Set._fields_]
+    assert fields("WarpPlan") == [f for f, _ in twf._Plan._fields_]
+    assert fields("WarpPtrs") == [f for f, _ in twf._Ptrs._fields_]
+    assert "4L * (TH * (p.rows + 1) + (long)group * p.rows * sw_max)" in src
+    assert "s.sw != TH + s.span_h" in src and "p.gx == (p.w + TH - 1) / TH * ngroups" in src

@@ -1,5 +1,6 @@
-"""The port's geometry (exact warp, two-pass planner, plain version of
-csrc/resample.cu, transforms) against the JAX package.
+"""The port's geometry (exact warp, two-pass planner, the plain version of
+csrc/resample.cu's warp and its one-pass resample, transforms) against the
+JAX package.
 
 JAX's B6 (`_resample_rows`) runs in Pallas interpret mode on the CPU.
 Bounds, each with its reason:
@@ -102,11 +103,13 @@ def test_resample_plain_on_jax_plan_matches_pallas_b6(name, jax_plans):
                                       plan.arrays[bkey], tstat).numpy()
         assert got.shape == want.shape
         np.testing.assert_allclose(got, want, atol=1e-6, err_msg=key)
-        # the wrapper on a CPU tensor is the plain version and launches nothing
-        before = twf.resample_rows.launches
-        assert np.array_equal(twf.resample_rows(torch.from_numpy(img), plan.arrays[key],
-                                                plan.arrays[bkey], tstat).numpy(), got)
-        assert twf.resample_rows.launches == before
+    # the warp kernel's wrapper on a CPU tensor is the plain version (both
+    # passes on JAX's plan) and launches nothing
+    image = torch.from_numpy(x[:, :, :H, :W].copy())
+    before = twf.warp_with_plan.launches
+    assert torch.equal(twf.warp_with_plan(image, plan.arrays, plan.static),
+                       twf.warp_with_plan_plain(image, plan.arrays, plan.static))
+    assert twf.warp_with_plan.launches == before
 
 
 def test_resample_sentinel_and_out_of_range_rows_read_zero():
@@ -121,8 +124,12 @@ def test_resample_sentinel_and_out_of_range_rows_read_zero():
     assert out[0, 3, 5] == 0.0 and out[0, 4, 5] == 0.25 and out[0, 5, 5] == 1.0
     # half 1: row r lerps source rows 24 + r + 3 and the next; past 31 is zero
     assert out[0, 3, 200] == 1.0 and out[0, 4, 200] == 0.75 and out[0, 5, 200] == 0.0
+    # the warp kernel's wrapper takes CPU and CUDA tensors only
+    ws = twf.WarpStatic(p=None, h=32, w=256, hp=256, wp=256, modes=(((0, 1, 2), st, st),))
+    arrays = {"ev0": e, "bv0": bases, "eh0": e, "bh0": bases}
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        twf.resample_rows(img.to("meta"), e.to("meta"), bases.to("meta"), st)
+        twf.warp_with_plan(torch.ones((3, 32, 256), device="meta"),
+                           {k: v.to("meta") for k, v in arrays.items()}, ws)
 
 
 @pytest.mark.parametrize("name", sorted(GEOMS))
