@@ -133,7 +133,16 @@ image through develop_tiled in this process (host-device copies counted)
 against the whole-image develop (tile interiors within 1e-5), a 24 MP DNG
 through the CLI's develop and export (the same bytes), and auto,
 histogram, lut-export (card against CPU), lib dims on the RAW layouts,
-preset import and exif --set.
+preset import and exif --set; (18) thumbnails, community previews and the
+compositions (`phase_library`); (19) the AI networks (`phase_ai`, `[ai]`,
+`[ai-net]`, `[ai-doc]`, `[ai-doc-kernel]`, `[ai-cli]` and `[ai-replace]`
+lines): seeded weights at the published widths in a temporary
+RAPIDRAW_MODELS, each network's forward on the card (ms, CUDA kernels,
+memory peak, FLOPs and bound) against the CPU, `ai_doc` at 24 MP through
+precompute_ai_submasks -> rasterize -> develop -> u8 (blur and grade once
+each, both replayed against their plain versions; 1024 x 1536 against
+device="cpu"), `denoise --method ai` on a 24 MP TIFF in a child process,
+and generative replace with LaMa composited back.
 Each kernel line carries its time, its plain version's time and its bound
 (bytes over the HBM rate or operations over the float32 peak, whichever is
 larger). It prints a kernels JSON line (top level: each kernel's numbers
@@ -156,6 +165,7 @@ rapidraw_tpu_torch only.
 from __future__ import annotations
 
 import argparse
+import base64
 import dataclasses
 import json
 import re
@@ -357,6 +367,41 @@ def config4_doc(h: int = 4096, w: int = 6144) -> dict:
 
 
 CONFIG4_DOC = config4_doc()
+
+
+def ai_doc(h: int, w: int) -> dict:
+    """The AI slice's document: a subject mask (an ai-subject drag prompt
+    with a rotation, added to the ai-foreground saliency) carrying exposure
+    and clarity, and a sky mask (ai-sky minus the near half of ai-depth)
+    carrying exposure and saturation, over a light global grade. The
+    sub-masks carry no maskDataBase64: precompute_ai_submasks fills it."""
+    return {
+        "exposure": 0.1,
+        "contrast": 8,
+        "masks": [
+            {
+                "name": "subject", "visible": True,
+                "adjustments": {"exposure": 0.35, "clarity": 25},
+                "subMasks": [
+                    {"type": "ai-subject", "visible": True, "mode": "additive",
+                     "parameters": {"startX": w * 0.3, "startY": h * 0.35, "endX": w * 0.68,
+                                    "endY": h * 0.8, "rotation": 4.0}},
+                    {"type": "ai-foreground", "visible": True, "mode": "additive",
+                     "opacity": 60.0, "parameters": {"grow": 2.0, "feather": 0.3}},
+                ],
+            },
+            {
+                "name": "sky", "visible": True,
+                "adjustments": {"exposure": -0.45, "saturation": 12},
+                "subMasks": [
+                    {"type": "ai-sky", "visible": True, "mode": "additive", "parameters": {}},
+                    {"type": "ai-depth", "visible": True, "mode": "subtractive",
+                     "parameters": {"minDepth": 50, "maxDepth": 100, "minFade": 10,
+                                    "maxFade": 0, "feather": 0.2}},
+                ],
+            },
+        ],
+    }
 
 
 def mask_stage_doc(h: int, w: int) -> dict:
@@ -4029,6 +4074,476 @@ def phase_library(args, h, w, reps, card, dev, reset_counts, read_counts):
     return launches, report
 
 
+AI_DOC_CHECK = (1024, 1536)  # the AI document path held on the card against device="cpu"
+AI_DENOISE_CHECK = (512, 768)  # denoise_ai held on the card against the CPU
+AI_SAM_PROMPT = ((300.0, 200.0), (700.0, 800.0))  # a drag in the SAM input's pixels
+AI_FLOAT_TOL = 1e-3  # of the CPU reference's span: the card's float32 against the CPU's
+AI_UTNET_BATCH = (8, 504)  # one batch of denoise_ai's tiles: 8 of the 504 px context
+
+
+def cuda_kernel_launches(fn) -> int | None:
+    """The CUDA kernels one call of `fn` launches, counted by torch.profiler
+    (copies and memsets left out); None when the profiler sees no device
+    activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    except RuntimeError as e:  # no CUPTI in this process: the count is not measured
+        log(f"[ai] torch.profiler: {e}")
+        return None
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith(("Memcpy", "Memset")))
+    return n or None
+
+
+def span_err(ref: torch.Tensor, got: torch.Tensor) -> float:
+    """max |ref - got| over the span of ref (both moved to the CPU)."""
+    ref, got = ref.detach().cpu().double(), got.detach().cpu().double()
+    return float((ref - got).abs().max()) / max(float(ref.max() - ref.min()), 1e-12)
+
+
+def u8_share(ref: np.ndarray, got: np.ndarray) -> tuple[int, float]:
+    """(largest difference, share of values that differ) of two u8 arrays."""
+    d = np.abs(ref.astype(np.int16) - got.astype(np.int16))
+    return int(d.max()), float((d > 0).mean())
+
+
+def sam_flips(ref_logits: torch.Tensor, got_mask: np.ndarray) -> tuple[int, int]:
+    """(pixels where the card's SAM mask differs from the CPU's, those of
+    them where the CPU's logit is farther than 1e-3 of its largest magnitude
+    from 0)."""
+    lg = ref_logits.detach().cpu().numpy()
+    flips = ((lg > 0).astype(np.uint8) * 255) != got_mask
+    far = np.abs(lg) > 1e-3 * np.abs(lg).max()
+    return int(flips.sum()), int((flips & far).sum())
+
+
+def seeded_weights(model, seed: int) -> dict:
+    """A flat npz dict of seeded weights for an AI network of the port, in
+    flax layout, keyed by its carry-over's own name table
+    (ai/layers.flax_slots): kernels drawn from N(0, 1) / sqrt(fan-in),
+    BatchNorm variances from [0.5, 1.5], norm scales around 1, the leaves
+    flax draws from N(0, 1) (SAM's prompt encoder and tokens) from it,
+    LayerScale around 0.1, other vectors and tables from N(0, 0.1^2)."""
+    import math
+
+    from rapidraw_tpu_torch.ai.layers import flax_slots
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for key, shape, mod, _attr, kind in flax_slots(model):
+        leaf = key.rsplit("/", 1)[1]
+        if kind in ("conv", "conv_transpose", "dense", "dense_general"):
+            split = len(mod.in_shape) if kind == "dense_general" else len(shape) - 1
+            a = rng.standard_normal(shape) / math.sqrt(math.prod(shape[:split]))
+        elif leaf == "var":
+            a = rng.uniform(0.5, 1.5, shape)
+        elif leaf in ("scale", "weight") and len(shape) == 1:
+            a = 1.0 + 0.1 * rng.standard_normal(shape)
+        elif leaf in ("pe_gaussian", "point_embeddings", "not_a_point_embed", "no_mask_embed",
+                      "iou_token", "mask_tokens"):
+            a = rng.standard_normal(shape)
+        elif leaf in ("ls1", "ls2"):
+            a = 0.1 + 0.02 * rng.standard_normal(shape)
+        else:
+            a = 0.1 * rng.standard_normal(shape)
+        out[key] = a.astype(np.float32)
+    return out
+
+
+def phase_ai(args, h, w, reps, card, dev, reset_counts, read_counts):
+    """Phase 19, the AI networks (A.13a), at the published widths with
+    weights written from --seed (every network's flat npz, in flax layout,
+    keyed by the carry-over's own name table, kernels scaled by fan-in,
+    BatchNorm variances from [0.5, 1.5]) into a temporary RAPIDRAW_MODELS:
+    (a) each network alone at its input size (U2-Net and skyseg at 320,
+    Depth-Anything at 518, the SAM encoder at 1024 and its decoder's two
+    iterations, one UtNet batch of 8 x 504, LaMa at 768): forward ms,
+    CUDA kernels per forward (torch.profiler), device memory peak, the
+    matmul and convolution FLOPs (FlopCounterMode) and their bound at the
+    float32 peak, each held against the same module on the CPU; (b)
+    chip_smoke.ai_doc at h x w: precompute_ai_submasks -> rasterize_masks ->
+    develop_batch -> device_u8 -> host, each stage timed, the launch
+    counters reset around the develop (blur and grade once each), blur and
+    the grade with masks replayed against their plain versions on the
+    path's inputs, and the chain at AI_DOC_CHECK on the card against
+    device="cpu"; (c) `python -m rapidraw_tpu_torch denoise --method ai`
+    on an h x w 16-bit TIFF in a child process, split by stage, and
+    denoise_ai at AI_DENOISE_CHECK against the CPU; (d)
+    generate_replace_patch with LaMa on the h x w frame, timed, its JPEGs
+    decoded and composited through masks/patches. Returns ({"ai_doc":
+    launches}, {(kernel, "ai_doc"): numbers})."""
+    import os
+    import shutil
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ai_"))
+    before = os.environ.get("RAPIDRAW_MODELS")
+    os.environ["RAPIDRAW_MODELS"] = str(tmp / "models")
+    try:
+        return _phase_ai(args, h, w, reps, card, dev, reset_counts, read_counts, tmp)
+    finally:
+        if before is None:
+            os.environ.pop("RAPIDRAW_MODELS", None)
+        else:
+            os.environ["RAPIDRAW_MODELS"] = before
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _phase_ai(args, h, w, reps, card, dev, reset_counts, read_counts, tmp):
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from rapidraw_tpu_torch import (
+        blur_band_rows,
+        develop_batch,
+        device_u8,
+        parse_adjustments,
+        rasterize_masks,
+        stack_params,
+    )
+    from rapidraw_tpu_torch.ai import denoise, depth, inpaint, layers, masks, sam
+    from rapidraw_tpu_torch.io.encode import write_tiff16
+    from rapidraw_tpu_torch.io.jpeg import decode_jpeg_gray, decode_jpeg_rgb
+    from rapidraw_tpu_torch.masks.patches import composite_patches_on_image
+    from rapidraw_tpu_torch.ops import blur
+    from rapidraw_tpu_torch.pipeline import batch, fused
+    from rapidraw_tpu_torch.tools import bound_ms
+
+    report = {}
+    models_dir = tmp / "models"
+    models_dir.mkdir()
+
+    # ---- the weights: every network at its published widths, from --seed
+    # (file, module, carry-over, widths): the entries' own configs
+    nets = {"u2net": ("u2net.npz", masks.U2Net, masks.u2net_weights, masks.U2NET),
+            "skyseg": ("skyseg.npz", masks.U2Net, masks.u2net_weights, masks.U2NET),
+            "depth": ("depth_anything_v2_vits.npz", depth.DepthAnythingV2S, masks.depth_weights,
+                      depth.DEPTH),
+            "sam_encoder": ("sam_vit_b_encoder.npz", sam.SamEncoder, masks.sam_encoder_weights,
+                            sam.SAM),
+            "sam_decoder": ("sam_vit_b_decoder.npz", sam.SamDecoder, masks.sam_decoder_weights,
+                            sam.SAM),
+            "utnet": ("utnet.npz", denoise.UtNet, masks.utnet_weights, denoise.UTNET),
+            "lama": ("lama.npz", inpaint.LamaGenerator, masks.lama_weights, inpaint.LAMA)}
+    t0 = time.perf_counter()
+    flats, sizes = {}, {}
+    for k, (name, (fname, cls, _, cfg)) in enumerate(nets.items()):
+        flats[name] = seeded_weights(cls(cfg), args.seed * 100 + k)
+        np.savez(models_dir / fname, **flats[name])
+        sizes[name] = sum(a.size for a in flats[name].values())
+    log(f"[ai] seeded weights at the published widths written in "
+        f"{time.perf_counter() - t0:.1f} s: { {k: f'{v / 1e6:.1f}M' for k, v in sizes.items()} }"
+        f" parameters")
+
+    # ---- (a) each network alone at its input size, on the card and the CPU
+    g = torch.Generator().manual_seed(args.seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g)
+
+    ls = inpaint.MAX_DIM
+    blob = torch.zeros((1, 1, ls, ls))
+    blob[..., ls // 3: ls * 2 // 3, ls * 2 // 5: ls * 3 // 5] = 1.0
+    su, sd, ss = masks.U2NET.input, depth.DEPTH.input, sam.SAM.input
+    ub, uc = AI_UTNET_BATCH
+
+    def dec2(model, emb):
+        """The decoder's two iterations of run_sam_decoder: the picked
+        token's logits fed back."""
+        d = emb.device
+        coords = torch.tensor([AI_SAM_PROMPT], device=d)
+        labels = torch.tensor([[2.0, 3.0]], device=d)
+        g4 = emb.shape[1] * 4
+        mask_in, has_mask, picks = torch.zeros((1, g4, g4, 1), device=d), 0.0, []
+        for _ in range(2):
+            m, iou = model(emb, coords, labels, mask_in, torch.tensor(has_mask, device=d))
+            pick = 1 + torch.argmax(iou[0, 1:])
+            picks.append(pick)
+            mask_in, has_mask = m[0, pick][None, :, :, None], 1.0
+        return m, iou, torch.stack(picks)
+
+    def utnet_fwd(model, x):
+        xh, xw = x.shape[2], x.shape[3]
+        with layers.exact_fp32():
+            xp = torch.nn.functional.pad(x, (0, -xw % 16, 0, -xh % 16), mode="reflect")
+            return model(xp)[:, :, :xh, :xw]
+
+    sam_emb_cpu = None
+    cases = {  # name -> (inputs on the CPU, call, label)
+        "u2net": ((randn(1, 3, su, su),), lambda m, x: m(x), f"(1, 3, {su}, {su})"),
+        "skyseg": ((randn(1, 3, su, su),), lambda m, x: m(x), f"(1, 3, {su}, {su})"),
+        "depth": ((randn(1, 3, sd, sd),), lambda m, x: m(x), f"(1, 3, {sd}, {sd})"),
+        "sam_encoder": ((randn(1, 3, ss, ss),), lambda m, x: m(x), f"(1, 3, {ss}, {ss})"),
+        "sam_decoder": (None, dec2, "the encoder's embedding, 2 iterations"),
+        "utnet": ((torch.rand((ub, 3, uc, uc), generator=g),), utnet_fwd, f"({ub}, 3, {uc}, {uc})"),
+        "lama": ((torch.rand((1, 3, ls, ls), generator=g), blob), lambda m, a, b: m(a, b),
+                 f"(1, 3, {ls}, {ls}) + mask"),
+    }
+    net_rows = {}
+    for name, (fname, cls, load, cfg) in nets.items():
+        inputs, call, label = cases[name]
+        if name == "sam_decoder":
+            inputs = (sam_emb_cpu,)
+        cpu_model = load(flats[name], cfg)
+        card_model = load(flats[name], cfg).to(dev)
+        dev_in = [t.to(dev) for t in inputs]
+        torch.cuda.synchronize()
+        got = call(card_model, *dev_in)
+        torch.cuda.synchronize()
+        ms = time_ms(lambda: call(card_model, *dev_in), 3)
+        launched = cuda_kernel_launches(lambda: call(card_model, *dev_in))
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        call(card_model, *dev_in)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        with FlopCounterMode(display=False) as fc:
+            call(card_model, *dev_in)
+        flops = fc.get_total_flops()
+        weight_bytes = sum(t.numel() * t.element_size() for t in card_model.state_dict().values())
+        outs = got if isinstance(got, tuple) else (got,)
+        bms, bby = bound_ms(nbytes(*dev_in, *outs[:2]) + weight_bytes, flops)
+        t0 = time.perf_counter()
+        ref = call(cpu_model, *inputs)
+        cpu_s = time.perf_counter() - t0
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        err = max(span_err(r, o) for r, o in zip(refs[:2], outs[:2]))
+        finite = all(bool(torch.isfinite(o).all()) for o in outs[:2])
+        extra = ""
+        if name == "sam_decoder":
+            same_picks = bool((refs[2] == outs[2].cpu()).all())
+            extra = f"; IoU tokens picked {outs[2].tolist()} (CPU {refs[2].tolist()})"
+            finite = finite and same_picks
+        if name == "sam_encoder":
+            sam_emb_cpu = ref.detach()
+        net_rows[name] = dict(ms=ms, launches=launched, peak=peak - base, flops=flops, bound=bms)
+        log(f"[ai-net] {name} {label}: forward {ms:.3f} ms, CUDA kernels "
+            f"{launched if launched is not None else 'not measured'}, device memory peak "
+            f"{(peak - base) / 2**20:.0f} MiB above the {base / 2**20:.0f} MiB held, "
+            f"{flops / 1e9:.1f} GFLOP (matmul and convolution) -> bound {bms:.3f} ms ({bby}); "
+            f"card vs CPU max|d|/span {err:.2e} (bound {AI_FLOAT_TOL:g}), CPU forward "
+            f"{cpu_s:.2f} s{extra} [{card}]")
+        if not finite or err > AI_FLOAT_TOL:
+            raise AssertionError(f"{name}: the card's forward differs from the CPU's "
+                                 f"(max|d|/span {err}, finite {finite}){extra}")
+        del cpu_model, card_model, dev_in, got, ref, outs, refs
+    del flats
+    torch.cuda.empty_cache()
+
+    # ---- (b) the AI document at h x w: precompute -> rasterize -> develop -> u8
+    def scene(hh, ww, seed):
+        rgb = photo_rgb16(hh, ww, seed, dev)
+        return torch.from_numpy(np.ascontiguousarray(rgb.transpose(2, 0, 1), np.float32)
+                                / 65535.0)
+
+    real_fused = batch.develop_fused_batch
+    recorded = []
+
+    def record(*a, **k):
+        recorded.append((a, k))
+        return real_fused(*a, **k)
+
+    def chain(x, hh, ww, device, stages=None):
+        """(document with its masks, bitmaps, float output, u8 on the host)."""
+        def mark(key, t):
+            if stages is not None:
+                if device.type == "cuda":
+                    torch.cuda.synchronize()
+                stages[key] = time.perf_counter() - t
+            return time.perf_counter()
+
+        t = time.perf_counter()
+        doc = masks.precompute_ai_submasks(ai_doc(hh, ww), x, device=device)
+        t = mark("inference", t)
+        bm = rasterize_masks(doc, ww, hh)[None]
+        t = mark("rasterize", t)
+        q, c = parse_adjustments(doc)
+        sp, cfg = stack_params([q], [c], device=device)
+        out = develop_batch(x[None], sp, cfg, masks=torch.from_numpy(bm).to(device),
+                            blur_bands=blur_band_rows(cfg, bm))
+        u8 = device_u8(out)
+        t = mark("develop", t)
+        u8 = u8.cpu().numpy()
+        mark("readback", t)
+        return doc, bm, out, u8
+
+    x24 = scene(h, w, args.seed + 40).to(dev)
+    chain(scene(256, 384, args.seed + 41).to(dev), 256, 384, dev)  # warm the loaders
+    stages = {}
+    batch.develop_fused_batch = record
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        doc24, bm24, out24, u824 = chain(x24, h, w, dev, stages)
+        launches = read_counts()
+    finally:
+        batch.develop_fused_batch = real_fused
+    support = [round(float((b > 0).mean()), 4) for b in bm24[0]]
+    log(f"[ai-doc] ai_doc {h}x{w}: precompute_ai_submasks {stages['inference'] * 1e3:.0f} ms "
+        f"(U2-Net x2, depth, SAM encoder + decoder, four PNG data URLs at {h}x{w}), rasterize "
+        f"{stages['rasterize'] * 1e3:.0f} ms (host), develop + u8 {stages['develop'] * 1e3:.1f} "
+        f"ms, readback {stages['readback'] * 1e3:.1f} ms; launches {launches}; mask support "
+        f"{support}; u8 {u824.shape} [{card}]")
+    if launches["blur"] != 1 or launches["grade"] != 1 or u824.shape != (1, 3, h, w) or \
+            not bool(torch.isfinite(out24).all()):
+        raise AssertionError(f"ai_doc path: launches {launches}, u8 {u824.shape}")
+    (a, k), = recorded
+    images, params, cfg = a[0].contiguous(), a[1], a[2]
+    mk, bands = k["masks"], k["blur_bands"]
+    radii = tuple(fused.blur_radii(cfg, w, h).values())
+    flat = images.reshape(-1, h, w)
+    got = blur.gaussian_blur_multi(flat, radii)
+    ref, ops = count_ops(lambda: blur.gaussian_blur_multi_plain(flat, radii))
+    err = max(float(((u - v).abs() / v.abs().clamp(min=1.0)).max()) for u, v in zip(got, ref))
+    ms = time_ms(lambda: blur.gaussian_blur_multi(flat, radii), reps)
+    pms = time_ms(lambda: blur.gaussian_blur_multi_plain(flat, radii), reps)
+    bms, bby = bound_ms(nbytes(flat) * (1 + len(radii)), ops)
+    lms = blur_library_ms(flat, radii, reps)
+    report["blur", "ai_doc"] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                                    library_ms=lms, max_abs_err=err)
+    log(f"[ai-doc-kernel] blur (3,{h},{w}) r={radii} (the path blurs bands {bands}): "
+        f"max|d|/max(1,|ref|) {err:.3e} (bound {BLUR_TOL:g}) kernel {ms:.3f} ms plain "
+        f"{pms:.3f} ms bound {bms:.3f} ms ({bby}); library {lms:.3f} ms [{card}]")
+    if err > BLUR_TOL:
+        raise AssertionError(f"blur on the ai_doc path: max|d| {err}")
+    del got, ref
+    image, linear = fused.prepare_inputs(images, cfg, params, masks=mk)
+    levels = fused.blur_levels(images, cfg, bands)
+    pmat, mmat = fused.pack_rows(params["glob"]), fused.pack_mask_rows(params["mask"])
+    gcfg = dataclasses.replace(cfg, dither_active=False)
+
+    def grade_run():
+        return fused.grade(image, levels, pmat, gcfg, image_linear=linear, masks=mk, mmat=mmat)
+
+    def grade_ref():
+        return fused.grade_plain(image, levels, pmat, gcfg, image_linear=linear, masks=mk,
+                                 mmat=mmat)
+
+    got = grade_run()
+    ref, ops = count_ops(grade_ref)
+    err = float((got - ref).abs().max())
+    ms, pms = time_ms(grade_run, reps), time_ms(grade_ref, reps)
+    bms, bby = bound_ms(nbytes(image, pmat, mmat, mk, *levels.values()) + nbytes(image), ops)
+    report["grade", "ai_doc"] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                                     library_ms=None, max_abs_err=err)
+    log(f"[ai-doc-kernel] grade with {cfg.mask_count} masks B=1 (3,{h},{w}): max|d| {err:.3e} "
+        f"(bound {GRADE_TOL:g}) kernel {ms:.3f} ms plain {pms:.3f} ms bound {bms:.3f} ms "
+        f"({bby}) [{card}]")
+    if not bool(torch.isfinite(got).all()) or err > GRADE_TOL:
+        raise AssertionError(f"grade on the ai_doc path: max|d| {err}")
+    del got, ref, levels, image, images, mk, recorded, x24, out24, doc24, bm24, u824
+    torch.cuda.empty_cache()
+
+    # the chain at AI_DOC_CHECK on the card against device="cpu"
+    ch, cw = AI_DOC_CHECK
+    xs = scene(ch, cw, args.seed + 42)
+    cdoc, cbm, cout, cu8 = chain(xs, ch, cw, torch.device("cpu"))
+    gdoc, gbm, gout, gu8 = chain(xs.to(dev), ch, cw, dev)
+    from rapidraw_tpu_torch.io.encode import decode_png_gray
+
+    def decoded(doc):
+        return [(s["type"], decode_png_gray(base64.b64decode(
+            s["parameters"]["maskDataBase64"].split(",", 1)[1])))
+            for m in doc["masks"] for s in m["subMasks"]]
+
+    lines = []
+    for (kind, cm), (_, gm) in zip(decoded(cdoc), decoded(gdoc)):
+        if kind == "ai-subject":
+            emb = sam.generate_image_embeddings(xs, device="cpu")
+            sub = ai_doc(ch, cw)["masks"][0]["subMasks"][0]["parameters"]
+            sp_, ep_ = sam.unproject_prompt_rect((sub["startX"], sub["startY"]),
+                                                 (sub["endX"], sub["endY"]), cw, ch,
+                                                 rotation=sub["rotation"])
+            logits, _ = sam.sam_mask_logits(emb, sp_, ep_)
+            n, far = sam_flips(logits, gm)
+            lines.append(f"{kind}: {n} pixels differ, {far} of them away from a zero logit")
+            if far:
+                raise AssertionError(f"SAM mask on the card: {far} flips away from zero logits")
+        else:
+            dmax, share = u8_share(cm, gm)
+            lines.append(f"{kind}: max {dmax} LSB on {share:.2e}")
+            if dmax > 1 or share > 1e-3:
+                raise AssertionError(f"{kind} mask on the card: max {dmax} LSB on {share}")
+    # the grade blends each pixel by its own mask values: where the
+    # rasterized masks are equal the develop is held to the float bar; a
+    # pixel whose mask moved (a 1 LSB sub-mask, a SAM flip) is left out
+    moved = (np.abs(cbm[0] - gbm[0]) > 0).any(axis=0)
+    keep = torch.from_numpy(~moved)
+    fd = float((gout.cpu()[0] - cout[0]).abs()[:, keep].max())
+    dmax, share = u8_share(cu8[0][:, ~moved], gu8[0][:, ~moved])
+    log(f"[ai-doc] {ch}x{cw} on the card against device=\"cpu\": masks {'; '.join(lines)}; "
+        f"develop max|d| {fd:.2e} (bound {AI_FLOAT_TOL:g}), u8 max {dmax} LSB on {share:.2e} "
+        f"over the {float(keep.float().mean()):.4%} of pixels whose rasterized masks are equal")
+    if fd > AI_FLOAT_TOL or dmax > 1 or share > 1e-3 or moved.mean() > 0.01:
+        raise AssertionError(f"ai_doc at {ch}x{cw}: card vs CPU max|d| {fd}, u8 {dmax}/{share}")
+    del cdoc, gdoc, cbm, gbm, cout, gout, cu8, gu8
+
+    # ---- (c) denoise --method ai through the CLI on an h x w 16-bit TIFF
+    src = tmp / "noisy.tiff"
+    rgb16 = photo_rgb16(h, w, args.seed + 43, dev)
+    write_tiff16(src, rgb16)
+    timings, wall, start = run_cli(["denoise", str(src), "--method", "ai", "-o",
+                                    str(tmp / "denoised.png")], "denoise --method ai")
+    st = " ".join(f"{k} {v / 1e3:.2f}" for k, v in timings["stages_ms"].items())
+    tiles = len(range(0, max(h - 6, 1), 474)) * len(range(0, max(w - 6, 1), 474))
+    log(f"[ai-cli] denoise --method ai {h}x{w} 16-bit TIFF ({tiles} tiles of 504, batches of "
+        f"8): wall {wall:.2f} s = start and imports {start:.2f} s + {st} (s) [{card}]")
+    dh, dw = AI_DENOISE_CHECK
+    xd = torch.from_numpy(rgb16[:dh, :dw].transpose(2, 0, 1).astype(np.float32) / 65535.0)
+    want = denoise.denoise_ai(xd, quality=0.5, device="cpu")
+    gotd = denoise.denoise_ai(xd.to(dev), quality=0.5, device=dev)
+    torch.cuda.synchronize()
+    ms = time_ms(lambda: denoise.denoise_ai(xd.to(dev), quality=0.5, device=dev), 3)
+    err = span_err(want, gotd)
+    log(f"[ai-cli] denoise_ai {dh}x{dw} on the card {ms:.1f} ms; against the CPU max|d|/span "
+        f"{err:.2e} (bound {AI_FLOAT_TOL:g}) [{card}]")
+    if err > AI_FLOAT_TOL or not bool(torch.isfinite(gotd).all()):
+        raise AssertionError(f"denoise_ai on the card: max|d|/span {err}")
+    del rgb16, want, gotd
+
+    # ---- (d) generative replace with LaMa on the h x w frame
+    frame = scene(h, w, args.seed + 44).to(dev)
+    patch = {"visible": True, "subMasks": [{
+        "type": "radial", "visible": True, "mode": "additive",
+        "parameters": {"centerX": w * 0.55, "centerY": h * 0.45, "radiusX": w * 0.05,
+                       "radiusY": h * 0.07, "rotation": 12.0, "feather": 0.3}}]}
+    inpaint.generate_replace_patch(frame[:, :512, :768], dict(patch, subMasks=[dict(
+        patch["subMasks"][0], parameters=dict(patch["subMasks"][0]["parameters"],
+                                              centerX=300, centerY=200, radiusX=60,
+                                              radiusY=40))]), device=dev)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pd = inpaint.generate_replace_patch(frame, patch, device=dev)
+    replace_s = time.perf_counter() - t0
+    color = decode_jpeg_rgb(base64.b64decode(pd["color"]))
+    pmask = decode_jpeg_gray(base64.b64decode(pd["mask"]))
+    doc = {"aiPatches": [{"visible": True, "patchData": pd}]}
+    t0 = time.perf_counter()
+    comp = composite_patches_on_image(frame, doc)
+    torch.cuda.synchronize()
+    comp_s = time.perf_counter() - t0
+    inside = torch.from_numpy(pmask > 250).to(dev)
+    outside = torch.from_numpy(pmask == 0).to(dev)
+    moved_out = float((comp - frame).abs()[:, outside].max())
+    want_in = torch.from_numpy(color.transpose(2, 0, 1).astype(np.float32) / 255.0).to(dev)
+    d_in = float((comp - want_in).abs()[:, inside].max())
+    log(f"[ai-replace] generate_replace_patch (LaMa, radial mask {int((pmask > 127).sum())} px) "
+        f"on {h}x{w}: {replace_s * 1e3:.0f} ms; color JPEG {color.shape}, mask JPEG "
+        f"{pmask.shape}; composite_patches_on_image {comp_s * 1e3:.1f} ms: inside the mask "
+        f"max|d| from the patch {d_in:.2e}, outside it max|d| from the frame {moved_out:.2e} "
+        f"[{card}]")
+    if color.shape != (h, w, 3) or pmask.shape != (h, w) or moved_out != 0.0 or d_in > 0.02:
+        raise AssertionError(f"replace patch: {color.shape} {pmask.shape}, outside moved "
+                             f"{moved_out}, inside {d_in}")
+    log("[ai] networks: " + "; ".join(
+        f"{k} {v['ms']:.2f} ms/{v['flops'] / 1e9:.0f} GFLOP" for k, v in net_rows.items()))
+    return {"ai_doc": launches}, report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true", help="1024x1536, fewer repetitions")
@@ -4736,6 +5251,11 @@ def main() -> int:
     report.update(library_report)
     phase_done("thumbnails, community, compositions")
 
+    # ---- 19. the AI networks: each alone, the AI document, denoise, replace -----
+    launches19, ai_report = phase_ai(args, h, w, reps, card, dev, reset_counts, read_counts)
+    report.update(ai_report)
+    phase_done("AI networks")
+
     sources = {  # name -> (source, the TPU kernel it replaces, the path that runs it)
         "blur": ("rapidraw_tpu_torch/csrc/blur.cu", "rapidraw_tpu/ops/blur.py:242", "config5"),
         "grade": ("rapidraw_tpu_torch/csrc/grade.cu", "rapidraw_tpu/pipeline/fused.py:298",
@@ -4762,7 +5282,7 @@ def main() -> int:
     counts = {"config3": launches3, "config5": launches5, "probes": launches_probes,
               "config4": launches4, **launches2, **launches12, **launches13,
               "export": launches14, "ldr_export": launches15, "preview": launches16,
-              **launches17, **launches18}
+              **launches17, **launches18, **launches19}
     library = {"nr_dynamic": "nr"}  # the kernels that share a source with another
     # a kernel that shares its source: its own entry's registers and spills
     entry = {"nr": "nr_kernel", "nr_dynamic": "nr_dynamic_kernel"}

@@ -23,7 +23,9 @@ manages a library of files; an image past 8192 px develops tile by tile
 for the blur pyramid, csrc/nr.cu for noise reduction, csrc/flare.cu for
 the flare maps, csrc/grade.cu for the whole per-pixel grade chain,
 csrc/resample.cu for the warp); on CPU tensors it runs their plain PyTorch
-versions. The JAX package `rapidraw_tpu` stays the reference; this
+versions. The AI networks behind AI sub-masks, AI denoise and generative
+replace (U2-Net, Depth-Anything v2, SAM ViT-B, UtNet, LaMa) are torch
+modules in `ai/`. The JAX package `rapidraw_tpu` stays the reference; this
 package never imports it or JAX.
 """
 

@@ -17,9 +17,10 @@ device unless the caller asks for another (`--device cpu`): without a card
 such a verb fails, it never carries on on the CPU. `develop` of an image
 whose long edge passes 8192 px goes through the tiled develop
 (pipeline/tiled.py); a smaller one through the export's single-image entry,
-so `develop X` and `export X` write the same pixels. The AI verbs (`tag`,
-`lib clear-ai-tags`, `denoise --method ai`) wait for slice A.13: they take
-JAX's arguments and exit with status 2.
+so `develop X` and `export X` write the same pixels. `denoise --method ai`
+runs the UtNet denoiser (ai/denoise.py) on `--device`; the tagging verbs
+(`tag`, `lib clear-ai-tags`) wait for slice A.13b (CLIP): they take JAX's
+arguments and exit with status 2.
 JAX's persistent compile cache has no counterpart: native.py keeps the
 built kernels on disk.
 """
@@ -37,7 +38,7 @@ _EXPORT_FORMATS = ("jpeg", "jpg", "png", "tiff", "tif", "webp", "avif", "jxl")
 # is the tiled one, whose seams JAX's output has too (pipeline/tiled.py)
 TILED_ABOVE = 8192
 # the verbs that wait for a later slice -> that slice
-_LATER = {"tag": "A.13", "clear-ai-tags": "A.13", "denoise": "A.13"}
+_LATER = {"tag": "A.13b", "clear-ai-tags": "A.13b"}
 
 
 def _require_file(path: str) -> None:
@@ -356,16 +357,25 @@ def _cmd_denoise(args) -> int:
     from rapidraw_tpu_torch.io.loader import load_image
     from rapidraw_tpu_torch.utils.trace import mark_stage
 
-    if args.method == "ai":  # the AI denoiser comes with slice A.13
-        return _cmd_later(args)
     _require_file(args.image)
     dev = _device(args)
     main_at, stages = time.time(), _stages(args, dev)
     img, _ = load_image(args.image, app_settings=_app_settings(), device=dev)
-    img = img.cpu().numpy()
     mark_stage(stages, "load")
-    out = run_bm3d(img, intensity=args.intensity)  # NumPy on the host, as in JAX
-    mark_stage(stages, "bm3d")
+    if args.method == "ai":
+        from rapidraw_tpu_torch.ai.denoise import denoise_ai
+        from rapidraw_tpu_torch.ai.models import ModelUnavailable
+
+        try:
+            out = denoise_ai(img, quality=args.intensity, device=dev)
+        except ModelUnavailable as e:
+            raise SystemExit(f"error: {e}")
+        mark_stage(stages, "denoise_ai")
+        out = out.cpu().numpy()
+        mark_stage(stages, "readback")
+    else:
+        out = run_bm3d(img.cpu().numpy(), intensity=args.intensity)  # NumPy on the host
+        mark_stage(stages, "bm3d")
     dst = args.output or _default_output(args.image, "denoised", "png")
     encode_image(out, dst)
     mark_stage(stages, "encode")
@@ -434,8 +444,7 @@ def _cmd_histogram(args) -> int:
 
 def _cmd_later(args) -> int:
     verb = args.op if args.cmd == "lib" else args.cmd
-    what = "denoise --method ai" if verb == "denoise" else verb
-    print(f"error: '{what}' is not ported yet; it waits for slice {_LATER[verb]}",
+    print(f"error: '{verb}' is not ported yet; it waits for slice {_LATER[verb]}",
           file=sys.stderr)
     return 2
 
@@ -600,7 +609,7 @@ def main(argv=None) -> int:
     m.add_argument("images", nargs="+")
     m.add_argument("-o", "--output")
 
-    dn = verb(sub, "denoise", _cmd_denoise, help="denoise an image, BM3D (AI: A.13)")
+    dn = verb(sub, "denoise", _cmd_denoise, help="denoise an image: BM3D, or the UtNet network")
     dn.add_argument("image")
     dn.add_argument("-o", "--output")
     dn.add_argument("--intensity", type=float, default=0.5)
@@ -616,7 +625,7 @@ def main(argv=None) -> int:
     le.add_argument("-o", "--output")
     le.add_argument("--size", type=int, default=33)
 
-    tg = verb(sub, "tag", _cmd_later, help="CLIP-tag a folder into sidecars (A.13)")
+    tg = verb(sub, "tag", _cmd_later, help="CLIP-tag a folder into sidecars (A.13b)")
     tg.add_argument("folder")
     tg.add_argument("--custom", nargs="*", help="score only these labels")
     tg.add_argument("--max-tags", type=int, default=10)
@@ -637,7 +646,7 @@ def main(argv=None) -> int:
         p_t.add_argument("--tags", required=True, type=lambda s: s.split(","),
                          help="comma-separated tag list")
         p_t.add_argument("paths", nargs="+")
-    verb(lsub, "clear-ai-tags", _cmd_lib, help="strip AI tags under a root (A.13)").add_argument(
+    verb(lsub, "clear-ai-tags", _cmd_lib, help="strip AI tags under a root (A.13b)").add_argument(
         "path")
     verb(lsub, "clear-sidecars", _cmd_lib, help="delete all sidecars under a root").add_argument(
         "path")

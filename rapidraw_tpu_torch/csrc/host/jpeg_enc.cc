@@ -1,7 +1,9 @@
-// Baseline JPEG encoder (ITU-T T.81 process 1, 8-bit, Huffman, YCbCr 4:2:0)
+// Baseline JPEG encoder (ITU-T T.81 process 1, 8-bit, Huffman, YCbCr 4:2:0,
+// and one-component grey)
 // for the export writers: what libjpeg-turbo writes with jpeg_set_defaults,
 // jpeg_set_quality(q, force_baseline = TRUE) and JDCT_ISLOW, which is what
-// PIL's `Image.save(path, "JPEG", quality=q)` asks of it.
+// PIL's `Image.save(path, "JPEG", quality=q)` asks of it (mode "RGB" by
+// jpeg_encode_rgb, mode "L" by jpeg_encode_gray).
 //
 //   * file layout: SOI, JFIF APP0 (1.01, density 1:1, unit 0), one DQT per
 //     table, SOF0, one DHT per table (DC0, AC0, DC1, AC1), SOS, the scan
@@ -449,6 +451,69 @@ long jpeg_encode_rgb(const uint8_t* rgb, int width, int height, long stride, int
       encode_block(w, cc, comp[1]);
       quantized_block(&crbuf[mx * 8], pw / 2, comp[2].div, cc);
       encode_block(w, cc, comp[2]);
+    }
+  }
+  w.flush();
+  w.word(0xFFD9);
+  return static_cast<long>(w.out.size());
+}
+
+// Encode (height, width) grey u8 rows (row stride `stride` bytes) as a
+// baseline one-component JPEG at `quality`: what libjpeg-turbo writes for
+// JCS_GRAYSCALE (PIL's mode "L"): SOF0 with one component (id 1, 1x1
+// sampling, table 0), the luminance table and the DC0/AC0 Huffman tables
+// only, and a non-interleaved scan of 8x8 blocks, the right column and the
+// bottom row replicated to whole blocks (no dummy blocks). Returns the
+// file's length, or -1 on bad arguments; fetch it with jpeg_fetch.
+long jpeg_encode_gray(const uint8_t* grey, int width, int height, long stride, int quality) {
+  if (!grey || width <= 0 || height <= 0 || width > 65535 || height > 65535 || stride < width)
+    return -1;
+  unsigned qt[64];
+  scale_table(kLumaQuant, quality, qt);
+  Divisor div[64];
+  for (int i = 0; i < 64; ++i) div[i] = reciprocal(static_cast<uint16_t>(qt[i] << 3));
+  HuffTable dc0, ac0;
+  derive(kDcLumaBits, kDcVals, &dc0);
+  derive(kAcLumaBits, kAcLumaVals, &ac0);
+
+  Writer& w = t_writer;
+  w = Writer();
+  w.out.reserve(static_cast<size_t>(width) * height / 4 + 1024);
+  w.word(0xFFD8);
+  const uint8_t jfif[] = {0xFF, 0xE0, 0, 16, 'J', 'F', 'I', 'F', 0, 1, 1, 0, 0, 1, 0, 1, 0, 0};
+  for (uint8_t b : jfif) w.byte(b);
+  put_dqt(w, qt, 0);
+  w.word(0xFFC0);
+  w.word(8 + 3 * 1);
+  w.byte(8);
+  w.word(static_cast<unsigned>(height));
+  w.word(static_cast<unsigned>(width));
+  w.byte(1);
+  w.byte(1);
+  w.byte(0x11);
+  w.byte(0);
+  put_dht(w, kDcLumaBits, kDcVals, 0x00);
+  put_dht(w, kAcLumaBits, kAcLumaVals, 0x10);
+  const uint8_t sos[] = {0xFF, 0xDA, 0, 8, 1, 1, 0x00, 0, 63, 0};
+  for (uint8_t b : sos) w.byte(b);
+
+  const int bw = (width + 7) / 8;
+  const int bh = (height + 7) / 8;
+  const int pw = bw * 8;
+  std::vector<uint8_t> rows(static_cast<size_t>(8) * pw);
+  Component comp{div, &dc0, &ac0};
+  for (int by = 0; by < bh; ++by) {
+    for (int r = 0; r < 8; ++r) {
+      int sy = by * 8 + r;
+      if (sy > height - 1) sy = height - 1;
+      const uint8_t* row = grey + static_cast<long>(sy) * stride;
+      uint8_t* o = &rows[static_cast<size_t>(r) * pw];
+      for (int x = 0; x < pw; ++x) o[x] = row[x < width ? x : width - 1];
+    }
+    for (int bx = 0; bx < bw; ++bx) {
+      int16_t coef[64];
+      quantized_block(&rows[bx * 8], pw, comp.div, coef);
+      encode_block(w, coef, comp);
     }
   }
   w.flush();

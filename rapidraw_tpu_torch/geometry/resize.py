@@ -22,6 +22,13 @@ intermediate clipped to 8 bits, RGBA resampled premultiplied.
 box, `reduce_u8` its `Image.reduce` and `thumbnail_u8` its
 `Image.thumbnail` (reduce, then BICUBIC over the reduced box): the JAX
 package's thumbnails, embedded previews and culling hashes, byte for byte.
+
+`resize_bilinear` is `jax.image.resize(x, shape, "bilinear")`, which every
+AI entry resizes with: per axis whose size changes, a weight matrix of
+the triangle kernel at half-pixel centres, widened by the scale when it
+downscales (the antialias `F.interpolate(mode="bilinear")` lacks),
+renormalized where the kernel leaves the input, zero for a sample outside
+it; built in float32 as JAX builds it, the axes contracted in order.
 """
 
 from __future__ import annotations
@@ -82,6 +89,42 @@ def downscale_to_long_edge(image: torch.Tensor, long_edge: int) -> torch.Tensor:
     if w >= h:
         return downscale(image, long_edge, max(1, int(round(h * long_edge / w))))
     return downscale(image, max(1, int(round(w * long_edge / h))), long_edge)
+
+
+@functools.lru_cache(maxsize=64)
+def bilinear_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_in, n_out) float32 weights of jax.image's compute_weight_mat for
+    the triangle kernel with antialiasing, scale n_out / n_in."""
+    inv = np.float32(1.0 / (n_out / n_in))
+    kernel_scale = np.maximum(inv, np.float32(1.0))
+    sample = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * inv - np.float32(0.0)
+    sample = sample - np.float32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float32)[:, None]) / kernel_scale
+    w = np.maximum(np.float32(0.0), np.float32(1.0) - np.abs(x))
+    total = w.sum(axis=0, keepdims=True, dtype=np.float32)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, np.float32(1.0)), np.float32(0.0))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, np.float32(0.0)).astype(np.float32)
+
+
+def resize_bilinear(x: torch.Tensor, shape) -> torch.Tensor:
+    """`jax.image.resize(x, shape, "bilinear")` on x's device in float32:
+    each axis whose size changes is contracted with its weight matrix, in
+    axis order (TF32 off)."""
+    from rapidraw_tpu_torch.ai.layers import exact_fp32
+
+    shape = tuple(int(s) for s in shape)
+    if len(shape) != x.ndim:
+        raise ValueError(f"resize_bilinear: shape {shape} does not match rank of {tuple(x.shape)}")
+    x = x.to(torch.float32)
+    with exact_fp32():
+        for d, n in enumerate(shape):
+            if x.shape[d] == n:
+                continue
+            w = torch.from_numpy(bilinear_weights(x.shape[d], n)).to(x.device)
+            x = torch.movedim(torch.movedim(x, d, -1) @ w, -1, d)
+    return x.contiguous()
 
 
 def _lanczos3(x: float) -> float:

@@ -416,25 +416,26 @@ def crx_encode(planes_arr) -> bytes:
 
 
 def jpeg_encode(hwc_u8, quality: int) -> bytes:
-    """(H, W, 3) uint8 RGB -> a baseline JPEG file at `quality` (1-100),
-    as PIL's `Image.save(..., "JPEG", quality=quality)` writes it
-    (csrc/host/jpeg_enc.cc). The call releases the GIL, so threads encode
-    in parallel."""
+    """(H, W, 3) uint8 RGB, or (H, W) uint8 grey -> a baseline JPEG file at
+    `quality` (1-100), as PIL's `Image.save(..., "JPEG", quality=quality)`
+    writes it for mode "RGB" or "L" (csrc/host/jpeg_enc.cc). The call
+    releases the GIL, so threads encode in parallel."""
     import numpy as np
 
     a = np.asarray(hwc_u8)
-    if a.dtype != np.uint8 or a.ndim != 3 or a.shape[2] != 3:
-        raise ValueError(f"jpeg_encode expects (H, W, 3) uint8, got {a.dtype} {a.shape}")
+    grey = a.ndim == 2
+    if a.dtype != np.uint8 or not (grey or (a.ndim == 3 and a.shape[2] == 3)):
+        raise ValueError(f"jpeg_encode expects (H, W, 3) or (H, W) uint8, got {a.dtype} {a.shape}")
     a = np.ascontiguousarray(a)
     lib = host_library("jpeg_enc")
-    enc = lib.jpeg_encode_rgb
+    enc = lib.jpeg_encode_gray if grey else lib.jpeg_encode_rgb
     enc.restype = ctypes.c_long
     enc.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_long, ctypes.c_int]
     fetch = lib.jpeg_fetch
     fetch.restype = ctypes.c_int
     fetch.argtypes = [ctypes.c_void_p, ctypes.c_long]
-    h, w, _ = a.shape
-    n = enc(a.ctypes.data, w, h, 3 * w, int(quality))
+    h, w = a.shape[:2]
+    n = enc(a.ctypes.data, w, h, (1 if grey else 3) * w, int(quality))
     if n < 0:
         raise ValueError(f"jpeg encode failed for a {w}x{h} image (code {n})")
     out = np.empty(n, np.uint8)

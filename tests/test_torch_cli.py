@@ -407,8 +407,8 @@ def test_preset_verbs_match_jax(tmp_path):
 
 
 @pytest.mark.parametrize("argv,slice_", [
-    (["denoise", "x.jpg", "--method", "ai"], "A.13"), (["tag", "."], "A.13"),
-    (["lib", "clear-ai-tags", "."], "A.13"),
+    (["tag", ".", "--custom", "dog", "cat"], "A.13b"), (["tag", "."], "A.13b"),
+    (["lib", "clear-ai-tags", "."], "A.13b"),
 ])
 def test_later_verbs_exit_2_naming_their_slice(argv, slice_):
     rc, out, err = run("port", argv)

@@ -82,12 +82,17 @@ def test_jpeg_encoder_matches_pil_at_every_quality_scaling(shape, q):
 
 
 def test_jpeg_encoder_refuses_what_it_cannot_encode():
+    # (H, W) grey is encodable since the one-component mode; RGBA is not
     with pytest.raises(ValueError, match="expects"):
-        native.jpeg_encode(np.zeros((4, 4), np.uint8), 90)
+        native.jpeg_encode(np.zeros((4, 4, 4), np.uint8), 90)
     with pytest.raises(ValueError, match="expects"):
         native.jpeg_encode(np.zeros((4, 4, 3), np.uint16), 90)
+    with pytest.raises(ValueError, match="expects"):
+        native.jpeg_encode(np.zeros((4, 4), np.uint16), 90)
     with pytest.raises(ValueError, match="failed"):
         native.jpeg_encode(np.zeros((4, 70000, 3), np.uint8), 90)
+    with pytest.raises(ValueError, match="failed"):
+        native.jpeg_encode(np.zeros((4, 70000), np.uint8), 90)
 
 
 def test_jpeg_encoder_builds_from_its_source():
@@ -95,6 +100,7 @@ def test_jpeg_encoder_builds_from_its_source():
     assert Path(lib._name).parent == native.BUILD_DIR
     assert Path(lib._name).name.startswith("libjpeg_enc_host_")
     assert hasattr(lib, "jpeg_encode_rgb") and hasattr(lib, "jpeg_fetch")
+    assert hasattr(lib, "jpeg_encode_gray")
 
 
 def test_a_failed_jpeg_encoder_build_raises(tmp_path, monkeypatch):

@@ -423,10 +423,15 @@ def test_import_leaves_jax_out():
 
 
 def test_port_sources_never_import_jax():
-    """Neither the port nor chip_smoke.py imports JAX, the JAX package, the
-    repo's `tools/` probes (the port keeps its own in its `tools`), PIL or
-    cv2 (the card's machine has neither: the port writes its own files)."""
-    bad = re.compile(r"^\s*(import|from)\s+(jax|rapidraw_tpu|tools|PIL|cv2)\b")
+    """Neither the port nor chip_smoke.py imports JAX, flax, the JAX package,
+    the repo's `tools/` probes (the port keeps its own in its `tools`), PIL,
+    cv2, transformers or onnxruntime (the card's machine has none of them:
+    the port writes its own files and runs its own networks)."""
+    bad = re.compile(r"^\s*(import|from)\s+"
+                     r"(jax|flax|rapidraw_tpu|tools|PIL|cv2|transformers|onnxruntime)\b")
+    ai = sorted((REPO / "rapidraw_tpu_torch" / "ai").glob("*.py"))
+    assert {p.stem for p in ai} >= {"models", "masks", "depth", "sam", "denoise",
+                                    "tiled_inference", "inpaint", "connector"}
     for path in [*(REPO / "rapidraw_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             assert not bad.match(line), f"{path}: {line}"
