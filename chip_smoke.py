@@ -68,10 +68,10 @@ masked border), NEF (compression 34713, lossless 12-bit), ARW (ARW2) and
 CR3 (crx lossless 14-bit) files of photograph-like content from --seed,
 each with its host parse (the CFA must equal what was encoded), u16
 upload, front end and file -> load_image -> develop_batch(CONFIG3_DOC) ->
-u8 for B = 1 and 2 (grade and blur each launched once per call), and every
-vendor format (those four, PEF, ORF packed and predictive, RW2, MRW, SRW,
-IIQ format 5) at 1024 x 1536 (the ORF predictive stream, written sample
-by sample, at 512 x 768) on the card against the plain CPU path; (13) the
+u8 at B = 1 (grade and blur each launched once), and every vendor format
+(those four, PEF, ORF packed and predictive, RW2, MRW, SRW, IIQ format 5)
+at 1024 x 1536 (the ORF predictive stream, written sample by sample, at
+512 x 768), its front end on the card against the plain CPU path; (13) the
 rest of the develop document (`phase_doc`): the flare kernel against its
 plain version on a B = 2 batch of bright-spot images (24 MP and the ragged
 size, with the share of values that differ), the grade kernel
@@ -142,7 +142,13 @@ memory peak, FLOPs and bound) against the CPU, `ai_doc` at 24 MP through
 precompute_ai_submasks -> rasterize -> develop -> u8 (blur and grade once
 each, both replayed against their plain versions; 1024 x 1536 against
 device="cpu"), `denoise --method ai` on a 24 MP TIFF in a child process,
-and generative replace with LaMa composited back.
+and generative replace with LaMa composited back; (20) CLIP tagging
+(`phase_tag`, `[tag]`, `[tag-net]`, `[tag-walk]` and `[tag-cli]` lines): a
+seeded ViT-B/32 checkpoint at the published widths written by the port's
+own writers, each tower's forward (ms, CUDA kernels, memory peak, FLOPs
+and bound), phase 18's 8 files' logits on the card against device="cpu"
+with their tag lists, index_folder_tags over them by stage, and the CLI's
+`tag` and `lib clear-ai-tags` in child processes.
 Each kernel line carries its time, its plain version's time and its bound
 (bytes over the HBM rate or operations over the float32 peak, whichever is
 larger). It prints a kernels JSON line (top level: each kernel's numbers
@@ -648,15 +654,17 @@ def photo_cfa(h: int, w: int, lo: float, hi: float, seed: int, noise: float = 3.
 
 def pack_bits(words: np.ndarray, nbits: np.ndarray, pad: int = 1) -> bytes:
     """words[i] in nbits[i] bits each, MSB first, concatenated and padded to
-    a whole byte with `pad` bits (vectorized in chunks of 1 M words)."""
+    a whole byte with `pad` bits (vectorized in chunks of 1 M words: each
+    word's big-endian bytes unpacked, its last nbits[i] bits kept)."""
     words = np.asarray(words, np.int64).reshape(-1)
     nbits = np.asarray(nbits, np.int64).reshape(-1)
-    j = np.arange(int(nbits.max(initial=1)))
+    width = 32 if nbits.max(initial=0) <= 32 else 64
+    j = np.arange(width)
     chunks = []
     for s in range(0, words.size, 1 << 20):
-        wv, nb = words[s:s + (1 << 20), None], nbits[s:s + (1 << 20), None]
-        bits = (wv >> np.maximum(nb - 1 - j, 0)) & 1
-        chunks.append(bits[j < nb].astype(np.uint8))
+        wv, nb = words[s:s + (1 << 20)], nbits[s:s + (1 << 20), None]
+        raw = wv.astype(f">u{width // 8}").view(np.uint8).reshape(-1, width // 8)
+        chunks.append(np.unpackbits(raw, axis=1)[j >= width - nb])
     total = sum(c.size for c in chunks)
     chunks.append(np.full((-total) % 8, pad, np.uint8))
     return np.packbits(np.concatenate(chunks)).tobytes()
@@ -667,7 +675,7 @@ def category_words(diff: np.ndarray, code: np.ndarray, length: np.ndarray):
     the difference's bit length ssss, then ssss bits of the difference
     (negative ones as diff + 2**ssss - 1). Returns (words, nbits)."""
     diff = diff.astype(np.int64).reshape(-1)
-    ssss = np.ceil(np.log2(np.abs(diff) + 1)).astype(np.int64)
+    ssss = np.frexp(np.abs(diff))[1].astype(np.int64)  # the bit length of |diff|
     value = np.where(diff >= 0, diff, diff + (1 << ssss) - 1)
     return (code[ssss] << ssss) | np.where(ssss > 0, value, 0), length[ssss] + ssss
 
@@ -1735,21 +1743,25 @@ def phase_vendor(args, h, w, reps, card, dev, reset_counts, read_counts):
     """Phase 12, config 2 from the vendor containers: 24 MP CR2 (sliced
     lossless JPEG, 14-bit, masked border), NEF (34713 lossless 12-bit), ARW
     (ARW2) and CR3 (crx lossless 14-bit) files written from `--seed` into a
-    temporary directory; per file the host parse (median
-    of 3; the CFA must equal what was encoded), the u16 upload, the front
-    end, and file -> load_image -> develop_batch(CONFIG3_DOC) -> u8 for
-    B = 1, 2 with the counters read around each call (grade 1, blur 1);
+    temporary directory; per file the host parse (once; the CFA must
+    equal what was encoded), the u16 upload, the front end, and file ->
+    load_image -> develop_batch(CONFIG3_DOC) -> u8 at B = 1, timed once on
+    the host clock with the counters read around it (grade 1, blur 1);
     then every vendor format at 1024 x 1536 (the ORF predictive stream at
-    512 x 768: its encoder is sequential) on the card against the CPU:
-    front end bit for bit, u8 within 1 LSB on <= 0.1%. Returns {path:
-    launches}."""
+    512 x 768: its encoder is sequential) on the card against the CPU, the
+    front end bit for bit, and the small CR2's develop to u8 within 1 LSB
+    on <= 0.1%. Returns {path: launches}, each counted at B = 1."""
     import tempfile
 
     from rapidraw_tpu_torch import develop_batch, device_u8, load_image, parse_adjustments, \
         parse_raw, stack_params
     from rapidraw_tpu_torch.io import dng as dng_io
 
-    e2e_reps = min(reps, 3)
+    # the phase's time is the host: the files' writers and decodes (NEF ~2 s
+    # a parse). Cut when phase 20 came, from a median of 3 parses, 3 timed
+    # (parse, e2e) pairs at B = 1 and 2, and a develop card against CPU of
+    # every small file, to one parse and one timed e2e call at B = 1, and
+    # the develop card against CPU of the small CR2 alone
     launches = {}
 
     def run2(paths, device=dev):
@@ -1767,12 +1779,9 @@ def phase_vendor(args, h, w, reps, card, dev, reset_counts, read_counts):
             paths[kind] = Path(tmp) / f"shot.{kind}"
             paths[kind].write_bytes(data)
             write_ms = (time.perf_counter() - t0) * 1e3
-            times = []
-            for _ in range(3):
-                t0 = time.perf_counter()
-                raw = parse_raw(paths[kind].read_bytes(), ext=paths[kind].suffix)
-                times.append((time.perf_counter() - t0) * 1e3)
-            parse_ms = statistics.median(times)
+            t0 = time.perf_counter()
+            raw = parse_raw(paths[kind].read_bytes(), ext=paths[kind].suffix)
+            parse_ms = (time.perf_counter() - t0) * 1e3
             if raw.cfa.dtype != np.uint16 or not np.array_equal(raw.cfa, want):
                 raise AssertionError(f"the {kind} file decodes to another CFA")
             up_ms = median_host_ms(lambda: dng_io.upload_cfa(raw, dev), reps)
@@ -1780,39 +1789,28 @@ def phase_vendor(args, h, w, reps, card, dev, reset_counts, read_counts):
             front_ms = time_ms(lambda: dng_io.develop_raw(cfa_dev, raw), reps)
             del cfa_dev
             log(f"[vendor] {kind} ({h},{w}): wrote {len(data) / 1e6:.1f} MB in {write_ms:.0f} ms; "
-                f"host parse {parse_ms:.1f} ms (read + decode, median of 3; the CFA equals the "
+                f"host parse {parse_ms:.1f} ms (read + decode; the CFA equals the "
                 f"encoded one: pattern {raw.pattern}, black {raw.black_level:g}, white "
                 f"{raw.white_level:g}, wb {np.round(raw.wb, 4).tolist()}, matrix "
                 f"{raw.xyz_to_cam is not None}); u16 upload {up_ms:.2f} ms (host clock); front end "
                 f"{front_ms:.2f} ms [{card}]")
-            for b in (1, 2):
-                reset_counts()
-                out, u8 = run2([paths[kind]] * b)
-                torch.cuda.synchronize()
-                n = read_counts()
-                if b == 2:
-                    launches[f"config2_{kind}"] = n
-                if n["grade"] != 1 or n["blur"] != 1:
-                    raise AssertionError(f"{kind} B={b}: launches {n} (want grade 1, blur 1)")
-                if not bool(torch.isfinite(out).all()) or u8.shape != (b, 3, h, w) \
-                        or u8.min() == u8.max():
-                    raise AssertionError(f"{kind} B={b}: output non-finite, misshapen or constant")
-                del out, u8
-                # each e2e run right after a parse of the same file: the host
-                # parse's share of e2e is the median of the pairs' ratios
-                pts, dts = [], []
-                for _ in range(e2e_reps):
-                    t0 = time.perf_counter()
-                    parse_raw(paths[kind].read_bytes(), ext=paths[kind].suffix)
-                    pts.append((time.perf_counter() - t0) * 1e3)
-                    dts.append(median_host_ms(lambda: run2([paths[kind]] * b), 1))
-                dt = statistics.median(dts)
-                share = statistics.median(pt * b / d for pt, d in zip(pts, dts))
-                log(f"[vendor] e2e {kind} config3 B={b}: launches blur {n['blur']} grade "
-                    f"{n['grade']}; {dt / b:.2f} ms/image, {b * h * w / dt / 1e3:.1f} MPix/s "
-                    f"({kind} file -> u8 on the host, median of {e2e_reps}; range "
-                    f"{min(dts) / b:.2f}-{max(dts) / b:.2f}); host parse share {share:.3f} "
-                    f"(parse {min(pts):.1f}-{max(pts):.1f} ms beside it) [{card}]")
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            out, u8 = run2([paths[kind]])
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) * 1e3
+            n = launches[f"config2_{kind}"] = read_counts()
+            if n["grade"] != 1 or n["blur"] != 1:
+                raise AssertionError(f"{kind}: launches {n} (want grade 1, blur 1)")
+            if not bool(torch.isfinite(out).all()) or u8.shape != (1, 3, h, w) \
+                    or u8.min() == u8.max():
+                raise AssertionError(f"{kind}: output non-finite, misshapen or constant")
+            del out, u8
+            log(f"[vendor] e2e {kind} config3 B=1: launches blur {n['blur']} grade "
+                f"{n['grade']}; {dt:.2f} ms/image, {h * w / dt / 1e3:.1f} MPix/s ({kind} file -> "
+                f"u8 on the host, one call); host parse share {parse_ms / dt:.3f} (the parse "
+                f"above) [{card}]")
         if args.profile:
             profile_run("config2_nef B=2", lambda: run2([paths["nef"]] * 2), args.out, card)
 
@@ -1831,12 +1829,15 @@ def phase_vendor(args, h, w, reps, card, dev, reset_counts, read_counts):
             lin_gpu = dng_io.load_raw_file(p, device=dev)
             lin_cpu = dng_io.load_raw_file(p, device="cpu")
             front_d = float((lin_gpu.cpu() - lin_cpu).abs().max())
-            _, u8_gpu = run2([p])
-            _, u8_cpu = run2([p], device="cpu")
-            du = np.abs(u8_gpu.astype(np.int16) - u8_cpu.astype(np.int16))
+            develop = ""
+            du = np.zeros(1, np.int16)
+            if kind == "cr2":
+                _, u8_gpu = run2([p])
+                _, u8_cpu = run2([p], device="cpu")
+                du = np.abs(u8_gpu.astype(np.int16) - u8_cpu.astype(np.int16))
+                develop = f"; u8 max {int(du.max())} LSB, share>0 {float((du > 0).mean()):.2e}"
             log(f"[vendor] small {kind} {tuple(raw.cfa.shape)} (written in {write_ms:.0f} ms) "
-                f"CUDA vs plain CPU: front end max|d| {front_d:.3e}; u8 max {int(du.max())} LSB, "
-                f"share>0 {float((du > 0).mean()):.2e}")
+                f"CUDA vs plain CPU: front end max|d| {front_d:.3e}{develop}")
             if front_d > 0 or du.max() > 1 or (du > 0).mean() > 1e-3:
                 raise AssertionError(f"the {kind} file on the card disagrees with the CPU")
     return launches
@@ -3792,7 +3793,34 @@ def warp_calls_vs_plain(calls, path, reps, card) -> None:
                    card)
 
 
-def phase_library(args, h, w, reps, card, dev, reset_counts, read_counts):
+def write_library_files(tmp: Path, h: int, w: int, seed: int, dev) -> tuple[list, list]:
+    """Phase 18's 8 files of (h, w) from `seed` in `tmp`: 16-bit DNGs and
+    q95 JPEGs of two photograph-like scenes, each shifted, with sidecars
+    holding CONFIG3_DOC, config 5's document with its geometry, or nothing.
+    Returns (their paths, the two scenes' (h, w, 3) u8 frames)."""
+    from rapidraw_tpu_torch import native
+    from rapidraw_tpu_torch.io.sidecar import save_sidecar
+
+    cfa = [photo_cfa(h, w, RAW_BLACK, RAW_WHITE, seed + k) for k in range(2)]
+    rgb = [(photo_rgb16(h, w, seed + 10 + k, dev) >> 8).astype(np.uint8) for k in range(2)]
+    geo5 = dict(CONFIG5_DOC, **CONFIG5_GEOMETRY)
+    files = [("r_c3.dng", CONFIG3_DOC), ("r_plain.dng", {}), ("r_c5a.dng", geo5),
+             ("r_c5b.dng", geo5), ("j_c3.jpg", CONFIG3_DOC), ("j_plain.jpg", {}),
+             ("j_c5.jpg", geo5), ("j_c3b.jpg", dict(CONFIG3_DOC, exposure=0.6))]
+    paths = []
+    for i, (name, doc) in enumerate(files):
+        p = tmp / name
+        if name.endswith(".dng"):
+            p.write_bytes(raw_dng_bytes(np.roll(cfa[i % 2], 2 * i, axis=1)))
+        else:
+            p.write_bytes(native.jpeg_encode(np.ascontiguousarray(np.roll(rgb[i % 2], i, 1)), 95))
+        if doc:
+            save_sidecar(p, {"adjustments": doc})
+        paths.append(str(p))
+    return paths, rgb
+
+
+def phase_library(args, h, w, reps, card, dev, reset_counts, read_counts, files_dir):
     """Phase 18, the rest of the library and the compositions (A.11c,
     A.12): (a) generate_thumbnails at THUMB_RES over 8 files of (h, w) from
     --seed: 16-bit DNGs (the fast RAW path: half-size speed demosaic) and
@@ -3817,13 +3845,15 @@ def phase_library(args, h, w, reps, card, dev, reset_counts, read_counts):
     ISO, negative, cull over (a)'s files, panorama of three overlapping
     PANO_CROP crops of one textured scene (the output's size checked), and
     denoise (BM3D, NumPy on the host) at the largest of BM3D_SHAPES that
-    the rate of a 512 x 512 run says finishes within BM3D_BUDGET_S. Returns
-    ({"thumbnails", "community"}: launches, {(kernel, path): numbers})."""
+    the rate of a 512 x 512 run says finishes within BM3D_BUDGET_S. The 8
+    files are written into `files_dir` (phase 20 tags them). Returns
+    ({"thumbnails", "community"}: launches, {(kernel, path): numbers}, the
+    8 files' paths)."""
     import shutil
     import tempfile
 
+    from rapidraw_tpu_torch import native
     from rapidraw_tpu_torch.geometry import transforms
-    from rapidraw_tpu_torch.io.sidecar import save_sidecar
     from rapidraw_tpu_torch.library import community, thumbnails
     from rapidraw_tpu_torch.pipeline import batch, develop as develop_mod
     from rapidraw_tpu_torch.utils.settings import DEFAULTS, AppSettings
@@ -3835,24 +3865,7 @@ def phase_library(args, h, w, reps, card, dev, reset_counts, read_counts):
 
     # ---- (a) thumbnails of 8 files
     t0 = time.perf_counter()
-    cfa = [photo_cfa(h, w, RAW_BLACK, RAW_WHITE, args.seed + k) for k in range(2)]
-    rgb = [(photo_rgb16(h, w, args.seed + 10 + k, dev) >> 8).astype(np.uint8) for k in range(2)]
-    geo5 = dict(CONFIG5_DOC, **CONFIG5_GEOMETRY)
-    files = [("r_c3.dng", CONFIG3_DOC), ("r_plain.dng", {}), ("r_c5a.dng", geo5),
-             ("r_c5b.dng", geo5), ("j_c3.jpg", CONFIG3_DOC), ("j_plain.jpg", {}),
-             ("j_c5.jpg", geo5), ("j_c3b.jpg", dict(CONFIG3_DOC, exposure=0.6))]
-    paths = []
-    from rapidraw_tpu_torch import native
-
-    for i, (name, doc) in enumerate(files):
-        p = tmp / name
-        if name.endswith(".dng"):
-            p.write_bytes(raw_dng_bytes(np.roll(cfa[i % 2], 2 * i, axis=1)))
-        else:
-            p.write_bytes(native.jpeg_encode(np.ascontiguousarray(np.roll(rgb[i % 2], i, 1)), 95))
-        if doc:
-            save_sidecar(p, {"adjustments": doc})
-        paths.append(str(p))
+    paths, rgb = write_library_files(files_dir, h, w, args.seed, dev)
     log(f"[thumbs] wrote {len(paths)} files of {h}x{w} (4 DNG, 4 JPEG q95) in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -4071,7 +4084,7 @@ def phase_library(args, h, w, reps, card, dev, reset_counts, read_counts):
     if fits and fits[0] != (512, 512):
         denoise(fits[0])
     shutil.rmtree(tmp)
-    return launches, report
+    return launches, report, paths
 
 
 AI_DOC_CHECK = (1024, 1536)  # the AI document path held on the card against device="cpu"
@@ -4542,6 +4555,345 @@ def _phase_ai(args, h, w, reps, card, dev, reset_counts, read_counts, tmp):
     log("[ai] networks: " + "; ".join(
         f"{k} {v['ms']:.2f} ms/{v['flops'] / 1e9:.0f} GFLOP" for k, v in net_rows.items()))
     return {"ai_doc": launches}, report
+
+
+# ---- phase 20: CLIP tagging (A.13b) ------------------------------------------
+CLIP_MERGES = 300  # the synthetic vocabulary's merges, learnt from TAG_CANDIDATES
+CLIP_TOL = 1e-4  # the card's logits against the CPU's, of the CPU's span
+NEAR_CUT = 1e-6  # a probability this close to a cut may fall either side of it
+# openai/clip-vit-base-patch32's config.json: ViT-B/32's published widths,
+# eos_token_id 2 as the OpenAI configs have (the text tower pools at each
+# row's largest id)
+CLIP_B32 = {
+    "text_config": {"vocab_size": 49408, "hidden_size": 512, "intermediate_size": 2048,
+                    "num_hidden_layers": 12, "num_attention_heads": 8,
+                    "max_position_embeddings": 77, "hidden_act": "quick_gelu",
+                    "layer_norm_eps": 1e-5, "bos_token_id": 0, "eos_token_id": 2},
+    "vision_config": {"hidden_size": 768, "intermediate_size": 3072, "num_hidden_layers": 12,
+                      "num_attention_heads": 12, "image_size": 224, "patch_size": 32,
+                      "hidden_act": "quick_gelu", "layer_norm_eps": 1e-5},
+    "projection_dim": 512,
+}
+
+
+def clip_vocab(n_merges: int = CLIP_MERGES, seed: int = 0) -> tuple[dict, list]:
+    """A byte-level BPE vocabulary in CLIP's layout from `seed`: the 256
+    byte symbols and their `</w>` forms in a seeded order, `n_merges` merges
+    learnt from TAG_CANDIDATES's words (the most frequent pair first, ties
+    by the pair), each merge's token appended, then `<|startoftext|>` and
+    `<|endoftext|>` as the two highest ids, as in CLIP. Returns (vocab,
+    merges)."""
+    from collections import Counter
+
+    from rapidraw_tpu_torch.ai.clip_tokenizer import bytes_to_unicode
+    from rapidraw_tpu_torch.ai.tag_data import TAG_CANDIDATES
+
+    b2u = bytes_to_unicode()
+    base = list(b2u.values()) + [c + "</w>" for c in b2u.values()]
+    order = np.random.default_rng(seed).permutation(len(base))
+    vocab = {base[i]: k for k, i in enumerate(order)}
+    words = Counter()
+    for label in TAG_CANDIDATES:
+        for word in label.split():
+            chars = [b2u[b] for b in word.encode("utf-8")]
+            words[tuple(chars[:-1]) + (chars[-1] + "</w>",)] += 1
+    merges = []
+    for _ in range(n_merges):
+        pairs = Counter()
+        for word, count in words.items():
+            for pair in zip(word, word[1:]):
+                pairs[pair] += count
+        if not pairs:
+            break
+        best = min(pairs, key=lambda p: (-pairs[p], p))
+        merges.append(best)
+        vocab.setdefault(best[0] + best[1], len(vocab))
+        merged = Counter()
+        for word, count in words.items():
+            out, i = [], 0
+            while i < len(word):
+                if word[i:i + 2] == best:
+                    out.append(best[0] + best[1])
+                    i += 2
+                else:
+                    out.append(word[i])
+                    i += 1
+            merged[tuple(out)] += count
+        words = merged
+    vocab["<|startoftext|>"] = len(vocab)
+    vocab["<|endoftext|>"] = len(vocab)
+    return vocab, merges
+
+
+def write_clip_tokenizer(d: Path, vocab: dict, merges: list) -> None:
+    """The tokenizer files of a save_pretrained CLIP directory: vocab.json,
+    merges.txt (with its version line), special_tokens_map.json and
+    tokenizer_config.json, with CLIP's special tokens (the pad token is
+    <|endoftext|>)."""
+    (d / "vocab.json").write_text(json.dumps(vocab, ensure_ascii=False), encoding="utf-8")
+    (d / "merges.txt").write_text("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges),
+                                  encoding="utf-8")
+    special = {"bos_token": "<|startoftext|>", "eos_token": "<|endoftext|>",
+               "unk_token": "<|endoftext|>", "pad_token": "<|endoftext|>"}
+    (d / "special_tokens_map.json").write_text(json.dumps(special, indent=2))
+    (d / "tokenizer_config.json").write_text(json.dumps(
+        dict(special, model_max_length=77, tokenizer_class="CLIPTokenizer"), indent=2))
+
+
+def clip_weights(cfg, seed: int) -> dict:
+    """Seeded float32 weights for ai/clip.ClipModel(cfg), by its parameter
+    (transformers') names: matrices and the patch convolution from N(0, 1)
+    / sqrt(fan-in), LayerNorm scales around 1, biases from N(0, 0.02^2),
+    the token and position tables from N(0, 0.02^2), the class token from
+    N(0, 1 / width), and logit_scale ln 100 (CLIP's trained clamp)."""
+    import math
+
+    from rapidraw_tpu_torch.ai.clip import ClipModel
+
+    with torch.device("meta"):
+        shapes = {k: tuple(p.shape) for k, p in ClipModel(cfg).named_parameters()}
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, shape in shapes.items():
+        leaf = name.rsplit(".", 1)[-1]
+        z = rng.standard_normal(shape, dtype=np.float32)
+        if name == "logit_scale":
+            a = np.array(math.log(100.0))
+        elif name.endswith("class_embedding"):
+            a = z / math.sqrt(shape[0])
+        elif "embedding" in name and "patch" not in name:
+            a = 0.02 * z
+        elif leaf == "weight" and len(shape) >= 2:
+            a = z / math.sqrt(math.prod(shape[1:]))
+        elif leaf == "weight":  # LayerNorm
+            a = 1.0 + 0.1 * z
+        else:
+            a = 0.02 * z
+        out[name] = np.asarray(a, np.float32)
+    return out
+
+
+def write_clip_checkpoint(d: Path, doc: dict, seed: int) -> None:
+    """A save_pretrained CLIP directory written by the port's own code:
+    config.json (`doc`), model.safetensors (clip_weights, the port's
+    safetensors writer) and the synthetic vocabulary's tokenizer files."""
+    from rapidraw_tpu_torch.ai.checkpoint import write_safetensors
+    from rapidraw_tpu_torch.ai.clip import ClipConfig
+
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "config.json").write_text(json.dumps(dict(doc, model_type="clip"), indent=2))
+    write_safetensors(d / "model.safetensors", clip_weights(ClipConfig.from_dict(doc), seed))
+    write_clip_tokenizer(d, *clip_vocab(seed=seed))
+
+
+def tags_of(texts: list, probs: np.ndarray, max_tags: int) -> list:
+    """The labels generate_tags_with_clip keeps from `probs`, before the
+    colour tags and the parents: above 0.005, the top `max_tags`."""
+    scored = sorted(((t, float(p)) for t, p in zip(texts, probs) if p > 0.005),
+                    key=lambda tp: -tp[1])
+    return [t for t, _ in scored[:max_tags]]
+
+
+def near_cut(texts: list, probs: np.ndarray, max_tags: int, eps: float = NEAR_CUT) -> set:
+    """The labels an ulp of a logit may move across a cut: those within
+    `eps` of the 0.005 threshold and, where the last kept and the first
+    dropped of the top `max_tags` lie within `eps` of each other, those
+    within `eps` of that pair."""
+    near = {t for t, p in zip(texts, probs) if abs(float(p) - 0.005) <= eps}
+    ranked = np.sort(probs[probs > 0.005])[::-1]
+    if len(ranked) > max_tags and ranked[max_tags - 1] - ranked[max_tags] <= eps:
+        lo, hi = float(ranked[max_tags]) - eps, float(ranked[max_tags - 1]) + eps
+        near |= {t for t, p in zip(texts, probs) if lo <= float(p) <= hi}
+    return near
+
+
+def phase_tag(args, h, w, reps, card, dev, reset_counts, read_counts, files):
+    """Phase 20, CLIP tagging (A.13b): (a) a seeded ViT-B/32 checkpoint at
+    the published widths (CLIP_B32, eos_token_id 2) written by the port's
+    own safetensors and tokenizer writers into a temporary RAPIDRAW_CLIP
+    (the synthetic vocabulary: byte symbols and merges learnt from
+    TAG_CANDIDATES), read back through tagging._load_clip; (b) the vision
+    tower's forward on (1, 3, 224, 224) and the text tower's over every
+    TAG_CANDIDATES label: ms, CUDA kernels per forward, device memory peak,
+    matmul and convolution FLOPs against the float32 bound; (c)
+    index_folder_tags over phase 18's 8 files of (h, w) (4 DNG, 4 JPEG;
+    `files`, linked into a folder of their own without their sidecars),
+    wall by stage, its launch counters reset and read around it (the path
+    runs no hand-written kernel), each image's preprocessed pixels kept;
+    (d) those pixels' logits on the card against device="cpu" (CLIP_TOL of
+    the span) and their tag lists equal outside the labels within NEAR_CUT
+    of a cut (counted), the card's in the walk's sidecars; (e) clear_ai_tags
+    (all 8), `python -m rapidraw_tpu_torch tag` in a child process with
+    --timings (start and imports split out; the sidecars equal to (c)'s)
+    and the CLI's `lib clear-ai-tags` (8). Returns {"tag": launches}."""
+    import os
+    import shutil
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tag_"))
+    before = os.environ.get("RAPIDRAW_CLIP")
+    os.environ["RAPIDRAW_CLIP"] = str(tmp / "clip")
+    try:
+        return _phase_tag(args, h, w, reps, card, dev, reset_counts, read_counts, tmp, files)
+    finally:
+        if before is None:
+            os.environ.pop("RAPIDRAW_CLIP", None)
+        else:
+            os.environ["RAPIDRAW_CLIP"] = before
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _phase_tag(args, h, w, reps, card, dev, reset_counts, read_counts, tmp, files):
+    import contextlib
+    import io
+    import os
+    import shutil
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from rapidraw_tpu_torch import cli
+    from rapidraw_tpu_torch.ai import tagging
+    from rapidraw_tpu_torch.ai.checkpoint import read_state
+    from rapidraw_tpu_torch.ai.clip import ClipModel, load_clip_state
+    from rapidraw_tpu_torch.ai.tag_data import TAG_CANDIDATES
+    from rapidraw_tpu_torch.library.catalog import get_tags, list_images
+    from rapidraw_tpu_torch.tools import bound_ms
+    from rapidraw_tpu_torch.utils.trace import Stages
+
+    texts, max_tags = list(TAG_CANDIDATES), 10
+
+    # ---- (a) the checkpoint
+    t0 = time.perf_counter()
+    write_clip_checkpoint(tmp / "clip", CLIP_B32, args.seed)
+    mb = sum(f.stat().st_size for f in (tmp / "clip").iterdir()) / 2**20
+    t1 = time.perf_counter()
+    model, tok = tagging._load_clip(dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    cpu_model = load_clip_state(ClipModel(model.cfg), read_state(tmp / "clip")).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[tag] seeded ViT-B/32 checkpoint ({n_params / 1e6:.1f}M parameters, {mb:.0f} MiB, "
+        f"vocabulary of {len(tok.vocab)}) written in {t1 - t0:.1f} s, read onto the card in "
+        f"{t2 - t1:.2f} s")
+
+    # ---- (b) each tower's forward
+    ids, mask = (torch.from_numpy(a) for a in tok(texts, model.cfg.text.max_position_embeddings))
+    ids_d, mask_d = ids.to(dev), mask.to(dev)
+    s = model.cfg.vision.image_size
+    px = torch.randn((1, 3, s, s), generator=torch.Generator().manual_seed(args.seed))
+    px_d = px.to(dev)
+    towers = {"vision": (model.vision_model, model.visual_projection, (px_d,),
+                         f"(1, 3, {s}, {s})", lambda: model.image_features(px_d)),
+              "text": (model.text_model, model.text_projection, (ids_d, mask_d),
+                       f"{tuple(ids.shape)} tokens, {len(texts)} labels",
+                       lambda: model.text_features(ids_d, mask_d))}
+    tower_rows = {}
+    for name, (tower, proj, inputs, label, call) in towers.items():
+        out = call()
+        torch.cuda.synchronize()
+        ms = time_ms(call, reps)
+        launched = cuda_kernel_launches(call)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        call()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        with FlopCounterMode(display=False) as fc:
+            call()
+        flops = fc.get_total_flops()
+        weights = sum(t.numel() * t.element_size() for m in (tower, proj)
+                      for t in m.state_dict().values())
+        bms, bby = bound_ms(nbytes(*inputs, out) + weights, flops)
+        tower_rows[name] = dict(ms=ms, launches=launched, peak=peak, flops=flops, bound=bms)
+        log(f"[tag-net] {name} tower {label}: forward {ms:.3f} ms, CUDA kernels "
+            f"{launched if launched is not None else 'not measured'}, device memory peak "
+            f"{peak / 2**20:.0f} MiB above the {base / 2**20:.0f} MiB held, "
+            f"{flops / 1e9:.1f} GFLOP (matmul and convolution) -> bound {bms:.3f} ms ({bby}), "
+            f"{ms / bms:.1f}x [{card}]")
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"CLIP {name} tower: non-finite features")
+
+    # ---- (c) index_folder_tags over the 8 files, their pixels kept
+    lib = tmp / "library"
+    lib.mkdir()
+    paths = []
+    for f in files:  # the images, not phase 18's develop documents
+        paths.append(str(lib / Path(f).name))
+        try:
+            os.link(f, paths[-1])
+        except OSError:
+            shutil.copyfile(f, paths[-1])
+    stages, seen, pixels = Stages(dev), [], []
+    real_pre = tagging.preprocess_clip_image
+
+    def keep(*a, **k):
+        pixels.append(real_pre(*a, **k))
+        return pixels[-1]
+
+    tagging.preprocess_clip_image = keep
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        done = tagging.index_folder_tags(str(lib), progress=lambda c, t: seen.append((c, t)),
+                                         device=dev, stages=stages)
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        tagging.preprocess_clip_image = real_pre
+    want_tags = {p: get_tags(p) for p in paths}
+    log(f"[tag-walk] index_folder_tags over {len(paths)} files of {h}x{w}: {done} tagged in "
+        f"{wall:.2f} s; by stage (ms) { {k: round(v, 1) for k, v in stages.ms.items()} }; "
+        f"launches {launches}; tags per file {[len(t) for t in want_tags.values()]} [{card}]")
+    if done != len(paths) or seen[-1] != (len(paths), len(paths)) or any(launches.values()) \
+            or len(pixels) != len(paths):
+        raise AssertionError(f"index_folder_tags: {done} tagged, progress {seen[-1:]}, "
+                             f"launches {launches}, {len(pixels)} images scored")
+
+    # ---- (d) the walk's inputs, card against CPU
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        text_cpu = cpu_model.text_features(ids, mask)
+    cpu_text_s = time.perf_counter() - t0
+    errs, near_total = [], 0
+    for p, pix in zip(list_images(str(lib)), pixels):  # the walk's order
+        pix = torch.from_numpy(pix)
+        got = model(pix.to(dev), ids_d, mask_d)[0].cpu()
+        img_cpu = cpu_model.image_features(pix)
+        a = img_cpu / img_cpu.pow(2).sum(-1, keepdim=True).pow(0.5)
+        b = text_cpu / text_cpu.pow(2).sum(-1, keepdim=True).pow(0.5)
+        ref = (b @ a.t() * cpu_model.logit_scale.exp()).t()[0]
+        errs.append(span_err(ref, got))
+        pg = tagging.softmax(got.numpy()[None])[0]
+        pr = tagging.softmax(ref.detach().numpy()[None])[0]
+        near = near_cut(texts, pr, max_tags) | near_cut(texts, pg, max_tags)
+        near_total += len(near)
+        tg, tr = tags_of(texts, pg, max_tags), tags_of(texts, pr, max_tags)
+        if (set(tg) ^ set(tr)) - near or not set(tg) <= set(want_tags[p]):
+            raise AssertionError(f"{p}: card tags {tg} against CPU {tr} (near a cut: {near}; "
+                                 f"the sidecar {want_tags[p]})")
+    log(f"[tag] card against device=\"cpu\" on the walk's 8 inputs ({len(texts)} labels): "
+        f"max|d|/span {max(errs):.2e} (bound {CLIP_TOL:g}); tag lists equal, {near_total} "
+        f"labels within {NEAR_CUT:g} of a cut (exempt); the CPU's text tower {cpu_text_s:.2f} s "
+        f"[{card}]")
+    if max(errs) > CLIP_TOL:
+        raise AssertionError(f"CLIP logits: the card differs from the CPU by {max(errs)}")
+
+    # ---- (e) clear, the CLI's tag, the CLI's clear-ai-tags
+    cleared = tagging.clear_ai_tags(str(lib))
+    timings, cli_wall, start = run_cli(["tag", str(lib)], "tag")
+    cli_tags = {p: get_tags(p) for p in paths}
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = cli.main(["lib", "clear-ai-tags", str(lib)])
+    log(f"[tag-cli] clear_ai_tags: {cleared} sidecars; `tag` {cli_wall:.2f} s wall = start and "
+        f"imports {start:.2f} s + { {k: round(v, 1) for k, v in timings['stages_ms'].items()} } "
+        f"ms; `lib clear-ai-tags` printed {printed.getvalue().strip()!r} [{card}]")
+    if cleared != len(paths) or cli_tags != want_tags or rc != 0 or \
+            printed.getvalue().strip() != str(len(paths)) or any(get_tags(p) for p in paths):
+        raise AssertionError(f"tag CLI: cleared {cleared}, sidecars {cli_tags}, clear-ai-tags "
+                             f"rc {rc} {printed.getvalue()!r}")
+    return {"tag": launches}
 
 
 def main() -> int:
@@ -5245,16 +5597,29 @@ def main() -> int:
     report.update(cli_report)
     phase_done("CLI and tiled develop")
 
-    # ---- 18. thumbnails, community previews and the compositions -------------
-    launches18, library_report = phase_library(args, h, w, reps, card, dev, reset_counts,
-                                               read_counts)
-    report.update(library_report)
-    phase_done("thumbnails, community, compositions")
+    import shutil
+    import tempfile
 
-    # ---- 19. the AI networks: each alone, the AI document, denoise, replace -----
-    launches19, ai_report = phase_ai(args, h, w, reps, card, dev, reset_counts, read_counts)
-    report.update(ai_report)
-    phase_done("AI networks")
+    files_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_files_"))  # phases 18 and 20's
+    try:
+        # ---- 18. thumbnails, community previews and the compositions ---------
+        launches18, library_report, library_files = phase_library(
+            args, h, w, reps, card, dev, reset_counts, read_counts, files_dir)
+        report.update(library_report)
+        phase_done("thumbnails, community, compositions")
+
+        # ---- 19. the AI networks: each alone, the AI document, denoise, replace -
+        launches19, ai_report = phase_ai(args, h, w, reps, card, dev, reset_counts,
+                                         read_counts)
+        report.update(ai_report)
+        phase_done("AI networks")
+
+        # ---- 20. CLIP tagging: the towers, the walk, the CLI's tag --------------
+        launches20 = phase_tag(args, h, w, reps, card, dev, reset_counts, read_counts,
+                               library_files)
+        phase_done("CLIP tagging")
+    finally:
+        shutil.rmtree(files_dir, ignore_errors=True)
 
     sources = {  # name -> (source, the TPU kernel it replaces, the path that runs it)
         "blur": ("rapidraw_tpu_torch/csrc/blur.cu", "rapidraw_tpu/ops/blur.py:242", "config5"),
@@ -5282,7 +5647,7 @@ def main() -> int:
     counts = {"config3": launches3, "config5": launches5, "probes": launches_probes,
               "config4": launches4, **launches2, **launches12, **launches13,
               "export": launches14, "ldr_export": launches15, "preview": launches16,
-              **launches17, **launches18, **launches19}
+              **launches17, **launches18, **launches19, **launches20}
     library = {"nr_dynamic": "nr"}  # the kernels that share a source with another
     # a kernel that shares its source: its own entry's registers and spills
     entry = {"nr": "nr_kernel", "nr_dynamic": "nr_dynamic_kernel"}

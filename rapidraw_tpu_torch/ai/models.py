@@ -66,7 +66,7 @@ MODELS = {
     "clip": ModelSpec(
         "CLIP ViT-B/32", "clip_vit_b32.onnx", "https://huggingface.co/.../clip.onnx",
         weights_file="clip/ (transformers save_pretrained dir)",
-        native="rapidraw_tpu_torch.ai.tagging (slice A.13b)",
+        native="rapidraw_tpu_torch.ai.tagging",
     ),
 }
 

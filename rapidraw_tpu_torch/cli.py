@@ -11,6 +11,7 @@ Tauri command layer for batch use), on the port's own modules:
   python -m rapidraw_tpu_torch lib|exif|preset ...
   python -m rapidraw_tpu_torch negative IMG | cull IMG... | hdr IMG... |
       denoise IMG | panorama IMG...                # the compositions
+  python -m rapidraw_tpu_torch tag FOLDER [--custom L...] [--max-tags N]
 
 Every verb that develops or analyses an image runs on `--device`, the CUDA
 device unless the caller asks for another (`--device cpu`): without a card
@@ -18,9 +19,9 @@ such a verb fails, it never carries on on the CPU. `develop` of an image
 whose long edge passes 8192 px goes through the tiled develop
 (pipeline/tiled.py); a smaller one through the export's single-image entry,
 so `develop X` and `export X` write the same pixels. `denoise --method ai`
-runs the UtNet denoiser (ai/denoise.py) on `--device`; the tagging verbs
-(`tag`, `lib clear-ai-tags`) wait for slice A.13b (CLIP): they take JAX's
-arguments and exit with status 2.
+runs the UtNet denoiser (ai/denoise.py) on `--device`, and `tag` CLIP's
+towers (ai/tagging.py, the checkpoint at RAPIDRAW_CLIP or <models>/clip);
+`lib clear-ai-tags` strips the AI tags from the sidecars under a root.
 JAX's persistent compile cache has no counterpart: native.py keeps the
 built kernels on disk.
 """
@@ -37,8 +38,6 @@ _EXPORT_FORMATS = ("jpeg", "jpg", "png", "tiff", "tif", "webp", "avif", "jxl")
 # JAX's threshold (the reference's texture cap): past it a develop's output
 # is the tiled one, whose seams JAX's output has too (pipeline/tiled.py)
 TILED_ABOVE = 8192
-# the verbs that wait for a later slice -> that slice
-_LATER = {"tag": "A.13b", "clear-ai-tags": "A.13b"}
 
 
 def _require_file(path: str) -> None:
@@ -442,11 +441,23 @@ def _cmd_histogram(args) -> int:
     return 0
 
 
-def _cmd_later(args) -> int:
-    verb = args.op if args.cmd == "lib" else args.cmd
-    print(f"error: '{verb}' is not ported yet; it waits for slice {_LATER[verb]}",
-          file=sys.stderr)
-    return 2
+def _cmd_tag(args) -> int:
+    from rapidraw_tpu_torch.ai.models import ModelUnavailable
+    from rapidraw_tpu_torch.ai.tagging import index_folder_tags
+
+    dev = _device(args)
+    main_at, stages = time.time(), _stages(args, dev)
+    try:
+        n = index_folder_tags(
+            args.folder, custom_tags=args.custom, max_tags=args.max_tags,
+            progress=lambda c, t: print(f"\r{c}/{t}", end="", flush=True),
+            device=dev, stages=stages,
+        )
+    except ModelUnavailable as e:  # actionable message, not a traceback
+        raise SystemExit(f"error: {e}")
+    print(f"\ntagged {n} image(s)")
+    _report(stages, main_at)
+    return 0
 
 
 def _cmd_lib(args) -> int:
@@ -470,7 +481,9 @@ def _cmd_lib(args) -> int:
         for p in args.paths:
             catalog.remove_tags(p, args.tags + [f"user:{t}" for t in args.tags])
     elif op == "clear-ai-tags":
-        return _cmd_later(args)
+        from rapidraw_tpu_torch.ai.tagging import clear_ai_tags
+
+        print(clear_ai_tags(args.path))
     elif op == "clear-sidecars":
         print(catalog.clear_all_sidecars(args.path))
     elif op == "types":
@@ -625,7 +638,7 @@ def main(argv=None) -> int:
     le.add_argument("-o", "--output")
     le.add_argument("--size", type=int, default=33)
 
-    tg = verb(sub, "tag", _cmd_later, help="CLIP-tag a folder into sidecars (A.13b)")
+    tg = verb(sub, "tag", _cmd_tag, help="CLIP-tag a folder into sidecars")
     tg.add_argument("folder")
     tg.add_argument("--custom", nargs="*", help="score only these labels")
     tg.add_argument("--max-tags", type=int, default=10)
@@ -646,7 +659,7 @@ def main(argv=None) -> int:
         p_t.add_argument("--tags", required=True, type=lambda s: s.split(","),
                          help="comma-separated tag list")
         p_t.add_argument("paths", nargs="+")
-    verb(lsub, "clear-ai-tags", _cmd_lib, help="strip AI tags under a root (A.13b)").add_argument(
+    verb(lsub, "clear-ai-tags", _cmd_lib, help="strip AI tags under a root").add_argument(
         "path")
     verb(lsub, "clear-sidecars", _cmd_lib, help="delete all sidecars under a root").add_argument(
         "path")

@@ -155,7 +155,15 @@ def _filmic_exposure_flare(rgb: torch.Tensor, brightness) -> torch.Tensor:
 def _bilinear_uv(tex: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                  ch: int | None = None) -> torch.Tensor:
     """Clamped bilinear sample of planar (3, H, W) at uv in [0, 1]
-    (flare.wgsl:121-135): (3, ...) or, given `ch`, that channel's (...)."""
+    (flare.wgsl:121-135), u and v broadcast against each other: (3, ...)
+    or, given `ch`, that channel's (...).
+
+    The flare map samples on its 512^2 grid shifted by a constant, so its
+    u varies along columns only and v along rows only: passed as (1, n)
+    and (n, 1), the coordinate arithmetic runs on vectors, and only the
+    gathers and lerps run per pixel, each pixel through the same float32
+    operations as on full grids. Flat indices are int32 and the gathers
+    index_select (a flare map takes ~1,300 samples)."""
     _, h, w = tex.shape
     uc = torch.clamp(u, 0.0, 1.0)
     vc = torch.clamp(v, 0.0, 1.0)
@@ -165,24 +173,27 @@ def _bilinear_uv(tex: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     y0 = torch.floor(y)
     fx = x - x0
     fy = y - y0
-    xi0 = torch.clamp(x0.to(torch.int64), 0, w - 1)
-    yi0 = torch.clamp(y0.to(torch.int64), 0, h - 1)
+    xi0 = torch.clamp(x0.to(torch.int32), 0, w - 1)
+    yi0 = torch.clamp(y0.to(torch.int32), 0, h - 1)
     xi1 = torch.clamp(xi0 + 1, 0, w - 1)
-    yi1 = torch.clamp(yi0 + 1, 0, h - 1)
+    row0 = yi0 * w
+    row1 = torch.clamp(yi0 + 1, 0, h - 1) * w
     flat = tex.reshape(3, -1) if ch is None else tex[ch].reshape(-1)
 
-    def g(yy, xx):
-        return flat[..., yy * w + xx]
+    def g(row, xx):
+        idx = row + xx
+        return flat.index_select(-1, idx.reshape(-1)).view(*flat.shape[:-1], *idx.shape)
 
-    top = mix(g(yi0, xi0), g(yi0, xi1), fx)
-    bot = mix(g(yi1, xi0), g(yi1, xi1), fx)
+    top = mix(g(row0, xi0), g(row0, xi1), fx)
+    bot = mix(g(row1, xi0), g(row1, xi1), fx)
     return mix(top, bot, fy)
 
 
 def _map_uv(device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The map's pixel centres: u (1, n) along columns, v (n, 1) along rows."""
     n = FLARE_MAP_SIZE
     uv = (torch.arange(n, dtype=torch.float32, device=device) + 0.5) / n
-    return uv[None, :].expand(n, n), uv[:, None].expand(n, n)
+    return uv[None, :], uv[:, None]
 
 
 def flare_threshold_map(image: torch.Tensor, amount, exposure, brightness, whites,
@@ -230,11 +241,12 @@ def generate_flare_map(image: torch.Tensor, amount, exposure, brightness, whites
         return (uu >= 0.0) & (uu <= 1.0) & (vv >= 0.0) & (vv <= 1.0)
 
     # ---- 6-spike starburst (:137-192)
+    n = FLARE_MAP_SIZE
     per_spike = 2 * N_STAR
-    star = torch.zeros((3,) + u.shape, device=u.device)
+    star = torch.zeros((3, n, n), device=u.device)
     for spike in range(N_SPIKES):
         acc = torch.zeros_like(star)
-        wsum = torch.zeros_like(u)
+        wsum = torch.zeros((n, n), device=u.device)
         for gx, gy, rx, ry, bx, by, falloff in taps["star"][spike * per_spike:
                                                             (spike + 1) * per_spike]:
             uu, vv = u + gx, v + gy
@@ -252,7 +264,7 @@ def generate_flare_map(image: torch.Tensor, amount, exposure, brightness, whites
     inner = torch.zeros_like(star)
     for spike in range(N_SPIKES):
         acc = torch.zeros_like(star)
-        wsum = torch.zeros_like(u)
+        wsum = torch.zeros((n, n), device=u.device)
         for dx, dy, falloff in taps["inner"][spike * per_spike:(spike + 1) * per_spike]:
             uu, vv = u + dx, v + dy
             ok = in_bounds(uu, vv)
@@ -264,7 +276,7 @@ def generate_flare_map(image: torch.Tensor, amount, exposure, brightness, whites
 
     # ---- radial glow (:237-267)
     glow = sample(u, v) * 2.0
-    gw = torch.full_like(u, 2.0)
+    gw = torch.full((n, n), 2.0, device=u.device)
     for ox, oy, ring_weight in taps["glow"]:
         uu, vv = u + ox, v + oy
         ok = in_bounds(uu, vv)
@@ -275,7 +287,10 @@ def generate_flare_map(image: torch.Tensor, amount, exposure, brightness, whites
     # ---- iris rings (:269-289)
     center_dist = sqrt_rn(((u - 0.5) * aspect) ** 2 + (v - 0.5) ** 2)
     src = sample(fu, fv)
-    angle = torch.atan2(v - 0.5, (u - 0.5) * aspect)
+    # full contiguous grids: a vector math kernel may round a broadcast
+    # input's elements otherwise
+    angle = torch.atan2((v - 0.5).expand(n, n).contiguous(),
+                        ((u - 0.5) * aspect).expand(n, n).contiguous())
     hex_mod = 0.9 + 0.1 * torch.pow(torch.abs(torch.cos(angle * 3.0)), 4.0)
     iris = torch.zeros_like(star)
     for rr, wd, inten in _IRIS:

@@ -12,8 +12,9 @@ both. `lut-export`: the .cube values within 1e-5 (measured 5.0e-6 at
 L = 17, a few units of the file's sixth decimal: float32 ulps of the chain
 against JAX's op-by-op run, rounded to six decimals on each side). `lib`,
 `exif`, `preset`: the same printed lines and the same sidecar and store
-files. The verbs of later slices exit 2 naming their slice; without a card
-and without `--device cpu` the port's CLI fails.
+files. `tag` and `lib clear-ai-tags`: the same stdout and sidecars on a
+seeded CLIP checkpoint. Without a card and without `--device cpu` the
+port's CLI fails.
 """
 
 from __future__ import annotations
@@ -406,13 +407,46 @@ def test_preset_verbs_match_jax(tmp_path):
     assert rj == rp == 1
 
 
-@pytest.mark.parametrize("argv,slice_", [
-    (["tag", ".", "--custom", "dog", "cat"], "A.13b"), (["tag", "."], "A.13b"),
-    (["lib", "clear-ai-tags", "."], "A.13b"),
-])
-def test_later_verbs_exit_2_naming_their_slice(argv, slice_):
-    rc, out, err = run("port", argv)
-    assert rc == 2 and out == "" and f"slice {slice_}" in err
+@pytest.mark.parametrize("argv", [["tag", "{d}", "--custom", "dog", "cat"], ["tag", "{d}"],
+                                  ["lib", "clear-ai-tags", "{d}"]])
+def test_later_verbs_exit_2_naming_their_slice(argv, tmp_path, monkeypatch):
+    """The tagging verbs, which waited for slice A.13b, through both CLIs on
+    twin libraries and one seeded CLIP checkpoint (the port's writers,
+    test_torch_tagging.write_small_checkpoint): the same exit code, stdout
+    (the progress line and the count) and sidecars."""
+    from test_torch_tagging import write_small_checkpoint
+
+    monkeypatch.setenv("RAPIDRAW_CLIP", str(write_small_checkpoint(tmp_path / "clip")))
+    dj, dp = _twin_dirs(tmp_path)
+    if argv[1] == "clear-ai-tags":
+        from rapidraw_tpu_torch.library.catalog import add_tags
+
+        for d in (dj, dp):
+            add_tags(str(d / "b.jpg"), ["dog", "user:trip", "color:red", "sky"])
+            add_tags(str(d / "sub" / "c.jpg"), ["cat"])
+    d = {"jax": dj, "port": dp}
+    (rj, oj, ej), (rp, op, ep) = both(lambda s: [a.format(d=d[s]) for a in argv])
+    assert rj == rp == 0, (ej, ep)
+    assert op == oj
+    assert op.endswith("tagged 2 image(s)\n" if argv[0] == "tag" else "2\n"), op
+    tj, tp = _tree(dj), _tree(dp)
+    assert {k: v for k, v in tp.items() if k.endswith(".rrdata")} == \
+        {k: v for k, v in tj.items() if k.endswith(".rrdata")}
+    print({k: json.loads(v).get("tags") for k, v in tp.items() if k.endswith(".rrdata")})
+
+
+def test_tag_without_a_checkpoint_exits_as_jax(tmp_path, monkeypatch):
+    """`tag` over a folder with an untagged image and no CLIP checkpoint: both
+    CLIs exit with JAX's `error:` message, and write no sidecar."""
+    monkeypatch.setenv("RAPIDRAW_CLIP", str(tmp_path / "no_clip"))
+    _jpeg(tmp_path / "a.jpg")
+    errors = []
+    for side in ("jax", "port"):
+        with pytest.raises(SystemExit) as e:
+            run(side, ["tag", str(tmp_path)])
+        errors.append(str(e.value))
+    assert errors[0] == errors[1] and errors[0].startswith("error: CLIP checkpoint not found")
+    assert not list(tmp_path.glob("*.rrdata"))
 
 
 def _read16(path) -> np.ndarray:
@@ -505,7 +539,8 @@ def test_without_a_card_the_cli_fails(tmp_path):
                  ["histogram", src], ["export", src, "-o", str(tmp_path / "x")],
                  ["lut-export", "--image", src, "-o", str(tmp_path / "g.cube")],
                  ["negative", src], ["cull", src, src], ["hdr", src, src],
-                 ["denoise", src], ["panorama", src, src]):
+                 ["denoise", src], ["panorama", src, src], ["tag", str(tmp_path)],
+                 ["tag", str(tmp_path), "--custom", "dog"]):
         with pytest.raises(SystemExit, match="no CUDA device"):
             pcli.main(argv)
     assert not (tmp_path / "o.jpg").exists() and not (tmp_path / "x").exists()

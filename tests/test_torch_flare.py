@@ -4,9 +4,12 @@ against the JAX package, on the CPU, on images made from a seed.
 - `flare_threshold_map` (LDR and RAW, with exposure, brightness and whites
   set and unset) against JAX's: 1e-5 x max(1, |ref|).
 - `generate_flare_map` on a 96 x 128 image (the map is always 512^2)
-  against JAX's run op by op: 1e-5 x max(1, |ref|). JAX's map is made once
-  for the module (~35 s op by op; its jitted graph of ~1,300 unrolled taps
-  compiles for minutes), the port's once through the `flare_maps` wrapper.
+  against JAX's run op by op with its bilinear sampler `_bilinear_uv`
+  jitted: 1e-5 x max(1, |ref|). JAX's map is made once for the module
+  (~46 s wholly op by op, ~13 s with the sampler's ~1,300 calls jitted,
+  within 4e-7 x max(1, |ref|) of each other; the jitted graph of the whole
+  generator compiles for minutes), the port's once through the
+  `flare_maps` wrapper.
 - `sample_flare` against JAX develop's `_bilinear_sample` x 1.4, squared:
   bit for bit (bound 1e-6), on two image sizes.
 - `grade_chain` with flare (global amount, a flare mask over it, and a
@@ -60,7 +63,8 @@ def rel_err(got, want) -> float:
 @pytest.fixture(scope="module")
 def maps():
     x = bright_image(0)
-    with jax.disable_jit():
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jflare, "_bilinear_uv", jax.jit(jflare._bilinear_uv))
         want = np.array(jflare.generate_flare_map(jnp.asarray(x), *PARAMS, False))
     before = tflare.flare_maps.launches
     got = tflare.flare_maps(torch.from_numpy(x)[None], torch.tensor([PARAMS]), False)

@@ -146,7 +146,7 @@ UNSUPPORTED = {
 
 
 @pytest.mark.parametrize("what", sorted(UNSUPPORTED))
-def test_documents_outside_the_slice_raise(what):
+def test_documents_outside_the_slice_raise(what, monkeypatch):
     from rapidraw_tpu.pipeline.batch import develop_batch as jdevelop_batch
     from rapidraw_tpu_torch import develop_batch, rasterize_masks
     from rapidraw_tpu_torch.ops.flare import FLARE_PARAMS, flare_maps
@@ -173,13 +173,19 @@ def test_documents_outside_the_slice_raise(what):
         rng = np.random.default_rng(10)
         kw["lut"] = (np.stack(np.meshgrid(*[np.linspace(0, 1, 9)] * 3, indexing="ij"), -1)
                      + 0.1 * rng.standard_normal((9, 9, 9, 3))).astype(np.float32)
-    jkw = dict(kw)
-    if tc.flare_active:
-        fparams = tfused.pack_rows(tp["glob"])[:, [tfused.OFFSETS[k] for k in FLARE_PARAMS]]
-        jkw["flare"] = flare_maps(torch.from_numpy(x), fparams.contiguous(), False)[0].numpy()
+    calls, maps = [], []  # the flare map develop_batch makes, handed to JAX
+    monkeypatch.setattr(tfused, "flare_maps",
+                        lambda *a: calls.append(a) or maps.append(flare_maps(*a)) or maps[-1])
     got = develop_batch(torch.from_numpy(x), tp, tc,
                         masks=None if masks is None else torch.from_numpy(masks),
                         **{k: torch.from_numpy(v) for k, v in kw.items()}).numpy()
+    assert len(maps) == tc.flare_active
+    if calls:  # made from the original images and the global flare columns
+        (img, fparams, is_raw), = calls
+        cols = [tfused.OFFSETS[k] for k in FLARE_PARAMS]
+        assert torch.equal(img, torch.from_numpy(x)) and is_raw == tc.is_raw
+        assert torch.equal(fparams, tfused.pack_rows(tp["glob"])[:, cols])
+    jkw = dict(kw, **({"flare": maps[0][0].numpy()} if maps else {}))
     want = np.asarray(jdevelop_batch(jnp.asarray(x), jp, jc,
                                      masks=None if masks is None else jnp.asarray(masks),
                                      **{k: jnp.asarray(v) for k, v in jkw.items()}))

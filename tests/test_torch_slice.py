@@ -18,6 +18,7 @@ leaves JAX (and PIL) out, and chip_smoke.py refuses to run without a GPU.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import re
 import shutil
@@ -67,6 +68,14 @@ def jax_run(docs, x, dither: bool, masks=None, op_by_op: bool = False):
     else:
         out = jax.jit(fn)(*args)
     return np.asarray(out), np.asarray(_device_u8(out))
+
+
+@functools.cache
+def jitted_develop(cfg):
+    """JAX's develop_batch(images, params, cfg) jitted, one program per
+    config: config 2's and the vendor files' cases develop the same
+    document at the same size, and each compile takes seconds here."""
+    return jax.jit(lambda im, q: jdevelop_batch(im, q, cfg))
 
 
 def port_run(docs, x, dither: bool, masks=None):
@@ -191,7 +200,7 @@ def test_config2_matches_jax(name, config2_images):
         jp, jc = jparse(doc, is_raw=True)
         sp, sc = jstack([jp], [jc])
         sc = dataclasses.replace(sc, dither_active=dither)
-        want = jax.jit(lambda im, q: jdevelop_batch(im, q, sc))(jnp.asarray(jimg), sp)
+        want = jitted_develop(sc)(jnp.asarray(jimg), sp)
         p, c = rt.parse_adjustments(doc, is_raw=True)
         assert c.is_raw
         tp, tc = rt.stack_params([p], [c], device="cpu")
@@ -239,7 +248,7 @@ def test_vendor_raw_matches_jax(kind, tmp_path):
     for dither in (False, True):
         sp, sc = jstack([jp], [jc])
         sc = dataclasses.replace(sc, dither_active=dither)
-        want = jax.jit(lambda im, q: jdevelop_batch(im, q, sc))(jnp.asarray(jimg), sp)
+        want = jitted_develop(sc)(jnp.asarray(jimg), sp)
         with jax.disable_jit():
             want_op = jdevelop_batch(jnp.asarray(jimg), sp, sc)
         tp, tc = rt.stack_params([p], [c], device="cpu")
@@ -285,10 +294,11 @@ def bright_batch(b, h, w, seed):
     return x
 
 
-def test_flare_lut_matches_jax(phase13_cube):
+def test_flare_lut_matches_jax(phase13_cube, monkeypatch):
     """Phase 13's (b) document (config 3 + flare 50 + the 33^3 .cube at 80%)
     at 1024 x 1536 through develop_batch -> device_u8. The port makes its
-    own flare map; JAX is handed the same map (test_torch_flare.py holds the
+    own flare map (kept as develop_batch makes it, and passed back in for the
+    dithered run); JAX is handed the same map (test_torch_flare.py holds the
     port's map to JAX's; JAX's jitted map generator, ~1,300 unrolled taps,
     compiles for minutes). Float (dither off) within 1e-3, u8 (dither on)
     within 1 LSB on at most 0.1% of the values."""
@@ -298,18 +308,24 @@ def test_flare_lut_matches_jax(phase13_cube):
     tp, tc = rt.stack_params(*zip(rt.parse_adjustments(doc)), device="cpu")
     jp, jc = jstack(*map(list, zip(jparse(doc))))
     assert tc.flare_active and tc.has_lut
-    fparams = tfused.pack_rows(tp["glob"])[:, [tfused.OFFSETS[k] for k in FLARE_PARAMS]]
-    fmap = flare_maps(torch.from_numpy(x), fparams.contiguous(), False)
+    calls, maps = [], []
+    monkeypatch.setattr(tfused, "flare_maps",
+                        lambda *a: calls.append(a) or maps.append(flare_maps(*a)) or maps[-1])
     out = {}
     for dither in (False, True):
         c = dataclasses.replace(tc, dither_active=dither)
         jcd = dataclasses.replace(jc, dither_active=dither)
-        want = jax.jit(lambda im, q, lut, fl: jdevelop_batch(im, q, jcd, lut=lut, flare=fl))(
-            jnp.asarray(x), jp, jnp.asarray(phase13_cube), jnp.asarray(fmap[0].numpy()))
         got = rt.develop_batch(torch.from_numpy(x), tp, c, lut=torch.from_numpy(phase13_cube),
-                               flare=None if not dither else fmap)
+                               flare=None if not dither else maps[0])
+        want = jax.jit(lambda im, q, lut, fl: jdevelop_batch(im, q, jcd, lut=lut, flare=fl))(
+            jnp.asarray(x), jp, jnp.asarray(phase13_cube), jnp.asarray(maps[0][0].numpy()))
         out[dither] = (got.numpy(), np.asarray(want), rt.device_u8(got).numpy(),
                        np.asarray(_device_u8(want)))
+    assert len(maps) == 1  # the map the undithered develop made, and no other
+    (img, fparams, is_raw), = calls  # from the image and the global flare columns
+    cols = [tfused.OFFSETS[k] for k in FLARE_PARAMS]
+    assert torch.equal(img, torch.from_numpy(x)) and is_raw is False
+    assert torch.equal(fparams, tfused.pack_rows(tp["glob"])[:, cols])
     got, want, _, _ = out[False]
     print(f"flare + LUT: max|d| {np.abs(got - want).max():.3e}")
     np.testing.assert_allclose(got, want, atol=1e-3)
@@ -425,13 +441,17 @@ def test_import_leaves_jax_out():
 def test_port_sources_never_import_jax():
     """Neither the port nor chip_smoke.py imports JAX, flax, the JAX package,
     the repo's `tools/` probes (the port keeps its own in its `tools`), PIL,
-    cv2, transformers or onnxruntime (the card's machine has none of them:
-    the port writes its own files and runs its own networks)."""
+    cv2, transformers, tokenizers, regex, safetensors, huggingface_hub or
+    onnxruntime (the card's machine has none of them: the port writes its
+    own files, runs its own networks, tokenizes and reads checkpoints
+    itself)."""
     bad = re.compile(r"^\s*(import|from)\s+"
-                     r"(jax|flax|rapidraw_tpu|tools|PIL|cv2|transformers|onnxruntime)\b")
+                     r"(jax|flax|rapidraw_tpu|tools|PIL|cv2|transformers|tokenizers|regex|"
+                     r"safetensors|huggingface_hub|onnxruntime)\b")
     ai = sorted((REPO / "rapidraw_tpu_torch" / "ai").glob("*.py"))
     assert {p.stem for p in ai} >= {"models", "masks", "depth", "sam", "denoise",
-                                    "tiled_inference", "inpaint", "connector"}
+                                    "tiled_inference", "inpaint", "connector", "tag_data",
+                                    "checkpoint", "clip_tokenizer", "clip", "tagging"}
     for path in [*(REPO / "rapidraw_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             assert not bad.match(line), f"{path}: {line}"
