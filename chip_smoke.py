@@ -3,11 +3,11 @@
     python3 chip_smoke.py [--quick] [--out DIR] [--profile] [--seed N]
 
 Phases: (1) the card's name and power limit; (2) build the seven CUDA
-sources of rapidraw_tpu_torch/csrc, one nvcc each, the seven host decoders
+sources of rapidraw_tpu_torch/csrc, one nvcc each, the host decoders
 (csrc/host/: lossless JPEG, Nikon/Pentax Huffman, Panasonic/Olympus, crx,
-Phase One, the LDR loader's JPEG decoder and TIFF LZW/PackBits) and the
-export's JPEG encoder (csrc/host/jpeg_enc.cc), g++ each, all started
-together;
+Phase One, the LDR loader's JPEG decoder, TIFF LZW/PackBits, WebP, BCn and
+the GIF/QOI/TGA/BMP loops), the guides and the export's JPEG encoder
+(csrc/host/jpeg_enc.cc), g++ each, all started together;
 (3) the blur kernel against its plain PyTorch version at 24 MP, with a
 case at each main path's shapes, one in each of its two regimes (the
 launch plan fuses small radii into one pass and gives larger ones two),
@@ -148,7 +148,16 @@ seeded ViT-B/32 checkpoint at the published widths written by the port's
 own writers, each tower's forward (ms, CUDA kernels, memory peak, FLOPs
 and bound), phase 18's 8 files' logits on the card against device="cpu"
 with their tag lists, index_folder_tags over them by stage, and the CLI's
-`tag` and `lib clear-ai-tags` in child processes.
+`tag` and `lib clear-ai-tags` in child processes; (21) the LDR formats
+(`phase_ldr_formats`, `[ldr-fmt]` lines): 24-bit and RLE8 BMP, RLE TGA,
+RGBA QOI, P6 PPM, GIF, BC1 DDS and lossless WebP at 4000 x 6000 from
+--seed, written by its own writers (`write_ldr_formats`), each one's host
+decode timed and held to the samples written, each load_image on the
+card held to device="cpu" (max |d| 0), the PIL-made fixtures of
+tests/fixtures/ldr (lossy WebP with and without alpha, BC3 and BC7 DDS,
+a transparent GIF) held to the SHA-256 of PIL's decodes, the blur and
+grade kernels against their plain versions on the loaded WebP, and
+export_images over the eight files (grade and blur once per chunk).
 Each kernel line carries its time, its plain version's time and its bound
 (bytes over the HBM rate or operations over the float32 peak, whichever is
 larger). It prints a kernels JSON line (top level: each kernel's numbers
@@ -159,8 +168,8 @@ then as its last line {"ok": true, "device": {...}}.
 Any failed check raises, so the process exits non-zero; without a CUDA
 device it exits non-zero before printing any result.
 
---quick runs phases 3-8 and 10-16 at 1024x1536 with fewer repetitions (a
-first check of a new kernel). --out DIR writes the nvcc/ptxas logs there.
+--quick runs phases 3-8, 10-16 and 21 at 1024x1536 with fewer
+repetitions (a first check of a new kernel). --out DIR writes the nvcc/ptxas logs there.
 --profile adds a torch.profiler pass over the config-3, config-5,
 config-4 and config-2 main paths (config 2 from a DNG and from a NEF):
 kernel time by name and the device busy share (and chrome traces in
@@ -2425,14 +2434,177 @@ def write_ldr_sources(root: Path, h: int, w: int, seed: int) -> dict:
     return paths
 
 
+class ExportSpy:
+    """`export._render_chunk`, watched inside a `with` block: each chunk's
+    input shape and u8 output (`frames`), and the (B, 3, H, W) images,
+    stacked params and config of the largest chunk (`held`, the latest of
+    equal batches), which `kernels_vs_plain` takes at the export's shapes.
+    Holding the latest chunk adds nothing to the export's memory peak
+    while no later chunk renders."""
+
+    def __init__(self):
+        from rapidraw_tpu_torch.pipeline import export
+
+        self.ex, self.frames, self.held = export, [], None
+
+    def __enter__(self):
+        real = self.real = self.ex._render_chunk
+
+        def spy(imgs, params, masks, lut, cfg, *a, **k):
+            if self.held is None or imgs.shape[0] >= self.held[0].shape[0]:
+                self.held = (imgs, params, cfg)
+            out = real(imgs, params, masks, lut, cfg, *a, **k)
+            self.frames.append((tuple(imgs.shape), out))
+            return out
+
+        self.ex._render_chunk = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.ex._render_chunk = self.real
+
+
+def timed_export(srcs, out_dir, device, reset_counts, read_counts, **kw):
+    """export_images of `srcs` into `out_dir` on `device`, the launch
+    counters reset and read around it. Returns (results, launches, a line
+    of images/s, STAGE_STATS seconds and the device memory peak); any
+    failed image raises."""
+    from rapidraw_tpu_torch.pipeline import export as ex
+
+    ex.reset_stage_stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = ex.export_images(srcs, out_dir, ex.ExportSettings(**kw), device=device)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    bad = [(r.source, r.error) for r in res if not r.ok]
+    if bad:
+        raise RuntimeError(f"export failed: {bad}")
+    st = dict(ex.STAGE_STATS)
+    n = len(res)
+    return res, counts, (f"{n} images in {wall:.3f} s = {n / wall:.3f} images/s; stage "
+                         f"seconds (summed over threads) decode {st['decode_s']:.3f}, "
+                         f"prepare {st['prepare_s']:.3f}, render {st['render_s']:.3f}, "
+                         f"encode {st['encode_s']:.3f}; frames {st['frames']}; device "
+                         f"memory peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def kernels_vs_plain(tag, label, x, params, cfg, reps, card) -> dict:
+    """The blur and grade kernels against their plain versions on a
+    (B, 3, H, W) batch with its stacked params and config, through the
+    calls develop_fused_batch makes (the levels' one blur launch over the
+    3B planes, prepare_inputs, one grade launch), at phase 15's bounds
+    (grade with dither off and on); each timed beside its plain version
+    and its bound, the blur beside one depthwise conv2d per radius.
+    Returns {"blur" | "grade": numbers}."""
+    import torch.nn.functional as F
+
+    from rapidraw_tpu_torch.ops import blur
+    from rapidraw_tpu_torch.pipeline import fused
+    from rapidraw_tpu_torch.tools import bound_ms
+
+    b, _, h, w = x.shape
+    out = {}
+    radii = tuple(fused.blur_radii(cfg, w, h).values())
+    flat = x.reshape(b * 3, h, w)
+    got = blur.gaussian_blur_multi(flat, radii)
+    ref, ops = count_ops(lambda: blur.gaussian_blur_multi_plain(flat, radii))
+    err = max(float(((a - c).abs() / c.abs().clamp(min=1.0)).max()) for a, c in zip(got, ref))
+    del got, ref
+    ms = time_ms(lambda: blur.gaussian_blur_multi(flat, radii), reps)
+    pms = time_ms(lambda: blur.gaussian_blur_multi_plain(flat, radii), reps)
+    bms, bby = bound_ms(nbytes(flat) * (1 + len(radii)), ops)
+    convs = []
+    for r in radii:
+        k1 = torch.from_numpy(blur._gauss_weights(r)).to(x.device)
+        k2 = (k1[:, None] * k1[None, :]).expand(b * 3, 1, 2 * r + 1, 2 * r + 1).contiguous()
+        convs.append((F.pad(flat[None], (r, r, r, r), mode="replicate"), k2))
+    lms = time_ms(lambda: [F.conv2d(xp, k2, groups=b * 3) for xp, k2 in convs], reps)
+    del convs
+    out["blur"] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby, library_ms=lms,
+                       max_abs_err=err)
+    log(f"{tag} blur on {label} ({b * 3}, {h}, {w}) r={radii}: max|d|/max(1,|ref|) {err:.3e} "
+        f"(bound {BLUR_TOL:g}) kernel {ms:.3f} ms plain {pms:.3f} ms bound {bms:.3f} ms "
+        f"({bby}); library: one depthwise conv2d per radius {lms:.3f} ms [{card}]")
+    if err > BLUR_TOL:
+        raise AssertionError(f"{tag} blur on {label}: max|d| {err} > {BLUR_TOL}")
+    pmat = fused.pack_rows(params["glob"]).to(x.device)
+    image, linear = fused.prepare_inputs(x, cfg, params)
+    levels = fused.blur_levels(x, cfg)
+    for dither in (False, True):
+        cd = dataclasses.replace(cfg, dither_active=dither)
+        got = fused.grade(image, levels, pmat, cd, image_linear=linear)
+        ref, ops = count_ops(lambda: fused.grade_plain(image, levels, pmat, cd,
+                                                       image_linear=linear))
+        err = float((got - ref).abs().max())
+        finite = bool(torch.isfinite(got).all())
+        del got, ref
+        tol = GRADE_DITHER_TOL if dither else GRADE_TOL
+        line = (f"{tag} grade B={b} on {label} dither={'on' if dither else 'off'}: max|d| "
+                f"{err:.3e} (bound {tol:.3e})")
+        if not dither:
+            ms = time_ms(lambda: fused.grade(image, levels, pmat, cd, image_linear=linear), reps)
+            pms = time_ms(lambda: fused.grade_plain(image, levels, pmat, cd,
+                                                    image_linear=linear), reps)
+            bms, bby = bound_ms(nbytes(image, pmat, *levels.values()) + nbytes(image), ops)
+            out["grade"] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                                library_ms=None, max_abs_err=err)
+            line += f" kernel {ms:.3f} ms plain {pms:.3f} ms bound {bms:.3f} ms ({bby}) [{card}]"
+        log(line)
+        if not finite or err > tol:
+            raise AssertionError(f"{tag} grade on {label}: max|d| {err} > {tol}")
+    return out
+
+
+def loaded_kernels_vs_plain(tag, label, img, reps, card, dev) -> dict:
+    """`kernels_vs_plain` on one loaded (3, H, W) LDR image at B = 1 with
+    CONFIG3_DOC (is_raw False)."""
+    from rapidraw_tpu_torch import parse_adjustments, stack_params
+
+    p, c = parse_adjustments(CONFIG3_DOC, is_raw=False)
+    sp, cfg = stack_params([p], [c], device=dev)
+    return kernels_vs_plain(tag, label, img[None], sp, cfg, reps, card)
+
+
+def ldr_export_and_kernels(tag, path_key, srcs, out_dir, reps, card, dev, reset_counts,
+                           read_counts):
+    """Phases 15 and 21's export: `srcs` with CONFIG3_DOC sidecars (written
+    here) to JPEG q90 on the card, the counters reset and read around it
+    (grade and blur once per chunk, nothing else), images/s, STAGE_STATS
+    seconds and the device memory peak; then the blur and grade kernels
+    against their plain versions on the largest chunk the export rendered,
+    its own images, params and config (`kernels_vs_plain`). Returns
+    (results, launches, {(kernel, path_key): numbers})."""
+    for q in srcs:
+        Path(q + ".rrdata").write_text(json.dumps({"adjustments": CONFIG3_DOC}))
+    with ExportSpy() as spy:
+        res, launches, line = timed_export(srcs, out_dir, dev, reset_counts, read_counts)
+    log(f"{tag} export of the {len(res)} files (CONFIG3_DOC, JPEG q90): {line} [{card}]")
+    chunks = [s for s, _ in spy.frames]
+    want = {"grade": len(chunks), "blur": len(chunks)}
+    others = {k: v for k, v in launches.items() if k not in want and v}
+    log(f"{tag} export chunks {chunks}, launches {launches}")
+    if {k: launches[k] for k in want} != want or others or not chunks:
+        raise RuntimeError(f"{tag} export launches {launches}, expected {want} and no other")
+    x, params, cfg = spy.held
+    spy.frames.clear()
+    spy.held = None
+    found = kernels_vs_plain(tag, "the export's largest chunk", x, params, cfg, reps, card)
+    return res, launches, {(k, path_key): v for k, v in found.items()}
+
+
 def phase_ldr(args, h, w, reps, card, dev, reset_counts, read_counts):
     """Phase 15, LDR inputs and the rest of export (A.10b): the four
     LDR_SOURCES at h x w from --seed (`write_ldr_sources`); the JPEG's host
     decode timed (io/jpeg.py, median of 3); each file's load_image on the
     card held to load_image(device="cpu") (max |d| 0); the blur and grade
     kernels against their plain versions on the loaded JPEG (is_raw False,
-    CONFIG3_DOC); export_images on the card with CONFIG3_DOC sidecars,
-    JPEG q90, then long_edge 2048, an RGBA watermark PNG and export_masks
+    CONFIG3_DOC, B = 1); export_images on the card with CONFIG3_DOC
+    sidecars, JPEG q90 (`ldr_export_and_kernels`: the kernels again on its
+    largest chunk, the numbers reported), then long_edge 2048, an RGBA
+    watermark PNG and export_masks
     with a fifth file holding a config-4 document, counters reset and read
     around each run (grade and blur once per CONFIG3_DOC chunk in the
     first); images/s, STAGE_STATS seconds and the device memory peak; the
@@ -2442,44 +2614,9 @@ def phase_ldr(args, h, w, reps, card, dev, reset_counts, read_counts):
     import shutil
     import tempfile
 
-    import torch.nn.functional as F
-
-    from rapidraw_tpu_torch import load_image, parse_adjustments, stack_params
+    from rapidraw_tpu_torch import load_image
     from rapidraw_tpu_torch.io import encode, jpeg
-    from rapidraw_tpu_torch.ops import blur
     from rapidraw_tpu_torch.pipeline import export as ex
-    from rapidraw_tpu_torch.pipeline import fused
-    from rapidraw_tpu_torch.tools import bound_ms
-
-    report = {}
-    frames = []
-    real_render = ex._render_chunk
-
-    def spy(imgs, params, masks, lut, cfg, *a, **k):
-        out = real_render(imgs, params, masks, lut, cfg, *a, **k)
-        frames.append((tuple(imgs.shape), out))
-        return out
-
-    def run(paths, out_dir, device=dev, **kw):
-        frames.clear()
-        ex.reset_stage_stats()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        t0 = time.perf_counter()
-        res = ex.export_images(paths, out_dir, ex.ExportSettings(**kw), device=device)
-        wall = time.perf_counter() - t0
-        counts = read_counts()
-        bad = [(r.source, r.error) for r in res if not r.ok]
-        if bad:
-            raise RuntimeError(f"LDR export failed: {bad}")
-        st = dict(ex.STAGE_STATS)
-        n = len(res)
-        return res, counts, (f"{n} images in {wall:.3f} s = {n / wall:.3f} images/s; stage "
-                             f"seconds (summed over threads) decode {st['decode_s']:.3f}, "
-                             f"prepare {st['prepare_s']:.3f}, render {st['render_s']:.3f}, "
-                             f"encode {st['encode_s']:.3f}; frames {st['frames']}; device "
-                             f"memory peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ldr_") as tmp:
         tmp = Path(tmp)
@@ -2518,130 +2655,71 @@ def phase_ldr(args, h, w, reps, card, dev, reset_counts, read_counts):
         if tuple(images["shot.jpg"].shape) != (3, w, h):
             raise AssertionError("the JPEG's Orientation = 6 was not applied")
 
-        # the blur and grade kernels on the LDR image against their plain versions
-        x = images["shot.jpg"][None]
+        # the blur and grade kernels on the loaded JPEG against their plain versions
+        loaded_kernels_vs_plain("[ldr]", "the JPEG's image", images.pop("shot.jpg"), reps, card,
+                                dev)
         del images
-        p, c = parse_adjustments(CONFIG3_DOC, is_raw=False)
-        sp, cfg = stack_params([p], [c], device=dev)
-        radii = tuple(fused.blur_radii(cfg, h, w).values())
-        flat = x.reshape(3, w, h)
-        got = blur.gaussian_blur_multi(flat, radii)
-        ref, ops = count_ops(lambda: blur.gaussian_blur_multi_plain(flat, radii))
-        err = max(float(((a - b).abs() / b.abs().clamp(min=1.0)).max()) for a, b in zip(got, ref))
-        ms = time_ms(lambda: blur.gaussian_blur_multi(flat, radii), reps)
-        pms = time_ms(lambda: blur.gaussian_blur_multi_plain(flat, radii), reps)
-        bms, bby = bound_ms(nbytes(flat) * (1 + len(radii)), ops)
-        convs = []
-        for r in radii:
-            k1 = torch.from_numpy(blur._gauss_weights(r)).to(dev)
-            k2 = (k1[:, None] * k1[None, :]).expand(3, 1, 2 * r + 1, 2 * r + 1).contiguous()
-            convs.append((F.pad(flat[None], (r, r, r, r), mode="replicate"), k2))
-        lms = time_ms(lambda: [F.conv2d(xp, k2, groups=3) for xp, k2 in convs], reps)
-        del convs, got, ref
-        report["blur", "ldr_export"] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
-                                            library_ms=lms, max_abs_err=err)
-        log(f"[ldr] blur on the JPEG's image (3, {w}, {h}) r={radii}: max|d|/max(1,|ref|) "
-            f"{err:.3e} (bound {BLUR_TOL:g}) kernel {ms:.3f} ms plain {pms:.3f} ms bound "
-            f"{bms:.3f} ms ({bby}); library: one depthwise conv2d per radius {lms:.3f} ms "
-            f"[{card}]")
-        if err > BLUR_TOL:
-            raise AssertionError(f"blur on the LDR path: max|d| {err} > {BLUR_TOL}")
-        pmat = fused.pack_rows(sp["glob"])
-        levels = fused.blur_levels(x, cfg)
-        for dither in (False, True):
-            cd = dataclasses.replace(cfg, dither_active=dither)
-            got = fused.grade(x, levels, pmat, cd)
-            ref, ops = count_ops(lambda: fused.grade_plain(x, levels, pmat, cd))
-            err = float((got - ref).abs().max())
-            tol = GRADE_DITHER_TOL if dither else GRADE_TOL
-            line = (f"[ldr] grade B=1 config3 (is_raw False) dither={'on' if dither else 'off'}: "
-                    f"max|d| {err:.3e} (bound {tol:.3e})")
-            if not dither:
-                ms = time_ms(lambda: fused.grade(x, levels, pmat, cd), reps)
-                pms = time_ms(lambda: fused.grade_plain(x, levels, pmat, cd), reps)
-                bms, bby = bound_ms(nbytes(x, pmat, *levels.values()) + nbytes(x), ops)
-                report["grade", "ldr_export"] = dict(ms=ms, plain_ms=pms, bound_ms=bms,
-                                                     bound_by=bby, library_ms=None,
-                                                     max_abs_err=err)
-                line += f" kernel {ms:.3f} ms plain {pms:.3f} ms bound {bms:.3f} ms ({bby}) [{card}]"
-            log(line)
-            if not bool(torch.isfinite(got).all()) or err > tol:
-                raise AssertionError(f"grade on the LDR path: max|d| {err} > {tol}")
-            del got, ref
-        del levels, x, flat
 
-        # export: CONFIG3_DOC sidecars, JPEG q90
+        # export: CONFIG3_DOC sidecars, JPEG q90; the kernels on its largest chunk
         srcs = [str(q) for q in paths.values()]
-        for q in srcs:
-            Path(q + ".rrdata").write_text(json.dumps({"adjustments": CONFIG3_DOC}))
-        ex._render_chunk = spy
-        try:
-            res, launches, line = run(srcs, tmp / "jpeg")
-            log(f"[ldr-export] JPEG q90: {line} [{card}]")
-            want = {"grade": len(frames), "blur": len(frames)}
-            others = {k: v for k, v in launches.items() if k not in want and v}
-            log(f"[ldr-export] chunks {[s for s, _ in frames]}, launches {launches}")
-            if {k: launches[k] for k in want} != want or others:
-                raise RuntimeError(f"LDR export launches {launches}, expected {want} and no other")
-            for r in res:
-                out = jpeg.decode_jpeg(Path(r.output).read_bytes())
-                if out.shape not in ((h, w, 3), (w, h, 3)):
-                    raise RuntimeError(f"{r.output}: decoded shape {out.shape}")
+        res, launches, report = ldr_export_and_kernels("[ldr-export]", "ldr_export", srcs,
+                                                       tmp / "jpeg", reps, card, dev,
+                                                       reset_counts, read_counts)
+        for r in res:
+            out = jpeg.decode_jpeg(Path(r.output).read_bytes())
+            if out.shape not in ((h, w, 3), (w, h, 3)):
+                raise RuntimeError(f"{r.output}: decoded shape {out.shape}")
 
-            # long_edge 2048, an RGBA watermark and the per-mask exports
-            logo = np.zeros((h // 16, w // 8, 4), np.uint8)
-            logo[..., 0], logo[..., 1] = 240, 200
-            logo[..., 3] = np.linspace(0, 255, logo.shape[1], dtype=np.uint8)
-            (tmp / "logo.png").write_bytes(encode.png_bytes(logo))
-            masked = tmp / "src" / "masks.png"
-            shutil.copy(paths["deep.png"], masked)
-            Path(str(masked) + ".rrdata").write_text(
-                json.dumps({"adjustments": config4_doc(h, w)}))
-            wm = ex.WatermarkSettings(path=str(tmp / "logo.png"), anchor="bottomRight",
-                                      scale=20.0, opacity=80.0)
-            res2, counts2, line = run(srcs + [str(masked)], tmp / "wm", long_edge=2048,
-                                      watermark=wm, export_masks=True)
-            log(f"[ldr-export] JPEG q90, long_edge 2048, watermark, export_masks: {line}; "
-                f"launches {counts2} (chunks {len(frames)}, plus one develop per mask "
-                f"image) [{card}]")
-            if counts2["grade"] != len(frames) + 3:
-                raise RuntimeError(f"watermark/masks run: launches {counts2}")
-            edge = 2048 if max(h, w) > 2048 else max(h, w)  # dont_enlarge
-            stem = Path(res2[-1].output).stem
-            for i in range(3):
-                img = jpeg.decode_jpeg((tmp / "wm" / f"{stem}_mask_{i}_image.jpg").read_bytes())
-                alpha = encode.decode_png_gray((tmp / "wm" / f"{stem}_mask_{i}_alpha.png")
-                                               .read_bytes())
-                if img.shape[:2] != alpha.shape or max(alpha.shape) != edge:
-                    raise RuntimeError(f"mask {i}: image {img.shape}, alpha {alpha.shape}")
-            for r in res2:
-                out = jpeg.decode_jpeg(Path(r.output).read_bytes())
-                if max(out.shape[:2]) != edge:
-                    raise RuntimeError(f"{r.output}: decoded shape {out.shape}")
-            log(f"[ldr-export] outputs: {len(res2)} JPEGs at long edge {edge} and "
-                f"{stem}_mask_0..2_image.jpg / _alpha.png, decoded and checked")
-        finally:
-            ex._render_chunk = real_render
+        # long_edge 2048, an RGBA watermark and the per-mask exports
+        logo = np.zeros((h // 16, w // 8, 4), np.uint8)
+        logo[..., 0], logo[..., 1] = 240, 200
+        logo[..., 3] = np.linspace(0, 255, logo.shape[1], dtype=np.uint8)
+        (tmp / "logo.png").write_bytes(encode.png_bytes(logo))
+        masked = tmp / "src" / "masks.png"
+        shutil.copy(paths["deep.png"], masked)
+        Path(str(masked) + ".rrdata").write_text(
+            json.dumps({"adjustments": config4_doc(h, w)}))
+        wm = ex.WatermarkSettings(path=str(tmp / "logo.png"), anchor="bottomRight",
+                                  scale=20.0, opacity=80.0)
+        with ExportSpy() as spy:
+            res2, counts2, line = timed_export(srcs + [str(masked)], tmp / "wm", dev,
+                                               reset_counts, read_counts, long_edge=2048,
+                                               watermark=wm, export_masks=True)
+        log(f"[ldr-export] JPEG q90, long_edge 2048, watermark, export_masks: {line}; "
+            f"launches {counts2} (chunks {len(spy.frames)}, plus one develop per mask "
+            f"image) [{card}]")
+        if counts2["grade"] != len(spy.frames) + 3:
+            raise RuntimeError(f"watermark/masks run: launches {counts2}")
+        edge = 2048 if max(h, w) > 2048 else max(h, w)  # dont_enlarge
+        stem = Path(res2[-1].output).stem
+        for i in range(3):
+            img = jpeg.decode_jpeg((tmp / "wm" / f"{stem}_mask_{i}_image.jpg").read_bytes())
+            alpha = encode.decode_png_gray((tmp / "wm" / f"{stem}_mask_{i}_alpha.png")
+                                           .read_bytes())
+            if img.shape[:2] != alpha.shape or max(alpha.shape) != edge:
+                raise RuntimeError(f"mask {i}: image {img.shape}, alpha {alpha.shape}")
+        for r in res2:
+            out = jpeg.decode_jpeg(Path(r.output).read_bytes())
+            if max(out.shape[:2]) != edge:
+                raise RuntimeError(f"{r.output}: decoded shape {out.shape}")
+        log(f"[ldr-export] outputs: {len(res2)} JPEGs at long edge {edge} and "
+            f"{stem}_mask_0..2_image.jpg / _alpha.png, decoded and checked")
 
         # a small JPEG with the watermark and masks: the card against the CPU
         ch, cw = CPU_CHECK
         small = write_ldr_sources(tmp / "small", ch, cw, args.seed + 16)["shot.jpg"]
         Path(str(small) + ".rrdata").write_text(json.dumps({"adjustments": config4_doc(ch, cw)}))
         got = {}
-        ex._render_chunk = spy
-        try:
-            for name, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
-                frames.clear()
+        for name, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
+            with ExportSpy() as spy:
                 res = ex.export_images([str(small)], tmp / f"small_{name}", ex.ExportSettings(
                     watermark=wm, export_masks=True), device=device)
-                if not res[0].ok:
-                    raise RuntimeError(f"{name} LDR export: {res[0].error}")
-                out = Path(res[0].output)
-                got[name] = (frames[0][1][0], [encode.decode_png_gray(
-                    (out.parent / f"{out.stem}_mask_{i}_alpha.png").read_bytes())
-                    for i in range(3)])
-        finally:
-            ex._render_chunk = real_render
+            if not res[0].ok:
+                raise RuntimeError(f"{name} LDR export: {res[0].error}")
+            out = Path(res[0].output)
+            got[name] = (spy.frames[0][1][0], [encode.decode_png_gray(
+                (out.parent / f"{out.stem}_mask_{i}_alpha.png").read_bytes())
+                for i in range(3)])
         d = np.abs(got["cuda"][0].astype(np.int16) - got["cpu"][0].astype(np.int16))
         same_alpha = all(np.array_equal(a, b) for a, b in zip(got["cuda"][1], got["cpu"][1]))
         log(f"[ldr-export] {ch}x{cw} JPEG + watermark + masks, card vs CPU: u8 frames max|d| "
@@ -4896,6 +4974,436 @@ def _phase_tag(args, h, w, reps, card, dev, reset_counts, read_counts, tmp, file
     return {"tag": launches}
 
 
+# ---- phase 21: the LDR formats (A.10c, first half) ------------------------------
+LDR_FMT_HW = (4000, 6000)  # phase 21's files: 24 MP
+LDR_FMT_FILES = ("rgb24.bmp", "rle8.bmp", "rle24.tga", "rgba.qoi", "rgb.ppm", "pal.gif",
+                 "bc1.dds", "lossless.webp")
+LDR_FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures" / "ldr"
+
+
+def palette332() -> np.ndarray:
+    """(256, 3) u8: index bits rrrgggbb, each field widened to 0..255."""
+    i = np.arange(256)
+    return np.stack([(i >> 5) * 255 // 7, ((i >> 2) & 7) * 255 // 7, (i & 3) * 255 // 3],
+                    -1).astype(np.uint8)
+
+
+def index332(rgb8: np.ndarray) -> np.ndarray:
+    return ((rgb8[..., 0] >> 5) << 5 | (rgb8[..., 1] >> 5) << 2 | rgb8[..., 2] >> 6).astype(np.uint8)
+
+
+def bmp24_bytes(rgb8: np.ndarray) -> bytes:
+    """A 40-byte-header BMP, 24-bit BGR rows bottom-up, padded to 4 bytes."""
+    import struct
+
+    h, w, _ = rgb8.shape
+    stride = (w * 3 + 3) & ~3
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :w * 3] = rgb8[::-1, :, ::-1].reshape(h, w * 3)
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size, 2835, 2835, 0, 0)
+    return b"BM" + struct.pack("<IHHI", 54 + rows.size, 0, 0, 54) + info + rows.tobytes()
+
+
+def bmp_rle8_bytes(idx: np.ndarray, palette: np.ndarray) -> bytes:
+    """An 8-bit RLE8 BMP (bottom-up): each row as encoded runs of 1-255
+    equal indices, an end-of-line escape after it, end-of-bitmap last."""
+    import struct
+
+    h, w = idx.shape
+    rows = idx[::-1]
+    flat = rows.reshape(-1)
+    start = np.ones(flat.size, bool)
+    start[1:] = flat[1:] != flat[:-1]
+    start[::w] = True  # a run never crosses a row
+    pos = np.flatnonzero(start)
+    lens = np.diff(np.append(pos, flat.size))
+    # runs longer than 255 split into 255s and a rest
+    reps = -(-lens // 255)
+    rpos = np.repeat(pos, reps)
+    k = np.arange(reps.sum()) - np.repeat(np.cumsum(reps) - reps, reps)
+    rlen = np.minimum(255, np.repeat(lens, reps) - 255 * k)
+    rpos = rpos + 255 * k
+    row_of = rpos // w
+    last = np.append(row_of[1:] != row_of[:-1], True)  # the row's last run
+    ntok = rlen.size + int(last.sum())
+    tok = np.zeros((ntok, 2), np.uint8)
+    at = np.arange(rlen.size) + np.concatenate([[0], np.cumsum(last)[:-1]])
+    tok[at, 0] = rlen
+    tok[at, 1] = flat[rpos]
+    # end-of-line escapes (0, 0) sit after each row's last run; the zeros are there
+    body = tok.tobytes() + b"\x00\x01"
+    pal = np.zeros((256, 4), np.uint8)
+    pal[:, :3] = palette[:, ::-1]
+    off = 54 + 1024
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 8, 1, len(body), 2835, 2835, 256, 0)
+    return (b"BM" + struct.pack("<IHHI", off + len(body), 0, 0, off) + info + pal.tobytes()
+            + body)
+
+
+def tga_rle24_bytes(rgb8: np.ndarray) -> bytes:
+    """A 24-bit RLE TGA (type 10, top-left origin): each row in packets of
+    up to 128 pixels, a run packet where they are all equal, else a
+    literal one; no packet crosses a row."""
+    h, w, _ = rgb8.shape
+    head = bytes([0, 0, 10, 0, 0, 0, 0, 0, 0, 0, 0, 0, w & 255, w >> 8, h & 255, h >> 8, 24, 0x20])
+    bgr = rgb8[..., ::-1]
+    out = [head]
+    for y in range(h):
+        row = bgr[y]
+        for x0 in range(0, w, 128):
+            chunk = row[x0:x0 + 128]
+            n = len(chunk)
+            if (chunk == chunk[0]).all():
+                out.append(bytes([0x80 | (n - 1)]) + chunk[0].tobytes())
+            else:
+                out.append(bytes([n - 1]) + chunk.tobytes())
+    return b"".join(out)
+
+
+def qoi_bytes(rgba: np.ndarray) -> bytes:
+    """QOI of (H, W, 4) u8 with the run, diff, luma, RGB and RGBA ops (no
+    index op, which a decoder never needs): each op depends only on the
+    pixel before, so NumPy writes it in one pass."""
+    import struct
+
+    h, w, _ = rgba.shape
+    px = rgba.reshape(-1, 4)
+    prev = np.concatenate([np.array([[0, 0, 0, 255]], np.uint8), px[:-1]])
+    same = (px == prev).all(1)
+    # runs: consecutive pixels equal to the one before, in chunks of 62
+    before = np.concatenate([[False], same[:-1]])
+    after = np.concatenate([same[1:], [False]])
+    run_start, run_end = np.flatnonzero(same & ~before), np.flatnonzero(same & ~after)
+    run_id = np.maximum(np.cumsum(same & ~before) - 1, 0)
+    k = np.where(same, np.arange(px.shape[0]) - run_start[run_id] if run_start.size else 0, 0)
+    head = same & (k % 62 == 0)
+    chunk = np.where(head, np.minimum(62, (run_end - run_start + 1)[run_id] - k)
+                     if run_start.size else 0, 0)
+    d = (px.astype(np.int16) - prev.astype(np.int16))
+    d = (d + 128) % 256 - 128  # wrapped differences
+    dr, dg, db, da = d[:, 0], d[:, 1], d[:, 2], d[:, 3]
+    diff = ~same & (da == 0) & (d[:, :3] >= -2).all(1) & (d[:, :3] <= 1).all(1)
+    luma = ~same & ~diff & (da == 0) & (dg >= -32) & (dg <= 31) & (dr - dg >= -8) & (
+        dr - dg <= 7) & (db - dg >= -8) & (db - dg <= 7)
+    rgb = ~same & ~diff & ~luma & (da == 0)
+    rgbaop = ~same & (da != 0)
+    n = np.where(head, 1, 0) + diff * 1 + luma * 2 + rgb * 4 + rgbaop * 5
+    off = np.cumsum(n) - n
+    out = np.zeros(int(n.sum()), np.uint8)
+    out[off[head]] = 0xC0 | (chunk[head] - 1)
+    out[off[diff]] = (0x40 | (dr[diff] + 2) << 4 | (dg[diff] + 2) << 2 | (db[diff] + 2)).astype(
+        np.uint8)
+    out[off[luma]] = (0x80 | (dg[luma] + 32)).astype(np.uint8)
+    out[off[luma] + 1] = ((dr[luma] - dg[luma] + 8) << 4 | (db[luma] - dg[luma] + 8)).astype(
+        np.uint8)
+    out[off[rgb]] = 0xFE
+    for c in range(3):
+        out[off[rgb] + 1 + c] = px[rgb, c]
+    out[off[rgbaop]] = 0xFF
+    for c in range(4):
+        out[off[rgbaop] + 1 + c] = px[rgbaop, c]
+    return (b"qoif" + struct.pack(">IIBB", w, h, 4, 0) + out.tobytes()
+            + b"\x00" * 7 + b"\x01")
+
+
+def ppm_bytes(rgb8: np.ndarray) -> bytes:
+    h, w, _ = rgb8.shape
+    return b"P6\n# chip_smoke\n%d %d\n255\n" % (w, h) + rgb8.tobytes()
+
+
+def gif_literal_bytes(idx: np.ndarray, palette: np.ndarray) -> bytes:
+    """A GIF89a of 8-bit indices, one frame over the screen, the global
+    table `palette`: LZW of 9-bit literal codes, a clear code before every
+    253 (the table never reaches 512 entries, so no code widens), an end
+    code last, packed LSB first into 255-byte sub-blocks."""
+    import struct
+
+    h, w = idx.shape
+    d = idx.reshape(-1)
+    per = 253
+    groups = -(-d.size // per)
+    codes = np.empty(d.size + groups + 1, np.uint16)
+    i = np.arange(d.size)
+    codes[i + i // per + 1] = d
+    codes[np.arange(groups) * (per + 1)] = 256
+    codes[-1] = 257
+    bits = ((codes[:, None] >> np.arange(9, dtype=np.uint16)) & 1).astype(np.uint8)
+    stream = np.packbits(bits.reshape(-1), bitorder="little").tobytes()
+    blocks = [bytes([len(stream[k:k + 255])]) + stream[k:k + 255]
+              for k in range(0, len(stream), 255)]
+    return (b"GIF89a" + struct.pack("<HHBBB", w, h, 0xF7, 0, 0) + palette.tobytes()
+            + b"," + struct.pack("<HHHHB", 0, 0, w, h, 0) + b"\x08" + b"".join(blocks)
+            + b"\x00;")
+
+
+def bc1_encode(rgb8: np.ndarray) -> tuple[bytes, np.ndarray]:
+    """BC1 blocks of (H, W, 3) u8 (H, W multiples of 4) from a naive
+    encoder: endpoints the block's per-channel max and min in 5:6:5, each
+    pixel's index its projection on the line between them, rounded to the
+    nearest of the four steps. Returns (blocks, the (H, W, 4) pixels those
+    blocks decode to, with the colours PIL's decoder derives)."""
+    h, w, _ = rgb8.shape
+    out_blocks = np.empty((h // 4, w // 4, 8), np.uint8)
+    dec = np.empty((h, w, 4), np.uint8)
+
+    def to565(c):
+        c = c.astype(np.uint16)
+        return (c[..., 0] >> 3) << 11 | (c[..., 1] >> 2) << 5 | c[..., 2] >> 3
+
+    def from565(v):
+        r = (v & 0xF800) >> 8
+        g = (v & 0x7E0) >> 3
+        b = (v & 0x1F) << 3
+        return np.stack([r | r >> 5, g | g >> 6, b | b >> 5], -1).astype(np.int32)
+
+    step_index = np.array([1, 3, 2, 0], np.uint32)  # t = 0, 1/3, 2/3, 1 from c1 to c0
+    for y0 in range(0, h // 4, 128):
+        y1 = min(h // 4, y0 + 128)
+        blk = rgb8[4 * y0:4 * y1].reshape(y1 - y0, 4, w // 4, 4, 3).transpose(0, 2, 1, 3, 4)
+        blk = blk.reshape(y1 - y0, w // 4, 16, 3)
+        c0, c1 = to565(blk.max(2)), to565(blk.min(2))
+        p0, p1 = from565(c0), from565(c1)
+        axis = (p0 - p1).astype(np.float32)
+        norm = np.maximum((axis * axis).sum(-1), 1.0)
+        t = ((blk.astype(np.float32) - p1[:, :, None]) * axis[:, :, None]).sum(-1) / norm[..., None]
+        sel = step_index[np.clip(np.rint(t * 3), 0, 3).astype(np.int64)]
+        sel[c0 == c1] = 0  # equal endpoints: the 3-colour mode, every pixel colour 0
+        lut = (sel << (2 * np.arange(16, dtype=np.uint32))).sum(-1, dtype=np.uint32)
+        b = out_blocks[y0:y1]
+        b[..., 0], b[..., 1] = c0 & 255, c0 >> 8
+        b[..., 2], b[..., 3] = c1 & 255, c1 >> 8
+        for k in range(4):
+            b[..., 4 + k] = (lut >> (8 * k)) & 255
+        pal = np.stack([p0, p1, (2 * p0 + p1) // 3, (p0 + 2 * p1) // 3], 2).astype(np.uint8)
+        colors = np.take_along_axis(pal, sel[..., None].astype(np.int64).repeat(3, -1), 2)
+        px = colors.reshape(y1 - y0, w // 4, 4, 4, 3).transpose(0, 2, 1, 3, 4)
+        dec[4 * y0:4 * y1, :, :3] = px.reshape(4 * (y1 - y0), w, 3)
+    dec[..., 3] = 255
+    return out_blocks.tobytes(), dec
+
+
+def dds_bc1_bytes(rgb8: np.ndarray) -> tuple[bytes, np.ndarray]:
+    """A DDS (DXT1 FourCC) of `bc1_encode`'s blocks, and their pixels."""
+    import struct
+
+    h, w, _ = rgb8.shape
+    blocks, dec = bc1_encode(rgb8)
+    hdr = bytearray(128)
+    hdr[:4] = b"DDS "
+    struct.pack_into("<IIIII", hdr, 4, 124, 0x81007, h, w, len(blocks))
+    struct.pack_into("<II", hdr, 76, 32, 0x4)
+    hdr[84:88] = b"DXT1"
+    struct.pack_into("<I", hdr, 108, 0x1000)
+    return bytes(hdr) + blocks, dec
+
+
+def vp8l_bytes(rgb8: np.ndarray) -> bytes:
+    """A lossless WebP from a minimal VP8L writer: no transform, no colour
+    cache, no meta codes; green, red and blue each a complete code of 256
+    8-bit lengths (sent through a two-symbol code-length code), alpha and
+    distance single-symbol codes; each pixel then 24 bits."""
+    import struct
+
+    h, w, _ = rgb8.shape
+    bits = []
+
+    def put(v, n):
+        bits.extend((v >> k) & 1 for k in range(n))
+
+    put(0x2F, 8)
+    put(w - 1, 14)
+    put(h - 1, 14)
+    put(0, 1)  # alpha hint
+    put(0, 3)  # version
+    put(0, 1)  # no transform
+    put(0, 1)  # no colour cache
+    put(0, 1)  # no meta prefix codes
+
+    def code_of_256(alphabet):
+        put(0, 1)  # normal code
+        put(12 - 4, 4)  # code-length code lengths for the first 12 of the order
+        order = (17, 18, 0, 1, 2, 3, 4, 5, 16, 6, 7, 8)
+        for sym in order:
+            put(1 if sym in (0, 8) else 0, 3)
+        put(0, 1)  # every symbol's length follows
+        # canonical: symbol 0 -> bit 0, symbol 8 -> bit 1
+        bits.extend([1] * 256 + [0] * (alphabet - 256))
+
+    def single(sym):
+        put(1, 1)  # simple code
+        put(0, 1)  # one symbol
+        put(1, 1)  # 8 bits
+        put(sym, 8)
+
+    code_of_256(256 + 24)  # green
+    code_of_256(256)  # red
+    code_of_256(256)  # blue
+    single(255)  # alpha
+    single(0)  # distance
+    head = np.packbits(np.array(bits, np.uint8), bitorder="little")
+    nb = len(bits)
+    # pixel codes: each 8-bit code's bits go out first bit (its MSB) first
+    rev = np.array([int(f"{v:08b}"[::-1], 2) for v in range(256)], np.uint8)
+    px = rev[rgb8[..., [1, 0, 2]]].reshape(-1)  # green, red, blue
+    s = nb % 8
+    if s:  # the pixel bytes start s bits into the header's last byte
+        p16 = px.astype(np.uint16)
+        body = ((p16 << s) | (np.concatenate([[0], p16[:-1]]) >> (8 - s))) & 255
+        body[0] |= head[-1]
+        payload = (head[:-1].tobytes() + body.astype(np.uint8).tobytes()
+                   + bytes([int(p16[-1]) >> (8 - s)]))
+    else:
+        payload = head.tobytes() + px.tobytes()
+    chunk = b"VP8L" + struct.pack("<I", len(payload)) + payload + b"\x00" * (len(payload) & 1)
+    return b"RIFF" + struct.pack("<I", 4 + len(chunk)) + b"WEBP" + chunk
+
+
+def write_ldr_formats(root: Path, h: int, w: int, seed: int) -> tuple[dict, dict]:
+    """Phase 21's eight files of (h, w) from `seed`, written by the port's
+    own writers above, and the RGB (RGBA for the QOI) samples each holds:
+    the photograph's u8 samples, their 3-3-2 palette indices for the RLE8
+    BMP and the GIF, a flat band on top for the TGA and the QOI (run
+    packets and run ops), the BC1 encoder's decoded pixels for the DDS."""
+    rgb8 = (ldr_rgb16(h, w, seed) >> 8).astype(np.uint8)
+    band = rgb8.copy()
+    band[:max(1, h // 50)] = (40, 90, 160)
+    rgba = np.concatenate([band, np.full((h, w, 1), 255, np.uint8)], -1)
+    rgba[h // 2:h // 2 + max(1, h // 50), :, 3] = 128
+    pal = palette332()
+    idx = index332(rgb8)
+    root.mkdir(parents=True, exist_ok=True)
+    paths = {name: root / name for name in LDR_FMT_FILES}
+    writers = {"rgb24.bmp": lambda: bmp24_bytes(rgb8), "rle8.bmp": lambda: bmp_rle8_bytes(idx, pal),
+               "rle24.tga": lambda: tga_rle24_bytes(band), "rgba.qoi": lambda: qoi_bytes(rgba),
+               "rgb.ppm": lambda: ppm_bytes(rgb8), "pal.gif": lambda: gif_literal_bytes(idx, pal),
+               "bc1.dds": lambda: dds_bc1_bytes(rgb8), "lossless.webp": lambda: vp8l_bytes(rgb8)}
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(writers)) as pool:  # NumPy lets go of the GIL
+        blobs = dict(zip(writers, pool.map(lambda fn: fn(), writers.values())))
+    dds, bc1 = blobs["bc1.dds"]
+    blobs["bc1.dds"] = dds
+    for name, blob in blobs.items():
+        paths[name].write_bytes(blob)
+    samples = {"rgb24.bmp": rgb8, "rle8.bmp": pal[idx], "rle24.tga": band, "rgba.qoi": rgba,
+               "rgb.ppm": rgb8, "pal.gif": pal[idx], "bc1.dds": bc1[..., :3],
+               "lossless.webp": rgb8}
+    return paths, samples
+
+
+def phase_ldr_formats(args, h, w, reps, card, dev, reset_counts, read_counts):
+    """Phase 21, the LDR formats (A.10c, first half; `[ldr-fmt]` lines):
+    LDR_FMT_FILES at h x w from --seed (`write_ldr_formats`: 24-bit and RLE8
+    BMP, RLE TGA, RGBA QOI, P6 PPM, literal-code GIF, BC1 DDS, lossless
+    WebP); each file's host decode through io/image_decode.py timed (median
+    of 3, ms and MPix/s) and held to the samples written; each file's
+    load_image on the card held to device="cpu" (max |d| 0); the committed
+    fixtures of tests/fixtures/ldr (PIL-made lossy WebP with and without
+    alpha, BC3 and BC7 DDS, a transparent GIF) decoded and held to the
+    SHA-256 of PIL's decode in each mode, the 1024 x 1536 lossy WebP's
+    decode timed; the blur and grade kernels against their plain versions
+    on the loaded WebP (is_raw False, CONFIG3_DOC, B = 1) at phase 15's
+    bounds; export_images over the eight files with CONFIG3_DOC sidecars
+    (`ldr_export_and_kernels`: counters reset and read around it, images/s,
+    STAGE_STATS seconds and the device memory peak, then the kernels on its
+    largest chunk, B = 4, the numbers reported), the outputs decoded.
+    Returns (the export's launches, {(kernel, "ldr_formats"): numbers})."""
+    import hashlib
+    import tempfile
+
+    from rapidraw_tpu_torch import load_image
+    from rapidraw_tpu_torch.io import jpeg
+    from rapidraw_tpu_torch.io.image_decode import decode_image
+
+    mpix = h * w / 1e6
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ldr_fmt_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        paths, samples = write_ldr_formats(tmp / "src", h, w, args.seed + 21)
+        log(f"[ldr-fmt] wrote {', '.join(f'{n} {p.stat().st_size / 2**20:.1f} MiB' for n, p in paths.items())} "
+            f"({h}x{w}) in {time.perf_counter() - t0:.1f} s")
+
+        # host decodes, timed and held to the samples written
+        for name, p in paths.items():
+            data = p.read_bytes()
+            want = samples[name]
+            mode = "RGBA" if want.shape[-1] == 4 else "RGB"
+            dts = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                got = decode_image(data, mode)
+                dts.append(time.perf_counter() - t0)
+            med = statistics.median(dts)
+            same = got.shape == want.shape and bool(np.array_equal(got, want))
+            log(f"[ldr-fmt] {name}: host decode {med * 1e3:.1f} ms (median of 3, "
+                f"{min(dts) * 1e3:.1f}-{max(dts) * 1e3:.1f}) = {mpix / med:.1f} MPix/s, "
+                f"{mode} {'equal to' if same else 'DIFFERENT from'} the samples written [{card}]")
+            if not same:
+                raise AssertionError(f"{name}: the decode differs from the samples written")
+            del got
+        del samples
+
+        # each file on the card against the plain CPU path
+        webp = None
+        for name, p in paths.items():
+            t0 = time.perf_counter()
+            got, is_raw = load_image(p, device=dev)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            want, _ = load_image(p, device="cpu")
+            d = float((got.cpu() - want).abs().max())
+            log(f"[ldr-fmt] {name}: load_image on the card {dt * 1e3:.1f} ms, shape "
+                f"{tuple(got.shape)}, max|d| vs device='cpu' {d:g} [{card}]")
+            if (is_raw or d != 0.0 or got.device.type != "cuda" or got.dtype != torch.float32
+                    or tuple(got.shape) != (3, h, w)):
+                raise AssertionError(f"{name}: the card's load differs from the CPU's ({d})")
+            if name == "lossless.webp":
+                webp = got
+            del got, want
+
+        # the committed fixtures against the digests of PIL's decodes
+        digests = json.loads((LDR_FIXTURES / "digests.json").read_text())
+        for name, want in sorted(digests.items()):
+            data = (LDR_FIXTURES / name).read_bytes()
+            for mode in ("RGB", "RGBA", "L"):
+                px = decode_image(data, mode)
+                got = hashlib.sha256(np.ascontiguousarray(px).tobytes()).hexdigest()
+                if got != want[mode] or [px.shape[1], px.shape[0]] != want["size"]:
+                    raise AssertionError(f"fixture {name} {mode}: sha256 {got} != PIL's "
+                                         f"{want[mode]}")
+            line = f"[ldr-fmt] fixture {name} ({len(data)} bytes, {want['size'][0]}x{want['size'][1]})"
+            if name == "lossy.webp":
+                dts = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    decode_image(data, "RGB")
+                    dts.append(time.perf_counter() - t0)
+                mp = want["size"][0] * want["size"][1] / 1e6
+                med = statistics.median(dts)
+                line += (f": decode {med * 1e3:.1f} ms (median of 3) = {mp / med:.1f} MPix/s "
+                         f"[{card}]")
+            log(line + "; RGB, RGBA and L equal to PIL's digests")
+        log("[ldr-fmt] no 24 MP lossy WebP is committed (about 2 MiB); the lossy decode "
+            "is timed on the 1024x1536 fixture")
+
+        # the blur and grade kernels on the loaded WebP against their plain versions
+        loaded_kernels_vs_plain("[ldr-fmt]", "the WebP's image", webp, reps, card, dev)
+        del webp
+
+        # export: the eight files with CONFIG3_DOC sidecars, JPEG q90; the
+        # kernels on its largest chunk
+        res, launches, report = ldr_export_and_kernels("[ldr-fmt]", "ldr_formats",
+                                                       [str(q) for q in paths.values()],
+                                                       tmp / "out", reps, card, dev,
+                                                       reset_counts, read_counts)
+        for r in res:
+            out = jpeg.decode_jpeg(Path(r.output).read_bytes())
+            if out.shape != (h, w, 3):
+                raise RuntimeError(f"{r.output}: decoded shape {out.shape}")
+        log(f"[ldr-fmt] outputs: {len(res)} JPEGs decoded, each {h}x{w}")
+    return launches, report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true", help="1024x1536, fewer repetitions")
@@ -4958,7 +5466,7 @@ def main() -> int:
 
     # the host decoders and the export's JPEG encoder
     hosts = ("ljpeg", "vendor_huff", "pana_oly", "crx", "phase_one", "jpeg_enc", "jpeg_dec",
-             "tiff_codec", "guides")
+             "tiff_codec", "guides", "webp_dec", "bcn_dec", "ldr_dec")
     with ThreadPoolExecutor(len(libs) + len(hosts)) as pool:
         host = {name: pool.submit(build_host, name) for name in hosts}
         list(pool.map(lambda kl: kl.lib(), libs.values()))
@@ -5621,6 +6129,13 @@ def main() -> int:
     finally:
         shutil.rmtree(files_dir, ignore_errors=True)
 
+    # ---- 21. the LDR formats: WebP, GIF, BMP, TGA, ICO, DDS, QOI, PNM ----------
+    fh, fw = (1024, 1536) if args.quick else LDR_FMT_HW
+    launches21, fmt_report = phase_ldr_formats(args, fh, fw, reps, card, dev, reset_counts,
+                                               read_counts)
+    report.update(fmt_report)
+    phase_done("LDR formats")
+
     sources = {  # name -> (source, the TPU kernel it replaces, the path that runs it)
         "blur": ("rapidraw_tpu_torch/csrc/blur.cu", "rapidraw_tpu/ops/blur.py:242", "config5"),
         "grade": ("rapidraw_tpu_torch/csrc/grade.cu", "rapidraw_tpu/pipeline/fused.py:298",
@@ -5647,7 +6162,8 @@ def main() -> int:
     counts = {"config3": launches3, "config5": launches5, "probes": launches_probes,
               "config4": launches4, **launches2, **launches12, **launches13,
               "export": launches14, "ldr_export": launches15, "preview": launches16,
-              **launches17, **launches18, **launches19, **launches20}
+              **launches17, **launches18, **launches19, **launches20,
+              "ldr_formats": launches21}
     library = {"nr_dynamic": "nr"}  # the kernels that share a source with another
     # a kernel that shares its source: its own entry's registers and spills
     entry = {"nr": "nr_kernel", "nr_dynamic": "nr_dynamic_kernel"}

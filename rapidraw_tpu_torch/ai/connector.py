@@ -80,12 +80,12 @@ def _host(a) -> np.ndarray:
 
 
 def _decode_rgba(data: bytes) -> np.ndarray:
-    """(H, W, 4) u8 of the reply's PNG, as PIL's convert("RGBA")."""
-    from rapidraw_tpu_torch.io.encode import decode_png_rgba
+    """(H, W, 4) u8 of the reply's image, in any format the port decodes,
+    as PIL's convert("RGBA") (io/image_decode.py); bytes it cannot decode
+    raise what PIL raises."""
+    from rapidraw_tpu_torch.io.image_decode import decode_image
 
-    if not data.startswith(b"\x89PNG\r\n\x1a\n"):
-        raise RuntimeError("AI generation failed: the reply's image is not a PNG")
-    return decode_png_rgba(data)
+    return decode_image(data, mode="RGBA")
 
 
 def _post_json(url: str, payload: dict, token: str | None, timeout: float):

@@ -221,9 +221,9 @@ def index_folder_tags(
 
     `progress(current, total)` mirrors the indexing-progress event;
     `cancel` is an optional CancellationToken. Returns images processed.
-    A missing checkpoint stops the walk (ModelUnavailable); any other
-    error skips its image, as in the reference, so a format the port's
-    loader defers (io/loader.DEFERRED_EXTENSIONS, slice A.10c) is skipped.
+    A missing checkpoint (ModelUnavailable) or a kernel or decoder that
+    does not build (KernelBuildError) stops the walk; any other error
+    skips its image, as in the reference.
     `stages` takes the marks "load", "downscale", "model", "preprocess",
     "towers" and "sidecars" per image.
     """
@@ -231,6 +231,7 @@ def index_folder_tags(
     from rapidraw_tpu_torch.geometry.resize import downscale_to_long_edge
     from rapidraw_tpu_torch.io.loader import load_image
     from rapidraw_tpu_torch.library.catalog import add_tags, get_tags, list_images
+    from rapidraw_tpu_torch.native import KernelBuildError
 
     paths = list_images(folder)
     done = 0
@@ -258,9 +259,9 @@ def index_folder_tags(
                 add_tags(p, tags)
                 mark_stage(stages, "sidecars")
                 done += 1
-            except ModelUnavailable:
-                # a missing checkpoint is a configuration error for the
-                # WHOLE walk, not a per-image decode failure — surface it
+            except (ModelUnavailable, KernelBuildError):
+                # a missing checkpoint or build is a configuration error for
+                # the WHOLE walk, not a per-image decode failure — surface it
                 raise
             except Exception:
                 pass  # per-image isolation, like the reference's logged skip

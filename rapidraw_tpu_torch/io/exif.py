@@ -567,7 +567,8 @@ _XMP_JPEG = b"http://ns.adobe.com/xap/1.0/\x00"
 
 def _xmp(buf) -> bytes | None:
     """The XMP packet PIL keeps in `info`: a JPEG's APP1 XMP segment, a
-    PNG's "XML:com.adobe.xmp" iTXt chunk, a TIFF's tag 700."""
+    PNG's "XML:com.adobe.xmp" iTXt chunk, a TIFF's tag 700, a WebP's
+    "XMP " chunk."""
     head = bytes(buf[:8])
     if head[:3] == b"\xff\xd8\xff":
         pos = 2
@@ -595,12 +596,19 @@ def _xmp(buf) -> bytes | None:
         found = tiff_first_ifd(buf)
         value = found[1].get(700) if found else None
         return value if isinstance(value, bytes) else None
+    elif head[:4] == b"RIFF" and bytes(buf[8:12]) == b"WEBP":
+        pos = 12
+        while pos + 8 <= len(buf):
+            (ln,) = struct.unpack_from("<I", buf, pos + 4)
+            if bytes(buf[pos:pos + 4]) == b"XMP ":
+                return bytes(buf[pos + 8:pos + 8 + ln])
+            pos += 8 + ln + (ln & 1)
     return None
 
 
 def image_orientation(buf) -> int:
-    """PIL's `Image.open(f).getexif().get(0x0112, 1) or 1` for a JPEG, PNG
-    or TIFF file's bytes: IFD0's Orientation, else the XMP packet's
+    """PIL's `Image.open(f).getexif().get(0x0112, 1) or 1` for a JPEG, PNG,
+    TIFF or WebP file's bytes: IFD0's Orientation, else the XMP packet's
     tiff:Orientation (as PIL's getexif falls back to it), else 1; 1 where
     PIL would not open the file or its EXIF does not parse."""
     try:

@@ -7,7 +7,7 @@ library builds with g++ at first use (`native.host_library`); a failed
 build raises, and nothing stands in for it. The calls release the GIL, so
 the export's prepare threads decode at once.
 
-Refused with NotImplementedError (ROADMAP A.10c): arithmetic coding,
+Refused with NotImplementedError (ROADMAP A.10d): arithmetic coding,
 12-bit samples, lossless JPEG and CMYK / YCCK. A truncated file raises
 OSError, as PIL does ("image file is truncated"); so does corrupt
 entropy-coded data, which libjpeg decodes with a warning.
@@ -44,7 +44,7 @@ def _raise(lib, rc: int):
     msg = lib.jpeg_dec_error().decode(errors="replace")
     if rc == _UNSUPPORTED:
         raise NotImplementedError(
-            f"rapidraw_tpu_torch does not decode {msg} yet (ROADMAP A.10c)")
+            f"rapidraw_tpu_torch does not decode {msg} yet (ROADMAP A.10d)")
     if rc in (_TRUNCATED, _CORRUPT):
         raise OSError(msg)
     raise ValueError(f"jpeg decode failed (code {rc})")

@@ -5,10 +5,11 @@ Port of `rapidraw_tpu/io/loader.py` (image_loader.rs:62-150): the RAW
 branch (container decode on the host, the develop and the RAW enhance
 pass on the device), the LDR branch and EXIF orientation. The JAX package
 decodes LDR files through PIL and cv2; the port has decoders of its own
-(io/jpeg.py, io/tiff.py, io/encode.py's PNG views, io/float_images.py,
-io/jxl.py) that give the same samples, and uploads them as u8 or u16 to be
-scaled on the device. WebP, GIF, BMP, TGA, ICO, DDS, QOI and the PNM family
-(PAM aside) raise NotImplementedError naming ROADMAP A.10c.
+(io/image_decode.py's dispatcher over io/jpeg.py, io/tiff.py, io/encode.py's
+PNG views, io/webp.py, io/gif.py, io/bmp.py, io/tga.py, io/ico.py,
+io/dds.py, io/qoi.py and io/pnm.py; io/float_images.py; io/jxl.py) that
+give the same samples, and uploads them as u8 or u16 to be scaled on the
+device.
 
 Virtual-copy paths ("photo.jpg?vc=2") share the source file
 (file_management.rs:165-196).
@@ -64,16 +65,7 @@ def _apply_exif_orientation(arr: np.ndarray, orientation: int) -> np.ndarray:
     return arr
 
 
-# formats the JAX package opens through PIL that the port does not decode yet
-DEFERRED_EXTENSIONS = {"webp", "gif", "bmp", "tga", "ico", "dds", "qoi", "pnm", "pbm", "pgm",
-                       "ppm"}
 FLOAT_EXTENSIONS = {"hdr", "exr", "ff", "pam"}
-_DEFERRED_MAGIC = (b"GIF8", b"BM", b"RIFF", b"qoif", b"DDS ", b"\x00\x00\x01\x00")
-
-
-def _deferred(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"rapidraw_tpu_torch does not decode {what} yet (ROADMAP A.10c)")
 
 
 def upload_scaled(hwc: np.ndarray, scale: float, device) -> torch.Tensor:
@@ -112,27 +104,13 @@ def _load_deep_u16(data: bytes, ext: str) -> np.ndarray | None:
     return decode_png_u16(data)
 
 
-def decode_rgb8(data: bytes, ext: str = "") -> np.ndarray:
-    """(H, W, 3) u8 of a JPEG, PNG or TIFF, as PIL's
+def decode_rgb8(data: bytes) -> np.ndarray:
+    """(H, W, 3) u8 of any LDR file the port decodes, as PIL's
     `Image.open(...).convert("RGB")` gives it; the format is sniffed from
     the bytes, as PIL sniffs it."""
-    head = bytes(data[:12])
-    if head[:3] == b"\xff\xd8\xff":
-        from rapidraw_tpu_torch.io.jpeg import decode_jpeg_rgb
+    from rapidraw_tpu_torch.io.image_decode import decode_image
 
-        return decode_jpeg_rgb(data)
-    if head[:8] == b"\x89PNG\r\n\x1a\n":
-        from rapidraw_tpu_torch.io.encode import decode_png_rgb
-
-        return decode_png_rgb(data)
-    if head[:4] in (b"MM\x00\x2a", b"II\x2a\x00"):
-        from rapidraw_tpu_torch.io.tiff import decode_tiff_rgb
-
-        return decode_tiff_rgb(data)
-    pnm = head[:1] == b"P" and head[1:2] in (b"1", b"2", b"3", b"4", b"5", b"6")
-    if ext in DEFERRED_EXTENSIONS or head.startswith(_DEFERRED_MAGIC) or pnm:
-        raise _deferred(f"{ext or 'this'} images")
-    raise OSError("cannot identify image file")
+    return decode_image(data, "RGB")
 
 
 def load_ldr(path: str | Path, device=None) -> torch.Tensor:
@@ -140,7 +118,8 @@ def load_ldr(path: str | Path, device=None) -> torch.Tensor:
     `device` (the CUDA device unless the caller asks for another), as JAX
     `load_ldr` (loader.py:61-107): the float images clamped to [0, 1],
     JPEG XL through libjxl, 16-bit PNG and TIFF at full depth, every other
-    file through the 8-bit decoders; EXIF orientation applied on the host."""
+    file through io/image_decode.py, as PIL's `convert("RGB")` gives it;
+    EXIF orientation, as PIL's `getexif()` finds it, applied on the host."""
     from rapidraw_tpu_torch.io.exif import image_orientation
 
     device = device if device is not None else "cuda"
@@ -155,14 +134,15 @@ def load_ldr(path: str | Path, device=None) -> torch.Tensor:
         from rapidraw_tpu_torch.io.jxl import decode_jxl
 
         return upload_scaled(decode_jxl(data)[..., :3], 255.0, device)
-    if ext in DEFERRED_EXTENSIONS:
-        raise _deferred(f"{ext} images")
     if ext in ("png", "tif", "tiff"):
         deep = _load_deep_u16(data, ext)
         if deep is not None:
             arr16 = _apply_exif_orientation(deep, image_orientation(data))
             return upload_scaled(arr16, 65535.0, device)
-    arr = _apply_exif_orientation(decode_rgb8(data, ext), image_orientation(data))
+    from rapidraw_tpu_torch.io.image_decode import open_image
+
+    frame = open_image(data)
+    arr = _apply_exif_orientation(frame.convert("RGB"), frame.orientation)
     return upload_scaled(arr, 255.0, device)
 
 

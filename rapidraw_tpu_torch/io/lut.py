@@ -4,9 +4,9 @@ A copy of `rapidraw_tpu/io/lut.py` (lut_processing.rs:22-187, identity and
 export helpers :285-328), with its two documented .3dl divergences.
 Returned arrays are (L, L, L, 3) float32 indexed [r, g, b], the layout
 `ops/lut3d.py` and the grade kernel sample (.cube's fastest axis, red, is
-the texture x axis). A HALD image (PNG, JPEG or TIFF) is read by the
-port's decoders as PIL's convert("RGB") reads it, at 8 bits
-(io/loader.decode_rgb8).
+the texture x axis). A HALD image (a .png, .jpg, .jpeg or .tiff file, in
+whatever format its bytes hold) is read by the port's decoders as PIL's
+convert("RGB") reads it, at 8 bits (io/loader.decode_rgb8).
 """
 
 from __future__ import annotations
@@ -124,7 +124,7 @@ def parse_lut_file(path: str | Path) -> np.ndarray:
     if ext in ("png", "jpg", "jpeg", "tiff"):
         from rapidraw_tpu_torch.io.loader import decode_rgb8
 
-        return parse_hald(decode_rgb8(path.read_bytes(), ext))
+        return parse_hald(decode_rgb8(path.read_bytes()))
     raise LutError(f"Unsupported LUT file format: {ext}")
 
 

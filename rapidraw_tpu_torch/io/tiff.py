@@ -18,7 +18,7 @@ The first directory is read by io/exif.py's `tiff_first_ifd`, which
 refuses a file whose first frame PIL would not open. Layouts PIL opens but
 this reader does not decode (CCITT, JPEG-in-TIFF, CMYK, YCbCr, Lab, float
 samples, FillOrder 2, old-style LZW) raise NotImplementedError naming
-ROADMAP A.10c.
+ROADMAP A.10d.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ _CODECS = {NONE, LZW, DEFLATE, ADOBE_DEFLATE, PACKBITS}
 
 
 def _deferred(what: str) -> NotImplementedError:
-    return NotImplementedError(f"rapidraw_tpu_torch does not decode {what} yet (ROADMAP A.10c)")
+    return NotImplementedError(f"rapidraw_tpu_torch does not decode {what} yet (ROADMAP A.10d)")
 
 
 def _codec():

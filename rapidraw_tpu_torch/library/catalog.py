@@ -3,9 +3,8 @@
 Copy of `rapidraw_tpu/library/catalog.py` (host Python), except the
 dimension query of LDR files: JAX reads their size through PIL's header
 parse, which the card's machine does not have; here `ldr_dimensions`
-reads each format's own header (JPEG through io/jpeg.jpeg_info, TIFF
-through io/tiff.Frame, the fixed headers of PNG, GIF, BMP, WebP, QOI, TGA
-and the PNM family) and refuses the rest, naming slice A.10c.
+reads each format's own header through io/image_decode.image_size and
+raises OSError for the rest, as PIL does.
 
 Port of file_management.rs's library core: folder tree with lazy child scan
 (:806-998), image listing (flat + recursive), file ops that keep sidecars
@@ -18,7 +17,6 @@ from __future__ import annotations
 
 import json
 import shutil
-import struct
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -26,8 +24,8 @@ from rapidraw_tpu_torch.io.loader import RAW_EXTENSIONS, parse_virtual_path
 from rapidraw_tpu_torch.io.sidecar import SIDECAR_EXT, load_sidecar, save_sidecar, sidecar_path
 
 # the reference's NON_RAW_EXTENSIONS, formats.rs:73-79 (io/loader.py
-# decodes JPEG, PNG, TIFF, hdr/exr/ff/pam and jxl; the rest waits for
-# slice A.10c, io/loader.DEFERRED_EXTENSIONS)
+# decodes every one: hdr/exr/ff/pam through io/float_images.py, jxl
+# through io/jxl.py, the rest through io/image_decode.py)
 LDR_EXTENSIONS = {
     "jpg", "jpeg", "png", "gif", "bmp", "tiff", "tif", "webp", "jxl",
     "exr", "hdr", "tga", "ico", "dds", "qoi", "ff",
@@ -355,87 +353,18 @@ def get_supported_file_types() -> dict:
     }
 
 
-def _pnm_dimensions(data: bytes) -> tuple[int, int]:
-    """P1-P6: the magic, then width and height as ASCII integers between
-    whitespace and '#' comments."""
-    fields, pos = [], 2
-    while len(fields) < 2:
-        while pos < len(data) and data[pos:pos + 1].isspace():
-            pos += 1
-        if data[pos:pos + 1] == b"#":
-            while pos < len(data) and data[pos:pos + 1] not in (b"\n", b"\r"):
-                pos += 1
-            continue
-        start = pos
-        while pos < len(data) and data[pos:pos + 1].isdigit():
-            pos += 1
-        if pos == start:
-            raise ValueError("malformed PNM header")
-        fields.append(int(data[start:pos]))
-    return fields[0], fields[1]
-
-
-def _webp_dimensions(data: bytes) -> tuple[int, int]:
-    """The canvas of a VP8X file, else the frame of its VP8 / VP8L chunk."""
-    kind = data[12:16]
-    if kind == b"VP8X":
-        return 1 + int.from_bytes(data[24:27], "little"), 1 + int.from_bytes(data[27:30], "little")
-    if kind == b"VP8L" and data[20:21] == b"\x2f":
-        bits = int.from_bytes(data[21:25], "little")
-        return 1 + (bits & 0x3FFF), 1 + ((bits >> 14) & 0x3FFF)
-    if kind == b"VP8 " and data[23:26] == b"\x9d\x01\x2a":
-        w, h = struct.unpack_from("<HH", data, 26)
-        return w & 0x3FFF, h & 0x3FFF
-    raise ValueError("malformed WebP header")
-
-
 def ldr_dimensions(path: str | Path) -> tuple[int, int]:
     """(width, height) of an LDR file from its header, as PIL's
-    `Image.open(path).size` gives it: the format is sniffed by its magic
-    (TGA, which has none, by its extension). A format whose header the port
-    does not read raises NotImplementedError naming slice A.10c."""
+    `Image.open(path).size` gives it, the format sniffed as PIL sniffs it
+    (io/image_decode.image_size). Bytes PIL does not identify (HDR, EXR,
+    farbfeld, PAM, JPEG XL) raise OSError, as PIL's UnidentifiedImageError
+    does."""
+    from rapidraw_tpu_torch.io.image_decode import image_size
+
     p = Path(path)
     with open(p, "rb") as f:
-        data = f.read(64 * 1024)
-    if data[:3] == b"\xff\xd8\xff":
-        from rapidraw_tpu_torch.io.jpeg import jpeg_info
-
-        with open(p, "rb") as f:  # the SOF may follow large APP segments
-            w, h, _ = jpeg_info(f.read())
-        return w, h
-    if data[:8] == b"\x89PNG\r\n\x1a\n":
-        return struct.unpack_from(">II", data, 16)
-    if data[:4] in (b"II*\x00", b"MM\x00*"):
-        from rapidraw_tpu_torch.io.tiff import Frame
-
-        with open(p, "rb") as f:
-            fr = Frame(f.read())
-        return fr.width, fr.height
-    if data[:6] in (b"GIF87a", b"GIF89a"):
-        return struct.unpack_from("<HH", data, 6)
-    if data[:2] == b"BM":
-        (size,) = struct.unpack_from("<I", data, 14)
-        if size == 12:
-            return struct.unpack_from("<HH", data, 18)
-        if size in (40, 52, 56, 64, 108, 124):
-            w, h = struct.unpack_from("<ii", data, 18)
-            # PIL: a top-down bitmap (negative height) reads as 2^32 - h
-            return w, h if data[25] != 0xFF else 2**32 - (h & 0xFFFFFFFF)
-        raise ValueError(f"unsupported BMP header size {size}")
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return _webp_dimensions(data)
-    if data[:4] == b"qoif":
-        return struct.unpack_from(">II", data, 4)
-    if data[:1] == b"P" and data[1:2] in b"123456" and len(data) > 2 and data[2:3].isspace():
-        return _pnm_dimensions(data)
-    if p.suffix.lower() == ".tga" and len(data) >= 18:
-        w, h = struct.unpack_from("<HH", data, 12)
-        if data[1] in (0, 1) and w > 0 and h > 0 and data[16] in (1, 8, 16, 24, 32):
-            return w, h
-        raise ValueError("not a TGA file")
-    raise NotImplementedError(
-        f"{p.name}: reading this format's dimensions waits for slice A.10c "
-        "(JPEG, PNG, TIFF, GIF, BMP, WebP, QOI, TGA and PNM headers are read)")
+        head = f.read(64 * 1024)
+    return image_size(head, p.read_bytes)
 
 
 def get_image_dimensions(path: str | Path) -> tuple[int, int]:

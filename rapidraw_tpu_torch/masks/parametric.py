@@ -176,17 +176,18 @@ def generate_luminance_range(params, width, height, scale, crop_offset, warped_u
 
 
 def _decode_data_url_gray(data_url: str) -> np.ndarray | None:
-    """A PNG or JPEG data URL -> (H, W) u8, as PIL's convert("L") gives it
-    (io/encode.decode_png_gray, io/jpeg.decode_jpeg_gray); None for data
-    the port cannot decode, where the JAX package's PIL fails or returns
-    None."""
-    from rapidraw_tpu_torch.io.encode import decode_png_gray
-    from rapidraw_tpu_torch.io.jpeg import decode_jpeg_gray
+    """A data URL of any image the port decodes -> (H, W) u8, as PIL's
+    convert("L") gives it (io/image_decode.py); None for data that does
+    not decode, where the JAX package's PIL fails. A decoder that does not
+    build raises."""
+    from rapidraw_tpu_torch.io.image_decode import decode_image
+    from rapidraw_tpu_torch.native import KernelBuildError
 
     b64 = data_url.split(",", 1)[1] if "," in data_url else data_url
     try:
-        raw = base64.b64decode(b64)
-        return decode_jpeg_gray(raw) if raw[:3] == b"\xff\xd8\xff" else decode_png_gray(raw)
+        return decode_image(base64.b64decode(b64), mode="L")
+    except KernelBuildError:
+        raise
     except Exception:
         return None
 

@@ -10,12 +10,10 @@ and re-hydrates from a cache (adjustment_utils.rs:47-91) — the hydration
 cache here is the caller's concern.
 
 JAX decodes the data URLs with PIL; the port decodes them with its own
-decoders, which give PIL's pixels: PNG through `io/encode.decode_png_rgb`
-/ `decode_png_gray`, baseline and progressive JPEG through
-`io/jpeg.decode_jpeg_rgb` / `decode_jpeg_gray` (PIL's convert("L") of a
-colour JPEG is `rgb_to_l`). Any other format, or a file those decoders
-refuse, gives None and skips the patch (PIL may decode some of them:
-ROADMAP queue C). Resizes are PIL's 8-bit LANCZOS
+dispatcher (io/image_decode.py), which gives PIL's pixels for every format
+PIL opens that the port decodes; data that does not decode gives None and
+skips the patch, as in JAX (a decoder that does not build raises
+KernelBuildError instead). Resizes are PIL's 8-bit LANCZOS
 (`geometry/resize.lanczos_resize_u8`). The blend runs on the image's
 device, one operation at a time, as NumPy evaluates JAX's.
 """
@@ -27,25 +25,20 @@ import base64
 import numpy as np
 import torch
 
-_PNG = b"\x89PNG\r\n\x1a\n"
-
-
 def _decode_image(b64: str, mode: str) -> np.ndarray | None:
-    """(H, W) u8 for mode "L", (H, W, 3) u8 for "RGB"; None where the data
-    does not decode."""
-    from rapidraw_tpu_torch.io.encode import decode_png_gray, decode_png_rgb
-    from rapidraw_tpu_torch.io.jpeg import decode_jpeg_gray, decode_jpeg_rgb
+    """(H, W) u8 for mode "L", (H, W, 3) u8 for "RGB" of any image the
+    port decodes (io/image_decode.py); None where the data does not decode,
+    as the JAX package's PIL fails. A decoder that does not build raises."""
+    from rapidraw_tpu_torch.io.image_decode import decode_image
+    from rapidraw_tpu_torch.native import KernelBuildError
 
     data = b64.split(",", 1)[1] if "," in b64 else b64
     try:
-        raw = base64.b64decode(data)
-        if raw.startswith(_PNG):
-            return decode_png_gray(raw) if mode == "L" else decode_png_rgb(raw)
-        if raw.startswith(b"\xff\xd8"):
-            return decode_jpeg_gray(raw) if mode == "L" else decode_jpeg_rgb(raw)
+        return decode_image(base64.b64decode(data), mode=mode)
+    except KernelBuildError:
+        raise
     except Exception:  # noqa: BLE001 - an undecodable patch is skipped, as in JAX
         return None
-    return None
 
 
 def _resize(arr: np.ndarray, w: int, h: int) -> np.ndarray:

@@ -483,6 +483,7 @@ class RenderService:
         if not (cfg.has_lut and isinstance(adjustments.get("lutPath"), str)):
             return None
         from rapidraw_tpu_torch.io import lut as lutmod
+        from rapidraw_tpu_torch.native import KernelBuildError
 
         path = adjustments["lutPath"]
         try:
@@ -498,6 +499,8 @@ class RenderService:
             return hit
         try:
             cube = np.asarray(lutmod.parse_lut_file(path), np.float32)
+        except KernelBuildError:  # a HALD image's decoder that does not build
+            raise
         except Exception:  # noqa: BLE001 - an unreadable LUT is skipped, as in JAX
             return None
         lut = torch.from_numpy(np.ascontiguousarray(cube)).to(self.device)

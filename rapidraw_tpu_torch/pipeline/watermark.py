@@ -37,27 +37,11 @@ class WatermarkSettings:
 
 
 def decode_rgba(data: bytes) -> np.ndarray:
-    """(H, W, 4) u8 of a PNG, JPEG or TIFF, as PIL's convert("RGBA") gives
-    it."""
-    head = bytes(data[:8])
-    if head == b"\x89PNG\r\n\x1a\n":
-        from rapidraw_tpu_torch.io.encode import decode_png_rgba
+    """(H, W, 4) u8 of any image the port decodes, as PIL's
+    convert("RGBA") gives it (io/image_decode.py)."""
+    from rapidraw_tpu_torch.io.image_decode import decode_image
 
-        return decode_png_rgba(data)
-    if head[:4] in (b"MM\x00\x2a", b"II\x2a\x00"):
-        from rapidraw_tpu_torch.io.tiff import decode_tiff
-
-        px, mode = decode_tiff(data)
-        if mode == "RGBA":
-            return px
-        if mode == "LA":
-            return np.concatenate([np.repeat(px[..., :1], 3, axis=2), px[..., 1:]], axis=-1)
-        rgb = np.repeat(px[..., None], 3, axis=2) if mode == "L" else px
-    else:
-        from rapidraw_tpu_torch.io.loader import decode_rgb8
-
-        rgb = decode_rgb8(data)
-    return np.concatenate([rgb, np.full(rgb.shape[:2] + (1,), 255, np.uint8)], axis=-1)
+    return decode_image(data, mode="RGBA")
 
 
 def apply_watermark(planar: np.ndarray, settings: WatermarkSettings) -> np.ndarray:
@@ -153,9 +137,12 @@ def export_adjustments_as_lut(adjustments: dict, lut_size: int = 33, device=None
     lut = None
     if cfg.has_lut and isinstance(adj.get("lutPath"), str):
         from rapidraw_tpu_torch.io.lut import parse_lut_file
+        from rapidraw_tpu_torch.native import KernelBuildError
 
         try:
             lut = parse_lut_file(adj["lutPath"])
+        except KernelBuildError:  # a HALD image's decoder that does not build
+            raise
         except Exception:
             cfg = dataclasses.replace(cfg, has_lut=False)
     out = develop(planar, params, cfg, lut=lut).cpu().numpy()

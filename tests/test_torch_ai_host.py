@@ -82,6 +82,7 @@ class _Middleware(BaseHTTPRequestHandler):
     until the source is uploaded); it keeps what each client sent."""
 
     sources: set = set()
+    reply = ("PNG", {})  # the inpainted crop's format and save options
     received: list = []
 
     def log_message(self, *a):
@@ -118,7 +119,8 @@ class _Middleware(BaseHTTPRequestHandler):
         rgba[..., 1] = np.arange(12) * 20
         rgba[..., 3] = np.arange(10)[:, None] * 25
         buf = io.BytesIO()
-        Image.fromarray(rgba, "RGBA").save(buf, format="PNG")
+        fmt, kw = _Middleware.reply
+        Image.fromarray(rgba, "RGBA").save(buf, format=fmt, **kw)
         resp = {"x": -3, "y": 20, "color": base64.b64encode(buf.getvalue()).decode()}
         self.send_response(200)
         self.send_header("Content-Type", "application/json")
@@ -132,6 +134,7 @@ def middleware():
     threading.Thread(target=srv.serve_forever, daemon=True).start()
     _Middleware.sources = set()
     _Middleware.received = []
+    _Middleware.reply = ("PNG", {})
     yield f"127.0.0.1:{srv.server_port}"
     srv.shutdown()
     srv.server_close()
@@ -161,6 +164,24 @@ def test_connector_matches_jax(middleware, tmp_path):
     assert np.array_equal(decode(port_sent[1][1]), decode(jax_sent[1][1]))
     with pytest.raises(RuntimeError, match="AI generation failed"):
         connector.process_inpainting(f"http://{middleware}", str(src), img, mask, "fail")
+
+
+@pytest.mark.parametrize("fmt,kw", [("WEBP", {"lossless": True}), ("WEBP", {"quality": 70}),
+                                    ("GIF", {}), ("BMP", {}), ("TGA", {})],
+                         ids=["webp-lossless", "webp-lossy", "gif", "bmp", "tga"])
+def test_connector_reply_formats_match_jax(middleware, tmp_path, fmt, kw):
+    """A reply image in another format PIL opens: the port composites it
+    as JAX does (io/image_decode.py)."""
+    src = tmp_path / "s.jpg"
+    src.write_bytes(b"x")
+    img = np.random.default_rng(5).random((3, 24, 32)).astype(np.float32)
+    mask = blobs(24, 32, seed=5)
+    _Middleware.reply = (fmt, kw)
+    want = jconn.process_inpainting(f"http://{middleware}", str(src), img, mask, "a box")
+    _Middleware.sources.clear()
+    got = connector.process_inpainting(f"http://{middleware}", str(src), torch.from_numpy(img),
+                                       mask, "a box")
+    assert got.shape == want.shape == (4, 24, 32) and np.array_equal(got, want)
 
 
 def test_replace_patch_through_the_connector_matches_jax(middleware, tmp_path):

@@ -11,9 +11,8 @@ results and files are held equal. `get_image_dimensions` is held to JAX
 on RAW containers of every layout the port decodes (chip_smoke.py's
 writers at small sizes, X3F and CRW from tests/test_x3f_crw.py) and on
 JPEG, PNG and TIFF; and to PIL's `Image.open(p).size` on each LDR format
-whose header the port reads. A format whose header it does not read
-raises, naming slice A.10c, where JAX's PIL raises too (hdr, exr, ff, pam,
-jxl) or reads it (ico, dds: ROADMAP queue C).
+whose header the port reads, ICO and DDS among them. The formats JAX's PIL
+does not identify (hdr, exr, ff, pam, jxl) raise OSError on both.
 """
 
 from __future__ import annotations
@@ -414,19 +413,29 @@ def test_ldr_dimensions_after_large_app_segments(tmp_path):
 
 
 def test_unread_headers_name_the_slice(tmp_path):
+    """ICO (PNG and BMP entries) and DDS read as PIL's `.size` gives them;
+    the five formats JAX's PIL does not identify raise OSError on both
+    packages."""
     rgb = (np.random.default_rng(2).random((16, 24, 3)) * 255).astype(np.uint8)
     Image.fromarray(rgb).save(tmp_path / "a.ico")
     Image.fromarray(rgb).save(tmp_path / "b.dds")
+    Image.fromarray(rgb).save(tmp_path / "e.ico", bitmap_format="bmp", sizes=[(24, 24), (16, 16)])
+    Image.fromarray(rgb).save(tmp_path / "f.dds", pixel_format="DXT5")
     from rapidraw_tpu_torch.io.float_images import write_hdr
 
     (tmp_path / "c.hdr").write_bytes(write_hdr(rgb.astype(np.float32) / 255.0))
     (tmp_path / "d.ff").write_bytes(b"farbfeld" + struct.pack(">II", 24, 16) + bytes(16 * 24 * 8))
-    for name in ("a.ico", "b.dds", "c.hdr", "d.ff"):
-        with pytest.raises(NotImplementedError, match="A.10c"):
+    (tmp_path / "g.pam").write_bytes(b"P7\nWIDTH 24\nHEIGHT 16\nDEPTH 3\nMAXVAL 255\nENDHDR\n"
+                                     + rgb.tobytes())
+    (tmp_path / "h.exr").write_bytes(b"\x76\x2f\x31\x01" + bytes(60))
+    (tmp_path / "i.jxl").write_bytes(b"\xff\x0a" + bytes(30))
+    for name in ("a.ico", "b.dds", "e.ico", "f.dds"):
+        with Image.open(tmp_path / name) as im:
+            want = im.size
+        assert pcatalog.get_image_dimensions(str(tmp_path / name)) == want, name
+        assert jcatalog.get_image_dimensions(str(tmp_path / name)) == want, name
+    for name in ("c.hdr", "d.ff", "g.pam", "h.exr", "i.jxl"):
+        with pytest.raises(OSError):
             pcatalog.get_image_dimensions(str(tmp_path / name))
-    # JAX reads ico and dds through PIL and fails on hdr and ff
-    for name in ("a.ico", "b.dds"):
-        assert min(jcatalog.get_image_dimensions(str(tmp_path / name))) > 0
-    for name in ("c.hdr", "d.ff"):
-        with pytest.raises(Exception):
+        with pytest.raises(OSError):
             jcatalog.get_image_dimensions(str(tmp_path / name))

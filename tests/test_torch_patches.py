@@ -7,8 +7,8 @@ package's compositor, which decodes and resizes with PIL.
   images to the canvas, masks rasterized from subMasks (at scale 1 and at
   a preview's scale), hidden and undecodable patches.
 - `lanczos_resize_u8` on mode "RGB" against PIL's resize(LANCZOS).
-- Formats the port has no decoder for (GIF, BMP, WebP data URLs) skip the
-  patch; JAX composites them through PIL (ROADMAP queue C).
+- GIF, BMP and WebP data URLs composite as JAX's PIL composites them
+  (io/image_decode.py).
 - A document with aiPatches through `apply_all_transformations` (with a
   warp and crop) and through `export_images`, equal to JAX's.
 """
@@ -122,14 +122,17 @@ def test_lanczos_rgb_matches_pil(size):
 
 @pytest.mark.parametrize("fmt", ["GIF", "BMP", "WEBP"])
 def test_other_formats_skip_the_patch(fmt):
-    """PIL decodes these, so JAX composites them; the port has no decoder
-    for them yet and skips the patch, as for any undecodable data URL."""
+    """PIL decodes these, so JAX composites them; so does the port, through
+    its own decoders, bit for bit, colour and mask alike."""
     doc = {"aiPatches": [{"id": "z", "subMasks": RADIAL,
-                          "patchData": {"color": url(photo(72, 104, 12), fmt)}}]}
+                          "patchData": {"color": url(photo(72, 104, 12), fmt)}},
+                         {"id": "y", "patchData": {"color": url(photo(50, 70, 13), fmt),
+                                                   "mask": url(mask_img(40, 60), fmt)}}]}
     img = canvas()
-    assert not np.array_equal(jpatches.composite_patches_on_image(img, doc), img)
-    x = torch.from_numpy(img)
-    assert ppatches.composite_patches_on_image(x, doc) is x
+    want = jpatches.composite_patches_on_image(img, doc)
+    assert not np.array_equal(want, img)
+    got = ppatches.composite_patches_on_image(torch.from_numpy(img), doc)
+    assert np.array_equal(got.numpy(), want)
 
 
 def test_patches_through_apply_all_transformations():

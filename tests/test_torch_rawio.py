@@ -378,13 +378,20 @@ def test_load_image_matches_jax(fast, tmp_path):
 
 
 def test_load_image_refuses_ldr_files_until_a10(tmp_path):
-    """The LDR formats the port does not decode yet (A.10c) raise; a BMP
-    that JAX's PIL opens among them."""
+    """A BMP, which JAX's PIL opens, loads as JAX loads it; bytes that no
+    decoder identifies raise OSError on both packages."""
     from PIL import Image
 
-    Image.new("RGB", (4, 3)).save(tmp_path / "photo.bmp")
-    with pytest.raises(NotImplementedError, match="A.10c"):
-        loader.load_image(tmp_path / "photo.bmp", device="cpu")
+    Image.new("RGB", (4, 3), (10, 200, 30)).save(tmp_path / "photo.bmp")
+    got = loader.load_image(tmp_path / "photo.bmp", device="cpu")[0].numpy()
+    with jax.disable_jit():  # op by op, as the port divides
+        want = np.asarray(jloader.load_image(tmp_path / "photo.bmp")[0])
+    assert got.shape == (3, 3, 4) and np.array_equal(got, want)
+    (tmp_path / "noise.bmp").write_bytes(b"neither a bitmap nor any image")
+    with pytest.raises(OSError):
+        loader.load_image(tmp_path / "noise.bmp", device="cpu")
+    with pytest.raises(OSError):
+        jloader.load_image(tmp_path / "noise.bmp")
     assert loader.RAW_EXTENSIONS == jloader.RAW_EXTENSIONS
     for path in ("a.DNG", "b.raf?vc=3", "c.jpg", "d.tif"):
         assert loader.is_raw_file(loader.parse_virtual_path(path)[0]) == \

@@ -16,9 +16,8 @@ JAX package's (rapidraw_tpu/ai/tagging.py), on the CPU.
   * `index_folder_tags` over twin folders of JPEG, PNG, TIFF and DNG files,
     one already AI-tagged, one with only `user:`/`color:` tags, one past
     720 px (the downscale) and a `.bmp`: the same sidecars, return value and
-    progress calls, except the `.bmp`, which JAX tags and the port skips
-    (its loader defers BMP to slice A.10c, and the walk skips an image it
-    cannot load, as JAX's does); the cancel token; a missing checkpoint;
+    progress calls, the `.bmp` tagged on both; the cancel token; a missing
+    checkpoint;
   * `clear_ai_tags` and `clear_all_tags` on twin trees.
 
 JAX runs op by op (`jax.disable_jit`), as the port follows its op-by-op
@@ -226,10 +225,9 @@ def test_index_folder_tags_matches_jax(request, tmp_path, checkpoint, custom):
     np_ = ttg.index_folder_tags(str(d["port"]), custom, 4,
                                 progress=lambda c, t: seen["port"].append((c, t)), device="cpu")
     sj, sp = sidecars(d["jax"]), sidecars(d["port"])
-    # the .bmp: JAX's PIL decodes it, the port's loader defers it (A.10c)
-    assert "d.bmp.rrdata" in sj and "d.bmp.rrdata" not in sp
-    del sj["d.bmp.rrdata"]
-    assert nj == np_ + 1 == 7
+    # the .bmp: JAX's PIL decodes it, and so does the port's loader
+    assert "d.bmp.rrdata" in sj and "d.bmp.rrdata" in sp
+    assert nj == np_ == 7
     assert seen["port"] == seen["jax"] == [(i, 8) for i in range(1, 9)]
     assert sp.keys() == sj.keys()
     assert sp["tagged.jpg.rrdata"]["tags"] == ["sunset", "user:trip"]  # skipped: it has AI tags

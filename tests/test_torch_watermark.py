@@ -7,7 +7,8 @@ package.
 - `apply_watermark` equals JAX's (PIL's convert("RGBA") and LANCZOS under
   it) bit for bit: the nine anchors, an oversize watermark, opacity 0, 37
   and 100, and watermarks that are RGB, RGBA, grey, grey with alpha,
-  palette with tRNS, JPEG and TIFF files.
+  palette with tRNS, JPEG and TIFF files, a GIF with a transparency index
+  and a lossy WebP with alpha (io/image_decode.py).
 """
 
 from __future__ import annotations
@@ -59,6 +60,10 @@ def _sources(tmp_path) -> dict:
     pal.putpalette(rng.integers(0, 256, 18).tolist())
     pal.save(tmp_path / "pal.png", transparency=bytes([0, 90, 255, 30]))
     out["pal.png"] = tmp_path / "pal.png"
+    pal.save(tmp_path / "trns.gif", transparency=2, optimize=False)
+    out["trns.gif"] = tmp_path / "trns.gif"
+    Image.fromarray(rgba, "RGBA").save(tmp_path / "alpha.webp", quality=70, alpha_quality=60)
+    out["alpha.webp"] = tmp_path / "alpha.webp"
     return out
 
 
@@ -83,7 +88,7 @@ def test_watermark_anchor_matches_jax(anchor, tmp_path):
 
 
 @pytest.mark.parametrize("source", ["rgba.png", "rgb.png", "grey.png", "la.png", "pal.png",
-                                    "rgb.jpg", "rgba.tif"])
+                                    "rgb.jpg", "rgba.tif", "trns.gif", "alpha.webp"])
 @pytest.mark.parametrize("opacity", [0.0, 37.0, 100.0])
 def test_watermark_source_matches_jax(source, opacity, tmp_path):
     path = str(_sources(tmp_path)[source])
