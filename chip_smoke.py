@@ -157,7 +157,17 @@ card held to device="cpu" (max |d| 0), the PIL-made fixtures of
 tests/fixtures/ldr (lossy WebP with and without alpha, BC3 and BC7 DDS,
 a transparent GIF) held to the SHA-256 of PIL's decodes, the blur and
 grade kernels against their plain versions on the loaded WebP, and
-export_images over the eight files (grade and blur once per chunk).
+export_images over the eight files (grade and blur once per chunk); (22)
+the JPEG and TIFF variants (`phase_ldr_variants`, `[ldr-var]` lines): a
+JPEG-compressed YCbCr 2x2 TIFF (the port's JPEG encoder per strip after
+JPEGTables), CMYK and YCbCr 2x2 LZW TIFFs, a Lab TIFF, a float32 TIFF
+under the floating-point predictor and an 8-bit lossless JPEG at 4000 x
+6000 from --seed (`write_ldr_variants`), each one's host decode to RGB
+timed and held to what was written, the blur and grade kernels against
+their plain versions on the loaded JPEG-in-TIFF, the six again at 1024 x
+1536 loaded on the card against device="cpu" and through export_images,
+and the PIL-made variant fixtures of tests/fixtures/ldr held to the
+SHA-256 of PIL's samples and conversions.
 Each kernel line carries its time, its plain version's time and its bound
 (bytes over the HBM rate or operations over the float32 peak, whichever is
 larger). It prints a kernels JSON line (top level: each kernel's numbers
@@ -168,7 +178,7 @@ then as its last line {"ok": true, "device": {...}}.
 Any failed check raises, so the process exits non-zero; without a CUDA
 device it exits non-zero before printing any result.
 
---quick runs phases 3-8, 10-16 and 21 at 1024x1536 with fewer
+--quick runs phases 3-8, 10-16, 21 and 22 at 1024x1536 with fewer
 repetitions (a first check of a new kernel). --out DIR writes the nvcc/ptxas logs there.
 --profile adds a torch.profiler pass over the config-3, config-5,
 config-4 and config-2 main paths (config 2 from a DNG and from a NEF):
@@ -721,25 +731,38 @@ def vendor_huffman(cfa: np.ndarray, table) -> bytes:
     return pack_bits(*category_words(s - pred, *canonical_codes(*table)))
 
 
-def ljpeg_encode(samples: np.ndarray, precision: int = 16, ncomp: int = 1) -> bytes:
+def ljpeg_encode(samples: np.ndarray, precision: int = 16, ncomp: int = 1,
+                 restart_rows: int = 0, pool=None) -> bytes:
     """One lossless-JPEG (SOF3) stream of (H, W * ncomp) u16 samples,
     `ncomp` interleaved components, predictor 1, 17 Huffman symbols of 5
     bits each (code = category), vectorized. The repo's test encoder
-    (tests/test_native_ljpeg.py) writes the same stream sample by sample."""
+    (tests/test_native_ljpeg.py) writes the same stream sample by sample.
+    With `restart_rows`, a restart marker every that many rows: each band
+    is coded as an image of its own (its first row predicted from the
+    left), on `pool`'s threads when one is given."""
     import struct
 
     h, wn = samples.shape
     w = wn // ncomp
-    s = samples.astype(np.int64).reshape(h, w, ncomp)
-    pred = np.empty_like(s)
-    pred[:, 1:] = s[:, :-1]
-    pred[1:, 0] = s[:-1, 0]
-    pred[0, 0] = 1 << (precision - 1)
-    diff = (s - pred) & 0xFFFF
-    diff = np.where(diff >= 0x8000, diff - 0x10000, diff)
-    # an ssss = 16 difference (-32768) also writes 16 bits, as the test encoder does
-    data = np.frombuffer(pack_bits(*category_words(diff, np.arange(17), np.full(17, 5))), np.uint8)
-    data = np.insert(data, np.flatnonzero(data == 0xFF) + 1, 0)  # byte stuffing
+
+    def entropy(band: np.ndarray) -> bytes:
+        s = band.astype(np.int64).reshape(band.shape[0], w, ncomp)
+        pred = np.empty_like(s)
+        pred[:, 1:] = s[:, :-1]
+        pred[1:, 0] = s[:-1, 0]
+        pred[0, 0] = 1 << (precision - 1)
+        diff = (s - pred) & 0xFFFF
+        diff = np.where(diff >= 0x8000, diff - 0x10000, diff)
+        # an ssss = 16 difference (-32768) also writes 16 bits, as the test encoder does
+        data = np.frombuffer(pack_bits(*category_words(diff, np.arange(17), np.full(17, 5))),
+                             np.uint8)
+        return np.insert(data, np.flatnonzero(data == 0xFF) + 1, 0).tobytes()  # byte stuffing
+
+    step = restart_rows or h
+    bands = [samples[r:r + step] for r in range(0, h, step)]
+    coded = list(pool.map(entropy, bands) if pool is not None else map(entropy, bands))
+    data = b"".join((bytes([0xFF, 0xD0 + (i - 1) % 8]) if i else b"") + c
+                    for i, c in enumerate(coded))
 
     def seg(marker, payload):
         return struct.pack(">HH", marker, len(payload) + 2) + payload
@@ -748,8 +771,9 @@ def ljpeg_encode(samples: np.ndarray, precision: int = 16, ncomp: int = 1) -> by
     sof = struct.pack(">BHHB", precision, h, w, ncomp) + b"".join(
         bytes([c, 0x11, 0]) for c in range(ncomp))
     sos = bytes([ncomp]) + b"".join(bytes([c, 0]) for c in range(ncomp)) + bytes([1, 0, 0])
-    return (b"\xff\xd8" + seg(0xFFC4, dht) + seg(0xFFC3, sof) + seg(0xFFDA, sos)
-            + data.tobytes() + b"\xff\xd9")
+    dri = seg(0xFFDD, struct.pack(">H", restart_rows * w)) if restart_rows else b""
+    return (b"\xff\xd8" + seg(0xFFC4, dht) + dri + seg(0xFFC3, sof) + seg(0xFFDA, sos)
+            + data + b"\xff\xd9")
 
 
 def arw2_encode(plane: np.ndarray):
@@ -788,7 +812,8 @@ def tiff_bytes(chain: list, endian: str = "<", magic_extra: bytes = b"") -> byte
     """A TIFF of chained IFDs. An IFD is a list of (tag, type, value):
     value a list of ints (types 1, 3, 4), bytes (stored as given, of any
     type; count in units of the type), a str (type 2), ("ifd", IFD) for a nested IFD's
-    offset or ("blob", bytes) for a LONG offset to the bytes."""
+    offset, ("blob", bytes) for a LONG offset to the bytes or ("blobs",
+    [bytes, ...]) for LONG offsets to each (a frame's strips or tiles)."""
     import struct
 
     ifds = []
@@ -812,7 +837,13 @@ def tiff_bytes(chain: list, endian: str = "<", magic_extra: bytes = b"") -> byte
     for ifd in ifds:
         head += struct.pack(endian + "H", len(ifd))
         for tag, typ, v in sorted(ifd, key=lambda e: e[0]):
-            if isinstance(v, tuple):
+            if isinstance(v, tuple) and v[0] == "blobs":
+                refs = []
+                for blob in v[1]:
+                    refs.append(pos + len(extra))
+                    extra += blob + b"\0" * (len(blob) & 1)
+                v = refs
+            elif isinstance(v, tuple):
                 if v[0] == "ifd":
                     ref = offs[id(v[1])]
                 else:
@@ -5364,6 +5395,8 @@ def phase_ldr_formats(args, h, w, reps, card, dev, reset_counts, read_counts):
         # the committed fixtures against the digests of PIL's decodes
         digests = json.loads((LDR_FIXTURES / "digests.json").read_text())
         for name, want in sorted(digests.items()):
+            if "samples" in want:
+                continue  # the JPEG and TIFF variants: phase 22's
             data = (LDR_FIXTURES / name).read_bytes()
             for mode in ("RGB", "RGBA", "L"):
                 px = decode_image(data, mode)
@@ -5401,6 +5434,297 @@ def phase_ldr_formats(args, h, w, reps, card, dev, reset_counts, read_counts):
             if out.shape != (h, w, 3):
                 raise RuntimeError(f"{r.output}: decoded shape {out.shape}")
         log(f"[ldr-fmt] outputs: {len(res)} JPEGs decoded, each {h}x{w}")
+    return launches, report
+
+
+# ---- phase 22: the JPEG and TIFF variants (A.10d, first half) -------------------
+LDR_VAR_FILES = ("jpeg.tif", "cmyk.tif", "ycbcr.tif", "lab.tif", "float.tif", "lossless.jpg")
+
+
+def tiff_chunks(w: int, h: int, chunks: list, tags: dict, endian: str = "<",
+                tile: tuple | None = None) -> bytes:
+    """A one-frame TIFF (`tiff_bytes`): `chunks` the strips (or tiles of
+    `tile` = (tw, tl)) in order, `tags` {tag: (type, values or bytes)}
+    besides the size and the chunk offsets and counts; RATIONAL values as
+    (numerator, denominator) pairs."""
+    import struct
+
+    t = {256: (4, [w]), 257: (4, [h]), **tags}
+    counts = [len(c) for c in chunks]
+    if tile:
+        t.update({322: (3, [tile[0]]), 323: (3, [tile[1]]), 324: (4, ("blobs", chunks)),
+                  325: (4, counts)})
+    else:
+        t.update({273: (4, ("blobs", chunks)), 279: (4, counts)})
+    ifd = [(tag, typ, b"".join(struct.pack(endian + "II", *r) for r in vals) if typ == 5
+            else vals) for tag, (typ, vals) in sorted(t.items())]
+    return tiff_bytes([ifd], endian)
+
+
+def ycbcr_blocks(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, hs: int, vs: int) -> bytes:
+    """A YCbCr TIFF's samples: the hs x vs Y of each block, then its Cb and
+    Cr, blocks in raster order (edge blocks padded with Y 0)."""
+    h, w = y.shape
+    bv, bh = -(-h // vs), -(-w // hs)
+    yy = np.zeros((bv * vs, bh * hs), np.uint8)
+    yy[:h, :w] = y
+    blocks = yy.reshape(bv, vs, bh, hs).transpose(0, 2, 1, 3).reshape(bv, bh, vs * hs)
+    return np.concatenate([blocks, cb[:bv, :bh, None], cr[:bv, :bh, None]], -1).tobytes()
+
+
+def jpeg_tables_split(stream: bytes) -> tuple[bytes, bytes]:
+    """A JPEG as a JPEG-compressed TIFF keeps it: its tables (SOI, DQT,
+    DHT, EOI: the JPEGTables tag) and the abbreviated stream (SOI, SOF,
+    SOS, the entropy-coded data, EOI)."""
+    import struct
+
+    pos, tables, body = 2, bytearray(b"\xff\xd8"), bytearray(b"\xff\xd8")
+    while True:
+        marker = stream[pos + 1]
+        if marker == 0xDA:
+            body += stream[pos:]
+            break
+        ln = struct.unpack(">H", stream[pos + 2:pos + 4])[0]
+        seg = stream[pos:pos + 2 + ln]
+        if marker in (0xDB, 0xC4):
+            tables += seg
+        elif not 0xE0 <= marker <= 0xEF:
+            body += seg
+        pos += 2 + ln
+    return bytes(tables + b"\xff\xd9"), bytes(body)
+
+
+def float_predicted(px: np.ndarray) -> bytes:
+    """(H, W, C) float32 under TIFF's floating-point predictor (libtiff's
+    fpDiff): each row's values as byte planes, most significant first,
+    differenced byte by byte."""
+    h, w, spp = px.shape
+    be = px.astype(">f4").view(np.uint8).reshape(h, w * spp, 4)
+    planes = be.transpose(0, 2, 1).reshape(h, -1)
+    out = planes.copy()
+    out[:, spp:] = planes[:, spp:] - planes[:, :-spp]  # u8: modulo 256
+    return out.tobytes()
+
+
+def write_ldr_variants(root: Path, h: int, w: int, seed: int,
+                       rows: int = 256) -> tuple[dict, dict]:
+    """Phase 22's six files of (h, w) from `seed`, written with the port's
+    own writers and NumPy, the strips of each file coded on a pool of
+    threads: a JPEG-compressed YCbCr 2x2 TIFF (the port's JPEG encoder per
+    `rows`-row strip, cut at its tables into JPEGTables and abbreviated
+    streams), CMYK and YCbCr 2x2 TIFFs in LZW (`lzw_literal`), a Deflate
+    Lab TIFF, a float32 Deflate TIFF under the floating-point predictor
+    (all in `rows` * 2-row strips) and an 8-bit three-component lossless
+    JPEG with a restart every 65535 // w rows (`ljpeg_encode`). Returns the
+    paths and what each holds: the mode and samples ("CMYK", "LAB", "F",
+    the lossless "RGB") or, for the JPEG and YCbCr files, the RGB their
+    decode must equal (the strips decoded as JPEG files; the planes
+    through libtiff's YCbCr tables)."""
+    import os
+    import zlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from rapidraw_tpu_torch import native
+    from rapidraw_tpu_torch.io import jpeg
+    from rapidraw_tpu_torch.io.tiff_photometric import ycbcr_tables, ycbcr_to_rgb
+
+    root.mkdir(parents=True, exist_ok=True)
+    paths = {name: root / name for name in LDR_VAR_FILES}
+    band = rows * 2
+    workers = min(8, os.cpu_count() or 1)
+    with ThreadPoolExecutor(3) as pool:  # ldr_rgb16's three fields at once
+        rgb16 = np.stack(list(pool.map(
+            lambda k: photo_cfa(h, w, 0, 65535, seed + k, noise=300.0), range(3))), -1)
+    rgb8 = (rgb16 >> 8).astype(np.uint8)
+    cmyk = np.concatenate([255 - rgb8, (np.min(rgb8, -1, keepdims=True) // 2)], -1)
+    y, cb, cr = rgb8[..., 0], rgb8[::2, ::2, 1], rgb8[::2, ::2, 2]
+    grey = rgb16[..., 1:2].astype(np.float32) / np.float32(257.0)
+    starts = range(0, h, band)
+    # NumPy, zlib and the encoders let go of the GIL
+    with ThreadPoolExecutor(workers) as pool:
+        jobs = {
+            "jpeg": [pool.submit(native.jpeg_encode, np.ascontiguousarray(rgb8[r:r + rows]), 90)
+                     for r in range(0, h, rows)],
+            "cmyk": [pool.submit(lambda r: lzw_literal(cmyk[r:r + band].tobytes()), r)
+                     for r in starts],
+            "ycbcr": [pool.submit(lambda r: lzw_literal(ycbcr_blocks(
+                y[r:r + band], cb[r // 2:(r + band) // 2], cr[r // 2:(r + band) // 2], 2, 2)), r)
+                      for r in starts],
+            "lab": [pool.submit(lambda r: zlib.compress(rgb8[r:r + band].tobytes(), 1), r)
+                    for r in starts],
+            "float": [pool.submit(lambda r: zlib.compress(float_predicted(grey[r:r + band]), 1), r)
+                      for r in starts],
+        }
+        # restarts every whole number of rows that DRI's 16 bits hold
+        lossless = ljpeg_encode(rgb8.reshape(h, w * 3).astype(np.uint16), precision=8, ncomp=3,
+                                restart_rows=max(1, 65535 // w), pool=pool)
+        done = {k: [f.result() for f in v] for k, v in jobs.items()}
+    streams = done["jpeg"]
+    tables = jpeg_tables_split(streams[0])[0]
+    jpeg_rgb = np.concatenate([jpeg.decode_jpeg(s) for s in streams], 0)
+    rgb3 = (3, [8, 8, 8])
+    blobs = {
+        "jpeg.tif": tiff_chunks(w, h, [jpeg_tables_split(s)[1] for s in streams], {
+            258: rgb3, 259: (3, [7]), 262: (3, [6]), 277: (3, [3]), 278: (4, [rows]),
+            530: (3, [2, 2]), 347: (7, tables)}),
+        "cmyk.tif": tiff_chunks(w, h, done["cmyk"], {
+            258: (3, [8] * 4), 259: (3, [5]), 262: (3, [5]), 277: (3, [4]), 278: (4, [band])}),
+        "ycbcr.tif": tiff_chunks(w, h, done["ycbcr"], {
+            258: rgb3, 259: (3, [5]), 262: (3, [6]), 277: (3, [3]), 278: (4, [band]),
+            530: (3, [2, 2])}),
+        # any bytes are Lab samples: L, and a and b signed
+        "lab.tif": tiff_chunks(w, h, done["lab"], {
+            258: rgb3, 259: (3, [8]), 262: (3, [8]), 277: (3, [3]), 278: (4, [band])}),
+        "float.tif": tiff_chunks(w, h, done["float"], {
+            258: (3, [32]), 259: (3, [8]), 262: (3, [1]), 277: (3, [1]), 278: (4, [band]),
+            317: (3, [3]), 339: (3, [3])}),
+        "lossless.jpg": lossless,
+    }
+    for name, blob in blobs.items():
+        paths[name].write_bytes(blob)
+    up = np.repeat(np.repeat(cb, 2, 0), 2, 1)[:h, :w], np.repeat(np.repeat(cr, 2, 0), 2, 1)[:h, :w]
+    held = {"jpeg.tif": ("RGB", jpeg_rgb), "cmyk.tif": ("CMYK", cmyk),
+            "ycbcr.tif": ("RGB", ycbcr_to_rgb(y, up[0], up[1], ycbcr_tables())),
+            "lab.tif": ("LAB", rgb8), "float.tif": ("F", grey[..., 0]),
+            "lossless.jpg": ("RGB", rgb8)}
+    return paths, held
+
+
+def phase_ldr_variants(args, h, w, reps, card, dev, reset_counts, read_counts,
+                       small=(1024, 1536)):
+    """Phase 22, the JPEG and TIFF variants (A.10d, first half; `[ldr-var]`
+    lines): LDR_VAR_FILES at h x w from --seed (`write_ldr_variants`, with
+    littlecms's Lab table, `io/lab.every_value`, built beside the writers);
+    each file's host decode through io/image_decode.py to RGB timed (median
+    of 3, ms and MPix/s) and its mode and samples held to what was written;
+    the JPEG-in-TIFF loaded on the card and the blur and grade kernels held
+    to their plain versions on it; the six files again at `small`, each
+    one's load_image on the card held to device="cpu" (max |d| 0) and the
+    six through export_images (`ldr_export_and_kernels`); the PIL-made
+    variant fixtures of tests/fixtures/ldr (CMYK and YCCK JPEG, MH, T.4
+    2-D and T.6 TIFFs, a JPEG-compressed CMYK TIFF, a YCbCr 2x2 LZW TIFF,
+    a Lab TIFF) held to the SHA-256 of PIL's samples and conversions. The
+    loads and the export run at `small` to keep the phase within its
+    budget: at 24 MP each load is one more decode. Returns (the export's
+    launches, {(kernel, "ldr_variants"): numbers})."""
+    import hashlib
+    import tempfile
+
+    from rapidraw_tpu_torch import load_image
+    from rapidraw_tpu_torch.io import jpeg
+    from rapidraw_tpu_torch.io.image_decode import decode_image, open_image
+
+    try:
+        import lzma  # noqa: F401 - the LZMA TIFF codec's module
+        log("[ldr-var] Python's lzma module imports on this machine")
+    except ImportError as e:
+        log(f"[ldr-var] Python's lzma module does not import here: {e}")
+    from concurrent.futures import ThreadPoolExecutor
+
+    from rapidraw_tpu_torch.io import lab
+
+    mpix = h * w / 1e6
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ldr_var_") as tmp, \
+            ThreadPoolExecutor(1) as side:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        table = side.submit(lambda: (time.perf_counter(), lab.every_value(), time.perf_counter()))
+        paths, held = write_ldr_variants(tmp / "src", h, w, args.seed + 22)
+        log(f"[ldr-var] wrote {', '.join(f'{n} {p.stat().st_size / 2**20:.1f} MiB' for n, p in paths.items())} "
+            f"({h}x{w}) in {time.perf_counter() - t0:.1f} s")
+        t_a, _, t_b = table.result()
+        log(f"[ldr-var] littlecms's Lab table (io/lab.every_value, 2^24 values) built in "
+            f"{t_b - t_a:.1f} s beside the writers [{card}]")
+
+        # host decodes to RGB, timed; the last one's samples held to what was written
+        t_step = time.perf_counter()
+        for name, p in paths.items():
+            data = p.read_bytes()
+            mode, want = held[name]
+            dts = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                frame = open_image(data)
+                rgb = frame.convert("RGB")
+                dts.append(time.perf_counter() - t0)
+            med = statistics.median(dts)
+            got = frame.px if frame.mode == mode and mode != "RGB" else rgb
+            same = (frame.mode == mode and got.shape == want.shape
+                    and bool(np.array_equal(got, want)))
+            log(f"[ldr-var] {name}: host decode to RGB {med * 1e3:.1f} ms (median of 3, "
+                f"{min(dts) * 1e3:.1f}-{max(dts) * 1e3:.1f}) = {mpix / med:.1f} MPix/s, mode "
+                f"{frame.mode}, {'equal to' if same else 'DIFFERENT from'} what was written "
+                f"[{card}]")
+            if not same:
+                raise AssertionError(f"{name}: the decode differs from what was written")
+            del got, frame, rgb
+        del held
+        log(f"[ldr-var] the decodes and their checks took {time.perf_counter() - t_step:.1f} s")
+
+        # the blur and grade kernels on the loaded JPEG-in-TIFF against their plain versions
+        t0 = time.perf_counter()
+        loaded, is_raw = load_image(paths["jpeg.tif"], device=dev)
+        torch.cuda.synchronize()
+        log(f"[ldr-var] jpeg.tif: load_image on the card {(time.perf_counter() - t0) * 1e3:.1f} "
+            f"ms, shape {tuple(loaded.shape)} [{card}]")
+        if is_raw or tuple(loaded.shape) != (3, h, w) or loaded.device.type != "cuda":
+            raise AssertionError(f"jpeg.tif: loaded as {tuple(loaded.shape)} on {loaded.device}")
+        loaded_kernels_vs_plain("[ldr-var]", "the JPEG-in-TIFF's image", loaded, reps, card, dev)
+        del loaded
+
+        # the six files at `small`: each on the card against the plain CPU path
+        t_step = time.perf_counter()
+        sh, sw = small
+        paths, _ = write_ldr_variants(tmp / "small", sh, sw, args.seed + 22)
+        for name, p in paths.items():
+            t0 = time.perf_counter()
+            got, is_raw = load_image(p, device=dev)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            want, _ = load_image(p, device="cpu")
+            d = float((got.cpu() - want).abs().max())
+            log(f"[ldr-var] {name} at {sh}x{sw}: load_image on the card {dt * 1e3:.1f} ms, "
+                f"max|d| vs device='cpu' {d:g} [{card}]")
+            if (is_raw or d != 0.0 or got.device.type != "cuda" or got.dtype != torch.float32
+                    or tuple(got.shape) != (3, sh, sw)):
+                raise AssertionError(f"{name}: the card's load differs from the CPU's ({d})")
+            del got, want
+
+        # the committed variant fixtures against the digests of PIL's decodes
+        digests = json.loads((LDR_FIXTURES / "digests.json").read_text())
+        for name, want in sorted(digests.items()):
+            if "samples" not in want:
+                continue  # phase 21's
+            data = (LDR_FIXTURES / name).read_bytes()
+            frame = open_image(data)
+            px = (frame.px != 0).astype(np.uint8) if frame.mode == "1" else frame.px
+            got = hashlib.sha256(np.ascontiguousarray(px).tobytes()).hexdigest()
+            if frame.mode != want["mode"] or got != want["samples"]:
+                raise AssertionError(f"fixture {name}: mode {frame.mode}, samples sha256 {got}; "
+                                     f"PIL's {want['mode']}, {want['samples']}")
+            modes = [m for m in ("RGB", "RGBA", "L") if m in want]
+            for m in modes:
+                got = hashlib.sha256(np.ascontiguousarray(decode_image(data, m)).tobytes())
+                if got.hexdigest() != want[m] or list(frame.size) != want["size"]:
+                    raise AssertionError(f"fixture {name} {m}: sha256 {got.hexdigest()} != "
+                                         f"PIL's {want[m]}")
+            log(f"[ldr-var] fixture {name} ({len(data)} bytes, {want['size'][0]}x"
+                f"{want['size'][1]}): mode {frame.mode}, samples and {', '.join(modes)} equal to "
+                "PIL's digests")
+
+        # export: the six files at `small` with CONFIG3_DOC sidecars, JPEG
+        # q90; the kernels on its largest chunk
+        res, launches, report = ldr_export_and_kernels("[ldr-var]", "ldr_variants",
+                                                       [str(q) for q in paths.values()],
+                                                       tmp / "out", reps, card, dev,
+                                                       reset_counts, read_counts)
+        for r in res:
+            out = jpeg.decode_jpeg(Path(r.output).read_bytes())
+            if out.shape != (sh, sw, 3):
+                raise RuntimeError(f"{r.output}: decoded shape {out.shape}")
+        log(f"[ldr-var] outputs: {len(res)} JPEGs decoded, each {sh}x{sw}; the files at "
+            f"{sh}x{sw}, their loads, the fixtures and the export took "
+            f"{time.perf_counter() - t_step:.1f} s")
     return launches, report
 
 
@@ -5466,7 +5790,7 @@ def main() -> int:
 
     # the host decoders and the export's JPEG encoder
     hosts = ("ljpeg", "vendor_huff", "pana_oly", "crx", "phase_one", "jpeg_enc", "jpeg_dec",
-             "tiff_codec", "guides", "webp_dec", "bcn_dec", "ldr_dec")
+             "tiff_codec", "guides", "webp_dec", "bcn_dec", "ldr_dec", "ccitt_dec")
     with ThreadPoolExecutor(len(libs) + len(hosts)) as pool:
         host = {name: pool.submit(build_host, name) for name in hosts}
         list(pool.map(lambda kl: kl.lib(), libs.values()))
@@ -6136,6 +6460,12 @@ def main() -> int:
     report.update(fmt_report)
     phase_done("LDR formats")
 
+    # ---- 22. the JPEG and TIFF variants: CMYK, lossless, CCITT, YCbCr, Lab ------
+    launches22, var_report = phase_ldr_variants(args, fh, fw, reps, card, dev, reset_counts,
+                                                read_counts)
+    report.update(var_report)
+    phase_done("JPEG and TIFF variants")
+
     sources = {  # name -> (source, the TPU kernel it replaces, the path that runs it)
         "blur": ("rapidraw_tpu_torch/csrc/blur.cu", "rapidraw_tpu/ops/blur.py:242", "config5"),
         "grade": ("rapidraw_tpu_torch/csrc/grade.cu", "rapidraw_tpu/pipeline/fused.py:298",
@@ -6163,7 +6493,7 @@ def main() -> int:
               "config4": launches4, **launches2, **launches12, **launches13,
               "export": launches14, "ldr_export": launches15, "preview": launches16,
               **launches17, **launches18, **launches19, **launches20,
-              "ldr_formats": launches21}
+              "ldr_formats": launches21, "ldr_variants": launches22}
     library = {"nr_dynamic": "nr"}  # the kernels that share a source with another
     # a kernel that shares its source: its own entry's registers and spills
     entry = {"nr": "nr_kernel", "nr_dynamic": "nr_dynamic_kernel"}

@@ -1,16 +1,26 @@
 // JPEG decoder (ITU-T T.81, 8-bit, Huffman) for the LDR loader: the pixels
 // libjpeg-turbo gives PIL's `Image.open(p)` at its defaults (JDCT_ISLOW,
-// do_fancy_upsampling, no DCT scaling, out_color_space RGB or grey).
+// do_fancy_upsampling, no DCT scaling, out_color_space RGB, grey or CMYK).
 //
 //   * coding: baseline and extended sequential (SOF0, SOF1) and progressive
 //     (SOF2: spectral selection, successive approximation, DC and AC first
 //     scans and refinements, EOB runs), interleaved and single-component
 //     scans, restart intervals, any Huffman tables (4 per class) and 8- or
 //     16-bit quantization tables;
-//   * colour: one component (grey) or three (YCbCr, or RGB when an Adobe
+//   * lossless (SOF3) at 8 bits as libjpeg-turbo 3 decodes it: predictors
+//     1-7 (jdlossls.c's undifferencers, the first row and the row after a
+//     restart predicted from the left), the point transform, restart
+//     intervals of whole MCU rows, 16-bit differences (ssss 16); colour
+//     is never converted: three components are RGB unless a JFIF APP0 or
+//     an Adobe transform other than 0 says YCbCr, which libjpeg refuses;
+//   * colour: one component (grey), three (YCbCr, or RGB when an Adobe
 //     APP14 says transform 0 and no JFIF APP0 is present, or when the
-//     component ids are 'R', 'G', 'B'), converted with jdcolor.c's
-//     fixed-point tables (16 fraction bits);
+//     component ids are 'R', 'G', 'B') converted with jdcolor.c's
+//     fixed-point tables (16 fraction bits), or four: CMYK as stored, or
+//     YCCK (Adobe transform 2, or any transform but 0) through the same
+//     tables and inverted (ycck_cmyk_convert). A caller may ask for the
+//     components as stored (libtiff's JCS_UNKNOWN) or for YCbCr -> RGB
+//     whatever the markers say (libtiff's JPEGCOLORMODE_RGB);
 //   * the inverse DCT of jidctint.c (jpeg_idct_islow) with its range-limit
 //     table;
 //   * upsampling as jdsample.c chooses it: h2v1 and h2v2 "fancy" (triangle)
@@ -19,11 +29,14 @@
 //     above and below the component are its first and last rows, as
 //     jdmainct.c's context pointers make them.
 //
-// What libjpeg would decode but this file refuses: arithmetic coding, 12-
-// and 16-bit samples, lossless and hierarchical processes, and four-
-// component (CMYK / YCCK) images (code kUnsupported). Truncated data and
-// corrupt entropy-coded data raise (kTruncated, kCorrupt); libjpeg recovers
-// from the latter with a warning, this file returns no partial image.
+// PIL's JPEG reader turns away a frame of other than 8 bits or of other
+// than 1, 3 or 4 components while it opens the file (kUnidentified); what
+// libjpeg refuses as it decodes (fractional sampling factors, hierarchical
+// frames, colour conversions of lossless data) is kBroken. What libjpeg
+// would decode but this file refuses is arithmetic coding (kUnsupported).
+// Truncated data and corrupt entropy-coded data raise (kTruncated,
+// kCorrupt); libjpeg recovers from the latter with a warning, this file
+// returns no partial image.
 //
 // Build: g++ -O2 -shared -fPIC -std=c++17, at first use, by
 // rapidraw_tpu_torch/native.py (host_library) into rapidraw_tpu_torch/_build/.
@@ -36,7 +49,14 @@
 
 namespace {
 
-enum Status { kOk = 0, kBadArgs = -1, kTruncated = -2, kCorrupt = -3, kUnsupported = -4 };
+enum Status {
+  kOk = 0, kBadArgs = -1, kTruncated = -2, kCorrupt = -3, kUnsupported = -4, kUnidentified = -5,
+  kBroken = -6
+};
+
+// how the caller wants colour: as libjpeg infers it, the components as
+// stored, or YCbCr -> RGB whatever the markers say
+enum Colour { kInfer = 0, kRaw = 1, kYCbCr = 2 };
 
 struct Failure {
   int code;
@@ -64,6 +84,7 @@ struct Huffman {
   int32_t maxcode[18];
   int32_t valoffset[18];
   uint8_t vals[256];
+  int maxsym = 0;  // a DC table's largest symbol: 15 for DCT scans, 16 lossless
 };
 
 // jdhuff.c jpeg_make_d_derived_tbl, with its checks
@@ -106,9 +127,9 @@ void derive(const uint8_t bits[17], const uint8_t* vals, int nvals, bool dc, Huf
     }
   }
   std::memcpy(t->vals, vals, nvals);
+  t->maxsym = 0;
   if (dc) {
-    for (int i = 0; i < nvals; ++i)
-      if (vals[i] > 15) fail(kCorrupt, "bad Huffman table");
+    for (int i = 0; i < nvals; ++i) t->maxsym = std::max<int>(t->maxsym, vals[i]);
   }
   t->defined = true;
 }
@@ -197,6 +218,8 @@ struct Component {
   bool latched = false;
   uint16_t quant[64];
   std::vector<int16_t> coef;
+  std::vector<uint16_t> lossless;  // a lossless frame's undifferenced samples (dw x dh)
+  int al = 0;                       // and its point transform
 };
 
 struct Decoder {
@@ -206,7 +229,7 @@ struct Decoder {
   size_t pos = 0;
   int width = 0, height = 0, ncomp = 0;
   int hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
-  bool progressive = false, have_frame = false;
+  bool progressive = false, lossless = false, have_frame = false;
   bool jfif = false, adobe = false;
   int adobe_transform = -1;
   int restart = 0;
@@ -287,24 +310,32 @@ struct Decoder {
     }
   }
 
-  void read_sof(int marker) {
+  // PIL's SOF handler first (its SyntaxErrors), then libjpeg's
+  void read_sof(int marker, bool header_only = false) {
     if (have_frame) fail(kCorrupt, "more than one frame");
     int len;
     size_t s = segment(&len);
-    if (len < 6) fail(kCorrupt, "bad SOF marker");
+    if (len < 6) fail(kUnidentified, "bad SOF marker");
     int precision = data[s];
     height = (data[s + 1] << 8) | data[s + 2];
     width = (data[s + 3] << 8) | data[s + 4];
     ncomp = data[s + 5];
     if (precision != 8)
-      fail(kUnsupported, std::to_string(precision) + "-bit JPEG samples");
+      fail(kUnidentified, "cannot handle " + std::to_string(precision) + "-bit layers");
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4)
+      fail(kUnidentified, "cannot handle " + std::to_string(ncomp) + "-layer images");
+    if (header_only) {
+      have_frame = true;
+      return;
+    }
+    if (marker >= 0xC9 && marker <= 0xCB) fail(kUnsupported, "arithmetic-coded JPEG");
+    if ((marker >= 0xC5 && marker <= 0xC7) || marker >= 0xCD)
+      fail(kBroken, "broken data stream when reading image file");
     if (height == 0) fail(kCorrupt, "JPEG height 0 (DNL) not supported");
-    if (width == 0 || ncomp == 0) fail(kCorrupt, "empty JPEG image");
-    if (ncomp == 4) fail(kUnsupported, "CMYK / YCCK (four-component) JPEG");
-    if (ncomp != 1 && ncomp != 3)
-      fail(kCorrupt, "JPEG with " + std::to_string(ncomp) + " components");
+    if (width == 0) fail(kCorrupt, "empty JPEG image");
     if (len != 6 + 3 * ncomp) fail(kCorrupt, "bad SOF length");
     progressive = marker == 0xC2;
+    lossless = marker == 0xC3;
     for (int i = 0; i < ncomp; ++i) {
       Component& c = comp[i];
       c.id = data[s + 6 + 3 * i];
@@ -326,7 +357,11 @@ struct Decoder {
       c.hblocks = (c.dh + 7) / 8;
       c.bw = mcux * c.h;
       c.bh = mcuy * c.v;
-      c.coef.assign(static_cast<size_t>(c.bw) * c.bh * 64, 0);
+      if (lossless) {
+        c.lossless.assign(static_cast<size_t>(c.dw) * c.dh, 0);
+      } else {
+        c.coef.assign(static_cast<size_t>(c.bw) * c.bh * 64, 0);
+      }
     }
     have_frame = true;
   }
@@ -364,6 +399,20 @@ struct Decoder {
     }
     int ss = data[s + 1 + 2 * ns], se = data[s + 2 + 2 * ns];
     int ah = data[s + 3 + 2 * ns] >> 4, al = data[s + 3 + 2 * ns] & 15;
+    if (lossless) {
+      // jdlhuff.c start_pass_lhuff_decoder: Ss is the predictor, Al the
+      // point transform
+      if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= 8)
+        fail(kBroken, "broken data stream when reading image file");
+      for (int i = 0; i < ns; ++i) {
+        if (!dc[td[i]].defined) fail(kCorrupt, "Huffman table not defined");
+        if (dc[td[i]].maxsym > 16) fail(kCorrupt, "bad Huffman table");
+        sc[i]->latched = true;
+        sc[i]->al = al;
+      }
+      lossless_scan(sc, ns, td, ss, al);
+      return;
+    }
     if (progressive) {
       bool bad = false;
       if (ss == 0) {
@@ -390,6 +439,7 @@ struct Decoder {
       bool need_dc = ss == 0 && ah == 0;
       bool need_ac = se > 0 && (!progressive || ss > 0);
       if (need_dc && !dc[td[i]].defined) fail(kCorrupt, "Huffman table not defined");
+      if (need_dc && dc[td[i]].maxsym > 15) fail(kCorrupt, "bad Huffman table");
       if (need_ac && !ac[ta[i]].defined) fail(kCorrupt, "Huffman table not defined");
     }
     int blocks_per_mcu = 0;
@@ -431,22 +481,7 @@ struct Decoder {
     };
     for (long m = 0; m < mcus; ++m) {
       if (restart && m > 0 && m % restart == 0) {
-        // libjpeg discards what is left of the segment and reads RSTn
-        if (bits.marker < 0) {
-          bits.reset();
-          while (bits.marker < 0) {
-            if (bits.p >= bits.end) fail(kTruncated, "image file is truncated");
-            if (*bits.p++ != 0xFF) continue;
-            while (bits.p < bits.end && *bits.p == 0xFF) ++bits.p;
-            if (bits.p >= bits.end) fail(kTruncated, "image file is truncated");
-            if (*bits.p) bits.marker = *bits.p;
-            ++bits.p;
-          }
-        }
-        if (bits.marker != 0xD0 + next_rst) fail(kCorrupt, "corrupt JPEG data: bad restart marker");
-        next_rst = (next_rst + 1) & 7;
-        bits.marker = -1;
-        bits.reset();
+        read_restart(bits, &next_rst);
         for (int i = 0; i < 4; ++i) pred[i] = 0;
         eob_run = 0;
       }
@@ -462,13 +497,113 @@ struct Decoder {
         }
       }
     }
-    // resume header parsing at the marker that ended the segment (its
-    // 0xFF is the byte before its code)
+    resume(bits);
+  }
+
+  // resume header parsing at the marker that ended the segment (its 0xFF
+  // is the byte before its code)
+  void resume(const Bits& bits) {
     if (bits.marker >= 0) {
       pos = static_cast<size_t>(bits.p - data) - 2;
     } else {
       pos = static_cast<size_t>(bits.p - data);
     }
+  }
+
+  // libjpeg discards what is left of the segment and reads RSTn
+  void read_restart(Bits& bits, int* next_rst) {
+    if (bits.marker < 0) {
+      bits.reset();
+      while (bits.marker < 0) {
+        if (bits.p >= bits.end) fail(kTruncated, "image file is truncated");
+        if (*bits.p++ != 0xFF) continue;
+        while (bits.p < bits.end && *bits.p == 0xFF) ++bits.p;
+        if (bits.p >= bits.end) fail(kTruncated, "image file is truncated");
+        if (*bits.p) bits.marker = *bits.p;
+        ++bits.p;
+      }
+    }
+    if (bits.marker != 0xD0 + *next_rst) fail(kCorrupt, "corrupt JPEG data: bad restart marker");
+    *next_rst = (*next_rst + 1) & 7;
+    bits.marker = -1;
+    bits.reset();
+  }
+
+  // A lossless scan: the differences of a row of MCUs (dummy samples past
+  // a component's edge decoded and dropped), then each component's rows
+  // undifferenced as jddiffct.c / jdlossls.c do. A component's first row,
+  // and its first after each restart, predicts its first sample from
+  // 1 << (7 - Al) and the rest from the left; later rows predict their
+  // first sample from above. Restarts come every whole number of MCU rows.
+  void lossless_scan(Component** sc, int ns, const int* td, int psv, int al) {
+    const int per_row = ns == 1 ? sc[0]->dw : (width + hmax - 1) / hmax;
+    const int mcu_rows = ns == 1 ? sc[0]->dh : (height + vmax - 1) / vmax;
+    if (restart && restart % per_row) fail(kBroken, "broken data stream when reading image file");
+    int hs[4], vs[4];
+    std::vector<int> diff[4];
+    for (int i = 0; i < ns; ++i) {
+      hs[i] = ns == 1 ? 1 : sc[i]->h;
+      vs[i] = ns == 1 ? 1 : sc[i]->v;
+      diff[i].assign(static_cast<size_t>(per_row) * hs[i] * vs[i], 0);
+    }
+    Bits bits{data + pos, data + size};
+    int next_rst = 0;
+    bool first[4] = {true, true, true, true};
+    for (int r = 0; r < mcu_rows; ++r) {
+      if (restart && r > 0 && (static_cast<long>(r) * per_row) % restart == 0) {
+        read_restart(bits, &next_rst);
+        for (int i = 0; i < 4; ++i) first[i] = true;
+      }
+      for (int m = 0; m < per_row; ++m) {
+        for (int i = 0; i < ns; ++i) {
+          const int rw = per_row * hs[i];
+          for (int yy = 0; yy < vs[i]; ++yy)
+            for (int xx = 0; xx < hs[i]; ++xx) {
+              int t = bits.decode(dc[td[i]]);
+              int d = 0;
+              if (t == 16) {
+                d = 32768;
+              } else if (t) {
+                d = extend(bits.get(t), t);
+              }
+              diff[i][static_cast<size_t>(yy) * rw + m * hs[i] + xx] = d;
+            }
+        }
+      }
+      for (int i = 0; i < ns; ++i) {
+        Component& c = *sc[i];
+        const int w = c.dw, rw = per_row * hs[i];
+        for (int yy = 0; yy < vs[i]; ++yy) {
+          const int y = r * vs[i] + yy;
+          if (y >= c.dh) break;
+          uint16_t* row = &c.lossless[static_cast<size_t>(y) * w];
+          const uint16_t* up = row - w;
+          const int* df = &diff[i][static_cast<size_t>(yy) * rw];
+          if (first[i]) {
+            row[0] = static_cast<uint16_t>((df[0] + (1 << (7 - al))) & 0xFFFF);
+            for (int x = 1; x < w; ++x)
+              row[x] = static_cast<uint16_t>((df[x] + row[x - 1]) & 0xFFFF);
+            first[i] = false;
+            continue;
+          }
+          row[0] = static_cast<uint16_t>((df[0] + up[0]) & 0xFFFF);
+          for (int x = 1; x < w; ++x) {
+            int ra = row[x - 1], rb = up[x], rc = up[x - 1], p;
+            switch (psv) {
+              case 1: p = ra; break;
+              case 2: p = rb; break;
+              case 3: p = rc; break;
+              case 4: p = ra + rb - rc; break;
+              case 5: p = ra + ((rb - rc) >> 1); break;
+              case 6: p = rb + ((ra - rc) >> 1); break;
+              default: p = (ra + rb) >> 1; break;
+            }
+            row[x] = static_cast<uint16_t>((df[x] + p) & 0xFFFF);
+          }
+        }
+      }
+    }
+    resume(bits);
   }
 
   void seq_block(Bits& b, const Huffman& dct, const Huffman& act, int16_t* blk, int* pred) {
@@ -555,15 +690,10 @@ struct Decoder {
     for (;;) {
       int m = next_marker();
       switch (m) {
-        case 0xC0: case 0xC1: case 0xC2:
+        case 0xC0: case 0xC1: case 0xC2: case 0xC3: case 0xC5: case 0xC6: case 0xC7:
+        case 0xC9: case 0xCA: case 0xCB: case 0xCD: case 0xCE: case 0xCF:
           read_sof(m);
           break;
-        case 0xC9: case 0xCA: case 0xCB: case 0xCD: case 0xCE: case 0xCF: case 0xCC:
-          fail(kUnsupported, "arithmetic-coded JPEG");
-        case 0xC3: case 0xC7:
-          fail(kUnsupported, "lossless JPEG");
-        case 0xC5: case 0xC6:
-          fail(kCorrupt, "hierarchical JPEG is not supported");
         case 0xC4:
           read_dht();
           break;
@@ -606,8 +736,11 @@ struct Decoder {
   bool rgb_source() const {
     if (ncomp != 3 || jfif) return false;
     if (adobe) return adobe_transform == 0;
-    return comp[0].id == 82 && comp[1].id == 71 && comp[2].id == 66;
+    return lossless || (comp[0].id == 82 && comp[1].id == 71 && comp[2].id == 66);
   }
+  // jdapimin.c: a four-component frame is YCCK under an Adobe marker whose
+  // transform is not 0
+  bool ycck_source() const { return ncomp == 4 && adobe && adobe_transform != 0; }
 };
 
 // jidctint.c jpeg_idct_islow, with its range-limit table
@@ -730,12 +863,13 @@ void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out, int stride) 
 }
 
 // A component's samples (stride bw * 8) -> a full-size (height, width)
-// plane, upsampled as jdsample.c does.
+// plane, upsampled as jdsample.c does (never "fancy" for a lossless frame,
+// whose min_DCT_scaled_size is 1).
 void upsample(const Component& c, const uint8_t* src, int hmax, int vmax, int width, int height,
-              uint8_t* dst) {
+              uint8_t* dst, bool fancy) {
   const int stride = c.bw * 8;
   const int he = hmax / c.h, ve = vmax / c.v;
-  if (hmax % c.h || vmax % c.v) fail(kUnsupported, "fractional sampling factors");
+  if (hmax % c.h || vmax % c.v) fail(kBroken, "broken data stream when reading image file");
   auto row = [&](int y) {
     y = y < 0 ? 0 : y >= c.dh ? c.dh - 1 : y;
     return src + static_cast<size_t>(y) * stride;
@@ -747,7 +881,7 @@ void upsample(const Component& c, const uint8_t* src, int hmax, int vmax, int wi
     uint8_t* o = dst + static_cast<size_t>(y) * width;
     if (he == 1 && ve == 1) {
       std::memcpy(o, row(y), width);
-    } else if (he == 2 && ve == 1 && dw > 2) {
+    } else if (fancy && he == 2 && ve == 1 && dw > 2) {
       const uint8_t* a = row(y);
       uint8_t* l = line.data();
       l[0] = a[0];
@@ -760,13 +894,13 @@ void upsample(const Component& c, const uint8_t* src, int hmax, int vmax, int wi
       l[2 * dw - 2] = static_cast<uint8_t>((a[dw - 1] * 3 + a[dw - 2] + 1) >> 2);
       l[2 * dw - 1] = a[dw - 1];
       std::memcpy(o, l, width);
-    } else if (he == 1 && ve == 2) {
+    } else if (fancy && he == 1 && ve == 2) {
       int iy = y >> 1;
       const uint8_t* a = row(iy);
       const uint8_t* b = (y & 1) ? row(iy + 1) : row(iy - 1);
       int bias = (y & 1) ? 2 : 1;
       for (int x = 0; x < width; ++x) o[x] = static_cast<uint8_t>((a[x] * 3 + b[x] + bias) >> 2);
-    } else if (he == 2 && ve == 2 && dw > 2) {
+    } else if (fancy && he == 2 && ve == 2 && dw > 2) {
       int iy = y >> 1;
       const uint8_t* a = row(iy);
       const uint8_t* b = (y & 1) ? row(iy + 1) : row(iy - 1);
@@ -815,18 +949,15 @@ struct Image {
 
 Image header(const uint8_t* data, long n) {
   Decoder d{data, static_cast<size_t>(n)};
-  // parse up to the frame header only
+  // parse up to the frame header only, as PIL's JPEG reader opens a file
   if (n < 2 || data[0] != 0xFF || data[1] != 0xD8) fail(kCorrupt, "not a JPEG file");
   d.pos = 2;
   while (!d.have_frame) {
     int m = d.next_marker();
-    if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
-      d.read_sof(m);
-    } else if (m >= 0xC9 && m <= 0xCF) {
-      fail(kUnsupported, "arithmetic-coded JPEG");
-    } else if (m == 0xC3 || m == 0xC7) {
-      fail(kUnsupported, "lossless JPEG");
-    } else if (m == 0xC5 || m == 0xC6 || m == 0xDA || m == 0xD9 || m == 0xD8) {
+    if ((m >= 0xC0 && m <= 0xC3) || (m >= 0xC5 && m <= 0xC7) || (m >= 0xC9 && m <= 0xCB) ||
+        (m >= 0xCD && m <= 0xCF)) {
+      d.read_sof(m, true);
+    } else if (m == 0xDA || m == 0xD9 || m == 0xD8) {
       fail(kCorrupt, "JPEG without a supported frame header");
     } else if ((m >= 0xD0 && m <= 0xD7) || m == 0x01) {
       continue;
@@ -835,49 +966,65 @@ Image header(const uint8_t* data, long n) {
       d.segment(&len);
     }
   }
-  return Image{d.width, d.height, d.ncomp == 1 ? 1 : 3};
+  return Image{d.width, d.height, d.ncomp};
 }
 
-void decode(const uint8_t* data, long n, uint8_t* out) {
+void decode(const uint8_t* data, long n, uint8_t* out, int colour) {
   Decoder d{data, static_cast<size_t>(n)};
   d.parse();
   if (!d.have_frame) fail(kCorrupt, "JPEG without a frame header");
-  const int w = d.width, h = d.height;
-  std::vector<std::vector<uint8_t>> full(d.ncomp);
-  for (int ci = 0; ci < d.ncomp; ++ci) {
+  const int w = d.width, h = d.height, nc = d.ncomp;
+  if (colour == kInfer && d.lossless && (d.ncomp == 3 ? !d.rgb_source() : d.ycck_source()))
+    fail(kBroken, "broken data stream when reading image file");  // JERR_CONVERSION_NOTIMPL
+  std::vector<std::vector<uint8_t>> full(nc);
+  for (int ci = 0; ci < nc; ++ci) {
     Component& c = d.comp[ci];
     if (!c.latched) fail(kCorrupt, "a component with no scan");
     const int stride = c.bw * 8;
-    // blocks past the component's own rows and columns are never read
-    int rows = std::min(c.bh, (c.dh + 7) / 8), cols = std::min(c.bw, (c.dw + 7) / 8);
     std::vector<uint8_t> plane(static_cast<size_t>(stride) * c.bh * 8);
-    for (int by = 0; by < rows; ++by)
-      for (int bx = 0; bx < cols; ++bx)
-        idct_islow(&c.coef[(static_cast<size_t>(by) * c.bw + bx) * 64], c.quant,
-                   &plane[static_cast<size_t>(by) * 8 * stride + bx * 8], stride);
-    std::vector<int16_t>().swap(c.coef);
-    if (d.ncomp == 1) {
-      upsample(c, plane.data(), d.hmax, d.vmax, w, h, out);
+    if (d.lossless) {
+      // jdlossls.c's scaler: the sample shifted back by Al, cut to 8 bits
+      for (int y = 0; y < c.dh; ++y)
+        for (int x = 0; x < c.dw; ++x)
+          plane[static_cast<size_t>(y) * stride + x] =
+              static_cast<uint8_t>(c.lossless[static_cast<size_t>(y) * c.dw + x] << c.al);
+      std::vector<uint16_t>().swap(c.lossless);
+    } else {
+      // blocks past the component's own rows and columns are never read
+      int rows = std::min(c.bh, (c.dh + 7) / 8), cols = std::min(c.bw, (c.dw + 7) / 8);
+      for (int by = 0; by < rows; ++by)
+        for (int bx = 0; bx < cols; ++bx)
+          idct_islow(&c.coef[(static_cast<size_t>(by) * c.bw + bx) * 64], c.quant,
+                     &plane[static_cast<size_t>(by) * 8 * stride + bx * 8], stride);
+      std::vector<int16_t>().swap(c.coef);
+    }
+    if (nc == 1) {
+      upsample(c, plane.data(), d.hmax, d.vmax, w, h, out, !d.lossless);
       return;
     }
     full[ci].resize(static_cast<size_t>(w) * h);
-    upsample(c, plane.data(), d.hmax, d.vmax, w, h, full[ci].data());
+    upsample(c, plane.data(), d.hmax, d.vmax, w, h, full[ci].data(), !d.lossless);
   }
   const size_t npx = static_cast<size_t>(w) * h;
-  const uint8_t *p0 = full[0].data(), *p1 = full[1].data(), *p2 = full[2].data();
-  if (d.rgb_source()) {
-    for (size_t i = 0; i < npx; ++i) {
-      out[3 * i] = p0[i];
-      out[3 * i + 1] = p1[i];
-      out[3 * i + 2] = p2[i];
-    }
+  const uint8_t* p[4] = {full[0].data(), full[1].data(), full[2].data(),
+                         nc == 4 ? full[3].data() : nullptr};
+  bool convert = colour == kYCbCr ||
+                 (colour == kInfer && (nc == 3 ? !d.rgb_source() : d.ycck_source()));
+  if (!convert || nc < 3) {
+    for (size_t i = 0; i < npx; ++i)
+      for (int k = 0; k < nc; ++k) out[nc * i + k] = p[k][i];
     return;
   }
+  // ycc_rgb_convert, or ycck_cmyk_convert: the same tables, inverted, K as
+  // stored
+  const int inv = nc == 4 ? 255 : 0;
   for (size_t i = 0; i < npx; ++i) {
-    int y = p0[i], cb = p1[i], cr = p2[i];
-    out[3 * i] = clamp8(y + kColor.cr_r[cr]);
-    out[3 * i + 1] = clamp8(y + static_cast<int>((kColor.cb_g[cb] + kColor.cr_g[cr]) >> 16));
-    out[3 * i + 2] = clamp8(y + kColor.cb_b[cb]);
+    int y = p[0][i], cb = p[1][i], cr = p[2][i];
+    out[nc * i] = static_cast<uint8_t>(inv ^ clamp8(y + kColor.cr_r[cr]));
+    out[nc * i + 1] = static_cast<uint8_t>(
+        inv ^ clamp8(y + static_cast<int>((kColor.cb_g[cb] + kColor.cr_g[cr]) >> 16)));
+    out[nc * i + 2] = static_cast<uint8_t>(inv ^ clamp8(y + kColor.cb_b[cb]));
+    if (nc == 4) out[nc * i + 3] = p[3][i];
   }
 }
 
@@ -885,8 +1032,9 @@ void decode(const uint8_t* data, long n, uint8_t* out) {
 
 extern "C" {
 
-// The image's size and output channels (1 grey, 3 RGB). Returns 0 or a
-// negative Status; jpeg_dec_error() says why.
+// The image's size and components (1 grey, 3 colour, 4 CMYK), as PIL's
+// JPEG reader opens the file. Returns 0 or a negative Status;
+// jpeg_dec_error() says why.
 int jpeg_dec_info(const uint8_t* data, long n, int* width, int* height, int* channels) {
   if (!data || n < 0 || !width || !height || !channels) return kBadArgs;
   try {
@@ -902,13 +1050,14 @@ int jpeg_dec_info(const uint8_t* data, long n, int* width, int* height, int* cha
 }
 
 // Decode into `out`, (height, width, channels) u8 as jpeg_dec_info gave
-// them (`out_size` bytes). Returns 0 or a negative Status.
-int jpeg_dec_decode(const uint8_t* data, long n, uint8_t* out, long out_size) {
-  if (!data || n < 0 || !out) return kBadArgs;
+// them (`out_size` bytes), colour as `colour` (a Colour) asks. Returns 0 or
+// a negative Status.
+int jpeg_dec_decode(const uint8_t* data, long n, uint8_t* out, long out_size, int colour) {
+  if (!data || n < 0 || !out || colour < kInfer || colour > kYCbCr) return kBadArgs;
   try {
     Image im = header(data, n);
     if (out_size != static_cast<long>(im.width) * im.height * im.channels) return kBadArgs;
-    decode(data, n, out);
+    decode(data, n, out, colour);
     return kOk;
   } catch (const Failure& f) {
     t_error = f.what;

@@ -1,7 +1,9 @@
 // TIFF strip and tile decompressors for the LDR loader (io/tiff.py): LZW
 // (TIFF 6.0 section 13, MSB-first codes of 9 to 12 bits with the early
-// code-width change, ClearCode 256, EndOfInformation 257) and PackBits
-// (section 9). Deflate goes through Python's zlib.
+// code-width change, ClearCode 256, EndOfInformation 257), the old-style
+// LZW libtiff still reads (LZWDecodeCompat: LSB-first codes, the width
+// changing one code later) and PackBits (section 9). Deflate and LZMA go
+// through Python's zlib and lzma.
 //
 // Build: g++ -O2 -shared -fPIC -std=c++17, at first use, by
 // rapidraw_tpu_torch/native.py (host_library) into rapidraw_tpu_torch/_build/.
@@ -12,6 +14,7 @@
 namespace {
 
 constexpr int kClear = 256, kEoi = 257, kFirst = 258, kMaxCodes = 4096;
+constexpr int kCompatCodes = 4096 + 1024;  // libtiff's CSIZE
 
 }  // namespace
 
@@ -22,9 +25,11 @@ extern "C" {
 // cuts it), -1 for a code that is not in the table, -2 for bad arguments.
 long tiff_lzw_decode(const uint8_t* src, long n, uint8_t* out, long cap) {
   if (!src || !out || n < 0 || cap < 0) return -2;
-  static thread_local uint16_t prefix[kMaxCodes];
-  static thread_local uint8_t suffix[kMaxCodes], first[kMaxCodes];
-  static thread_local uint16_t length[kMaxCodes];
+  // the tables live per thread; plain pointers keep TLS lookups out of the loop
+  static thread_local uint16_t t_prefix[kMaxCodes], t_length[kMaxCodes];
+  static thread_local uint8_t t_suffix[kMaxCodes], t_first[kMaxCodes];
+  uint16_t *prefix = t_prefix, *length = t_length;
+  uint8_t *suffix = t_suffix, *first = t_first;
   for (int i = 0; i < 256; ++i) {
     prefix[i] = 0xFFFF;
     suffix[i] = first[i] = static_cast<uint8_t>(i);
@@ -35,10 +40,12 @@ long tiff_lzw_decode(const uint8_t* src, long n, uint8_t* out, long cap) {
   long pos = 0, w = 0;
   int width = 9, next = kFirst, prev = -1;
   for (;;) {
-    while (bits < width) {
-      if (pos >= n) return w;  // out of data without EOI: what was decoded
-      acc = (acc << 8) | src[pos++];
-      bits += 8;
+    if (bits < width) {
+      while (bits <= 56 && pos < n) {
+        acc = (acc << 8) | src[pos++];
+        bits += 8;
+      }
+      if (bits < width) return w;  // out of data without EOI: what was decoded
     }
     int code = static_cast<int>((acc >> (bits - width)) & ((1u << width) - 1));
     bits -= width;
@@ -47,6 +54,20 @@ long tiff_lzw_decode(const uint8_t* src, long n, uint8_t* out, long cap) {
       width = 9;
       next = kFirst;
       prev = -1;
+      continue;
+    }
+    if (code < 256) {  // a literal: one byte, the common case
+      out[w++] = static_cast<uint8_t>(code);
+      if (prev >= 0 && next < kMaxCodes) {
+        prefix[next] = static_cast<uint16_t>(prev);
+        suffix[next] = static_cast<uint8_t>(code);
+        first[next] = first[prev];
+        length[next] = static_cast<uint16_t>(length[prev] + 1);
+        ++next;
+      }
+      prev = code;
+      if (next + 1 >= (1 << width) && width < 12) ++width;
+      if (w >= cap) break;
       continue;
     }
     int emit;
@@ -89,6 +110,70 @@ long tiff_lzw_decode(const uint8_t* src, long n, uint8_t* out, long cap) {
     prev = emit >= 0 ? emit : next - 1;
     if (next + 1 >= (1 << width) && width < 12) ++width;
     if (w >= cap) break;
+  }
+  return w;
+}
+
+// Decode one old-style LZW strip as libtiff's LZWDecodeCompat does: codes
+// LSB first, a table entry added before the code's string is written, the
+// width growing once the next entry passes the widest code. Returns the
+// bytes written (at most `cap`; the data running out ends the strip as an
+// EOI would), -1 for a code that is not in the table, -2 for bad arguments.
+long tiff_lzw_decode_compat(const uint8_t* src, long n, uint8_t* out, long cap) {
+  if (!src || !out || n < 0 || cap < 0) return -2;
+  static thread_local uint16_t t_prefix[kCompatCodes], t_length[kCompatCodes];
+  static thread_local uint8_t t_suffix[kCompatCodes], t_first[kCompatCodes];
+  uint16_t *prefix = t_prefix, *length = t_length;
+  uint8_t *suffix = t_suffix, *first = t_first;
+  for (int i = 0; i < 256; ++i) {
+    prefix[i] = 0xFFFF;
+    suffix[i] = first[i] = static_cast<uint8_t>(i);
+    length[i] = 1;
+  }
+  uint64_t acc = 0;
+  int bits = 0;
+  long pos = 0, w = 0;
+  int width = 9, next = kFirst, prev = -1;
+  auto code_at = [&](int* code) {
+    while (bits < width) {
+      if (pos >= n) return false;
+      acc |= static_cast<uint64_t>(src[pos++]) << bits;
+      bits += 8;
+    }
+    *code = static_cast<int>(acc & ((1u << width) - 1));
+    acc >>= width;
+    bits -= width;
+    return true;
+  };
+  int code;
+  while (w < cap && code_at(&code)) {
+    if (code == kEoi) break;
+    if (code == kClear) {
+      width = 9;
+      next = kFirst;
+      do {
+        if (!code_at(&code)) return w;
+      } while (code == kClear);
+      if (code == kEoi) break;
+      if (code > kClear) return -1;
+      out[w++] = static_cast<uint8_t>(code);
+      prev = code;
+      continue;
+    }
+    if (prev < 0 || next >= kCompatCodes || code > next || (code >= 256 && code < kFirst))
+      return -1;
+    // the new entry: the previous string and the first byte of this one
+    prefix[next] = static_cast<uint16_t>(prev);
+    first[next] = first[prev];
+    length[next] = static_cast<uint16_t>(length[prev] + 1);
+    suffix[next] = code < next ? first[code] : first[prev];
+    if (++next > (1 << width) - 1 && width < 12) ++width;
+    prev = code;
+    int len = length[code];
+    long end = w + len, at = end - 1;
+    for (int c = code; c != 0xFFFF; c = prefix[c], --at)
+      if (at < cap) out[at] = suffix[c];
+    w = end <= cap ? end : cap;
   }
   return w;
 }

@@ -287,6 +287,24 @@ def rgb_to_l(rgb: np.ndarray) -> np.ndarray:
             >> 16).astype(np.uint8)
 
 
+def _cmyk_table() -> np.ndarray:
+    """(256 * 256,) u8: Convert.c cmyk2rgb's channel of (c, k), indexed
+    c * 256 + k: (255 - k) - c * (255 - k) / 255, the division MULDIV255's."""
+    c, k = np.meshgrid(np.arange(256), np.arange(256), indexing="ij")
+    nk = 255 - k
+    t = c * nk + 128
+    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8).reshape(-1)
+
+
+_CMYK_TABLE = _cmyk_table()
+
+
+def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """PIL's convert("RGB") of (..., 4) CMYK u8 (Convert.c cmyk2rgb)."""
+    k = cmyk[..., 3:4].astype(np.uint16)
+    return _CMYK_TABLE[(cmyk[..., :3].astype(np.uint16) << 8) | k]
+
+
 def decode_png_u16(data: bytes) -> np.ndarray | None:
     """(H, W, 3) u16 of a 16-bit PNG as the JAX package's `_load_deep_u16`
     reads it through cv2's IMREAD_UNCHANGED: grey stacked to three

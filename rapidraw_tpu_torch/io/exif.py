@@ -464,7 +464,7 @@ def _tiff_first_frame_opens(entries: dict, endian: str) -> bool:
     bps = tag(258, (1,))
     extra = tag(338, ())
     spp = tag(277, 3 if compression == 6 and photo in (2, 6) else 1)
-    if spp > max(len(k[4]) for k in tables.OPEN_LAYOUTS):
+    if spp > max(len(k[4]) for k in tables.OPEN_MODES):
         return False
     if spp < len(bps):
         bps = bps[:spp]
@@ -473,7 +473,7 @@ def _tiff_first_frame_opens(entries: dict, endian: str) -> bool:
     if len(bps) != spp:
         return False
     prefix = b"II" if endian == "<" else b"MM"
-    if (prefix, photo, sample_format, fillorder, bps, extra) not in tables.OPEN_LAYOUTS:
+    if (prefix, photo, sample_format, fillorder, bps, extra) not in tables.OPEN_MODES:
         return False
     if compression == 1:
         if 273 not in entries:
@@ -481,7 +481,7 @@ def _tiff_first_frame_opens(entries: dict, endian: str) -> bool:
                 return False
             if not isinstance(tag(322), int) or not isinstance(tag(323), int):
                 return False
-    elif fillorder == 2 and (prefix, photo, sample_format, 1, bps, extra) not in tables.OPEN_LAYOUTS:
+    elif fillorder == 2 and (prefix, photo, sample_format, 1, bps, extra) not in tables.OPEN_MODES:
         return False
     return max(1, xsize) * max(1, ysize) <= _MAX_IMAGE_PIXELS
 

@@ -10,7 +10,10 @@ in PIL's own arithmetic:
 
   * P -> RGB / RGBA through the 256-entry palette (entries a file does not
     set are black), the `transparency` index at alpha 0 in RGBA;
-  * L, LA, 1 and P -> RGB replicate or look up; I clips to 0..255;
+  * L, LA, 1 and P -> RGB replicate or look up; I, I;16 and F clip to
+    0..255 (F truncated toward zero);
+  * CMYK -> RGB as Convert.c's cmyk2rgb; LAB -> RGB through littlecms's
+    Lab to sRGB transform (io/lab.py), and no LAB -> L, as in PIL;
   * RGB / RGBA / P -> L: (r*19595 + g*38470 + b*7471 + 0x8000) >> 16;
   * RGBA -> RGB drops alpha; L with a transparent value -> RGBA gives that
     value alpha 0.
@@ -30,7 +33,7 @@ from typing import Callable
 
 import numpy as np
 
-from rapidraw_tpu_torch.io.encode import rgb_to_l
+from rapidraw_tpu_torch.io.encode import cmyk_to_rgb, rgb_to_l
 
 MODES = ("RGB", "RGBA", "L")
 
@@ -63,8 +66,8 @@ def palette_from(colors: np.ndarray, alpha: bool = False) -> np.ndarray:
 class Frame:
     """An image as PIL holds it once loaded."""
 
-    mode: str  # "1", "L", "LA", "P", "RGB", "RGBA" or "I"
-    px: np.ndarray | None  # (H, W) or (H, W, C); int32 for "I"
+    mode: str  # "1", "L", "LA", "P", "RGB", "RGBA", "CMYK", "LAB", "I", "I;16" or "F"
+    px: np.ndarray | None  # (H, W) or (H, W, C); int32 "I", u16 "I;16", float32 "F"
     palette: np.ndarray | None = None  # (256, 4) u8 for "P"
     transparency: int | None = None  # P index or L value, alpha 0 in RGBA
     orientation: int = 1
@@ -84,7 +87,7 @@ class Frame:
         if self.converter is not None:
             return self.converter(mode)
         px, m = self.px, self.mode
-        if m == "I":
+        if m in ("I", "I;16", "I;16B"):
             g = np.clip(px, 0, 255).astype(np.uint8)
             if mode == "L":
                 return g
@@ -123,7 +126,34 @@ class Frame:
             if mode == "RGBA":
                 return np.ascontiguousarray(px)
             return rgb_to_l(px[..., :3]) if mode == "L" else np.ascontiguousarray(px[..., :3])
+        if m in ("CMYK", "LAB"):
+            if m == "CMYK":
+                rgb = cmyk_to_rgb(px)
+            elif mode == "L":  # PIL has no LAB -> L conversion
+                raise ValueError("conversion from LAB to L not supported")
+            else:  # ImageCms, Lab to sRGB (io/lab.py)
+                from rapidraw_tpu_torch.io.lab import lab_to_srgb
+
+                rgb = lab_to_srgb(px)
+            if mode == "RGB":
+                return rgb
+            return rgb_to_l(rgb) if mode == "L" else _with_alpha(rgb, None)
+        if m == "F":
+            g = float_to_l(px)
+            if mode == "L":
+                return g
+            rgb = np.repeat(g[..., None], 3, axis=2)
+            return rgb if mode == "RGB" else _with_alpha(rgb, None)
         raise ValueError(f"unknown mode {m}")
+
+
+def float_to_l(px: np.ndarray) -> np.ndarray:
+    """PIL's "F" -> "L" (Convert.c f2l): 0 at or below 0, 255 at or above
+    255, else truncated toward zero."""
+    f = np.asarray(px, np.float32)
+    g = np.clip(f, np.float32(0.0), np.float32(255.0))
+    g[np.isnan(g)] = 0  # a NaN of either sign gives 0, as in PIL
+    return g.astype(np.uint8)
 
 
 def _with_alpha(rgb: np.ndarray, alpha: np.ndarray | None) -> np.ndarray:
@@ -151,7 +181,8 @@ def _jpeg_frame(data: bytes) -> Frame:
     from rapidraw_tpu_torch.io.jpeg import decode_jpeg
 
     px = decode_jpeg(data)
-    return Frame("L" if px.ndim == 2 else "RGB", px, orientation=image_orientation(data))
+    mode = "L" if px.ndim == 2 else "RGB" if px.shape[2] == 3 else "CMYK"
+    return Frame(mode, px, orientation=image_orientation(data))
 
 
 def _tiff_frame(data: bytes) -> Frame:

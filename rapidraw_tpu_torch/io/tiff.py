@@ -2,23 +2,43 @@
 loader reads it (PIL for 8-bit pixels, its own strip reader or cv2 for
 16-bit RGB, `rapidraw_tpu/io/encode.py:54-95`).
 
-  * Compression none, LZW and PackBits (csrc/host/tiff_codec.cc) and
-    Deflate (zlib); Predictor 2 (horizontal differencing) at 8 and 16
-    bits; strips and tiles; chunky and planar samples.
-  * `decode_tiff_rgb` gives PIL's `Image.open(p).convert("RGB")`: RGB,
-    RGBA (associated alpha un-premultiplied as PIL's "RGBa" unpacker does),
-    grey with black or white zero at 1, 2, 4 and 8 bits, 16-bit grey
-    clamped to 255 (PIL's "I;16" -> "RGB"), grey with alpha, palette
-    (ColorMap >> 8) and 16-bit colour at its high byte.
-  * `read_tiff16_rgb` gives the JAX package's full-depth 16-bit RGB read:
-    its uncompressed strip reader with its quirks (io/encode.py) and, for a
-    compressed file, what cv2's IMREAD_UNCHANGED gives (chunky 16-bit RGB).
+PIL reads an uncompressed frame with its own raw decoder and every other
+frame through libtiff; this reader follows each:
 
-The first directory is read by io/exif.py's `tiff_first_ifd`, which
-refuses a file whose first frame PIL would not open. Layouts PIL opens but
-this reader does not decode (CCITT, JPEG-in-TIFF, CMYK, YCbCr, Lab, float
-samples, FillOrder 2, old-style LZW) raise NotImplementedError naming
-ROADMAP A.10d.
+  * codecs: none, LZW (and the old LSB-first LZW libtiff still reads) and
+    PackBits (csrc/host/tiff_codec.cc), Deflate (zlib), LZMA (Python's
+    lzma), CCITT Modified Huffman, T.4 1-D and 2-D and T.6
+    (csrc/host/ccitt_dec.cc) and JPEG (each strip or tile a JPEG stream
+    after the JPEGTables, csrc/host/jpeg_dec.cc: YCbCr converted to RGB as
+    libtiff's JPEGCOLORMODE_RGB asks, any other photometric as stored);
+    FillOrder 2; Predictor 2 at 8, 16 and 32 bits and 3 (floating point);
+    strips and tiles; chunky and planar samples;
+  * samples: 1, 2, 4, 8 and 16 bits, signed 8 and 16 bits, 32-bit integer
+    and floating point, as PIL's TiffImagePlugin.OPEN_INFO maps them to a
+    mode (io/exif_tags.OPEN_MODES), in PIL's own unpacking, quirks kept: a
+    big-endian compressed file's "I;16BS", "I;32BS" and "F;32BF" samples
+    come back byte-swapped (libtiff hands PIL native order), an
+    uncompressed planar file reads each plane with the one-letter raw mode
+    of its layer (16-bit planes as bytes), a compressed planar file puts
+    plane k in band k (an LA file's alpha plane is lost);
+  * photometrics (`decode_tiff`'s mode): grey, palette, RGB, RGBA, LA,
+    CMYK, CIELab ("LAB": L, and a and b signed, as PIL's LAB images give
+    their bytes)
+    and YCbCr (io/tiff_photometric.py: libtiff's RGBA interface for a
+    compressed file, PIL's "RGBX" raw mode for an uncompressed one).
+
+`decode_tiff_rgb` gives PIL's `Image.open(p).convert("RGB")` (Lab through
+io/lab.py). `read_tiff16_rgb` gives the JAX package's full-depth 16-bit RGB
+read: its uncompressed strip reader with its quirks (io/encode.py) and, for
+a compressed file, what cv2's IMREAD_UNCHANGED gives (chunky 16-bit RGB).
+
+The first directory is read by io/exif.py's `tiff_first_ifd`: a file whose
+first frame PIL would not open raises `image_decode.Unidentified`, as
+`Image.open` fails. What PIL decodes and this reader does not yet (ZSTD,
+old-style JPEG, SGILog, ThunderScan, WebP and 16-bit-padded RLE codecs,
+12-bit samples, a YCbCr frame with a predictor and subsampling, cv2's read
+of a compressed planar 16-bit RGB file) raises NotImplementedError naming
+ROADMAP A.10d-b.
 """
 
 from __future__ import annotations
@@ -30,12 +50,19 @@ import numpy as np
 
 from rapidraw_tpu_torch.io.exif import tiff_first_ifd
 
-NONE, LZW, DEFLATE, ADOBE_DEFLATE, PACKBITS = 1, 5, 32946, 8, 32773
-_CODECS = {NONE, LZW, DEFLATE, ADOBE_DEFLATE, PACKBITS}
+NONE, CCITT_RLE, CCITT_T4, CCITT_T6, LZW, JPEG, ADOBE_DEFLATE = 1, 2, 3, 4, 5, 7, 8
+PACKBITS, DEFLATE, LZMA = 32773, 32946, 34925
+_CODECS = {NONE, CCITT_RLE, CCITT_T4, CCITT_T6, LZW, JPEG, ADOBE_DEFLATE, PACKBITS, DEFLATE, LZMA}
+_CCITT = {CCITT_RLE, CCITT_T4, CCITT_T6}
+_PREDICTED = {LZW, ADOBE_DEFLATE, DEFLATE, LZMA}  # the codecs libtiff runs a predictor after
+# PIL's raw modes that libtiff's native-order samples are read with unrenamed
+_SWAPPED = {"I;16BS", "I;32BS", "F;32BF"}
+REVERSED = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
 
 
 def _deferred(what: str) -> NotImplementedError:
-    return NotImplementedError(f"rapidraw_tpu_torch does not decode {what} yet (ROADMAP A.10d)")
+    return NotImplementedError(
+        f"rapidraw_tpu_torch does not decode {what} yet (ROADMAP A.10d-b)")
 
 
 def _codec():
@@ -43,9 +70,21 @@ def _codec():
 
     lib = host_library("tiff_codec")
     if not getattr(lib, "_rr_typed", False):
-        for fn in (lib.tiff_lzw_decode, lib.tiff_packbits_decode):
+        for fn in (lib.tiff_lzw_decode, lib.tiff_lzw_decode_compat, lib.tiff_packbits_decode):
             fn.restype = ctypes.c_long
             fn.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_long]
+        lib._rr_typed = True
+    return lib
+
+
+def _ccitt():
+    from rapidraw_tpu_torch.native import host_library
+
+    lib = host_library("ccitt_dec")
+    if not getattr(lib, "_rr_typed", False):
+        lib.ccitt_decode.restype = ctypes.c_int
+        lib.ccitt_decode.argtypes = [ctypes.c_char_p, ctypes.c_long] + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
         lib._rr_typed = True
     return lib
 
@@ -56,8 +95,10 @@ def _tuple(v) -> tuple:
     return tuple(v) if isinstance(v, (tuple, list)) else (v,)
 
 
-def _decompress(chunk: bytes, compression: int, size: int) -> np.ndarray:
-    """One strip or tile -> `size` bytes (short data raises OSError)."""
+def _decompress(chunk: bytes, compression: int, size: int, width: int = 0, rows: int = 0,
+                t4options: int = 0) -> np.ndarray:
+    """One strip or tile -> `size` bytes (short data raises OSError); a
+    CCITT chunk -> `rows` packed rows of `width` pixels."""
     if compression == NONE:
         out = np.frombuffer(chunk[:size], np.uint8)
     elif compression in (DEFLATE, ADOBE_DEFLATE):
@@ -65,11 +106,29 @@ def _decompress(chunk: bytes, compression: int, size: int) -> np.ndarray:
             out = np.frombuffer(zlib.decompressobj().decompress(chunk, size), np.uint8)
         except zlib.error as e:
             raise OSError(f"bad Deflate data in TIFF: {e}") from e
+    elif compression == LZMA:
+        import lzma
+
+        try:
+            out = np.frombuffer(lzma.LZMADecompressor().decompress(chunk, size), np.uint8)
+        except lzma.LZMAError as e:
+            raise OSError(f"bad LZMA data in TIFF: {e}") from e
+    elif compression in _CCITT:
+        out = np.empty(size, np.uint8)
+        rc = _ccitt().ccitt_decode(chunk, len(chunk), width, rows, compression, t4options,
+                                   out.ctypes.data)
+        if rc < 0:
+            raise OSError(f"corrupt CCITT data in TIFF (code {rc})")
     else:
-        if compression == LZW and len(chunk) > 1 and chunk[0] == 0 and chunk[1] & 1:
-            raise _deferred("old-style (LSB-first) LZW TIFF")
         buf = np.empty(size, np.uint8)
-        fn = _codec().tiff_lzw_decode if compression == LZW else _codec().tiff_packbits_decode
+        lib = _codec()
+        if compression == LZW:
+            # libtiff's LZWPreDecode: a strip that opens with an LSB-first
+            # Clear code is old-style LZW
+            old = len(chunk) > 1 and chunk[0] == 0 and chunk[1] & 1
+            fn = lib.tiff_lzw_decode_compat if old else lib.tiff_lzw_decode
+        else:
+            fn = lib.tiff_packbits_decode
         n = fn(chunk, len(chunk), buf.ctypes.data, size)
         if n < 0:
             raise OSError("corrupt LZW data in TIFF")
@@ -80,18 +139,26 @@ def _decompress(chunk: bytes, compression: int, size: int) -> np.ndarray:
 
 
 class Frame:
-    """The first frame's layout, from its directory."""
+    """The first frame's layout, from its directory, and PIL's mode and
+    raw mode for it."""
 
     def __init__(self, data):
-        found = tiff_first_ifd(data)
+        from rapidraw_tpu_torch.io.exif_tags import OPEN_MODES
+
+        try:
+            found = tiff_first_ifd(data)
+        except ValueError as e:
+            from rapidraw_tpu_torch.io.image_decode import Unidentified
+
+            raise Unidentified(str(e)) from e
         if found is None:
             raise ValueError("not a TIFF file")
         self.endian, t = found
         self.tags = t
         self.width, self.height = int(t[256]), int(t[257])
         self.compression = int(t.get(259, 1))
-        self.photo = int(t.get(262, 0))
-        self.spp = int(t.get(277, 1))
+        self.photo = 6 if self.compression == 6 else int(t.get(262, 0))
+        self.spp = int(t.get(277, 3 if self.compression == 6 and self.photo in (2, 6) else 1))
         bps = _tuple(t.get(258, (1,)))
         if self.spp < len(bps):
             bps = bps[:self.spp]
@@ -102,31 +169,28 @@ class Frame:
         self.planar = int(t.get(284, 1))
         self.predictor = int(t.get(317, 1))
         self.fill_order = int(t.get(266, 1))
-        self.sample_format = _tuple(t.get(339, (1,)))
+        sf = _tuple(t.get(339, (1,)))
+        if len(sf) > 1 and max(sf) == min(sf) == 1:
+            sf = (1,)
+        self.sample_format = sf
+        fill = self.fill_order if self.compression == NONE else 1
+        key = (b"II" if self.endian == "<" else b"MM", self.photo, sf, fill, bps, self.extra)
+        self.mode, self.rawmode = OPEN_MODES[key]
+        if self.compression != NONE and self.rawmode.endswith((";16B", ";16L")):
+            self.rawmode = self.rawmode[:-1] + "N"  # libtiff hands PIL native order
+        self.sub = tuple(int(v) for v in _tuple(t.get(530, (2, 2))))[:2]
+        self._jpeg_sub = None  # a JPEG frame's YCbCr sampling, from its first chunk
 
-    def samples(self, data) -> np.ndarray:
-        """(H, W, spp) samples as stored: u8 for up to 8 bits (sub-byte
-        samples unpacked MSB first), native u16 for 16 bits."""
-        bits = self.bps[0]
-        if len(set(self.bps)) != 1 or bits not in (1, 2, 4, 8, 16):
-            raise _deferred(f"TIFF samples of {self.bps} bits")
-        if self.compression not in _CODECS:
-            raise _deferred(f"TIFF compression {self.compression}")
-        if self.fill_order != 1:
-            raise _deferred("TIFF FillOrder 2")
-        if any(f != 1 for f in self.sample_format):
-            raise _deferred("TIFF float or signed samples")
-        if self.predictor not in (1, 2) or (self.predictor == 2 and bits < 8
-                                             and self.compression in (LZW, DEFLATE, ADOBE_DEFLATE)):
-            raise _deferred(f"TIFF predictor {self.predictor} at {bits} bits")
-        if self.planar == 2 and self.spp > 1 and not (
-                self.spp == 3 and (bits == 8 or self.compression != NONE)):
-            raise _deferred(f"planar TIFF with {self.spp} samples of {bits} bits")
+    @property
+    def bits(self) -> int:
+        return self.bps[0]
+
+    def chunks(self):
+        """(plane, y0, x0, rows decoded, rows kept, chunk width, offset,
+        byte count) of every strip or tile, plane by plane."""
         t, w, h = self.tags, self.width, self.height
         planes = self.spp if self.planar == 2 else 1
-        per = 1 if self.planar == 2 else self.spp  # samples per pixel in one plane
-        tiled = 322 in t and 324 in t
-        if tiled:
+        if 322 in t and 324 in t:
             tw, tl = int(t[322]), int(t[323])
             offsets, counts = _tuple(t[324]), _tuple(t.get(325))
             across, down = -(-w // tw), -(-h // tl)
@@ -134,44 +198,135 @@ class Frame:
             rps = min(int(t.get(278, h)), h) or h
             offsets, counts = _tuple(t.get(273)), _tuple(t.get(279))
             tw, tl, across, down = w, rps, 1, -(-h // rps)
+        tiled = 322 in t and 324 in t
         if len(offsets) < planes * across * down:
             raise OSError("TIFF has fewer strips or tiles than its size needs")
         if len(counts) < len(offsets):
-            counts = counts + (len(data),) * (len(offsets) - len(counts))
-        row_bytes = (tw * per * bits + 7) // 8
-        dt = np.dtype(self.endian + "u2") if bits == 16 else np.dtype(np.uint8)
-        out = np.empty((planes, h, w, per), np.uint16 if bits == 16 else np.uint8)
-        k = 0
+            counts = counts + (1 << 62,) * (len(offsets) - len(counts))
+        out, k = [], 0
         for p in range(planes):
             for ty in range(down):
                 for tx in range(across):
-                    off, cnt = int(offsets[k]), int(counts[k])
-                    k += 1
                     y0, x0 = ty * tl, tx * tw
                     rows = tl if tiled else min(tl, h - y0)
-                    raw = _decompress(bytes(data[off:off + cnt]), self.compression,
-                                      rows * row_bytes)
-                    block = self._unpack(raw, rows, row_bytes, tw, per, bits, dt)
-                    ny, nx = min(rows, h - y0), min(tw, w - x0)
-                    out[p, y0:y0 + ny, x0:x0 + nx] = block[:ny, :nx]
+                    out.append((p, y0, x0, rows, min(rows, h - y0), tw, int(offsets[k]),
+                                int(counts[k])))
+                    k += 1
+        return out
+
+    def samples(self, data) -> np.ndarray:
+        """(H, W, spp) samples as libtiff hands them to PIL (or, for an
+        uncompressed chunky frame, as stored): u8 for up to 8 bits (sub-byte
+        samples unpacked MSB first), native 16- and 32-bit integers and
+        floats as the sample format says; a JPEG frame's components as its
+        colour mode gives them."""
+        bits = self.bits
+        if len(set(self.bps)) != 1 or bits not in (1, 2, 4, 8, 16, 32):
+            raise _deferred(f"TIFF samples of {self.bps} bits")
+        if self.compression not in _CODECS:
+            raise _deferred(f"TIFF compression {self.compression}")
+        if self.compression in _PREDICTED:
+            if self.predictor not in (1, 2, 3):
+                raise OSError(f"Predictor {self.predictor} is not supported")
+            if self.predictor == 2 and bits < 8:
+                raise OSError(f"horizontal differencing is not supported with {bits}-bit "
+                              "samples")
+            if self.predictor == 3 and self.sample_format[0] != 3:
+                raise OSError("floating point predictor needs floating point samples")
+        planes = self.spp if self.planar == 2 else 1
+        per = 1 if self.planar == 2 else self.spp
+        if self.compression == JPEG:
+            dtype = np.uint8
+        elif bits == 32:
+            dtype = {1: np.uint32, 2: np.int32, 3: np.float32}.get(self.sample_format[0],
+                                                                   np.uint32)
+        elif bits == 16:
+            dtype = np.int16 if self.sample_format[0] == 2 else np.uint16
+        else:
+            dtype = np.uint8
+        out = np.empty((planes, self.height, self.width, per), dtype)
+        for p, y0, x0, rows, keep, tw, off, cnt in self.chunks():
+            chunk = bytes(data[off:off + cnt])
+            if self.fill_order == 2 and self.compression != JPEG:  # JPEG: TIFF_NOBITREV
+                chunk = REVERSED[np.frombuffer(chunk, np.uint8)].tobytes()
+            if self.compression == JPEG:
+                block = self._jpeg_chunk(chunk, rows, tw, per)
+            else:
+                row_bytes = (tw * per * bits + 7) // 8
+                raw = _decompress(chunk, self.compression, rows * row_bytes, tw, rows,
+                                  int(self.tags.get(292, 0)))
+                block = self._unpack(raw, rows, row_bytes, tw, per, bits, dtype)
+            nx = min(tw, self.width - x0)
+            out[p, y0:y0 + keep, x0:x0 + nx] = block[:keep, :nx]
         if planes > 1:
             return np.ascontiguousarray(out[..., 0].transpose(1, 2, 0))
         return out[0]
 
-    def _unpack(self, raw, rows, row_bytes, tw, per, bits, dt) -> np.ndarray:
+    def _jpeg_chunk(self, chunk: bytes, rows: int, tw: int, per: int) -> np.ndarray:
+        """One JPEG strip or tile, after the JPEGTables (tag 347), colour as
+        libtiff's JPEGPreDecode asks for it."""
+        from rapidraw_tpu_torch.io import jpeg
+
+        tables = self.tags.get(347)
+        if isinstance(tables, (bytes, bytearray)) and len(tables) > 4 and chunk[:2] == b"\xff\xd8":
+            tables = bytes(tables)
+            end = tables.rfind(b"\xff\xd9")
+            chunk = (tables[:end] if end > 0 else tables) + chunk[2:]
+        rgb = self.photo == 6 and self.planar == 1
+        # JPEGPreDecode: the first component sampled as YCbCrSubsampling
+        # says (which JPEGFixupTags sets from the first strip or tile),
+        # every other component, and any component of another photometric
+        # or plane, 1x1
+        factors = jpeg.sampling_factors(chunk)
+        if rgb:
+            if self._jpeg_sub is None:
+                self._jpeg_sub = factors[0]
+            bad = factors[0] != self._jpeg_sub or any(f != (1, 1) for f in factors[1:])
+        else:
+            bad = any(f != (1, 1) for f in factors)
+        if bad:
+            raise OSError("improper JPEG sampling factors in a JPEG-compressed TIFF")
+        px = jpeg.jpeg_components(chunk, jpeg.YCBCR if rgb else jpeg.RAW)
+        px = px.reshape(px.shape[0], px.shape[1], -1)
+        if px.shape[2] != per:
+            raise OSError("JPEG strip or tile with the wrong number of components")
+        if px.shape[0] > rows or px.shape[1] > tw:
+            raise OSError("JPEG strip or tile size exceeds expected dimensions")
+        if px.shape[:2] != (rows, tw):  # libtiff warns and leaves the rest
+            full = np.zeros((rows, tw, per), np.uint8)
+            full[:px.shape[0], :px.shape[1]] = px
+            px = full
+        return px
+
+    def _unpack(self, raw, rows, row_bytes, tw, per, bits, dtype) -> np.ndarray:
         rowsb = raw[:rows * row_bytes].reshape(rows, row_bytes)
-        if bits == 16:
-            px = rowsb.view(dt).astype(np.uint16).reshape(rows, tw, per)
+        predict = self.predictor if self.compression in _PREDICTED else 1
+        if predict == 3:
+            return _float_predictor(rowsb, tw, per, bits, dtype)
+        if bits >= 16:
+            file_dt = np.dtype(dtype).newbyteorder(self.endian)
+            px = rowsb.view(file_dt).astype(dtype).reshape(rows, tw, per)
         elif bits == 8:
             px = rowsb.reshape(rows, tw, per)
         else:
             shifts = np.arange(8 - bits, -1, -bits, dtype=np.uint8)
             px = ((rowsb[:, :, None] >> shifts) & ((1 << bits) - 1)).reshape(rows, -1)
             px = px[:, :tw * per].reshape(rows, tw, per)
-        if self.predictor == 2 and self.compression in (LZW, DEFLATE, ADOBE_DEFLATE):
-            wide = px.astype(np.uint32)
-            px = (np.cumsum(wide, axis=1) & (0xFFFF if bits == 16 else 0xFF)).astype(px.dtype)
+        if predict == 2:
+            udt = {8: np.uint8, 16: np.uint16, 32: np.uint32}[bits]
+            acc = np.cumsum(px.view(udt).astype(np.uint64), axis=1)
+            px = (acc & ((1 << bits) - 1)).astype(udt).view(px.dtype)
         return px
+
+
+def _float_predictor(rowsb: np.ndarray, tw: int, per: int, bits: int, dtype) -> np.ndarray:
+    """libtiff's fpAcc: each row's bytes summed with a stride of `per`, then
+    its byte planes (most significant first) gathered into native values."""
+    rows, n = rowsb.shape[0], tw * per
+    nb = bits // 8
+    b = rowsb[:, :n * nb].reshape(rows, n * nb // per, per)
+    b = np.cumsum(b, axis=1, dtype=np.uint8).reshape(rows, nb, n)  # sums modulo 256
+    return np.ascontiguousarray(b[:, ::-1].transpose(0, 2, 1)).view(dtype).reshape(rows, tw, per)
 
 
 def _premultiplied_to_straight(rgba: np.ndarray) -> np.ndarray:
@@ -184,14 +339,18 @@ def _premultiplied_to_straight(rgba: np.ndarray) -> np.ndarray:
 
 
 _GREY_SCALE = {1: 255, 2: 85, 4: 17, 8: 1}
+# the bands of PIL's modes, for a compressed planar frame's planes
+_BANDS = {"1": 1, "L": 1, "P": 1, "I": 1, "F": 1, "I;16": 1, "I;16B": 1, "LA": 2, "PA": 2,
+          "RGB": 3, "LAB": 3, "RGBA": 4, "CMYK": 4}
 
 
 def decode_tiff(data) -> tuple[np.ndarray, str]:
-    """The first frame as PIL's 8-bit mode holds it once loaded: ((H, W)
-    'L', (H, W, 2) 'LA', (H, W, 3) 'RGB' or (H, W, 4) 'RGBA'; the mode).
-    PIL's TIFF reader turns the pixels by their EXIF orientation as it
-    loads them (ImageOps.exif_transpose in TiffImageFile.load_end), so this
-    does too."""
+    """The first frame as PIL holds it once loaded: (the samples, the mode),
+    the mode one of "1" (given as 0 and 255), "L", "I;16" and "I;16B" (u16),
+    "LA", "P" given through its palette as "RGB", "RGB", "RGBA", "CMYK",
+    "LAB", "I" (int32) or "F" (float32). PIL's TIFF reader
+    turns the pixels by their EXIF orientation as it loads them
+    (ImageOps.exif_transpose in TiffImageFile.load_end), so this does too."""
     from rapidraw_tpu_torch.io.exif import image_orientation
     from rapidraw_tpu_torch.io.loader import _apply_exif_orientation
 
@@ -200,32 +359,70 @@ def decode_tiff(data) -> tuple[np.ndarray, str]:
 
 
 def _decode_tiff(data) -> tuple[np.ndarray, str]:
+    from rapidraw_tpu_torch.io import tiff_photometric as photometric
+
     f = Frame(data)
-    photo, bits, spp = f.photo, f.bps[0], f.spp
+    if f.photo == 6 and f.spp != 3 and f.compression != NONE:
+        raise OSError("libtiff reads YCbCr only with three samples")
+    if f.photo == 6 and f.mode == "RGB" and not (f.compression == JPEG and f.planar == 1):
+        return photometric.ycbcr_rgb(f, data), "RGB"
+    if f.planar == 2 and f.spp > 1 and f.compression == NONE:
+        return photometric.raw_planar(f, data)
     px = f.samples(data)
-    if photo in (0, 1):
+    if f.compression != NONE and f.rawmode in _SWAPPED:
+        px = px.byteswap()  # PIL reads libtiff's native order with a big-endian raw mode
+    if f.planar == 2 and f.spp > 1:
+        px = _planes_in_bands(f, px)
+    return _pil_mode(f, px)
+
+
+def _planes_in_bands(f: Frame, px: np.ndarray) -> np.ndarray:
+    """PIL's libtiff decoder puts plane k of a planar frame in band k of
+    the image: more planes than the mode has bands is an error in strips
+    (tiles read the mode's bands alone), and an LA image's alpha plane
+    lands in a byte its mode does not show."""
+    if f.spp > _BANDS.get(f.mode, 1) and not (322 in f.tags and 324 in f.tags):
+        raise OSError("decoder error -2")
+    if f.mode == "LA":
+        px = px.copy()
+        px[..., 1] = 0
+    return px
+
+
+def _pil_mode(f: Frame, px: np.ndarray) -> tuple[np.ndarray, str]:
+    """Samples as PIL's raw mode unpacks them -> (pixels, mode)."""
+    photo, bits, mode, raw = f.photo, f.bits, f.mode, f.rawmode
+    if mode in ("1", "L", "I;16", "I;16B"):
         g = px[..., 0]
-        if bits == 16:
-            # "I;16" for both zero senses; convert() clamps to 8 bits
-            g8 = np.minimum(g, 255).astype(np.uint8)
-        else:
-            g8 = (g * _GREY_SCALE[bits]).astype(np.uint8)
-            if photo == 0:
-                g8 = 255 - g8
-        if spp == 1:
-            return g8, "L"
-        if spp == 2 and bits in (8, 16):
-            a = px[..., 1]
-            a8 = (a >> 8).astype(np.uint8) if bits == 16 else a
-            return np.stack([g8, a8], axis=-1), "LA"
-    elif photo == 2 and spp in (3, 4) and bits in (8, 16):
-        px8 = (px >> 8).astype(np.uint8) if bits == 16 else px
-        if spp == 3:
-            return px8, "RGB"
-        if f.extra[:1] == (1,):
+        if bits == 16:  # "I;16" for both zero senses; convert() clamps to 8 bits
+            return g.astype(np.uint16), mode
+        g8 = (g * _GREY_SCALE[bits]).astype(np.uint8)
+        if photo == 0:  # the "I" raw modes: zero is white
+            g8 = 255 - g8
+        return g8, mode
+    if mode in ("I", "F"):
+        return px[..., 0].astype(np.int32 if mode == "I" else np.float32), mode
+    if mode == "LA":
+        return px[..., :2].astype(np.uint8), "LA"
+    if mode in ("RGB", "RGBA", "CMYK"):
+        n = {"RGB": 3, "RGBA": 4, "CMYK": 4}[mode]
+        px8 = (px[..., :n] >> 8).astype(np.uint8) if bits == 16 else px[..., :n]
+        # associated alpha; a compressed planar file is read so unless its
+        # ExtraSamples says unassociated
+        assoc = f.extra[:1] == (1,) or (f.planar == 2 and f.compression != NONE
+                                        and f.extra[:1] != (2,))
+        if mode == "RGBA" and assoc:
             return _premultiplied_to_straight(px8), "RGBA"
-        return px8, "RGBA"
-    elif photo == 3 and spp == 1 and bits <= 8:
+        return np.ascontiguousarray(px8), mode
+    if mode == "LAB":
+        lab = np.ascontiguousarray(px[..., :3])
+        if f.planar == 2:
+            # the planes go through PIL's one-band "A" and "B" unpackers,
+            # which do not make a and b signed as its "LAB" unpacker does
+            lab = lab.copy()
+            lab[..., 1:] ^= 128
+        return lab, "LAB"
+    if mode == "P" and f.spp == 1:
         cmap = np.asarray(_tuple(f.tags.get(320)), np.int64)
         n = 1 << bits
         if cmap.size != 3 * n:
@@ -233,17 +430,15 @@ def _decode_tiff(data) -> tuple[np.ndarray, str]:
         pal = np.zeros((256, 3), np.uint8)
         pal[:n] = (cmap.reshape(3, n).T // 256).astype(np.uint8)
         return pal[px[..., 0]], "RGB"
-    raise _deferred(f"TIFF photometric {photo} with {spp} samples of {bits} bits")
+    raise _deferred(f"TIFF mode {mode} (raw mode {raw})")
 
 
 def decode_tiff_rgb(data) -> np.ndarray:
     """(H, W, 3) u8 as PIL's convert("RGB") gives the first frame."""
+    from rapidraw_tpu_torch.io.image_decode import Frame as Image
+
     px, mode = decode_tiff(data)
-    if mode == "L":
-        return np.repeat(px[..., None], 3, axis=2)
-    if mode == "LA":
-        return np.repeat(px[..., :1], 3, axis=2)
-    return np.ascontiguousarray(px[..., :3])
+    return Image(mode, px).convert("RGB")
 
 
 def read_tiff16_rgb(data) -> np.ndarray | None:
@@ -263,11 +458,13 @@ def read_tiff16_rgb(data) -> np.ndarray | None:
         if len(raw) != f.height * f.width * 6:
             return None
         return np.frombuffer(raw, f.endian + "u2").reshape(f.height, f.width, 3)
-    if f.photo != 2 or f.compression not in _CODECS or f.predictor not in (1, 2):
+    if (f.photo != 2 or f.compression not in _CODECS - _CCITT - {JPEG, LZMA}
+            or f.predictor not in (1, 2)):
         return None
     if f.planar == 2:
-        # cv2 reads these as if chunky and returns scrambled values
-        raise _deferred("compressed planar 16-bit RGB TIFF")
+        # cv2 reads each plane's strip into a chunky strip buffer and leaves
+        # the rest of the buffer as it was: reads of one file differ
+        raise _deferred("cv2's read of a compressed planar 16-bit RGB TIFF")
     # cv2 turns the pixels by IFD0's Orientation 2-4 and fails to read the
     # file at 5-8 (None: the JAX package then reads it through PIL)
     orientation = f.tags.get(274, 1)

@@ -1,14 +1,20 @@
 """Write the LDR-format fixtures of this folder with PIL 12.1 (libwebp
-1.6.0), and digests.json: each file's size and the SHA-256 of PIL's
-`Image.open(f).convert(mode)` bytes for "RGB", "RGBA" and "L".
+1.6.0, libtiff 4.7.1, libjpeg-turbo), and digests.json: each file's size
+and the SHA-256 of PIL's `Image.open(f).convert(mode)` bytes for "RGB",
+"RGBA" and "L" (where PIL converts: not LAB to L); for the JPEG and TIFF
+variants also PIL's mode and the SHA-256 of its samples (`np.asarray`).
 
     PYTHONPATH=. python tests/fixtures/ldr/make_fixtures.py
 
 The files: a 1024 x 1536 lossy WebP (q75) of chip_smoke.ldr_rgb16's
 photograph, a lossy WebP with a lossy alpha plane, BC3 and BC7 DDS files
 of seeded random blocks (PIL decodes any block), and a GIF with a
-transparency index. The port reads them without PIL (chip_smoke phase 21,
-tests/test_torch_ldr_formats.py)."""
+transparency index; the variants of ROADMAP A.10d: a CMYK JPEG with an
+Adobe marker and its YCCK copy (the marker's transform set to 2), TIFFs in
+CCITT Modified Huffman, T.4 2-D and T.6, a JPEG-compressed CMYK TIFF, a
+YCbCr 2x2 LZW TIFF (written here: PIL writes no subsampled YCbCr) and a
+Lab TIFF. The port reads them without PIL (chip_smoke phases 21 and 22,
+tests/test_torch_ldr_formats.py, tests/test_torch_ldr_variants.py)."""
 
 from __future__ import annotations
 
@@ -58,6 +64,36 @@ def fixtures() -> dict[str, bytes]:
     buf = io.BytesIO()
     pal_img.save(buf, "GIF", transparency=int(idx[40, 70]), optimize=False)
     out["transparent.gif"] = buf.getvalue()
+    out.update(variants())
+    return out
+
+
+def save(im: Image.Image, fmt: str, **kw) -> bytes:
+    buf = io.BytesIO()
+    im.save(buf, fmt, **kw)
+    return buf.getvalue()
+
+
+def variants() -> dict[str, bytes]:
+    import chip_smoke
+    from chip_smoke import tiff_chunks as make_tiff, ycbcr_blocks
+    from tests.test_torch_ldr import lzw_encode
+    from tests.test_torch_ldr_variants import with_adobe
+
+    rgb = (chip_smoke.ldr_rgb16(48, 64, 9) >> 8).astype(np.uint8)
+    cmyk = Image.fromarray(np.concatenate([255 - rgb, rgb[..., 1:2] // 3], -1), "CMYK")
+    out = {"cmyk_adobe.jpg": save(cmyk, "JPEG", quality=85)}
+    out["ycck.jpg"] = with_adobe(out["cmyk_adobe.jpg"], 2)
+    bits = Image.fromarray(rgb[..., 0] > 120)
+    out["mh.tif"] = save(bits, "TIFF", compression="tiff_ccitt")
+    out["g3_2d.tif"] = save(bits, "TIFF", compression="group3", tiffinfo={292: 1})
+    out["g4.tif"] = save(bits, "TIFF", compression="group4")
+    out["jpeg_cmyk.tif"] = save(cmyk, "TIFF", compression="jpeg")
+    out["ycbcr22_lzw.tif"] = make_tiff(64, 48, [lzw_encode(ycbcr_blocks(
+        rgb[..., 0], rgb[::2, ::2, 1], rgb[::2, ::2, 2], 2, 2))],
+        {258: (3, [8, 8, 8]), 259: (3, [5]), 262: (3, [6]), 277: (3, [3]), 530: (3, [2, 2])})
+    out["lab.tif"] = save(Image.frombytes("LAB", (64, 48), rgb.tobytes()), "TIFF",
+                          compression="tiff_adobe_deflate")
     return out
 
 
@@ -66,7 +102,15 @@ def digests(files: dict[str, bytes]) -> dict:
     for name, data in sorted(files.items()):
         im = Image.open(io.BytesIO(data))
         out[name] = {"size": list(im.size)}
+        if name.endswith((".jpg", ".tif")):
+            out[name]["mode"] = im.mode
+            px = np.ascontiguousarray(np.asarray(im))
+            if im.mode == "1":  # PIL's bool array holds 0 and 255: hash 0 and 1
+                px = (px != 0).astype(np.uint8)
+            out[name]["samples"] = hashlib.sha256(px.tobytes()).hexdigest()
         for mode in ("RGB", "RGBA", "L"):
+            if im.mode == "LAB" and mode == "L":
+                continue  # PIL has no LAB -> L conversion
             px = np.ascontiguousarray(np.asarray(im.convert(mode)))
             out[name][mode] = hashlib.sha256(px.tobytes()).hexdigest()
     return out

@@ -40,7 +40,7 @@ def test_tag_tables_are_pils():
     assert exif_tags.GROUP_INFO == {g: {t: (i.type, i.length) for t, i in v.items()}
                                     for g, v in TiffTags.TAGS_V2_GROUPS.items()}
     assert not any(i.enum for v in TiffTags.TAGS_V2_GROUPS.values() for i in v.values())
-    assert exif_tags.OPEN_LAYOUTS == set(TiffImagePlugin.OPEN_INFO)
+    assert exif_tags.OPEN_MODES == TiffImagePlugin.OPEN_INFO
     assert exif_tags.COMPRESSIONS == set(TiffImagePlugin.COMPRESSION_INFO)
 
 

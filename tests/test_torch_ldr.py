@@ -5,7 +5,9 @@ io/float_images.py, io/loader.py) against PIL, cv2 and the JAX package.
   fancy upsampling) at every sampling PIL and cv2 write (4:4:4, 4:2:2,
   4:2:0, 4:4:0, 4:1:1), grey, progressive, optimized tables, restart
   markers, odd sizes and 1024 x 1536; truncated files fail where PIL
-  fails; the refused codings raise NotImplementedError naming A.10d.
+  fails; arithmetic coding, the one coding still refused, raises
+  NotImplementedError naming A.10d-b, and a 12-bit or CMYK file reads as
+  PIL reads it (tests/test_torch_ldr_variants.py holds the rest).
 - TIFF: files written here (`tiff_bytes`: every compression, predictor,
   strips and tiles, chunky and planar, both byte orders) and by PIL and
   cv2, read as PIL's convert("RGB") and as the JAX package's 16-bit read.
@@ -290,15 +292,34 @@ def _patched(data: bytes, marker: int, offset: int = 0, value: int | None = None
 
 
 def test_refused_jpeg_codings_name_a10c():
-    """The codings the port still refuses name the slice that takes them,
-    A.10d."""
+    """Arithmetic coding, the one JPEG coding the port still refuses, names
+    the slice that takes it, A.10d-b; a 12-bit frame is one PIL does not
+    open (UnidentifiedImageError, an OSError), and a CMYK file and a
+    lossless one decode as PIL decodes them."""
+    from PIL import UnidentifiedImageError
+
     base = pil_jpeg(photo(16, 16), quality=85)
+    for data in (_patched(base, 0xC9), _patched(base, 0xCA)):
+        with pytest.raises(NotImplementedError, match="A.10d-b"):
+            jpeg.decode_jpeg(data)
+    twelve = _patched(base, 0, offset=0, value=12)
+    with pytest.raises(UnidentifiedImageError):
+        Image.open(io.BytesIO(twelve))
+    with pytest.raises(OSError):
+        jpeg.decode_jpeg(twelve)
     cmyk = io.BytesIO()
     Image.new("CMYK", (8, 8), (10, 20, 30, 40)).save(cmyk, "JPEG")
-    for data in (_patched(base, 0xC9), _patched(base, 0xCA), _patched(base, 0xC3),
-                 _patched(base, 0, offset=0, value=12), cmyk.getvalue()):
-        with pytest.raises(NotImplementedError, match="A.10d"):
-            jpeg.decode_jpeg(data)
+    im = Image.open(io.BytesIO(cmyk.getvalue()))
+    assert np.array_equal(jpeg.decode_jpeg(cmyk.getvalue()), np.asarray(im))
+    assert np.array_equal(jpeg.decode_jpeg_rgb(cmyk.getvalue()), np.asarray(im.convert("RGB")))
+    lossless = _patched(base, 0xC3)  # DCT data read as lossless: what PIL makes of it
+    try:
+        want = np.asarray(Image.open(io.BytesIO(lossless)).convert("RGB"))
+    except OSError:
+        with pytest.raises(OSError):
+            jpeg.decode_jpeg_rgb(lossless)
+    else:
+        assert np.array_equal(jpeg.decode_jpeg_rgb(lossless), want)
 
 
 # ---- TIFF --------------------------------------------------------------------
@@ -323,8 +344,9 @@ def _layout_samples(bits, photo_, spp, extra, seed=0, h=13, w=21):
 @pytest.mark.parametrize("layout", TIFF_LAYOUTS, ids=lambda v: "-".join(map(str, v)))
 def test_tiff_matches_pil(layout):
     """convert("RGB") as PIL's for each compression, predictor, strips and
-    tiles, chunky and planar, both byte orders; the planar layouts the port
-    refuses (PIL reads some of them wrong or not at all) name A.10d."""
+    tiles, chunky and planar, both byte orders; the planar layouts as PIL
+    reads them, wrong or not (16-bit uncompressed planes read as bytes, an
+    LA file's alpha lost), and the class of the error where PIL fails."""
     bits, photo_, spp, extra = layout
     px, cmap = _layout_samples(*layout)
     for comp in (1, 5, 8, 32773):
@@ -336,12 +358,8 @@ def test_tiff_matches_pil(layout):
                                           endian, extra, cmap)
                         try:
                             want = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
-                        except (OSError, ValueError):  # PIL cannot read it: the port fails too
-                            with pytest.raises((ValueError, NotImplementedError)):
-                                tiff.decode_tiff_rgb(data)
-                            continue
-                        if planar == 2 and not (spp == 3 and (bits == 8 or comp != 1)):
-                            with pytest.raises(NotImplementedError, match="A.10d"):
+                        except (OSError, ValueError) as e:  # PIL cannot read it: nor the port
+                            with pytest.raises(OSError if isinstance(e, OSError) else ValueError):
                                 tiff.decode_tiff_rgb(data)
                             continue
                         got = tiff.decode_tiff_rgb(data)
@@ -377,7 +395,8 @@ def _cv2_tiff(a16, compression, predictor, rows=None) -> bytes:
 def test_tiff16_matches_jax(source, tmp_path):
     """The full-depth 16-bit RGB read equals JAX's read_tiff16_rgb (its strip
     reader, or cv2 for compressed files), None where it is None; compressed
-    planar files, which cv2 scrambles, are refused."""
+    planar files, which cv2 reads through a strip buffer it does not clear
+    (two reads of one file differ), are refused naming A.10d-b."""
     rng = np.random.default_rng(9)
     a16 = rng.integers(0, 65536, (13, 21, 3), dtype=np.uint16)
     files = []
@@ -400,7 +419,7 @@ def test_tiff16_matches_jax(source, tmp_path):
         p = tmp_path / "a.tif"
         p.write_bytes(data)
         if refused:
-            with pytest.raises(NotImplementedError, match="A.10d"):
+            with pytest.raises(NotImplementedError, match="A.10d-b"):
                 tiff.read_tiff16_rgb(data)
             continue
         want, got = jencode.read_tiff16_rgb(p), tiff.read_tiff16_rgb(data)

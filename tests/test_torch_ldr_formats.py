@@ -858,18 +858,26 @@ def test_unidentified_bytes_raise_oserror():
 
 def test_refused_jpeg_and_tiff_name_a10d():
     """The JPEG codings and TIFF variants the port still refuses name the
-    slice that takes them, A.10d."""
+    slice that takes them, A.10d-b: arithmetic coding and ZSTD; a CMYK TIFF
+    decodes as PIL decodes it."""
     from rapidraw_tpu_torch.io import jpeg, tiff
 
     base = pil_bytes(Image.fromarray(photo(16, 16)[..., :3]), "JPEG", quality=85)
     at = base.index(b"\xff\xc0")
     arith = base[:at + 1] + b"\xc9" + base[at + 2:]
-    with pytest.raises(NotImplementedError, match="A.10d"):
+    with pytest.raises(NotImplementedError, match="A.10d-b"):
         jpeg.decode_jpeg(arith)
     buf = io.BytesIO()
     Image.new("CMYK", (8, 8), (10, 20, 30, 40)).save(buf, "TIFF")
-    with pytest.raises(NotImplementedError, match="A.10d"):
-        tiff.decode_tiff_rgb(buf.getvalue())
+    want = np.asarray(Image.open(io.BytesIO(buf.getvalue())).convert("RGB"))
+    assert np.array_equal(tiff.decode_tiff_rgb(buf.getvalue()), want)
+    buf = io.BytesIO()
+    Image.new("RGB", (8, 8), (10, 20, 30)).save(buf, "TIFF", compression="tiff_lzw")
+    zstd = bytearray(buf.getvalue())
+    at = bytes(zstd).index(struct.pack("<HHI", 259, 3, 1))
+    struct.pack_into("<H", zstd, at + 8, 50000)
+    with pytest.raises(NotImplementedError, match="A.10d-b"):
+        tiff.decode_tiff_rgb(bytes(zstd))
 
 
 # ---- load_image against JAX -----------------------------------------------------------
@@ -978,7 +986,7 @@ def test_fixtures_match_their_digests(name):
     data = (FIXTURES / name).read_bytes()
     im = Image.open(io.BytesIO(data))
     assert list(im.size) == DIGESTS[name]["size"]
-    for mode in MODES:
+    for mode in (m for m in MODES if m in DIGESTS[name]):  # a LAB file has no "L"
         got = decode_image(data, mode)
         want = hashlib.sha256(np.ascontiguousarray(np.asarray(im.convert(mode))).tobytes())
         assert hashlib.sha256(got.tobytes()).hexdigest() == want.hexdigest() == DIGESTS[name][mode]
