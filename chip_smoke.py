@@ -6,8 +6,9 @@ Phases: (1) the card's name and power limit; (2) build the seven CUDA
 sources of rapidraw_tpu_torch/csrc, one nvcc each, the host decoders
 (csrc/host/: lossless JPEG, Nikon/Pentax Huffman, Panasonic/Olympus, crx,
 Phase One, the LDR loader's JPEG decoder, TIFF LZW/PackBits, WebP, BCn and
-the GIF/QOI/TGA/BMP loops), the guides and the export's JPEG encoder
-(csrc/host/jpeg_enc.cc), g++ each, all started together;
+the GIF/QOI/TGA/BMP loops), the guides and the export's JPEG and WebP
+encoders (csrc/host/jpeg_enc.cc, webp_enc.cc), g++ each, all started
+together;
 (3) the blur kernel against its plain PyTorch version at 24 MP, with a
 case at each main path's shapes, one in each of its two regimes (the
 launch plan fuses small radii into one pass and gives larger ones two),
@@ -167,7 +168,16 @@ timed and held to what was written, the blur and grade kernels against
 their plain versions on the loaded JPEG-in-TIFF, the six again at 1024 x
 1536 loaded on the card against device="cpu" and through export_images,
 and the PIL-made variant fixtures of tests/fixtures/ldr held to the
-SHA-256 of PIL's samples and conversions.
+SHA-256 of PIL's samples and conversions; (23) WebP and AVIF export
+(`phase_webp_avif`, `[webp]` and `[avif]` lines): the WebP bytes of
+seeded integer-made frames against the digests the CPU tests pin, a 24 MP
+16-bit TIFF from --seed loaded on the card with the blur and grade kernels
+against their plain versions, then exported with a CONFIG3_DOC sidecar to
+WebP at q90 and q75 (grade and blur once each), each file decoded by the
+port and held byte for byte to the encoder's reconstruction of the u8
+render, with encode seconds, bytes, bpp and PSNR; four 1024 x 1536 files
+through one WebP export, held the same way; and whether the machine has a
+libavif (with one, a 1024 x 1536 AVIF round trip).
 Each kernel line carries its time, its plain version's time and its bound
 (bytes over the HBM rate or operations over the float32 peak, whichever is
 larger). It prints a kernels JSON line (top level: each kernel's numbers
@@ -178,7 +188,7 @@ then as its last line {"ok": true, "device": {...}}.
 Any failed check raises, so the process exits non-zero; without a CUDA
 device it exits non-zero before printing any result.
 
---quick runs phases 3-8, 10-16, 21 and 22 at 1024x1536 with fewer
+--quick runs phases 3-8, 10-16 and 21-23 at 1024x1536 with fewer
 repetitions (a first check of a new kernel). --out DIR writes the nvcc/ptxas logs there.
 --profile adds a torch.profiler pass over the config-3, config-5,
 config-4 and config-2 main paths (config 2 from a DNG and from a NEF):
@@ -192,6 +202,7 @@ from __future__ import annotations
 import argparse
 import base64
 import dataclasses
+import hashlib
 import json
 import re
 import statistics
@@ -5728,6 +5739,199 @@ def phase_ldr_variants(args, h, w, reps, card, dev, reset_counts, read_counts,
     return launches, report
 
 
+# ---- phase 23: WebP and AVIF export (A.10e) ---------------------------------------
+# The WebP encoder's bytes on seeded integer-made frames, pinned by
+# tests/test_torch_webp_enc.py: (h, w, seed, quality) -> SHA-256 of the file
+WEBP_DIGESTS = {
+    (64, 96, 23, 90): "ef5d22d4715398d279e6c5989b862a433f3425207855951d3c0357846601812d",
+    (37, 53, 24, 75): "e70004131f477df5d08e20bb2064c891bf2641281e1de3af859c0b5749a344ac",
+    (256, 384, 25, 50): "9fea6f4e09013c24364fdb25a48f6e7cc93f81f990747550793467f0ddb04518",
+}
+WEBP_SMALL = (1024, 1536)  # phase 23's four-file export and the AVIF frame
+
+
+def webp_digest_frame(h: int, w: int, seed: int) -> np.ndarray:
+    """(h, w, 3) u8 made with integer arithmetic only (so every host makes
+    the same bytes): gradients, flat discs and uniform noise from `seed`."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = np.stack([xx * 255 // max(w - 1, 1), yy * 255 // max(h - 1, 1),
+                    (xx + yy) * 3 % 256], axis=-1)
+    for _ in range(12):
+        y0, x0 = int(rng.integers(0, h)), int(rng.integers(0, w))
+        r = int(rng.integers(2, max(3, min(h, w) // 3)))
+        img[(yy - y0) ** 2 + (xx - x0) ** 2 < r * r] = rng.integers(0, 256, 3)
+    img = img + rng.integers(-12, 13, (h, w, 3))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def psnr_u8(a: np.ndarray, b: np.ndarray) -> float:
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return 10.0 * float(np.log10(255.0 ** 2 / mse)) if mse > 0 else float("inf")
+
+
+class WebpSpy:
+    """io/webp.encode_webp, watched inside a `with` block: each call's u8
+    input, quality, the SHA-256 of its VP8 bitstream and seconds
+    (`calls`)."""
+
+    def __init__(self):
+        from rapidraw_tpu_torch.io import webp
+
+        self.mod, self.calls = webp, []
+
+    def __enter__(self):
+        real = self.real = self.mod.encode_webp
+
+        def spy(rgb, quality):
+            t0 = time.perf_counter()
+            data = real(rgb, quality)
+            secs = time.perf_counter() - t0
+            self.calls.append((rgb, quality, hashlib.sha256(vp8_chunk(data)).hexdigest(), secs))
+            return data
+
+        self.mod.encode_webp = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.encode_webp = self.real
+
+
+def vp8_chunk(data: bytes) -> bytes:
+    """The payload of a WebP file's "VP8 " chunk (after any VP8X and EXIF
+    chunks the export's EXIF copy adds)."""
+    pos = 12
+    while pos + 8 <= len(data):
+        size = int.from_bytes(data[pos + 4:pos + 8], "little")
+        if data[pos:pos + 4] == b"VP8 ":
+            return data[pos + 8:pos + 8 + size]
+        pos += 8 + size + (size & 1)
+    raise AssertionError("no VP8 chunk")
+
+
+def check_webp_file(tag, path: Path, rgb: np.ndarray, quality: int, card) -> tuple:
+    """One exported WebP: the port's decoder against the encoder's own
+    reconstruction of the u8 frame it was given (byte for byte), the
+    file's VP8 bitstream against a second encode of that frame (the same
+    bytes). Returns (bytes, bpp, PSNR against the frame, reconstruction
+    seconds)."""
+    from rapidraw_tpu_torch.io.webp import decode_webp, webp_reconstruction
+
+    data = path.read_bytes()
+    t0 = time.perf_counter()
+    again, recon = webp_reconstruction(rgb, quality)
+    t_rec = time.perf_counter() - t0
+    got, mode = decode_webp(data)
+    if vp8_chunk(again) != vp8_chunk(data):
+        raise AssertionError(f"{tag} {path.name}: a second encode of its frame differs")
+    if mode != "RGB" or got.shape != rgb.shape or not np.array_equal(got, recon):
+        raise AssertionError(f"{tag} {path.name}: decoded pixels differ from the encoder's "
+                             "reconstruction")
+    h, w = rgb.shape[:2]
+    return len(data), len(data) * 8 / (h * w), psnr_u8(got, rgb), t_rec
+
+
+def phase_webp_avif(args, h, w, reps, card, dev, reset_counts, read_counts):
+    """Phase 23, WebP and AVIF export (A.10e; `[webp]` and `[avif]` lines):
+    the seeded frames' WebP bytes against the digests the CPU tests pin; a 24 MP
+    16-bit TIFF of `photo_rgb16`'s photograph from --seed loaded on the
+    card with the blur and grade
+    kernels held to their plain versions on it, then export_images with a
+    CONFIG3_DOC sidecar to WebP at q 90 and 75 (counters reset and read
+    around each: grade and blur once), each file decoded by the port's
+    decoder and held byte for byte to the encoder's reconstruction of the
+    u8 render, with encode seconds, bytes, bpp and PSNR against the render;
+    four 1024 x 1536 files through one WebP q90 export, held the same way;
+    whether a libavif is there, and with one, a 1024 x 1536 frame encoded
+    and decoded (PSNR, seconds). Returns (the q90 export's launches,
+    {(kernel, "webp_export"): numbers})."""
+    import tempfile
+
+    from rapidraw_tpu_torch import load_image
+    from rapidraw_tpu_torch.io import avif, encode
+    from rapidraw_tpu_torch.io.webp import encode_webp
+
+    t_phase = time.perf_counter()
+    for (fh, fw, seed, q), want in WEBP_DIGESTS.items():
+        got = hashlib.sha256(encode_webp(webp_digest_frame(fh, fw, seed), q)).hexdigest()
+        log(f"[webp] seeded frame {fh}x{fw} seed {seed} q{q}: sha256 {got[:16]}... "
+            f"{'equal to' if got == want else 'DIFFERENT from'} the CPU tests' pin")
+        if got != want:
+            raise AssertionError(f"WebP bytes of the seeded {fh}x{fw} frame: {got} != {want}")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_webp_") as tmp:
+        tmp = Path(tmp)
+        src = tmp / "frame.tif"
+        t0 = time.perf_counter()
+        encode.write_tiff16(src, photo_rgb16(h, w, args.seed + 23, dev))
+        Path(str(src) + ".rrdata").write_text(json.dumps({"adjustments": CONFIG3_DOC}))
+        log(f"[webp] wrote a {h}x{w} 16-bit TIFF in {time.perf_counter() - t0:.1f} s")
+        loaded, _ = load_image(src, device=dev)
+        report = {(k, "webp_export"): v for k, v in loaded_kernels_vs_plain(
+            "[webp]", f"the {h}x{w} TIFF", loaded, reps, card, dev).items()}
+        del loaded
+        launches = None
+        for q in (90, 75):
+            with WebpSpy() as spy:
+                res, counts, line = timed_export([str(src)], tmp / f"q{q}", dev, reset_counts,
+                                                 read_counts, format="webp", quality=q)
+            log(f"[webp] export to WebP q{q}: {line}; launches {counts} [{card}]")
+            want = {"grade": 1, "blur": 1}
+            if {k: counts[k] for k in want} != want or any(
+                    v for k, v in counts.items() if k not in want):
+                raise AssertionError(f"WebP q{q} export launches {counts}, expected {want}")
+            launches = launches or counts
+            [(rgb, quality, n, secs)] = spy.calls
+            size, bpp, psnr, t_rec = check_webp_file("[webp]", Path(res[0].output), rgb, q, card)
+            log(f"[webp] q{q} {h}x{w}: encode {secs:.3f} s ({h * w / 1e6 / secs:.2f} MPix/s), "
+                f"{size} bytes, {bpp:.4f} bpp, PSNR {psnr:.2f} dB against the u8 render; "
+                f"decoded equal to the encoder's reconstruction (made in {t_rec:.3f} s) "
+                f"[{card}]")
+            del spy, rgb
+
+        sh, sw = WEBP_SMALL
+        srcs = []
+        for i in range(4):
+            p = tmp / f"small_{i}.tif"
+            encode.write_tiff16(p, photo_rgb16(sh, sw, args.seed + 230 + i, dev))
+            Path(str(p) + ".rrdata").write_text(json.dumps({"adjustments": CONFIG3_DOC}))
+            srcs.append(str(p))
+        with WebpSpy() as spy:
+            res, counts, line = timed_export(srcs, tmp / "small", dev, reset_counts,
+                                             read_counts, format="webp", quality=90)
+        log(f"[webp] export of four {sh}x{sw} files to WebP q90: {line}; launches {counts} "
+            f"[{card}]")
+        frames = {digest: rgb for rgb, _, digest, _ in spy.calls}
+        for r in res:
+            digest = hashlib.sha256(vp8_chunk(Path(r.output).read_bytes())).hexdigest()
+            size, bpp, psnr, _ = check_webp_file("[webp]", Path(r.output), frames[digest], 90,
+                                                 card)
+            log(f"[webp] {Path(r.output).name}: {size} bytes, {bpp:.4f} bpp, PSNR {psnr:.2f} dB; "
+                "decoded equal to the encoder's reconstruction")
+        secs = [s for *_, s in spy.calls]
+        log(f"[webp] encode per {sh}x{sw} file {statistics.median(secs):.3f} s (median of "
+            f"{len(secs)}) [{card}]")
+
+    if not avif.available():
+        log("[avif] no libavif on this machine: the port's export refuses AVIF with the JAX "
+            "package's ValueError")
+    else:
+        sh, sw = WEBP_SMALL
+        rgb = (photo_rgb16(sh, sw, args.seed + 231, dev) >> 8).astype(np.uint8)
+        t0 = time.perf_counter()
+        data = avif.encode_avif(rgb, 90)
+        t_enc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = avif.decode_avif(data)
+        t_dec = time.perf_counter() - t0
+        log(f"[avif] libavif {avif.version()}: {sh}x{sw} q90 encode {t_enc:.3f} s, decode "
+            f"{t_dec:.3f} s, {len(data)} bytes, PSNR {psnr_u8(back, rgb):.2f} dB [{card}]")
+        if back.shape != rgb.shape or psnr_u8(back, rgb) < 30:
+            raise AssertionError(f"AVIF round trip: shape {back.shape}, PSNR {psnr_u8(back, rgb)}")
+    log(f"[webp] phase 23 took {time.perf_counter() - t_phase:.1f} s")
+    return launches, report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true", help="1024x1536, fewer repetitions")
@@ -5790,7 +5994,7 @@ def main() -> int:
 
     # the host decoders and the export's JPEG encoder
     hosts = ("ljpeg", "vendor_huff", "pana_oly", "crx", "phase_one", "jpeg_enc", "jpeg_dec",
-             "tiff_codec", "guides", "webp_dec", "bcn_dec", "ldr_dec", "ccitt_dec")
+             "tiff_codec", "guides", "webp_dec", "bcn_dec", "ldr_dec", "ccitt_dec", "webp_enc")
     with ThreadPoolExecutor(len(libs) + len(hosts)) as pool:
         host = {name: pool.submit(build_host, name) for name in hosts}
         list(pool.map(lambda kl: kl.lib(), libs.values()))
@@ -6466,6 +6670,12 @@ def main() -> int:
     report.update(var_report)
     phase_done("JPEG and TIFF variants")
 
+    # ---- 23. WebP and AVIF export ------------------------------------------------
+    launches23, webp_report = phase_webp_avif(args, h, w, reps, card, dev, reset_counts,
+                                              read_counts)
+    report.update(webp_report)
+    phase_done("WebP and AVIF export")
+
     sources = {  # name -> (source, the TPU kernel it replaces, the path that runs it)
         "blur": ("rapidraw_tpu_torch/csrc/blur.cu", "rapidraw_tpu/ops/blur.py:242", "config5"),
         "grade": ("rapidraw_tpu_torch/csrc/grade.cu", "rapidraw_tpu/pipeline/fused.py:298",
@@ -6493,7 +6703,8 @@ def main() -> int:
               "config4": launches4, **launches2, **launches12, **launches13,
               "export": launches14, "ldr_export": launches15, "preview": launches16,
               **launches17, **launches18, **launches19, **launches20,
-              "ldr_formats": launches21, "ldr_variants": launches22}
+              "ldr_formats": launches21, "ldr_variants": launches22,
+              "webp_export": launches23}
     library = {"nr_dynamic": "nr"}  # the kernels that share a source with another
     # a kernel that shares its source: its own entry's registers and spills
     entry = {"nr": "nr_kernel", "nr_dynamic": "nr_dynamic_kernel"}

@@ -15,9 +15,9 @@
 //   * ALPH: raw or lossless-coded alpha, and its horizontal, vertical and
 //     gradient unfilters.
 //
-// The tables are RFC 6386's (coefficient probabilities and their update
-// probabilities, the 4x4 mode probabilities in libwebp's mode order, the
-// quantizer steps) and RFC 9649's distance map. Any bitstream error, and
+// The VP8 tables, transforms, predictors, loop filters and the upsampler
+// live in vp8_common.h, shared with the encoder (webp_enc.cc); RFC 9649's
+// distance map is here. Any bitstream error, and
 // any read past the end of a partition or stream, fails the decode: libwebp
 // returns no partial frame either.
 //
@@ -28,6 +28,8 @@
 #include <cstdlib>
 #include <cstring>
 #include <vector>
+
+#include "vp8_common.h"
 
 namespace {
 
@@ -548,316 +550,7 @@ void unfilter_rows(int filter, uint8_t* a, int w, int h) {
 
 // ------------------------------------------------------------- VP8 -----
 
-static const uint8_t kCoeffsProba0[4][8][3][11] = {
-  128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
-  128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
-  128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
-  253, 136, 254, 255, 228, 219, 128, 128, 128, 128, 128,
-  189, 129, 242, 255, 227, 213, 255, 219, 128, 128, 128,
-  106, 126, 227, 252, 214, 209, 255, 255, 128, 128, 128,
-  1, 98, 248, 255, 236, 226, 255, 255, 128, 128, 128,
-  181, 133, 238, 254, 221, 234, 255, 154, 128, 128, 128,
-  78, 134, 202, 247, 198, 180, 255, 219, 128, 128, 128,
-  1, 185, 249, 255, 243, 255, 128, 128, 128, 128, 128,
-  184, 150, 247, 255, 236, 224, 128, 128, 128, 128, 128,
-  77, 110, 216, 255, 236, 230, 128, 128, 128, 128, 128,
-  1, 101, 251, 255, 241, 255, 128, 128, 128, 128, 128,
-  170, 139, 241, 252, 236, 209, 255, 255, 128, 128, 128,
-  37, 116, 196, 243, 228, 255, 255, 255, 128, 128, 128,
-  1, 204, 254, 255, 245, 255, 128, 128, 128, 128, 128,
-  207, 160, 250, 255, 238, 128, 128, 128, 128, 128, 128,
-  102, 103, 231, 255, 211, 171, 128, 128, 128, 128, 128,
-  1, 152, 252, 255, 240, 255, 128, 128, 128, 128, 128,
-  177, 135, 243, 255, 234, 225, 128, 128, 128, 128, 128,
-  80, 129, 211, 255, 194, 224, 128, 128, 128, 128, 128,
-  1, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128,
-  246, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128,
-  255, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
-  198, 35, 237, 223, 193, 187, 162, 160, 145, 155, 62,
-  131, 45, 198, 221, 172, 176, 220, 157, 252, 221, 1,
-  68, 47, 146, 208, 149, 167, 221, 162, 255, 223, 128,
-  1, 149, 241, 255, 221, 224, 255, 255, 128, 128, 128,
-  184, 141, 234, 253, 222, 220, 255, 199, 128, 128, 128,
-  81, 99, 181, 242, 176, 190, 249, 202, 255, 255, 128,
-  1, 129, 232, 253, 214, 197, 242, 196, 255, 255, 128,
-  99, 121, 210, 250, 201, 198, 255, 202, 128, 128, 128,
-  23, 91, 163, 242, 170, 187, 247, 210, 255, 255, 128,
-  1, 200, 246, 255, 234, 255, 128, 128, 128, 128, 128,
-  109, 178, 241, 255, 231, 245, 255, 255, 128, 128, 128,
-  44, 130, 201, 253, 205, 192, 255, 255, 128, 128, 128,
-  1, 132, 239, 251, 219, 209, 255, 165, 128, 128, 128,
-  94, 136, 225, 251, 218, 190, 255, 255, 128, 128, 128,
-  22, 100, 174, 245, 186, 161, 255, 199, 128, 128, 128,
-  1, 182, 249, 255, 232, 235, 128, 128, 128, 128, 128,
-  124, 143, 241, 255, 227, 234, 128, 128, 128, 128, 128,
-  35, 77, 181, 251, 193, 211, 255, 205, 128, 128, 128,
-  1, 157, 247, 255, 236, 231, 255, 255, 128, 128, 128,
-  121, 141, 235, 255, 225, 227, 255, 255, 128, 128, 128,
-  45, 99, 188, 251, 195, 217, 255, 224, 128, 128, 128,
-  1, 1, 251, 255, 213, 255, 128, 128, 128, 128, 128,
-  203, 1, 248, 255, 255, 128, 128, 128, 128, 128, 128,
-  137, 1, 177, 255, 224, 255, 128, 128, 128, 128, 128,
-  253, 9, 248, 251, 207, 208, 255, 192, 128, 128, 128,
-  175, 13, 224, 243, 193, 185, 249, 198, 255, 255, 128,
-  73, 17, 171, 221, 161, 179, 236, 167, 255, 234, 128,
-  1, 95, 247, 253, 212, 183, 255, 255, 128, 128, 128,
-  239, 90, 244, 250, 211, 209, 255, 255, 128, 128, 128,
-  155, 77, 195, 248, 188, 195, 255, 255, 128, 128, 128,
-  1, 24, 239, 251, 218, 219, 255, 205, 128, 128, 128,
-  201, 51, 219, 255, 196, 186, 128, 128, 128, 128, 128,
-  69, 46, 190, 239, 201, 218, 255, 228, 128, 128, 128,
-  1, 191, 251, 255, 255, 128, 128, 128, 128, 128, 128,
-  223, 165, 249, 255, 213, 255, 128, 128, 128, 128, 128,
-  141, 124, 248, 255, 255, 128, 128, 128, 128, 128, 128,
-  1, 16, 248, 255, 255, 128, 128, 128, 128, 128, 128,
-  190, 36, 230, 255, 236, 255, 128, 128, 128, 128, 128,
-  149, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128,
-  1, 226, 255, 128, 128, 128, 128, 128, 128, 128, 128,
-  247, 192, 255, 128, 128, 128, 128, 128, 128, 128, 128,
-  240, 128, 255, 128, 128, 128, 128, 128, 128, 128, 128,
-  1, 134, 252, 255, 255, 128, 128, 128, 128, 128, 128,
-  213, 62, 250, 255, 255, 128, 128, 128, 128, 128, 128,
-  55, 93, 255, 128, 128, 128, 128, 128, 128, 128, 128,
-  128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
-  128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
-  128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
-  202, 24, 213, 235, 186, 191, 220, 160, 240, 175, 255,
-  126, 38, 182, 232, 169, 184, 228, 174, 255, 187, 128,
-  61, 46, 138, 219, 151, 178, 240, 170, 255, 216, 128,
-  1, 112, 230, 250, 199, 191, 247, 159, 255, 255, 128,
-  166, 109, 228, 252, 211, 215, 255, 174, 128, 128, 128,
-  39, 77, 162, 232, 172, 180, 245, 178, 255, 255, 128,
-  1, 52, 220, 246, 198, 199, 249, 220, 255, 255, 128,
-  124, 74, 191, 243, 183, 193, 250, 221, 255, 255, 128,
-  24, 71, 130, 219, 154, 170, 243, 182, 255, 255, 128,
-  1, 182, 225, 249, 219, 240, 255, 224, 128, 128, 128,
-  149, 150, 226, 252, 216, 205, 255, 171, 128, 128, 128,
-  28, 108, 170, 242, 183, 194, 254, 223, 255, 255, 128,
-  1, 81, 230, 252, 204, 203, 255, 192, 128, 128, 128,
-  123, 102, 209, 247, 188, 196, 255, 233, 128, 128, 128,
-  20, 95, 153, 243, 164, 173, 255, 203, 128, 128, 128,
-  1, 222, 248, 255, 216, 213, 128, 128, 128, 128, 128,
-  168, 175, 246, 252, 235, 205, 255, 255, 128, 128, 128,
-  47, 116, 215, 255, 211, 212, 255, 255, 128, 128, 128,
-  1, 121, 236, 253, 212, 214, 255, 255, 128, 128, 128,
-  141, 84, 213, 252, 201, 202, 255, 219, 128, 128, 128,
-  42, 80, 160, 240, 162, 185, 255, 205, 128, 128, 128,
-  1, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128,
-  244, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128,
-  238, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128,
-};
-static const uint8_t kCoeffsUpdateProba[4][8][3][11] = {
-  255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  176, 246, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  223, 241, 252, 255, 255, 255, 255, 255, 255, 255, 255,
-  249, 253, 253, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 244, 252, 255, 255, 255, 255, 255, 255, 255, 255,
-  234, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-  253, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 246, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-  239, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-  254, 255, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 248, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-  251, 255, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-  251, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-  254, 255, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 254, 253, 255, 254, 255, 255, 255, 255, 255, 255,
-  250, 255, 254, 255, 254, 255, 255, 255, 255, 255, 255,
-  254, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  217, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  225, 252, 241, 253, 255, 255, 254, 255, 255, 255, 255,
-  234, 250, 241, 250, 253, 255, 253, 254, 255, 255, 255,
-  255, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  223, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-  238, 253, 254, 254, 255, 255, 255, 255, 255, 255, 255,
-  255, 248, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-  249, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 253, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  247, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-  252, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-  253, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 254, 253, 255, 255, 255, 255, 255, 255, 255, 255,
-  250, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  254, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  186, 251, 250, 255, 255, 255, 255, 255, 255, 255, 255,
-  234, 251, 244, 254, 255, 255, 255, 255, 255, 255, 255,
-  251, 251, 243, 253, 254, 255, 254, 255, 255, 255, 255,
-  255, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-  236, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-  251, 253, 253, 254, 254, 255, 255, 255, 255, 255, 255,
-  255, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-  254, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  254, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  254, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  254, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  248, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  250, 254, 252, 254, 255, 255, 255, 255, 255, 255, 255,
-  248, 254, 249, 253, 255, 255, 255, 255, 255, 255, 255,
-  255, 253, 253, 255, 255, 255, 255, 255, 255, 255, 255,
-  246, 253, 253, 255, 255, 255, 255, 255, 255, 255, 255,
-  252, 254, 251, 254, 254, 255, 255, 255, 255, 255, 255,
-  255, 254, 252, 255, 255, 255, 255, 255, 255, 255, 255,
-  248, 254, 253, 255, 255, 255, 255, 255, 255, 255, 255,
-  253, 255, 254, 254, 255, 255, 255, 255, 255, 255, 255,
-  255, 251, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-  245, 251, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-  253, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 251, 253, 255, 255, 255, 255, 255, 255, 255, 255,
-  252, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 252, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  249, 255, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 255, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 255, 253, 255, 255, 255, 255, 255, 255, 255, 255,
-  250, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  254, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-  255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-};
-static const uint8_t kBModesProba[10][10][9] = {
-  231, 120, 48, 89, 115, 113, 120, 152, 112,
-  152, 179, 64, 126, 170, 118, 46, 70, 95,
-  175, 69, 143, 80, 85, 82, 72, 155, 103,
-  56, 58, 10, 171, 218, 189, 17, 13, 152,
-  114, 26, 17, 163, 44, 195, 21, 10, 173,
-  121, 24, 80, 195, 26, 62, 44, 64, 85,
-  144, 71, 10, 38, 171, 213, 144, 34, 26,
-  170, 46, 55, 19, 136, 160, 33, 206, 71,
-  63, 20, 8, 114, 114, 208, 12, 9, 226,
-  81, 40, 11, 96, 182, 84, 29, 16, 36,
-  134, 183, 89, 137, 98, 101, 106, 165, 148,
-  72, 187, 100, 130, 157, 111, 32, 75, 80,
-  66, 102, 167, 99, 74, 62, 40, 234, 128,
-  41, 53, 9, 178, 241, 141, 26, 8, 107,
-  74, 43, 26, 146, 73, 166, 49, 23, 157,
-  65, 38, 105, 160, 51, 52, 31, 115, 128,
-  104, 79, 12, 27, 217, 255, 87, 17, 7,
-  87, 68, 71, 44, 114, 51, 15, 186, 23,
-  47, 41, 14, 110, 182, 183, 21, 17, 194,
-  66, 45, 25, 102, 197, 189, 23, 18, 22,
-  88, 88, 147, 150, 42, 46, 45, 196, 205,
-  43, 97, 183, 117, 85, 38, 35, 179, 61,
-  39, 53, 200, 87, 26, 21, 43, 232, 171,
-  56, 34, 51, 104, 114, 102, 29, 93, 77,
-  39, 28, 85, 171, 58, 165, 90, 98, 64,
-  34, 22, 116, 206, 23, 34, 43, 166, 73,
-  107, 54, 32, 26, 51, 1, 81, 43, 31,
-  68, 25, 106, 22, 64, 171, 36, 225, 114,
-  34, 19, 21, 102, 132, 188, 16, 76, 124,
-  62, 18, 78, 95, 85, 57, 50, 48, 51,
-  193, 101, 35, 159, 215, 111, 89, 46, 111,
-  60, 148, 31, 172, 219, 228, 21, 18, 111,
-  112, 113, 77, 85, 179, 255, 38, 120, 114,
-  40, 42, 1, 196, 245, 209, 10, 25, 109,
-  88, 43, 29, 140, 166, 213, 37, 43, 154,
-  61, 63, 30, 155, 67, 45, 68, 1, 209,
-  100, 80, 8, 43, 154, 1, 51, 26, 71,
-  142, 78, 78, 16, 255, 128, 34, 197, 171,
-  41, 40, 5, 102, 211, 183, 4, 1, 221,
-  51, 50, 17, 168, 209, 192, 23, 25, 82,
-  138, 31, 36, 171, 27, 166, 38, 44, 229,
-  67, 87, 58, 169, 82, 115, 26, 59, 179,
-  63, 59, 90, 180, 59, 166, 93, 73, 154,
-  40, 40, 21, 116, 143, 209, 34, 39, 175,
-  47, 15, 16, 183, 34, 223, 49, 45, 183,
-  46, 17, 33, 183, 6, 98, 15, 32, 183,
-  57, 46, 22, 24, 128, 1, 54, 17, 37,
-  65, 32, 73, 115, 28, 128, 23, 128, 205,
-  40, 3, 9, 115, 51, 192, 18, 6, 223,
-  87, 37, 9, 115, 59, 77, 64, 21, 47,
-  104, 55, 44, 218, 9, 54, 53, 130, 226,
-  64, 90, 70, 205, 40, 41, 23, 26, 57,
-  54, 57, 112, 184, 5, 41, 38, 166, 213,
-  30, 34, 26, 133, 152, 116, 10, 32, 134,
-  39, 19, 53, 221, 26, 114, 32, 73, 255,
-  31, 9, 65, 234, 2, 15, 1, 118, 73,
-  75, 32, 12, 51, 192, 255, 160, 43, 51,
-  88, 31, 35, 67, 102, 85, 55, 186, 85,
-  56, 21, 23, 111, 59, 205, 45, 37, 192,
-  55, 38, 70, 124, 73, 102, 1, 34, 98,
-  125, 98, 42, 88, 104, 85, 117, 175, 82,
-  95, 84, 53, 89, 128, 100, 113, 101, 45,
-  75, 79, 123, 47, 51, 128, 81, 171, 1,
-  57, 17, 5, 71, 102, 57, 53, 41, 49,
-  38, 33, 13, 121, 57, 73, 26, 1, 85,
-  41, 10, 67, 138, 77, 110, 90, 47, 114,
-  115, 21, 2, 10, 102, 255, 166, 23, 6,
-  101, 29, 16, 10, 85, 128, 101, 196, 26,
-  57, 18, 10, 102, 102, 213, 34, 20, 43,
-  117, 20, 15, 36, 163, 128, 68, 1, 26,
-  102, 61, 71, 37, 34, 53, 31, 243, 192,
-  69, 60, 71, 38, 73, 119, 28, 222, 37,
-  68, 45, 128, 34, 1, 47, 11, 245, 171,
-  62, 17, 19, 70, 146, 85, 55, 62, 70,
-  37, 43, 37, 154, 100, 163, 85, 160, 1,
-  63, 9, 92, 136, 28, 64, 32, 201, 85,
-  75, 15, 9, 9, 64, 255, 184, 119, 16,
-  86, 6, 28, 5, 64, 255, 25, 248, 1,
-  56, 8, 17, 132, 137, 255, 55, 116, 128,
-  58, 15, 20, 82, 135, 57, 26, 121, 40,
-  164, 50, 31, 137, 154, 133, 25, 35, 218,
-  51, 103, 44, 131, 131, 123, 31, 6, 158,
-  86, 40, 64, 135, 148, 224, 45, 183, 128,
-  22, 26, 17, 131, 240, 154, 14, 1, 209,
-  45, 16, 21, 91, 64, 222, 7, 1, 197,
-  56, 21, 39, 155, 60, 138, 23, 102, 213,
-  83, 12, 13, 54, 192, 255, 68, 47, 28,
-  85, 26, 85, 85, 128, 128, 32, 146, 171,
-  18, 11, 7, 63, 144, 171, 4, 4, 246,
-  35, 27, 10, 146, 174, 171, 12, 26, 128,
-  190, 80, 35, 99, 180, 80, 126, 54, 45,
-  85, 126, 47, 87, 176, 51, 41, 20, 32,
-  101, 75, 128, 139, 118, 146, 116, 128, 85,
-  56, 41, 15, 176, 236, 85, 37, 9, 62,
-  71, 30, 17, 119, 118, 255, 17, 18, 138,
-  101, 38, 60, 138, 55, 70, 43, 26, 142,
-  146, 36, 19, 30, 171, 255, 97, 27, 20,
-  138, 45, 61, 62, 219, 1, 81, 188, 64,
-  32, 41, 20, 117, 151, 142, 20, 21, 163,
-  112, 19, 12, 61, 195, 128, 48, 4, 24,
-};
-
-const uint8_t kZigzag[16] = {0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15};
-const uint8_t kBands[17] = {0, 1, 2, 3, 6, 4, 5, 6, 6, 6, 6, 6, 6, 6, 6, 7, 0};
-const uint8_t kCat3[] = {173, 148, 140, 0};
-const uint8_t kCat4[] = {176, 155, 140, 135, 0};
-const uint8_t kCat5[] = {180, 157, 141, 134, 130, 0};
-const uint8_t kCat6[] = {254, 254, 243, 230, 196, 177, 153, 140, 133, 130, 129, 0};
-const uint8_t* const kCat3456[] = {kCat3, kCat4, kCat5, kCat6};
-// libwebp's mode numbers: DC, TM, VE, HE, RD, VR, LD, VL, HD, HU
-enum { B_DC = 0, B_TM, B_VE, B_HE, B_RD, B_VR, B_LD, B_VL, B_HD, B_HU };
-const int8_t kYModesIntra4[18] = {-B_DC, 1, -B_TM, 2, -B_VE, 3, 4, 6, -B_HE, 5,
-                                  -B_RD, -B_VR, -B_LD, 7, -B_VL, 8, -B_HD, -B_HU};
+using namespace vp8;
 
 // the boolean decoder, as libwebp's VP8BitReader (range kept as range-1),
 // its end-of-data flag raised on the first read that needs a byte past the
@@ -924,329 +617,9 @@ struct BoolDec {
   }
 };
 
-struct QuantMatrix {
-  int y1[2], y2[2], uv[2];
-};
-
-struct FInfo {
-  int limit = 0, ilevel = 0, inner = 0, hev = 0;
-};
-
 struct MBInfo {
   uint8_t nz_y[4] = {0}, nz_u[2] = {0}, nz_v[2] = {0}, nz_dc = 0;
 };
-
-inline uint8_t clip8(int v) { return v < 0 ? 0 : v > 255 ? 255 : (uint8_t)v; }
-
-#define MUL1(a) ((((a) * 20091) >> 16) + (a))
-#define MUL2(a) (((a) * 35468) >> 16)
-
-void transform_one(const int16_t* in, uint8_t* dst, int stride) {
-  int C[16], *tmp = C;
-  for (int i = 0; i < 4; ++i) {
-    const int a = in[0] + in[8];
-    const int b = in[0] - in[8];
-    const int c = MUL2(in[4]) - MUL1(in[12]);
-    const int d = MUL1(in[4]) + MUL2(in[12]);
-    tmp[0] = a + d;
-    tmp[1] = b + c;
-    tmp[2] = b - c;
-    tmp[3] = a - d;
-    tmp += 4;
-    in++;
-  }
-  tmp = C;
-  for (int i = 0; i < 4; ++i) {
-    const int dc = tmp[0] + 4;
-    const int a = dc + tmp[8];
-    const int b = dc - tmp[8];
-    const int c = MUL2(tmp[4]) - MUL1(tmp[12]);
-    const int d = MUL1(tmp[4]) + MUL2(tmp[12]);
-    dst[0] = clip8(dst[0] + ((a + d) >> 3));
-    dst[1] = clip8(dst[1] + ((b + c) >> 3));
-    dst[2] = clip8(dst[2] + ((b - c) >> 3));
-    dst[3] = clip8(dst[3] + ((a - d) >> 3));
-    tmp++;
-    dst += stride;
-  }
-}
-
-void transform_wht(const int16_t* in, int16_t* out) {
-  int tmp[16];
-  for (int i = 0; i < 4; ++i) {
-    const int a0 = in[0 + i] + in[12 + i];
-    const int a1 = in[4 + i] + in[8 + i];
-    const int a2 = in[4 + i] - in[8 + i];
-    const int a3 = in[0 + i] - in[12 + i];
-    tmp[0 + i] = a0 + a1;
-    tmp[8 + i] = a0 - a1;
-    tmp[4 + i] = a3 + a2;
-    tmp[12 + i] = a3 - a2;
-  }
-  for (int i = 0; i < 4; ++i) {
-    const int dc = tmp[0 + i * 4] + 3;
-    const int a0 = dc + tmp[3 + i * 4];
-    const int a1 = tmp[1 + i * 4] + tmp[2 + i * 4];
-    const int a2 = tmp[1 + i * 4] - tmp[2 + i * 4];
-    const int a3 = dc - tmp[3 + i * 4];
-    out[0] = (int16_t)((a0 + a1) >> 3);
-    out[16] = (int16_t)((a3 + a2) >> 3);
-    out[32] = (int16_t)((a0 - a1) >> 3);
-    out[48] = (int16_t)((a3 - a2) >> 3);
-    out += 64;
-  }
-}
-
-#define AVG3(a, b, c) ((uint8_t)(((a) + 2 * (b) + (c) + 2) >> 2))
-#define AVG2(a, b) (((a) + (b) + 1) >> 1)
-
-// 4x4 luma prediction at dst (stride s): dst[-s..] is the row above (8
-// samples, the last 4 the top-right), dst[-1] the column to the left
-void pred4(int mode, uint8_t* dst, int s) {
-#define DST(x, y) dst[(x) + (y) * s]
-  const uint8_t* top = dst - s;
-  const int X = dst[-1 - s];
-  const int I = dst[-1], J = dst[-1 + s], K = dst[-1 + 2 * s], L = dst[-1 + 3 * s];
-  const int A = top[0], B = top[1], C = top[2], D = top[3];
-  const int E = top[4], F = top[5], G = top[6], H = top[7];
-  switch (mode) {
-    case B_DC: {
-      int dc = 4;
-      for (int i = 0; i < 4; ++i) dc += top[i] + dst[-1 + i * s];
-      dc >>= 3;
-      for (int y = 0; y < 4; ++y) memset(dst + y * s, dc, 4);
-      break;
-    }
-    case B_TM:
-      for (int y = 0; y < 4; ++y)
-        for (int x = 0; x < 4; ++x) DST(x, y) = clip8(top[x] + dst[-1 + y * s] - X);
-      break;
-    case B_VE: {
-      uint8_t v[4] = {AVG3(X, A, B), AVG3(A, B, C), AVG3(B, C, D), AVG3(C, D, E)};
-      for (int y = 0; y < 4; ++y) memcpy(dst + y * s, v, 4);
-      break;
-    }
-    case B_HE: {
-      uint8_t v[4] = {AVG3(X, I, J), AVG3(I, J, K), AVG3(J, K, L), AVG3(K, L, L)};
-      for (int y = 0; y < 4; ++y) memset(dst + y * s, v[y], 4);
-      break;
-    }
-    case B_RD:
-      DST(0, 3) = AVG3(J, K, L);
-      DST(1, 3) = DST(0, 2) = AVG3(I, J, K);
-      DST(2, 3) = DST(1, 2) = DST(0, 1) = AVG3(X, I, J);
-      DST(3, 3) = DST(2, 2) = DST(1, 1) = DST(0, 0) = AVG3(A, X, I);
-      DST(3, 2) = DST(2, 1) = DST(1, 0) = AVG3(B, A, X);
-      DST(3, 1) = DST(2, 0) = AVG3(C, B, A);
-      DST(3, 0) = AVG3(D, C, B);
-      break;
-    case B_LD:
-      DST(0, 0) = AVG3(A, B, C);
-      DST(1, 0) = DST(0, 1) = AVG3(B, C, D);
-      DST(2, 0) = DST(1, 1) = DST(0, 2) = AVG3(C, D, E);
-      DST(3, 0) = DST(2, 1) = DST(1, 2) = DST(0, 3) = AVG3(D, E, F);
-      DST(3, 1) = DST(2, 2) = DST(1, 3) = AVG3(E, F, G);
-      DST(3, 2) = DST(2, 3) = AVG3(F, G, H);
-      DST(3, 3) = AVG3(G, H, H);
-      break;
-    case B_VR:
-      DST(0, 0) = DST(1, 2) = AVG2(X, A);
-      DST(1, 0) = DST(2, 2) = AVG2(A, B);
-      DST(2, 0) = DST(3, 2) = AVG2(B, C);
-      DST(3, 0) = AVG2(C, D);
-      DST(0, 3) = AVG3(K, J, I);
-      DST(0, 2) = AVG3(J, I, X);
-      DST(0, 1) = DST(1, 3) = AVG3(I, X, A);
-      DST(1, 1) = DST(2, 3) = AVG3(X, A, B);
-      DST(2, 1) = DST(3, 3) = AVG3(A, B, C);
-      DST(3, 1) = AVG3(B, C, D);
-      break;
-    case B_VL:
-      DST(0, 0) = AVG2(A, B);
-      DST(1, 0) = DST(0, 2) = AVG2(B, C);
-      DST(2, 0) = DST(1, 2) = AVG2(C, D);
-      DST(3, 0) = DST(2, 2) = AVG2(D, E);
-      DST(0, 1) = AVG3(A, B, C);
-      DST(1, 1) = DST(0, 3) = AVG3(B, C, D);
-      DST(2, 1) = DST(1, 3) = AVG3(C, D, E);
-      DST(3, 1) = DST(2, 3) = AVG3(D, E, F);
-      DST(3, 2) = AVG3(E, F, G);
-      DST(3, 3) = AVG3(F, G, H);
-      break;
-    case B_HU:
-      DST(0, 0) = AVG2(I, J);
-      DST(2, 0) = DST(0, 1) = AVG2(J, K);
-      DST(2, 1) = DST(0, 2) = AVG2(K, L);
-      DST(1, 0) = AVG3(I, J, K);
-      DST(3, 0) = DST(1, 1) = AVG3(J, K, L);
-      DST(3, 1) = DST(1, 2) = AVG3(K, L, L);
-      DST(3, 2) = DST(2, 2) = DST(0, 3) = DST(1, 3) = DST(2, 3) = DST(3, 3) = L;
-      break;
-    case B_HD:
-      DST(0, 0) = DST(2, 1) = AVG2(I, X);
-      DST(0, 1) = DST(2, 2) = AVG2(J, I);
-      DST(0, 2) = DST(2, 3) = AVG2(K, J);
-      DST(0, 3) = AVG2(L, K);
-      DST(3, 0) = AVG3(A, B, C);
-      DST(2, 0) = AVG3(X, A, B);
-      DST(1, 0) = DST(3, 1) = AVG3(I, X, A);
-      DST(1, 1) = DST(3, 2) = AVG3(J, I, X);
-      DST(1, 2) = DST(3, 3) = AVG3(K, J, I);
-      DST(1, 3) = AVG3(L, K, J);
-      break;
-  }
-#undef DST
-}
-
-// 16x16 (n = 16) or 8x8 chroma (n = 8) prediction; mode DC with the
-// frame-edge variants chosen by the macroblock's position
-void pred_block(int mode, uint8_t* dst, int s, int n, bool has_top, bool has_left) {
-  const uint8_t* top = dst - s;
-  if (mode == B_DC) {
-    int shift = n == 16 ? 4 : 3;
-    int dc;
-    if (has_top && has_left) {
-      dc = n;
-      for (int i = 0; i < n; ++i) dc += top[i] + dst[-1 + i * s];
-      dc >>= shift + 1;
-    } else if (has_left) {
-      dc = n / 2;
-      for (int i = 0; i < n; ++i) dc += dst[-1 + i * s];
-      dc >>= shift;
-    } else if (has_top) {
-      dc = n / 2;
-      for (int i = 0; i < n; ++i) dc += top[i];
-      dc >>= shift;
-    } else {
-      dc = 0x80;
-    }
-    for (int y = 0; y < n; ++y) memset(dst + y * s, dc, n);
-  } else if (mode == B_TM) {
-    const int X = top[-1];
-    for (int y = 0; y < n; ++y)
-      for (int x = 0; x < n; ++x) dst[x + y * s] = clip8(top[x] + dst[-1 + y * s] - X);
-  } else if (mode == B_VE) {
-    for (int y = 0; y < n; ++y) memcpy(dst + y * s, top, n);
-  } else {  // B_HE
-    for (int y = 0; y < n; ++y) memset(dst + y * s, dst[-1 + y * s], n);
-  }
-}
-
-// ---- loop filters (libwebp dsp/dec.c)
-inline int sclip1(int v) { return v < -128 ? -128 : v > 127 ? 127 : v; }
-inline int sclip2(int v) { return v < -16 ? -16 : v > 15 ? 15 : v; }
-inline uint8_t uclip(int v) { return v < 0 ? 0 : v > 255 ? 255 : (uint8_t)v; }
-
-inline void do_filter2(uint8_t* p, int step) {
-  const int p1 = p[-2 * step], p0 = p[-step], q0 = p[0], q1 = p[step];
-  const int a = 3 * (q0 - p0) + sclip1(p1 - q1);
-  const int a1 = sclip2((a + 4) >> 3);
-  const int a2 = sclip2((a + 3) >> 3);
-  p[-step] = uclip(p0 + a2);
-  p[0] = uclip(q0 - a1);
-}
-inline void do_filter4(uint8_t* p, int step) {
-  const int p1 = p[-2 * step], p0 = p[-step], q0 = p[0], q1 = p[step];
-  const int a = 3 * (q0 - p0);
-  const int a1 = sclip2((a + 4) >> 3);
-  const int a2 = sclip2((a + 3) >> 3);
-  const int a3 = (a1 + 1) >> 1;
-  p[-2 * step] = uclip(p1 + a3);
-  p[-step] = uclip(p0 + a2);
-  p[0] = uclip(q0 - a1);
-  p[step] = uclip(q1 - a3);
-}
-inline void do_filter6(uint8_t* p, int step) {
-  const int p2 = p[-3 * step], p1 = p[-2 * step], p0 = p[-step];
-  const int q0 = p[0], q1 = p[step], q2 = p[2 * step];
-  const int a = sclip1(3 * (q0 - p0) + sclip1(p1 - q1));
-  const int a1 = (27 * a + 63) >> 7;
-  const int a2 = (18 * a + 63) >> 7;
-  const int a3 = (9 * a + 63) >> 7;
-  p[-3 * step] = uclip(p2 + a3);
-  p[-2 * step] = uclip(p1 + a2);
-  p[-step] = uclip(p0 + a1);
-  p[0] = uclip(q0 - a1);
-  p[step] = uclip(q1 - a2);
-  p[2 * step] = uclip(q2 - a3);
-}
-inline bool hev(const uint8_t* p, int step, int t) {
-  const int p1 = p[-2 * step], p0 = p[-step], q0 = p[0], q1 = p[step];
-  return std::abs(p1 - p0) > t || std::abs(q1 - q0) > t;
-}
-inline bool needs_filter(const uint8_t* p, int step, int t) {
-  const int p1 = p[-2 * step], p0 = p[-step], q0 = p[0], q1 = p[step];
-  return 4 * std::abs(p0 - q0) + std::abs(p1 - q1) <= t;
-}
-inline bool needs_filter2(const uint8_t* p, int step, int t, int it) {
-  const int p3 = p[-4 * step], p2 = p[-3 * step], p1 = p[-2 * step];
-  const int p0 = p[-step], q0 = p[0];
-  const int q1 = p[step], q2 = p[2 * step], q3 = p[3 * step];
-  if (4 * std::abs(p0 - q0) + std::abs(p1 - q1) > t) return false;
-  return std::abs(p3 - p2) <= it && std::abs(p2 - p1) <= it && std::abs(p1 - p0) <= it &&
-         std::abs(q3 - q2) <= it && std::abs(q2 - q1) <= it && std::abs(q1 - q0) <= it;
-}
-void simple_filter(uint8_t* p, int hstride, int vstride, int size, int thresh) {
-  const int t2 = 2 * thresh + 1;
-  for (int i = 0; i < size; ++i, p += vstride)
-    if (needs_filter(p, hstride, t2)) do_filter2(p, hstride);
-}
-void filter_loop(uint8_t* p, int hstride, int vstride, int size, int thresh, int ithresh,
-                 int hev_t, bool edge) {
-  const int t2 = 2 * thresh + 1;
-  for (int i = 0; i < size; ++i, p += vstride) {
-    if (!needs_filter2(p, hstride, t2, ithresh)) continue;
-    if (hev(p, hstride, hev_t))
-      do_filter2(p, hstride);
-    else if (edge)
-      do_filter6(p, hstride);
-    else
-      do_filter4(p, hstride);
-  }
-}
-
-// ---- YUV -> RGB (libwebp yuv.h, 14-bit fixed point)
-inline int mult_hi(int v, int c) { return (v * c) >> 8; }
-inline int yuv_clip8(int v) { return ((v & ~16383) == 0) ? (v >> 6) : (v < 0) ? 0 : 255; }
-inline void yuv_to_rgba(int y, int u, int v, uint8_t* d) {
-  d[0] = (uint8_t)yuv_clip8(mult_hi(y, 19077) + mult_hi(v, 26149) - 14234);
-  d[1] = (uint8_t)yuv_clip8(mult_hi(y, 19077) - mult_hi(u, 6419) - mult_hi(v, 13320) + 8708);
-  d[2] = (uint8_t)yuv_clip8(mult_hi(y, 19077) + mult_hi(u, 33050) - 17685);
-}
-
-// libwebp's fancy upsampler for one pair of output rows (UPSAMPLE_FUNC),
-// per chroma channel
-void upsample_pair(const uint8_t* top_y, const uint8_t* bot_y, const uint8_t* top_u,
-                   const uint8_t* top_v, const uint8_t* cur_u, const uint8_t* cur_v,
-                   uint8_t* top_dst, uint8_t* bot_dst, int len) {
-  const int last_pair = (len - 1) >> 1;
-  int tl_u = top_u[0], tl_v = top_v[0], l_u = cur_u[0], l_v = cur_v[0];
-  yuv_to_rgba(top_y[0], (3 * tl_u + l_u + 2) >> 2, (3 * tl_v + l_v + 2) >> 2, top_dst);
-  if (bot_y) yuv_to_rgba(bot_y[0], (3 * l_u + tl_u + 2) >> 2, (3 * l_v + tl_v + 2) >> 2, bot_dst);
-  for (int x = 1; x <= last_pair; ++x) {
-    const int t_u = top_u[x], t_v = top_v[x], u = cur_u[x], v = cur_v[x];
-    const int avg_u = tl_u + t_u + l_u + u + 8, avg_v = tl_v + t_v + l_v + v + 8;
-    const int d12_u = (avg_u + 2 * (t_u + l_u)) >> 3, d12_v = (avg_v + 2 * (t_v + l_v)) >> 3;
-    const int d03_u = (avg_u + 2 * (tl_u + u)) >> 3, d03_v = (avg_v + 2 * (tl_v + v)) >> 3;
-    yuv_to_rgba(top_y[2 * x - 1], (d12_u + tl_u) >> 1, (d12_v + tl_v) >> 1, top_dst + (2 * x - 1) * 4);
-    yuv_to_rgba(top_y[2 * x], (d03_u + t_u) >> 1, (d03_v + t_v) >> 1, top_dst + (2 * x) * 4);
-    if (bot_y) {
-      yuv_to_rgba(bot_y[2 * x - 1], (d03_u + l_u) >> 1, (d03_v + l_v) >> 1, bot_dst + (2 * x - 1) * 4);
-      yuv_to_rgba(bot_y[2 * x], (d12_u + u) >> 1, (d12_v + v) >> 1, bot_dst + (2 * x) * 4);
-    }
-    tl_u = t_u;
-    tl_v = t_v;
-    l_u = u;
-    l_v = v;
-  }
-  if (!(len & 1)) {
-    yuv_to_rgba(top_y[len - 1], (3 * tl_u + l_u + 2) >> 2, (3 * tl_v + l_v + 2) >> 2,
-                top_dst + (len - 1) * 4);
-    if (bot_y)
-      yuv_to_rgba(bot_y[len - 1], (3 * l_u + tl_u + 2) >> 2, (3 * l_v + tl_v + 2) >> 2,
-                  bot_dst + (len - 1) * 4);
-  }
-}
 
 class VP8Decoder {
  public:
@@ -1350,49 +723,20 @@ class VP8Decoder {
     return start < end;
   }
   void parse_quant() {
-    static const uint8_t kDc[128] = {
-        4,   5,   6,   7,   8,   9,   10,  10,  11,  12,  13,  14,  15,  16,  17,  17,  18,  19,  20,
-        20,  21,  21,  22,  22,  23,  23,  24,  25,  25,  26,  27,  28,  29,  30,  31,  32,  33,  34,
-        35,  36,  37,  37,  38,  39,  40,  41,  42,  43,  44,  45,  46,  46,  47,  48,  49,  50,  51,
-        52,  53,  54,  55,  56,  57,  58,  59,  60,  61,  62,  63,  64,  65,  66,  67,  68,  69,  70,
-        71,  72,  73,  74,  75,  76,  76,  77,  78,  79,  80,  81,  82,  83,  84,  85,  86,  87,  88,
-        89,  91,  93,  95,  96,  98,  100, 101, 102, 104, 106, 108, 110, 112, 114, 116, 118, 122, 124,
-        126, 128, 130, 132, 134, 136, 138, 140, 143, 145, 148, 151, 154, 157};
-    static const uint16_t kAc[128] = {
-        4,   5,   6,   7,   8,   9,   10,  11,  12,  13,  14,  15,  16,  17,  18,  19,  20,  21,  22,
-        23,  24,  25,  26,  27,  28,  29,  30,  31,  32,  33,  34,  35,  36,  37,  38,  39,  40,  41,
-        42,  43,  44,  45,  46,  47,  48,  49,  50,  51,  52,  53,  54,  55,  56,  57,  58,  60,  62,
-        64,  66,  68,  70,  72,  74,  76,  78,  80,  82,  84,  86,  88,  90,  92,  94,  96,  98,  100,
-        102, 104, 106, 108, 110, 112, 114, 116, 119, 122, 125, 128, 131, 134, 137, 140, 143, 146, 149,
-        152, 155, 158, 161, 164, 167, 170, 173, 177, 181, 185, 189, 193, 197, 201, 205, 209, 213, 217,
-        221, 225, 229, 234, 239, 245, 249, 254, 259, 264, 269, 274, 279, 284};
-    auto clip = [](int v, int m) { return v < 0 ? 0 : v > m ? m : v; };
     const int base_q0 = br_.get_value(7);
     const int dqy1_dc = br_.get_value(1) ? br_.get_signed_value(4) : 0;
     const int dqy2_dc = br_.get_value(1) ? br_.get_signed_value(4) : 0;
     const int dqy2_ac = br_.get_value(1) ? br_.get_signed_value(4) : 0;
     const int dquv_dc = br_.get_value(1) ? br_.get_signed_value(4) : 0;
     const int dquv_ac = br_.get_value(1) ? br_.get_signed_value(4) : 0;
+    const int delta[5] = {dqy1_dc, dqy2_dc, dqy2_ac, dquv_dc, dquv_ac};
     for (int i = 0; i < 4; ++i) {
-      int q;
+      int q = base_q0;
       if (use_segment_) {
         q = quantizer_[i];
         if (!absolute_delta_) q += base_q0;
-      } else {
-        if (i > 0) {
-          dqm_[i] = dqm_[0];
-          continue;
-        }
-        q = base_q0;
       }
-      QuantMatrix& m = dqm_[i];
-      m.y1[0] = kDc[clip(q + dqy1_dc, 127)];
-      m.y1[1] = kAc[clip(q, 127)];
-      m.y2[0] = kDc[clip(q + dqy2_dc, 127)] * 2;
-      m.y2[1] = (kAc[clip(q + dqy2_ac, 127)] * 101581) >> 16;
-      if (m.y2[1] < 8) m.y2[1] = 8;
-      m.uv[0] = kDc[clip(q + dquv_dc, 117)];
-      m.uv[1] = kAc[clip(q + dquv_ac, 127)];
+      dqm_[i] = quant_matrix(q, delta);
     }
   }
   void parse_proba() {
@@ -1414,27 +758,12 @@ class VP8Decoder {
         if (!absolute_delta_) base += level_;
       }
       for (int i4 = 0; i4 <= 1; ++i4) {
-        FInfo& f = fstrengths_[s][i4];
         int level = base;
         if (use_lf_delta_) {
           level += ref_lf_delta_[0];
           if (i4) level += mode_lf_delta_[0];
         }
-        level = level < 0 ? 0 : level > 63 ? 63 : level;
-        if (level > 0) {
-          int ilevel = level;
-          if (sharpness_ > 0) {
-            ilevel >>= sharpness_ > 4 ? 2 : 1;
-            if (ilevel > 9 - sharpness_) ilevel = 9 - sharpness_;
-          }
-          if (ilevel < 1) ilevel = 1;
-          f.ilevel = ilevel;
-          f.limit = 2 * level + ilevel;
-          f.hev = level >= 40 ? 2 : level >= 15 ? 1 : 0;
-        } else {
-          f.limit = 0;
-        }
-        f.inner = i4;
+        fstrengths_[s][i4] = filter_info(level, sharpness_, i4);
       }
     }
   }
@@ -1687,65 +1016,10 @@ class VP8Decoder {
     }
 
     // in-loop filter, macroblock by macroblock in raster order
-    if (filter_type_ > 0) {
-      for (int mb_y = 0; mb_y < mb_h_; ++mb_y) {
-        for (int mb_x = 0; mb_x < mb_w_; ++mb_x) {
-          const FInfo& f = finfo[(size_t)mb_y * mb_w_ + mb_x];
-          const int limit = f.limit;
-          if (limit == 0) continue;
-          uint8_t* yd = &Y[(size_t)mb_y * 16 * W + mb_x * 16];
-          if (filter_type_ == 1) {
-            if (mb_x > 0) simple_filter(yd, 1, W, 16, limit + 4);
-            if (f.inner)
-              for (int k = 1; k <= 3; ++k) simple_filter(yd + 4 * k, 1, W, 16, limit);
-            if (mb_y > 0) simple_filter(yd, W, 1, 16, limit + 4);
-            if (f.inner)
-              for (int k = 1; k <= 3; ++k) simple_filter(yd + 4 * k * W, W, 1, 16, limit);
-          } else {
-            uint8_t* ud = &U[(size_t)mb_y * 8 * CW + mb_x * 8];
-            uint8_t* vd = &V[(size_t)mb_y * 8 * CW + mb_x * 8];
-            const int il = f.ilevel, hv = f.hev;
-            if (mb_x > 0) {
-              filter_loop(yd, 1, W, 16, limit + 4, il, hv, true);
-              filter_loop(ud, 1, CW, 8, limit + 4, il, hv, true);
-              filter_loop(vd, 1, CW, 8, limit + 4, il, hv, true);
-            }
-            if (f.inner) {
-              for (int k = 1; k <= 3; ++k) filter_loop(yd + 4 * k, 1, W, 16, limit, il, hv, false);
-              filter_loop(ud + 4, 1, CW, 8, limit, il, hv, false);
-              filter_loop(vd + 4, 1, CW, 8, limit, il, hv, false);
-            }
-            if (mb_y > 0) {
-              filter_loop(yd, W, 1, 16, limit + 4, il, hv, true);
-              filter_loop(ud, CW, 1, 8, limit + 4, il, hv, true);
-              filter_loop(vd, CW, 1, 8, limit + 4, il, hv, true);
-            }
-            if (f.inner) {
-              for (int k = 1; k <= 3; ++k) filter_loop(yd + 4 * k * W, W, 1, 16, limit, il, hv, false);
-              filter_loop(ud + 4 * CW, CW, 1, 8, limit, il, hv, false);
-              filter_loop(vd + 4 * CW, CW, 1, 8, limit, il, hv, false);
-            }
-          }
-        }
-      }
-    }
-
+    if (filter_type_ > 0)
+      filter_rows(Y.data(), U.data(), V.data(), W, CW, finfo.data(), mb_w_, 0, mb_h_, filter_type_);
     // YUV 4:2:0 -> RGBA through the fancy upsampler (io_dec.c EmitFancyRGB)
-    const int w = width_, h = height_;
-    const size_t stride = (size_t)w * 4;
-    upsample_pair(&Y[0], nullptr, &U[0], &V[0], &U[0], &V[0], out, nullptr, w);
-    for (int y = 1; y + 1 < h; y += 2) {
-      const int cy = (y + 1) >> 1;
-      upsample_pair(&Y[(size_t)y * W], &Y[(size_t)(y + 1) * W], &U[(size_t)(cy - 1) * CW],
-                    &V[(size_t)(cy - 1) * CW], &U[(size_t)cy * CW], &V[(size_t)cy * CW],
-                    out + y * stride, out + (y + 1) * stride, w);
-    }
-    if (h > 1 && !(h & 1)) {
-      const int cy = (h - 1) >> 1;
-      upsample_pair(&Y[(size_t)(h - 1) * W], nullptr, &U[(size_t)cy * CW], &V[(size_t)cy * CW],
-                    &U[(size_t)cy * CW], &V[(size_t)cy * CW], out + (h - 1) * stride, nullptr, w);
-    }
-    for (size_t i = 0; i < (size_t)w * h; ++i) out[4 * i + 3] = 255;
+    yuv420_to_rgba(Y.data(), U.data(), V.data(), W, CW, width_, height_, out);
     return kOk;
   }
 };

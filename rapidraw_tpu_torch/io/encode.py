@@ -1,4 +1,4 @@
-"""Output encoding on the host: JPEG, PNG, TIFF and JPEG XL.
+"""Output encoding on the host: JPEG, PNG, TIFF, WebP, AVIF and JPEG XL.
 
 Port of `rapidraw_tpu/io/encode.py` (export_processing.rs:388-469, the
 format dispatch and quality) with writers of the port's own in place of
@@ -10,9 +10,13 @@ PIL and cv2:
     16-bit PNG comes from cv2);
   * TIFF: 16-bit RGB, one strip, its directory serialized by io/exif.py's
     `TiffDir` as PIL's ImageFileDirectory_v2 serializes the JAX package's;
+  * WebP: the lossy VP8 encoder csrc/host/webp_enc.cc through io/webp.py,
+    at the quantizer libwebp gives the quality (its own bytes, not
+    libwebp's);
+  * AVIF: the system libavif through io/avif.py, with PIL's settings;
   * JPEG XL: the system libjxl through io/jxl.py.
-WebP and AVIF have no encoder here and raise the JAX package's
-"not supported by this PIL build" ValueError.
+Without a libavif (or libjxl) the format raises the JAX package's "not
+supported by this PIL build" ValueError, as PIL without the plugin does.
 """
 
 from __future__ import annotations
@@ -445,9 +449,23 @@ def encode_image(
             raise ValueError("format 'jxl' not supported by this PIL build: "
                              "no libjxl found for rapidraw_tpu_torch.io.jxl")
         path.write_bytes(encode_jxl(arr, quality))
-    elif fmt in ("webp", "avif"):
-        raise ValueError(f"format '{fmt}' not supported by this PIL build: "
-                         f"rapidraw_tpu_torch has no {fmt.upper()} encoder")
+    elif fmt == "webp":
+        from rapidraw_tpu_torch.io.webp import encode_webp
+
+        path.write_bytes(encode_webp(arr, quality))
+    elif fmt == "avif":
+        # lossy at the quality, 100 at and above it (export_processing.rs:
+        # 388-469), as the JAX package asks PIL
+        from rapidraw_tpu_torch.io.avif import available, encode_avif
+
+        if not available():
+            raise ValueError("format 'avif' not supported by this PIL build: "
+                             "no libavif found for rapidraw_tpu_torch.io.avif")
+        try:
+            data = encode_avif(arr, 100 if quality >= 100 else quality)
+        except OSError as e:
+            raise ValueError(f"format 'avif' not supported by this PIL build: {e}") from e
+        path.write_bytes(data)
     else:
         raise ValueError(f"unsupported export format: {fmt}")
 

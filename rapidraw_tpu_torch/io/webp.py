@@ -1,5 +1,5 @@
-"""WebP decoding: the RIFF container in Python, the bitstreams in
-csrc/host/webp_dec.cc over ctypes.
+"""WebP decoding and lossy encoding: the RIFF container in Python, the
+bitstreams in csrc/host/webp_dec.cc and csrc/host/webp_enc.cc over ctypes.
 
 `decode_webp` gives the frame PIL 12.1 gives through libwebp 1.6.0's
 WebPAnimDecoder: mode "RGBA" when WebPGetFeatures reports alpha (a VP8X
@@ -7,13 +7,22 @@ file's alpha flag or ALPH chunk, a VP8L header's alpha hint; an animation's
 VP8X flag alone), else "RGB"; an animation shows its first frame on a
 canvas cleared to transparent black. RGB under alpha 0 is kept, as libwebp
 does not premultiply. A container or bitstream libwebp refuses raises
-OSError, as PIL's decoder object does. The library builds with g++ at
-first use (`native.host_library`); a failed build raises KernelBuildError.
+OSError, as PIL's decoder object does.
+
+`encode_webp` writes what the JAX package's export writes through PIL
+(`Image.save(..., "WEBP", quality=q)`): a lossy VP8 key frame in the simple
+RIFF / WEBP / "VP8 " layout, at the quantizer index libwebp gives that
+quality (`QUALITY_TO_INDEX`). The encoder is the port's own
+(csrc/host/webp_enc.cc); its bytes are not libwebp's, its decoded pixels
+are its own reconstruction (`webp_reconstruction`). Both libraries build
+with g++ at first use (`native.host_library`); a failed build raises
+KernelBuildError.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 import struct
 
 import numpy as np
@@ -33,6 +42,75 @@ def _lib():
                            ctypes.c_int]
         lib._rr_typed = True
     return lib
+
+
+# libwebp 1.6's quantizer index for each quality 0..100 at a segment of
+# middling activity (QualityToCompression with alpha 0: 127 * (1 - c), c =
+# (2q/3 below 0.75, else 2q - 1) ** (1/3), truncated); PIL's files carry it
+# between their segments' quantizers (tests/test_torch_webp_enc.py)
+QUALITY_TO_INDEX = (
+    127, 103, 96, 92, 89, 86, 83, 81, 79, 77, 75, 73, 72, 70, 69, 68, 66, 65, 64, 63, 62,
+    61, 60, 59, 58, 57, 56, 55, 54, 53, 52, 51, 51, 50, 49, 48, 48, 47, 46, 45, 45, 44,
+    43, 43, 42, 41, 41, 40, 40, 39, 38, 38, 37, 37, 36, 36, 35, 35, 34, 33, 33, 32, 32,
+    31, 31, 30, 30, 29, 29, 28, 28, 28, 27, 27, 26, 26, 24, 23, 22, 21, 19, 18, 17, 16,
+    15, 14, 13, 12, 11, 10, 9, 8, 7, 6, 5, 4, 3, 2, 1, 0, 0,
+)
+MAX_SIDE = 16383  # VP8's 14-bit frame size
+_TOO_LARGE = "encoding error 5: Image size exceeds WebP limit of 16383 pixels"
+
+
+def _enc_lib():
+    from rapidraw_tpu_torch.native import host_library
+
+    lib = host_library("webp_enc")
+    if not getattr(lib, "_rr_typed", False):
+        lib.webp_encode.restype = ctypes.c_long
+        lib.webp_encode.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_long,
+                                    ctypes.c_int, ctypes.c_int,
+                                    ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
+        lib.webp_enc_free.restype = None
+        lib.webp_enc_free.argtypes = [ctypes.c_void_p]
+        lib._rr_typed = True
+    return lib
+
+
+def _encode(rgb: np.ndarray, quality, recon: bool) -> tuple[bytes, np.ndarray | None]:
+    rgb = np.ascontiguousarray(rgb, dtype=np.uint8)
+    if rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"expected (H, W, 3) uint8, got {rgb.shape}")
+    if not 0 <= quality <= 100:
+        raise ValueError("invalid configuration")  # libwebp's WebPValidateConfig, as PIL says
+    h, w = rgb.shape[:2]
+    if w > MAX_SIDE or h > MAX_SIDE:
+        raise ValueError(_TOO_LARGE)
+    lib = _enc_lib()
+    frame = np.empty((h, w, 4), np.uint8) if recon else None
+    out = ctypes.c_void_p()
+    n = lib.webp_encode(rgb.ctypes.data, w, h, w * 3, QUALITY_TO_INDEX[int(quality)],
+                        os.cpu_count() or 1, ctypes.byref(out),
+                        frame.ctypes.data if recon else None)
+    if n < 0:  # libwebp's error numbers, as PIL reports them
+        raise ValueError(f"encoding error {-n}")
+    try:
+        data = ctypes.string_at(out, n)
+    finally:
+        lib.webp_enc_free(out)
+    return data, (np.ascontiguousarray(frame[..., :3]) if recon else None)
+
+
+def encode_webp(rgb_u8_hwc: np.ndarray, quality) -> bytes:
+    """(H, W, 3) uint8 -> a lossy WebP file at `quality` (0..100), as the
+    JAX package's PIL save writes one: a side past 16383 pixels raises
+    PIL's ValueError."""
+    return _encode(rgb_u8_hwc, quality, False)[0]
+
+
+def webp_reconstruction(rgb_u8_hwc: np.ndarray, quality) -> tuple[bytes, np.ndarray]:
+    """`encode_webp`'s file and the (H, W, 3) uint8 frame the encoder
+    reconstructs for it, loop filter and upsampling applied: what any VP8
+    decoder gives for the file."""
+    data, frame = _encode(rgb_u8_hwc, quality, True)
+    return data, frame
 
 
 def _chunks(data: bytes, start: int, end: int) -> list[tuple[bytes, bytes]]:
@@ -184,3 +262,78 @@ def decode_webp(data: bytes) -> tuple[np.ndarray, str]:
     if alpha:
         return rgba, "RGBA"
     return np.ascontiguousarray(rgba[..., :3]), "RGB"
+
+
+class _BoolReader:
+    """RFC 6386's boolean decoder (section 7.3), for the frame header."""
+
+    def __init__(self, data: bytes):
+        self.data, self.pos = data, 2
+        self.value = (data[0] << 8 | data[1]) if len(data) >= 2 else 0
+        self.range, self.count = 255, 0
+
+    def bit(self, prob: int) -> int:
+        split = 1 + (((self.range - 1) * prob) >> 8)
+        big = split << 8
+        if self.value >= big:
+            self.range -= split
+            self.value -= big
+            out = 1
+        else:
+            self.range = split
+            out = 0
+        while self.range < 128:
+            self.value <<= 1
+            self.range <<= 1
+            self.count += 1
+            if self.count == 8:
+                self.count = 0
+                if self.pos < len(self.data):
+                    self.value |= self.data[self.pos]
+                self.pos += 1
+        return out
+
+    def literal(self, n: int) -> int:
+        v = 0
+        for _ in range(n):
+            v = v << 1 | self.bit(128)
+        return v
+
+    def signed(self, n: int) -> int:
+        v = self.literal(n)
+        return -v if self.bit(128) else v
+
+    def optional_signed(self, n: int) -> int:
+        return self.signed(n) if self.bit(128) else 0
+
+
+def vp8_frame_header(payload: bytes) -> dict:
+    """The first fields of a VP8 key frame's header (RFC 6386 section
+    9.2-9.6): the segment map's quantizers and filter levels, the loop
+    filter, the token partitions and the quantizer indices."""
+    w, h = _vp8_size(payload)
+    br = _BoolReader(payload[10:])
+    br.literal(2)  # colour space, clamping type
+    seg = {"enabled": bool(br.bit(128)), "update_map": False, "absolute": True,
+           "quant": [0] * 4, "filter": [0] * 4}
+    if seg["enabled"]:
+        seg["update_map"] = bool(br.bit(128))
+        if br.bit(128):
+            seg["absolute"] = bool(br.bit(128))
+            seg["quant"] = [br.optional_signed(7) for _ in range(4)]
+            seg["filter"] = [br.optional_signed(6) for _ in range(4)]
+        if seg["update_map"]:
+            for _ in range(3):
+                if br.bit(128):
+                    br.literal(8)
+    filt = {"simple": br.bit(128), "level": br.literal(6), "sharpness": br.literal(3),
+            "deltas": None}
+    if br.bit(128) and br.bit(128):
+        filt["deltas"] = ([br.optional_signed(6) for _ in range(4)],
+                          [br.optional_signed(6) for _ in range(4)])
+    partitions = 1 << br.literal(2)
+    quant = {"y_ac": br.literal(7)}
+    for name in ("y_dc", "y2_dc", "y2_ac", "uv_dc", "uv_ac"):
+        quant[name] = br.optional_signed(4)
+    return {"width": w, "height": h, "segments": seg, "filter": filt,
+            "partitions": partitions, "quant": quant}

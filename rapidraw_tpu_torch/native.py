@@ -14,8 +14,10 @@ lossless-JPEG decoder (ljpeg.cc), the Nikon and Pentax Huffman decoders
 crx codec of CR3 (crx.cc) and the Phase One IIQ rows (phase_one.cc). Their
 bindings below copy the JAX package's (`rapidraw_tpu/native/__init__.py`)
 signature for signature. The export's baseline JPEG encoder (jpeg_enc.cc)
-builds the same way; it has no JAX counterpart (the JAX package encodes
-through PIL).
+and lossy WebP encoder (webp_enc.cc) build the same way; they have no JAX
+counterpart (the JAX package encodes through PIL). A host source's name
+hash covers the local headers it includes (vp8_common.h, which the WebP
+decoder and encoder share).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -147,6 +150,13 @@ class KernelLibrary:
 _host_libs: dict[str, ctypes.CDLL] = {}
 
 
+def _local_headers(src: Path) -> list[Path]:
+    """The headers beside `src` that it includes (`#include "x.h"`), so
+    an edited shared header rebuilds every library that includes it."""
+    names = re.findall(r'^\s*#\s*include\s+"([^"]+)"', src.read_text(), flags=re.M)
+    return [src.parent / n for n in sorted(set(names)) if (src.parent / n).is_file()]
+
+
 def host_library(name: str) -> ctypes.CDLL:
     """csrc/host/<name>.cc compiled with g++ at first use into `_build/`,
     named by a hash of the source. One build per process, behind a lock
@@ -158,7 +168,10 @@ def host_library(name: str) -> ctypes.CDLL:
     if lib is not None:
         return lib
     src = CSRC / "host" / f"{name}.cc"
-    tag = hashlib.blake2b(src.read_bytes(), digest_size=8).hexdigest()
+    h = hashlib.blake2b(src.read_bytes(), digest_size=8)
+    for header in _local_headers(src):
+        h.update(header.read_bytes())
+    tag = h.hexdigest()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = BUILD_DIR / f"lib{name}_host_{tag}.so"
     with _build_lock(out):

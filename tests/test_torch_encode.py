@@ -9,7 +9,8 @@
 - `read_tiff16_rgb` on `write_tiff16`'s files, both packages' either way;
 - the Lanczos3 resize against PIL's 'F'-mode resize (bar 1e-5; it is
   exact), `downscale` against JAX's (bar 1e-6);
-- the formats the port cannot write raise the JAX package's ValueError.
+- JPEG XL without a libjxl raises the JAX package's ValueError (WebP and
+  AVIF: tests/test_torch_webp_enc.py, tests/test_torch_avif.py).
 """
 
 from __future__ import annotations
@@ -182,13 +183,6 @@ def test_read_tiff16_returns_none_for_other_files(tmp_path):
         encode.read_tiff16_rgb(tmp_path / "bad.tif")
     with pytest.raises(Exception):
         jencode.read_tiff16_rgb(tmp_path / "bad.tif")
-
-
-@pytest.mark.parametrize("fmt", ["webp", "avif"])
-def test_formats_without_an_encoder_raise(fmt, tmp_path):
-    with pytest.raises(ValueError, match="not supported by this PIL build"):
-        encode.encode_image(np.zeros((3, 8, 8), np.float32), tmp_path / f"a.{fmt}", fmt, 90)
-    assert not (tmp_path / f"a.{fmt}").exists()
 
 
 def test_jxl_without_libjxl_raises_as_jax(tmp_path, monkeypatch):

@@ -457,6 +457,25 @@ def test_port_sources_never_import_jax():
             assert not bad.match(line), f"{path}: {line}"
 
 
+def test_port_writers_bind_no_codec_library():
+    """The host sources include only the C++ standard library and their own
+    headers (no libwebp, libavif or codec header: the encoders are the
+    port's own, built with g++ alone), and the WebP writer loads nothing but
+    its own host library."""
+    std = re.compile(r'^\s*#\s*include\s+(<[a-z_]+>|"[a-z0-9_]+\.h")\s*$')
+    host = REPO / "rapidraw_tpu_torch" / "csrc" / "host"
+    for path in [*host.glob("*.cc"), *host.glob("*.h")]:
+        for line in path.read_text().splitlines():
+            if "#include" in line:
+                assert std.match(line), f"{path.name}: {line}"
+    assert "vp8_common.h" in (host / "webp_enc.cc").read_text()
+    webp_py = (REPO / "rapidraw_tpu_torch" / "io" / "webp.py").read_text()
+    assert "CDLL" not in webp_py and "find_library" not in webp_py
+    for name in ("webp.py", "avif.py"):
+        text = (REPO / "rapidraw_tpu_torch" / "io" / name).read_text()
+        assert not re.search(r"^\s*(import|from)\s+(PIL|jax|rapidraw_tpu)\b", text, re.M)
+
+
 def test_chip_smoke_fails_without_a_gpu(tmp_path):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True,
