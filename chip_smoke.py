@@ -177,7 +177,18 @@ WebP at q90 and q75 (grade and blur once each), each file decoded by the
 port and held byte for byte to the encoder's reconstruction of the u8
 render, with encode seconds, bytes, bpp and PSNR; four 1024 x 1536 files
 through one WebP export, held the same way; and whether the machine has a
-libavif (with one, a 1024 x 1536 AVIF round trip).
+libavif (with one, a 1024 x 1536 AVIF round trip); (24) the last decode
+paths of A.10d-b (`phase_ldr_variants_b`, `[ldr-var-b]` lines): the
+fixtures of A.10d-b in tests/fixtures/ldr (arithmetic-coded JPEGs, ZSTD,
+RLE-W, ThunderScan, 12-bit, YCbCr-with-predictor and old-style JPEG
+TIFFs) held to the
+SHA-256 of PIL's samples and conversions, 4000 x 6000 arithmetic-coded
+4:2:0 JPEGs (sequential and progressive) and a ZSTD TIFF under Predictor
+2 built from the 4000-wide fixtures (`tall_variant_b`), each one's host
+decode timed (median of 3) and held to the fixture's bands, the ZSTD TIFF
+loaded on the card with the blur and grade kernels against their plain
+versions, and the fixtures loaded on the card against device="cpu" and
+through export_images.
 Each kernel line carries its time, its plain version's time and its bound
 (bytes over the HBM rate or operations over the float32 peak, whichever is
 larger). It prints a kernels JSON line (top level: each kernel's numbers
@@ -188,7 +199,7 @@ then as its last line {"ok": true, "device": {...}}.
 Any failed check raises, so the process exits non-zero; without a CUDA
 device it exits non-zero before printing any result.
 
---quick runs phases 3-8, 10-16 and 21-23 at 1024x1536 with fewer
+--quick runs phases 3-8, 10-16 and 21-24 at 1024x1536 with fewer
 repetitions (a first check of a new kernel). --out DIR writes the nvcc/ptxas logs there.
 --profile adds a torch.profiler pass over the config-3, config-5,
 config-4 and config-2 main paths (config 2 from a DNG and from a NEF):
@@ -5739,6 +5750,175 @@ def phase_ldr_variants(args, h, w, reps, card, dev, reset_counts, read_counts,
     return launches, report
 
 
+# ---- phase 24: the last decode paths of A.10d-b ---------------------------------------
+# The committed fixtures phase 24 builds its tall files from: 4000-wide
+# arithmetic-coded 4:2:0 JPEGs of LDR_B_ROWS rows, one restart interval a
+# scan, and a ZSTD TIFF of one strip under Predictor 2
+LDR_B_WIDTH, LDR_B_ROWS = 4000, 16
+LDR_B_TALL = ("arith_seq.jpg", "arith_prog.jpg", "zstd_pred2.tif")
+LDR_B_FIXTURES = ("arith_seq.jpg", "arith_prog.jpg", "zstd_pred2.tif", "rlew.tif",
+                  "thunder.tif", "twelve.tif", "jpeg12.tif", "ycbcr_pred.tif", "ojpeg.tif")
+
+
+def tall_variant_b(name: str, fixture: bytes, repeats: int) -> bytes:
+    """A fixture made `repeats` times as tall without PIL, cv2 or libzstd:
+    an arithmetic JPEG's scans each repeat their one restart interval
+    behind RST0-7 (each interval resets the QM coder's statistics and the
+    DC predictions, so it decodes alike anywhere); the ZSTD TIFF's
+    StripOffsets name its one strip `repeats` times."""
+    import struct
+
+    from rapidraw_tpu_torch.io.tiff import Frame
+
+    if name.endswith(".tif"):
+        f = Frame(fixture)
+        [(_, _, _, rows, _, _, off, cnt)] = f.chunks()
+        strip = bytes(fixture[off:off + cnt])
+        ifd = [(256, 4, [f.width]), (257, 4, [rows * repeats]), (258, 3, list(f.bps)),
+               (259, 3, [f.compression]), (262, 3, [f.photo]), (273, 4, [8] * repeats),
+               (277, 3, [f.spp]), (278, 4, [rows]), (279, 4, [cnt] * repeats),
+               (317, 3, [f.predictor])]
+        return tiff_bytes([ifd], magic_extra=strip + b"\0" * (len(strip) & 1))
+    out, pos = bytearray(b"\xff\xd8"), 2
+    while fixture[pos + 1] != 0xD9:
+        marker = fixture[pos + 1]
+        seg = bytearray(fixture[pos:pos + 2 + struct.unpack(">H", fixture[pos + 2:pos + 4])[0]])
+        if marker in (0xC9, 0xCA):
+            struct.pack_into(">H", seg, 5, struct.unpack(">H", seg[5:7])[0] * repeats)
+        out += seg
+        pos += len(seg)
+        if marker == 0xDA:  # the scan's one interval, up to the next marker
+            end = pos
+            while fixture[end] != 0xFF or fixture[end + 1] == 0:
+                end += 1
+            interval = bytes(fixture[pos:end])
+            out += interval + b"".join(bytes([0xFF, 0xD0 + k % 8]) + interval
+                                       for k in range(repeats - 1))
+            pos = end
+    return bytes(out + b"\xff\xd9")
+
+def phase_ldr_variants_b(args, reps, card, dev, reset_counts, read_counts, height=6000):
+    """Phase 24, the last decode paths of A.10d-b (`[ldr-var-b]` lines):
+    the fixtures of LDR_B_FIXTURES held to the SHA-256 of PIL's samples and
+    conversions (digests.json); the LDR_B_TALL fixtures made `height` rows
+    tall without PIL, cv2 or libzstd (`tall_variant_b`), each one's host
+    decode timed (median of 3, ms and MPix/s) and held to the fixture: an
+    arithmetic JPEG's bands of LDR_B_ROWS rows equal those of the same file
+    at 3 bands (fancy upsampling reads across band edges), the ZSTD TIFF
+    equal to its strip stacked; PIL's JPEG reader fails an arithmetic scan
+    past its 64 KB window, so `decode_jpeg` of the tall JPEGs must raise
+    OSError and the decode timed is libjpeg's as libtiff runs it
+    (`jpeg_components(pil=False)`); the tall ZSTD TIFF loaded on the card
+    and the blur and grade kernels held to their plain versions on it; the
+    fixtures loaded on the card against device="cpu" (max |d| 0) and
+    exported (`ldr_export_and_kernels`). Returns (the export's launches,
+    {(kernel, "ldr_variants_b"): numbers})."""
+    import hashlib
+    import tempfile
+
+    from rapidraw_tpu_torch import load_image
+    from rapidraw_tpu_torch.io import jpeg, tiff
+    from rapidraw_tpu_torch.io.image_decode import decode_image, open_image
+
+    t_phase = time.perf_counter()
+    digests = json.loads((LDR_FIXTURES / "digests.json").read_text())
+    for name in LDR_B_FIXTURES:
+        data, want = (LDR_FIXTURES / name).read_bytes(), digests[name]
+        frame = open_image(data)
+        px = (frame.px != 0).astype(np.uint8) if frame.mode == "1" else frame.px
+        got = hashlib.sha256(np.ascontiguousarray(px).tobytes()).hexdigest()
+        if frame.mode != want["mode"] or got != want["samples"] or list(frame.size) != want["size"]:
+            raise AssertionError(f"fixture {name}: mode {frame.mode}, samples sha256 {got}; "
+                                 f"PIL's {want['mode']}, {want['samples']}")
+        modes = [m for m in ("RGB", "RGBA", "L") if m in want]
+        for m in modes:
+            got = hashlib.sha256(np.ascontiguousarray(decode_image(data, m)).tobytes()).hexdigest()
+            if got != want[m]:
+                raise AssertionError(f"fixture {name} {m}: sha256 {got} != PIL's {want[m]}")
+        log(f"[ldr-var-b] fixture {name} ({len(data)} bytes, {want['size'][0]}x"
+            f"{want['size'][1]}): mode {frame.mode}, samples and {', '.join(modes)} equal to "
+            "PIL's digests")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ldr_var_b_") as tmp:
+        tmp = Path(tmp)
+        for name in LDR_B_TALL:
+            fixture = (LDR_FIXTURES / name).read_bytes()
+            rows = open_image(fixture).size[1]
+            data = tall_variant_b(name, fixture, height // rows)
+            mpix = height * LDR_B_WIDTH / 1e6
+            if name.endswith(".jpg"):
+                try:
+                    jpeg.decode_jpeg(data)
+                except OSError:
+                    pass
+                else:
+                    raise AssertionError(f"{name}: PIL's reader would fail past its 64 KB window")
+                decode = lambda d=data: jpeg.jpeg_components(d, pil=False)  # noqa: E731
+            else:
+                decode = lambda d=data: tiff.decode_tiff(d)[0]  # noqa: E731
+            dts = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                got = decode()
+                dts.append(time.perf_counter() - t0)
+            med = statistics.median(dts)
+            if name.endswith(".jpg"):
+                ref = jpeg.jpeg_components(tall_variant_b(name, fixture, 3), pil=False)
+                ref = ref.reshape(3, rows, LDR_B_WIDTH, 3)
+                bands = got.reshape(-1, rows, LDR_B_WIDTH, 3)
+                same = (bool(np.array_equal(bands[0], ref[0]))
+                        and bool(np.array_equal(bands[-1], ref[2]))
+                        and bool((bands[1:-1] == ref[1]).all()))
+            else:
+                one = tiff.decode_tiff(fixture)[0]
+                same = bool((got.reshape(-1, *one.shape) == one).all())
+            log(f"[ldr-var-b] {name} made {height} rows tall ({len(data) / 2**20:.2f} MiB, "
+                f"{LDR_B_WIDTH}x{height}): host decode {med * 1e3:.1f} ms (median of 3, "
+                f"{min(dts) * 1e3:.1f}-{max(dts) * 1e3:.1f}) = {mpix / med:.1f} MPix/s, "
+                f"{'equal to' if same else 'DIFFERENT from'} the fixture's bands [{card}]")
+            if not same:
+                raise AssertionError(f"{name}: the tall file's decode differs from its fixture")
+            if name.endswith(".tif"):
+                path = tmp / name
+                path.write_bytes(data)
+            del got
+
+        # the blur and grade kernels on the loaded ZSTD TIFF against their plain versions
+        t0 = time.perf_counter()
+        loaded, is_raw = load_image(path, device=dev)
+        torch.cuda.synchronize()
+        log(f"[ldr-var-b] {path.name}: load_image on the card "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms, shape {tuple(loaded.shape)} [{card}]")
+        if (is_raw or tuple(loaded.shape) != (3, height, LDR_B_WIDTH)
+                or loaded.device.type != "cuda"):
+            raise AssertionError(f"{path.name}: loaded as {tuple(loaded.shape)} on {loaded.device}")
+        loaded_kernels_vs_plain("[ldr-var-b]", "the ZSTD TIFF's image", loaded, reps, card, dev)
+        del loaded
+
+        # the fixtures: each on the card against the plain CPU path, then exported
+        srcs = []
+        for name in LDR_B_FIXTURES:
+            p = tmp / "small" / name
+            p.parent.mkdir(exist_ok=True)
+            p.write_bytes((LDR_FIXTURES / name).read_bytes())
+            got, is_raw = load_image(p, device=dev)
+            want, _ = load_image(p, device="cpu")
+            d = float((got.cpu() - want).abs().max())
+            log(f"[ldr-var-b] {name}: load_image on the card, max|d| vs device='cpu' {d:g}")
+            if is_raw or d != 0.0 or got.device.type != "cuda":
+                raise AssertionError(f"{name}: the card's load differs from the CPU's ({d})")
+            srcs.append(str(p))
+        res, launches, report = ldr_export_and_kernels("[ldr-var-b]", "ldr_variants_b", srcs,
+                                                       tmp / "out", reps, card, dev,
+                                                       reset_counts, read_counts)
+        for r in res:
+            out = jpeg.decode_jpeg(Path(r.output).read_bytes())
+            if out.ndim != 3 or out.shape[2] != 3:
+                raise RuntimeError(f"{r.output}: decoded shape {out.shape}")
+    log(f"[ldr-var-b] phase 24 took {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return launches, report
+
+
 # ---- phase 23: WebP and AVIF export (A.10e) ---------------------------------------
 # The WebP encoder's bytes on seeded integer-made frames, pinned by
 # tests/test_torch_webp_enc.py: (h, w, seed, quality) -> SHA-256 of the file
@@ -5994,7 +6174,8 @@ def main() -> int:
 
     # the host decoders and the export's JPEG encoder
     hosts = ("ljpeg", "vendor_huff", "pana_oly", "crx", "phase_one", "jpeg_enc", "jpeg_dec",
-             "tiff_codec", "guides", "webp_dec", "bcn_dec", "ldr_dec", "ccitt_dec", "webp_enc")
+             "tiff_codec", "guides", "webp_dec", "bcn_dec", "ldr_dec", "ccitt_dec", "webp_enc",
+             "zstd_dec")
     with ThreadPoolExecutor(len(libs) + len(hosts)) as pool:
         host = {name: pool.submit(build_host, name) for name in hosts}
         list(pool.map(lambda kl: kl.lib(), libs.values()))
@@ -6676,6 +6857,13 @@ def main() -> int:
     report.update(webp_report)
     phase_done("WebP and AVIF export")
 
+    # ---- 24. the last decode paths of A.10d-b: arithmetic JPEG, ZSTD, ... ---------
+    launches24, var_b_report = phase_ldr_variants_b(
+        args, reps, card, dev, reset_counts, read_counts,
+        height=LDR_B_ROWS * 64 if args.quick else 6000)
+    report.update(var_b_report)
+    phase_done("the last decode paths of A.10d-b")
+
     sources = {  # name -> (source, the TPU kernel it replaces, the path that runs it)
         "blur": ("rapidraw_tpu_torch/csrc/blur.cu", "rapidraw_tpu/ops/blur.py:242", "config5"),
         "grade": ("rapidraw_tpu_torch/csrc/grade.cu", "rapidraw_tpu/pipeline/fused.py:298",
@@ -6704,7 +6892,7 @@ def main() -> int:
               "export": launches14, "ldr_export": launches15, "preview": launches16,
               **launches17, **launches18, **launches19, **launches20,
               "ldr_formats": launches21, "ldr_variants": launches22,
-              "webp_export": launches23}
+              "webp_export": launches23, "ldr_variants_b": launches24}
     library = {"nr_dynamic": "nr"}  # the kernels that share a source with another
     # a kernel that shares its source: its own entry's registers and spills
     entry = {"nr": "nr_kernel", "nr_dynamic": "nr_dynamic_kernel"}

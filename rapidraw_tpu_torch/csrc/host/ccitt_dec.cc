@@ -1,5 +1,11 @@
 // CCITT fax decoder for the TIFF reader (io/tiff.py): one strip or tile of
-// TIFF compression 2 (Modified Huffman, each row byte-aligned, no EOL), 3
+// TIFF compression 2 (Modified Huffman, each row byte-aligned, no EOL),
+// 32771 (CCITT RLE-W: Modified Huffman, each row word-aligned as
+// Fax3DecodeRLE aligns it: the bits left in its accumulator cut to a
+// multiple of 16, and a byte skipped when none are left and the next byte
+// lies at an odd address, which for PIL's mapped file is an odd offset;
+// with 16 or more bits left the next row starts on the encoder's pad byte,
+// and a code in no table ends a row as EXPAND1D ends it), 3
 // (T.4: one-dimensional, or two-dimensional when T4Options bit 0 is set,
 // every row after an EOL, fill bits or not) or 4 (T.6), as libtiff's
 // tif_fax3.c decodes it for PIL: Fax3DecodeRLE, Fax3Decode1D, Fax3Decode2D
@@ -120,8 +126,9 @@ struct Tables {
       put(white, 12, c.bits, S_MakeUp, c.run);
       put(black, 13, c.bits, S_MakeUp, c.run);
     }
-    put(white, 12, "000000000001", S_EOL, 0);
-    put(black, 13, "000000000001", S_EOL, 0);
+    // mkg3states.c's EOLH: eleven zeros, the EOL's closing 1 left unread
+    put(white, 12, "00000000000", S_EOL, 0);
+    put(black, 13, "00000000000", S_EOL, 0);
     put(main, 7, "1", S_V0, 0);
     put(main, 7, "011", S_VR, 1);
     put(main, 7, "000011", S_VR, 2);
@@ -158,6 +165,10 @@ struct Decoder {
   int32_t* pb = nullptr;
   int32_t a0 = 0, b1 = 0, run_length = 0;
   int eol = 0;
+  // EXPAND1D's recovery: a code in no table ends the row (libtiff reports
+  // it and decodes on), kept for RLE-W, whose word alignment can leave the
+  // reader on a pad byte
+  bool recover = false;
 
   Decoder(const uint8_t* d, long n, int width) : cp(d), ep(d + n), lastx(width) {
     size_t nruns = 2 * (static_cast<size_t>(width) + 2) + 8;
@@ -233,6 +244,7 @@ struct Decoder {
           run_length += e.param;
           break;
         default:
+          if (recover) return false;
           throw Bad{};
       }
     }
@@ -368,14 +380,17 @@ extern "C" {
 
 // Decode one strip or tile of `rows` rows of `width` pixels into `out`,
 // rows of (width + 7) / 8 bytes, most significant bit first. `compression`
-// is the TIFF code (2, 3 or 4), `t4options` the T4Options tag (bit 0: two-
-// dimensional). Returns the rows decoded (all of them), -1 for a code in
+// is the TIFF code (2, 3, 4 or 32771), `t4options` the T4Options tag (bit 0:
+// two-dimensional), `offset` the chunk's offset in the file (RLE-W aligns
+// its rows to the file's words). Returns the rows decoded (all of them), -1 for a code in
 // no table, -2 for data that ends before the rows, -3 for bad arguments.
 int ccitt_decode(const uint8_t* src, long n, int width, int rows, int compression,
-                 int t4options, uint8_t* out) {
-  if (!src || !out || n < 0 || width <= 0 || rows < 0 || compression < 2 || compression > 4)
+                 int t4options, uint8_t* out, long offset) {
+  if (!src || !out || n < 0 || width <= 0 || rows < 0 ||
+      ((compression < 2 || compression > 4) && compression != 32771))
     return -3;
   Decoder d(src, n, width);
+  d.recover = compression == 32771;
   const size_t stride = (static_cast<size_t>(width) + 7) / 8;
   int line = 0;
   try {
@@ -386,6 +401,12 @@ int ccitt_decode(const uint8_t* src, long n, int width, int rows, int compressio
         d.expand1d();
         d.fill(row);
         d.clr(d.avail & 7);  // FAXMODE_BYTEALIGN
+      } else if (compression == 32771) {
+        d.start_row();
+        d.expand1d();
+        d.fill(row);
+        d.clr(d.avail & 15);  // FAXMODE_WORDALIGN
+        if (d.avail == 0 && ((d.cp - src + offset) & 1)) ++d.cp;
       } else if (compression == 3 && !(t4options & 1)) {
         d.start_row();
         d.sync_eol();

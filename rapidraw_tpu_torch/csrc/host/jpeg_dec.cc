@@ -1,12 +1,26 @@
-// JPEG decoder (ITU-T T.81, 8-bit, Huffman) for the LDR loader: the pixels
-// libjpeg-turbo gives PIL's `Image.open(p)` at its defaults (JDCT_ISLOW,
-// do_fancy_upsampling, no DCT scaling, out_color_space RGB, grey or CMYK).
+// JPEG decoder (ITU-T T.81) for the LDR loader: the pixels libjpeg-turbo
+// gives PIL's `Image.open(p)` at its defaults (JDCT_ISLOW,
+// do_fancy_upsampling, no DCT scaling, out_color_space RGB, grey or CMYK),
+// and the strips libjpeg decodes for libtiff's JPEG codec.
 //
 //   * coding: baseline and extended sequential (SOF0, SOF1) and progressive
 //     (SOF2: spectral selection, successive approximation, DC and AC first
 //     scans and refinements, EOB runs), interleaved and single-component
 //     scans, restart intervals, any Huffman tables (4 per class) and 8- or
 //     16-bit quantization tables;
+//   * arithmetic coding (SOF9 sequential, SOF10 progressive) as jdarith.c
+//     decodes it: the QM coder over T.81 Table D.2, the DAC segment's
+//     conditioning (defaults L 0, U 1, Kx 5), the statistics and DC
+//     predictions reset at each restart, restart markers out of order
+//     resynchronised as jpeg_resync_to_restart does; a bad code (a
+//     magnitude or a run past the block) leaves the rest of the scan's
+//     blocks as they are, as libjpeg does after JWRN_ARITH_BAD_CODE.
+//     SOF11 (arithmetic lossless) is refused, as libjpeg-turbo refuses it;
+//     PIL's JPEG reader hands libjpeg 64 KB at a time and the arithmetic
+//     decoder cannot suspend, so with `pil` a scan that reads past what PIL
+//     has read fails as it fails there;
+//   * 12-bit frames of one component for libtiff (jidctint.c built with
+//     PASS1_BITS 1, 12-bit lossless), which PIL's JPEG reader turns away;
 //   * lossless (SOF3) at 8 bits as libjpeg-turbo 3 decodes it: predictors
 //     1-7 (jdlossls.c's undifferencers, the first row and the row after a
 //     restart predicted from the left), the point transform, restart
@@ -21,8 +35,11 @@
 //     tables and inverted (ycck_cmyk_convert). A caller may ask for the
 //     components as stored (libtiff's JCS_UNKNOWN) or for YCbCr -> RGB
 //     whatever the markers say (libtiff's JPEGCOLORMODE_RGB);
-//   * the inverse DCT of jidctint.c (jpeg_idct_islow) with its range-limit
-//     table;
+//   * the inverse DCT of jidctint.c (jpeg_idct_islow) as libjpeg-turbo's
+//     x86 SIMD build computes it for 8-bit samples (16-bit lanes: past 16
+//     bits the dequantization and sums wrap, each pass saturates, samples
+//     clamp; `idct_islow_simd`), and jidctint.c itself with its range-limit
+//     table for 12-bit samples;
 //   * upsampling as jdsample.c chooses it: h2v1 and h2v2 "fancy" (triangle)
 //     when the component is wider than 2 samples, h1v2 fancy, and the
 //     replicating upsamplers for every other integral factor; the rows
@@ -32,11 +49,16 @@
 // PIL's JPEG reader turns away a frame of other than 8 bits or of other
 // than 1, 3 or 4 components while it opens the file (kUnidentified); what
 // libjpeg refuses as it decodes (fractional sampling factors, hierarchical
-// frames, colour conversions of lossless data) is kBroken. What libjpeg
-// would decode but this file refuses is arithmetic coding (kUnsupported).
-// Truncated data and corrupt entropy-coded data raise (kTruncated,
-// kCorrupt); libjpeg recovers from the latter with a warning, this file
-// returns no partial image.
+// frames, colour conversions of lossless data, arithmetic lossless frames,
+// a second scan after a frame's single scan, the JPG, DHP, EXP, JPGn and
+// reserved markers) is kBroken; a DNL segment is skipped. Truncated data
+// raises (kTruncated). Corrupt Huffman-coded data in a DCT scan decodes as
+// libjpeg decodes it with its warnings (jdhuff.c, jdphuff.c): a code in no
+// table reads as 0 after 17 bits, a marker inside a segment gives zeros and
+// leaves the segment's later MCUs as they are, restart markers out of order
+// are resynchronised; in a lossless scan it raises (kCorrupt). A
+// progressive frame whose scans leave AC coefficients 1-9 unrefined is
+// smoothed as libjpeg-turbo smooths it (jdcoefct.c's 5x5 window).
 //
 // Build: g++ -O2 -shared -fPIC -std=c++17, at first use, by
 // rapidraw_tpu_torch/native.py (host_library) into rapidraw_tpu_torch/_build/.
@@ -50,13 +72,13 @@
 namespace {
 
 enum Status {
-  kOk = 0, kBadArgs = -1, kTruncated = -2, kCorrupt = -3, kUnsupported = -4, kUnidentified = -5,
-  kBroken = -6
+  kOk = 0, kBadArgs = -1, kTruncated = -2, kCorrupt = -3, kUnidentified = -5, kBroken = -6
 };
 
 // how the caller wants colour: as libjpeg infers it, the components as
-// stored, or YCbCr -> RGB whatever the markers say
-enum Colour { kInfer = 0, kRaw = 1, kYCbCr = 2 };
+// stored, YCbCr -> RGB whatever the markers say, or each component's
+// samples as libjpeg's raw_data_out hands them over (not upsampled)
+enum Colour { kInfer = 0, kRaw = 1, kYCbCr = 2, kPlanes = 3 };
 
 struct Failure {
   int code;
@@ -67,6 +89,8 @@ thread_local std::string t_error;
 
 [[noreturn]] void fail(int code, const std::string& what) { throw Failure{code, what}; }
 
+struct Finished {};  // PIL has every row and stops reading
+
 // zig-zag index -> natural index, with libjpeg's 16 guard entries for the
 // run lengths of corrupt data
 const int kNatural[80] = {
@@ -76,6 +100,120 @@ const int kNatural[80] = {
     47, 55, 62, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
 
 constexpr int kLookBits = 9;
+constexpr long kWindow = 65536;  // PIL's ImageFile.MAXBLOCK
+
+// jaricom.c jpeg_aritab: T.81 Table D.2 as (Qe << 16) | (Next_Index_MPS << 8)
+// | (Switch_MPS << 7) | Next_Index_LPS; entry 113 is the fixed 0.5 bin
+const uint32_t kAritab[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617,
+    0x00e50719, 0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09,
+    0x00030d0a, 0x00010d0c, 0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227,
+    0x17b91328, 0x1182142a, 0x0cef152b, 0x09a1162d, 0x072f172e, 0x055c1830,
+    0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36, 0x01441d38, 0x00f51e39,
+    0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320, 0x002c0921,
+    0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d,
+    0x0861314e, 0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633,
+    0x02d43734, 0x025c3835, 0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39,
+    0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d, 0x008f203d, 0x5b1241c1, 0x4d044250,
+    0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857,
+    0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a, 0x0d514e4b,
+    0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f,
+    0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df,
+    0x4f466165, 0x47e56266, 0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669,
+    0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d,
+    0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171};
+
+// jdmarker.c jpeg_resync_to_restart's choice for the marker found where RST
+// `desired` was due: 1 discard it and go on, 2 scan to the next marker and
+// choose again, 3 leave it (the segment reads as empty)
+int resync_action(int marker, int desired) {
+  if (marker < 0xC0) return 2;
+  if (marker < 0xD0 || marker > 0xD7) return 3;
+  if (marker == 0xD0 + ((desired + 1) & 7) || marker == 0xD0 + ((desired + 2) & 7)) return 3;
+  if (marker == 0xD0 + ((desired - 1) & 7) || marker == 0xD0 + ((desired - 2) & 7)) return 2;
+  return 1;
+}
+
+// jdarith.c's QM decoder over one scan's bytes: C holds the interval's base
+// and the bits read ahead, CT counts those bits (-16 before the first two
+// bytes, -1 after a bad code, when the scan's blocks are left as they are).
+// At a marker the reader supplies zeros, as libjpeg does.
+struct Arith {
+  const uint8_t* p;
+  const uint8_t* end;
+  const uint8_t* limit;  // PIL's window: reading here fails
+  int64_t c = 0, a = 0;
+  int ct = -16;
+  int marker = 0;  // libjpeg's unread_marker
+
+  int get_byte() {
+    if (p >= limit) {
+      if (limit < end) fail(kBroken, "broken data stream when reading image file");
+      fail(kTruncated, "image file is truncated");
+    }
+    return *p++;
+  }
+  void restart() {
+    c = 0;
+    a = 0;
+    ct = -16;
+  }
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        int d = 0;
+        if (!marker) {
+          d = get_byte();
+          if (d == 0xFF) {
+            do d = get_byte();
+            while (d == 0xFF);
+            if (d == 0) {
+              d = 0xFF;
+            } else {
+              marker = d;
+              d = 0;
+            }
+          }
+        }
+        c = static_cast<int64_t>((static_cast<uint64_t>(c) << 8) | static_cast<uint64_t>(d));
+        if ((ct += 8) < 0) {
+          if (++ct == 0) a = 0x8000;
+        }
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    uint32_t qe = kAritab[sv & 0x7F];
+    uint8_t nl = qe & 0xFF;
+    qe >>= 8;
+    uint8_t nm = qe & 0xFF;
+    qe >>= 8;
+    int64_t temp = a - qe;
+    a = temp;
+    temp = static_cast<int64_t>(static_cast<uint64_t>(temp) << (ct & 63));
+    if (c >= temp) {
+      c -= temp;
+      if (a < static_cast<int64_t>(qe)) {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < static_cast<int64_t>(qe)) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+};
 
 struct Huffman {
   bool defined = false;
@@ -135,8 +273,11 @@ void derive(const uint8_t bits[17], const uint8_t* vals, int nvals, bool dc, Huf
 }
 
 // Entropy-coded bits: 0xFF00 unstuffed, fill bytes skipped; at a marker the
-// reader stops and supplies zeros, and consuming one of those is corrupt
-// data. Running out of bytes before a marker is a truncated file.
+// reader stops and supplies zeros. Consuming one of those is libjpeg's
+// "insufficient data": with `recover` (a DCT scan, as jdhuff.c and
+// jdphuff.c go on: the rest of the segment's MCUs are left as they are) it
+// is noted, else it is corrupt data. Running out of bytes before a marker
+// is a truncated file.
 struct Bits {
   const uint8_t* p;
   const uint8_t* end;
@@ -144,6 +285,7 @@ struct Bits {
   int n = 0;      // bits in acc
   int real = 0;   // of which came from the file
   int marker = -1;
+  bool recover = false, insufficient = false;
 
   void fill() {
     while (n <= 56) {
@@ -170,7 +312,11 @@ struct Bits {
     }
   }
   void consume(int k) {
-    if (k > real) fail(kCorrupt, "corrupt JPEG data: premature end of data segment");
+    if (k > real) {
+      if (!recover) fail(kCorrupt, "corrupt JPEG data: premature end of data segment");
+      insufficient = true;  // JWRN_HIT_MARKER
+      real = k;
+    }
     acc <<= k;
     n -= k;
     real -= k;
@@ -183,7 +329,7 @@ struct Bits {
     return v;
   }
   int decode(const Huffman& t) {
-    if (n < 16) fill();
+    if (n < 17) fill();
     uint32_t look = static_cast<uint32_t>(acc >> (64 - kLookBits));
     uint16_t e = t.look[look];
     if (e) {
@@ -194,7 +340,12 @@ struct Bits {
     int32_t code = static_cast<int32_t>(acc >> (64 - l));
     while (code > t.maxcode[l]) {
       ++l;
-      if (l > 16) fail(kCorrupt, "corrupt JPEG data: bad Huffman code");
+      if (l > 16) {
+        // jpeg_huff_decode: JWRN_HUFF_BAD_CODE, 17 bits read, a zero faked
+        if (!recover) fail(kCorrupt, "corrupt JPEG data: bad Huffman code");
+        consume(17);
+        return 0;
+      }
       code = static_cast<int32_t>(acc >> (64 - l));
     }
     consume(l);
@@ -217,23 +368,46 @@ struct Component {
   int dw = 0, dh = 0;          // downsampled_width / _height
   bool latched = false;
   uint16_t quant[64];
+  // jdinput.c's coef_bits (-1: never coded) and the values before the last
+  // scan that coded each coefficient, for block smoothing
+  int coef_bits[64], prev_bits[64];
   std::vector<int16_t> coef;
   std::vector<uint16_t> lossless;  // a lossless frame's undifferenced samples (dw x dh)
   int al = 0;                       // and its point transform
 };
 
 struct Decoder {
-  Decoder(const uint8_t* d, size_t n) : data(d), size(n) {}
+  Decoder(const uint8_t* d, size_t n, long win = 0) : data(d), size(n), window(win) {
+    // jdmarker.c get_soi: the DAC defaults
+    std::memset(arith_dc_L, 0, sizeof(arith_dc_L));
+    std::memset(arith_dc_U, 1, sizeof(arith_dc_U));
+    std::memset(arith_ac_K, 5, sizeof(arith_ac_K));
+  }
   const uint8_t* data;
   size_t size;
   size_t pos = 0;
-  int width = 0, height = 0, ncomp = 0;
+  int width = 0, height = 0, ncomp = 0, precision = 8;
   int hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
-  bool progressive = false, lossless = false, have_frame = false;
+  // PIL's JPEG reader (its SOF checks, its 64 KB window) or libtiff's JPEG
+  // codec, which hands libjpeg a whole strip or tile of 8 or 12 bits
+  bool pil = true;
+  bool progressive = false, lossless = false, arith = false, have_frame = false;
   bool jfif = false, adobe = false;
+  // PIL's JPEG reader hands libjpeg the file 64 KB at a time, and the
+  // arithmetic decoder cannot suspend: the end of what PIL has read so
+  // far (0: the whole stream is there, as libtiff hands a strip over)
+  long window = 0;
+  // after the one scan of a single-scan frame, the rows are PIL's:
+  // jpeg_finish_decompress may suspend at the window's end, and PIL keeps
+  // what it has (Finished)
+  bool finishing = false;
+  int scans = 0;
+  bool multi_scan = false;  // jdinput.c has_multiple_scans
+  uint8_t arith_dc_L[16], arith_dc_U[16], arith_ac_K[16];
   int adobe_transform = -1;
   int restart = 0;
   int eob_run = 0;
+  int last_good = 0;  // jdmaster's last_good_iMCU_row
   uint16_t qt[4][64];
   bool qt_defined[4] = {false, false, false, false};
   Huffman dc[4], ac[4];
@@ -241,6 +415,11 @@ struct Decoder {
 
   uint8_t byte() {
     if (pos >= size) fail(kTruncated, "image file is truncated");
+    // the marker reader suspends at the end of the window, and PIL reads on
+    while (window && static_cast<long>(pos) >= window) {
+      if (finishing) throw Finished{};
+      window += kWindow;
+    }
     return data[pos++];
   }
   int word() {
@@ -267,7 +446,30 @@ struct Decoder {
     *len = l - 2;
     size_t start = pos;
     pos += l - 2;
+    while (window && static_cast<long>(pos) > window) {
+      if (finishing) throw Finished{};
+      window += kWindow;
+    }
     return start;
+  }
+
+  // jdmarker.c get_dac: conditioning of the arithmetic coder's tables
+  void read_dac() {
+    int len;
+    size_t s = segment(&len);
+    for (int k = 0; k + 1 < len; k += 2) {
+      int index = data[s + k], val = data[s + k + 1];
+      if (index >= 32) fail(kBroken, "broken data stream when reading image file");
+      if (index >= 16) {
+        arith_ac_K[index - 16] = static_cast<uint8_t>(val);
+      } else {
+        arith_dc_L[index] = static_cast<uint8_t>(val & 15);
+        arith_dc_U[index] = static_cast<uint8_t>(val >> 4);
+        if (arith_dc_L[index] > arith_dc_U[index])
+          fail(kBroken, "broken data stream when reading image file");
+      }
+    }
+    if (len & 1) fail(kBroken, "broken data stream when reading image file");
   }
 
   void read_dqt() {
@@ -316,26 +518,29 @@ struct Decoder {
     int len;
     size_t s = segment(&len);
     if (len < 6) fail(kUnidentified, "bad SOF marker");
-    int precision = data[s];
+    precision = data[s];
     height = (data[s + 1] << 8) | data[s + 2];
     width = (data[s + 3] << 8) | data[s + 4];
     ncomp = data[s + 5];
-    if (precision != 8)
+    if (pil && precision != 8)
       fail(kUnidentified, "cannot handle " + std::to_string(precision) + "-bit layers");
-    if (ncomp != 1 && ncomp != 3 && ncomp != 4)
+    if (pil && ncomp != 1 && ncomp != 3 && ncomp != 4)
       fail(kUnidentified, "cannot handle " + std::to_string(ncomp) + "-layer images");
+    // libjpeg-turbo 3 through libtiff: 8- or 12-bit samples (jpeg12_*)
+    if (!pil && ((precision != 8 && precision != 12) || ncomp < 1 || ncomp > 4))
+      fail(kBroken, "unsupported JPEG data precision or component count");
     if (header_only) {
       have_frame = true;
       return;
     }
-    if (marker >= 0xC9 && marker <= 0xCB) fail(kUnsupported, "arithmetic-coded JPEG");
     if ((marker >= 0xC5 && marker <= 0xC7) || marker >= 0xCD)
       fail(kBroken, "broken data stream when reading image file");
     if (height == 0) fail(kCorrupt, "JPEG height 0 (DNL) not supported");
     if (width == 0) fail(kCorrupt, "empty JPEG image");
     if (len != 6 + 3 * ncomp) fail(kCorrupt, "bad SOF length");
-    progressive = marker == 0xC2;
-    lossless = marker == 0xC3;
+    progressive = marker == 0xC2 || marker == 0xCA;
+    lossless = marker == 0xC3 || marker == 0xCB;
+    arith = marker >= 0xC9;
     for (int i = 0; i < ncomp; ++i) {
       Component& c = comp[i];
       c.id = data[s + 6 + 3 * i];
@@ -357,6 +562,8 @@ struct Decoder {
       c.hblocks = (c.dh + 7) / 8;
       c.bw = mcux * c.h;
       c.bh = mcuy * c.v;
+      std::fill(c.coef_bits, c.coef_bits + 64, -1);
+      std::fill(c.prev_bits, c.prev_bits + 64, 0);
       if (lossless) {
         c.lossless.assign(static_cast<size_t>(c.dw) * c.dh, 0);
       } else {
@@ -395,17 +602,26 @@ struct Decoder {
       sc[i] = &comp[k];
       td[i] = data[s + 2 + 2 * i] >> 4;
       ta[i] = data[s + 2 + 2 * i] & 15;
-      if (td[i] > 3 || ta[i] > 3) fail(kCorrupt, "bad Huffman table selector");
     }
     int ss = data[s + 1 + 2 * ns], se = data[s + 2 + 2 * ns];
     int ah = data[s + 3 + 2 * ns] >> 4, al = data[s + 3 + 2 * ns] & 15;
+    // jdinput.c: a frame whose first scan holds every component is read as
+    // one scan, and a second SOS is JERR_EOI_EXPECTED
+    if (scans++ == 0) {
+      multi_scan = ns < ncomp || progressive;
+    } else if (!multi_scan) {
+      fail(kBroken, "broken data stream when reading image file");
+    }
+    // jdmaster.c: libjpeg-turbo has no arithmetic lossless decoder
+    // (JERR_ARITH_NOTIMPL)
+    if (lossless && arith) fail(kBroken, "broken data stream when reading image file");
     if (lossless) {
       // jdlhuff.c start_pass_lhuff_decoder: Ss is the predictor, Al the
       // point transform
       if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= 8)
         fail(kBroken, "broken data stream when reading image file");
       for (int i = 0; i < ns; ++i) {
-        if (!dc[td[i]].defined) fail(kCorrupt, "Huffman table not defined");
+        if (td[i] > 3 || !dc[td[i]].defined) fail(kCorrupt, "Huffman table not defined");
         if (dc[td[i]].maxsym > 16) fail(kCorrupt, "bad Huffman table");
         sc[i]->latched = true;
         sc[i]->al = al;
@@ -423,6 +639,14 @@ struct Decoder {
       if (ah != 0 && al != ah - 1) bad = true;
       if (al > 13) bad = true;
       if (bad) fail(kCorrupt, "bad progression parameters");
+      // start_pass_phuff_decoder / jdarith.c start_pass: the coefficients'
+      // bits, and what they were before this scan
+      for (int i = 0; i < ns; ++i) {
+        int* cb = sc[i]->coef_bits;
+        for (int k = std::min(ss, 1); k <= std::max(se, 9); ++k)
+          sc[i]->prev_bits[k] = scans > 1 ? cb[k] : 0;
+        for (int k = ss; k <= se; ++k) cb[k] = al;
+      }
     } else {
       ss = 0;
       se = 63;
@@ -436,17 +660,28 @@ struct Decoder {
         std::memcpy(c.quant, qt[c.tq], sizeof(c.quant));
         c.latched = true;
       }
+      if (arith) continue;
+      // jpeg_make_d_derived_tbl on the tables the scan uses (of 4; the
+      // arithmetic coder's 16 conditioning tables need no check)
       bool need_dc = ss == 0 && ah == 0;
       bool need_ac = se > 0 && (!progressive || ss > 0);
-      if (need_dc && !dc[td[i]].defined) fail(kCorrupt, "Huffman table not defined");
+      if (need_dc && (td[i] > 3 || !dc[td[i]].defined))
+        fail(kCorrupt, "Huffman table not defined");
       if (need_dc && dc[td[i]].maxsym > 15) fail(kCorrupt, "bad Huffman table");
-      if (need_ac && !ac[ta[i]].defined) fail(kCorrupt, "Huffman table not defined");
+      if (need_ac && (ta[i] > 3 || !ac[ta[i]].defined))
+        fail(kCorrupt, "Huffman table not defined");
     }
     int blocks_per_mcu = 0;
     for (int i = 0; i < ns; ++i) blocks_per_mcu += sc[i]->h * sc[i]->v;
     if (ns > 1 && blocks_per_mcu > 10) fail(kCorrupt, "too many blocks in an MCU");
+    if (arith) {
+      arith_scan(sc, ns, td, ta, ss, se, ah, al);
+      finishing = window && !multi_scan;
+      return;
+    }
 
     Bits bits{data + pos, data + size};
+    bits.recover = true;
     int pred[4] = {0, 0, 0, 0};
     eob_run = 0;
     int next_rst = 0;
@@ -479,12 +714,18 @@ struct Decoder {
         ac_refine(bits, ac[ta[i]], blk, ss, se, al);
       }
     };
+    // a DC refinement reads its bits whatever (zeros change nothing)
+    const bool dc_refine = progressive && ss == 0 && ah != 0;
     for (long m = 0; m < mcus; ++m) {
       if (restart && m > 0 && m % restart == 0) {
-        read_restart(bits, &next_rst);
+        huff_restart(bits, &next_rst);
         for (int i = 0; i < 4; ++i) pred[i] = 0;
         eob_run = 0;
       }
+      if (!bits.insufficient)
+        last_good = ns == 1 ? static_cast<int>(m / per_row) / sc[0]->v
+                            : static_cast<int>(m / per_row);
+      if (bits.insufficient && !dc_refine) continue;
       if (ns == 1) {
         int by = static_cast<int>(m / per_row), bx = static_cast<int>(m % per_row);
         decode(0, block_at(*sc[0], by, bx));
@@ -500,6 +741,239 @@ struct Decoder {
     resume(bits);
   }
 
+  // An arithmetic-coded scan as jdarith.c decodes it: the statistics of
+  // the scan's tables zeroed at its start and at each restart, with the DC
+  // predictions and contexts; a bad code (a magnitude or a run past the
+  // block) leaves the rest of the scan's blocks as they are. Restart
+  // markers out of order are resynchronised as jdmarker.c's
+  // jpeg_resync_to_restart does.
+  void arith_scan(Component** sc, int ns, const int* td, const int* ta, int ss, int se,
+                  int ah, int al) {
+    const uint8_t* limit = data + size;
+    if (window && window < static_cast<long>(size)) limit = data + window;
+    Arith e{data + pos, data + size, limit};
+    std::vector<uint8_t> dc_stats(16 * 64), ac_stats(16 * 256);
+    uint8_t fixed = 113;
+    int last_dc[4] = {0, 0, 0, 0}, dc_ctx[4] = {0, 0, 0, 0};
+    const bool dc_scan = !progressive || (ss == 0 && ah == 0);
+    const bool ac_scan = !progressive || ss != 0;
+    auto reset_stats = [&]() {
+      for (int i = 0; i < ns; ++i) {
+        if (dc_scan) {
+          std::memset(&dc_stats[td[i] * 64], 0, 64);
+          last_dc[i] = 0;
+          dc_ctx[i] = 0;
+        }
+        if (ac_scan) std::memset(&ac_stats[ta[i] * 256], 0, 256);
+      }
+    };
+    reset_stats();
+    int next_rst = 0;
+    long mcus, per_row;
+    if (ns == 1) {
+      per_row = sc[0]->wblocks;
+      mcus = per_row * sc[0]->hblocks;
+    } else {
+      per_row = mcux;
+      mcus = static_cast<long>(mcux) * mcuy;
+    }
+    // Figures F.19 to F.24: a DC difference; false after a bad code
+    auto dc_diff = [&](int i, int* v) {
+      uint8_t* st0 = &dc_stats[td[i] * 64];
+      uint8_t* st = st0 + dc_ctx[i];
+      if (e.decode(st) == 0) {
+        dc_ctx[i] = 0;
+        *v = 0;
+        return true;
+      }
+      int sign = e.decode(st + 1);
+      st += 2 + sign;
+      int m = e.decode(st);
+      if (m) {
+        st = st0 + 20;
+        while (e.decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            e.ct = -1;
+            return false;
+          }
+          st += 1;
+        }
+      }
+      if (m < ((1 << arith_dc_L[td[i]]) >> 1)) {
+        dc_ctx[i] = 0;
+      } else if (m > ((1 << arith_dc_U[td[i]]) >> 1)) {
+        dc_ctx[i] = 12 + sign * 4;
+      } else {
+        dc_ctx[i] = 4 + sign * 4;
+      }
+      int v2 = m;
+      st += 14;
+      while (m >>= 1)
+        if (e.decode(st)) v2 |= m;
+      v2 += 1;
+      *v = sign ? -v2 : v2;
+      return true;
+    };
+    // Figure F.20: the AC coefficients k0..k1; false after a bad code
+    auto ac_first = [&](int i, int16_t* blk, int k0, int k1, int shift) {
+      uint8_t* st0 = &ac_stats[ta[i] * 256];
+      for (int k = k0; k <= k1; ++k) {
+        uint8_t* st = st0 + 3 * (k - 1);
+        if (e.decode(st)) break;
+        while (e.decode(st + 1) == 0) {
+          st += 3;
+          if (++k > k1) {
+            e.ct = -1;
+            return false;
+          }
+        }
+        int sign = e.decode(&fixed);
+        st += 2;
+        int m = e.decode(st);
+        if (m && e.decode(st)) {
+          m <<= 1;
+          st = st0 + (k <= arith_ac_K[ta[i]] ? 189 : 217);
+          while (e.decode(st)) {
+            if ((m <<= 1) == 0x8000) {
+              e.ct = -1;
+              return false;
+            }
+            st += 1;
+          }
+        }
+        int v = m;
+        st += 14;
+        while (m >>= 1)
+          if (e.decode(st)) v |= m;
+        v += 1;
+        if (sign) v = -v;
+        blk[kNatural[k]] =
+            static_cast<int16_t>(static_cast<int>(static_cast<unsigned>(v) << shift));
+      }
+      return true;
+    };
+    auto ac_refine = [&](int i, int16_t* blk) {
+      uint8_t* st0 = &ac_stats[ta[i] * 256];
+      const int p1 = 1 << al, m1 = -1 * (1 << al);
+      int kex = se;
+      for (; kex > 0; --kex)
+        if (blk[kNatural[kex]]) break;
+      for (int k = ss; k <= se; ++k) {
+        uint8_t* st = st0 + 3 * (k - 1);
+        if (k > kex && e.decode(st)) break;
+        for (;;) {
+          int16_t* coef = blk + kNatural[k];
+          if (*coef) {
+            if (e.decode(st + 2)) *coef = static_cast<int16_t>(*coef + (*coef < 0 ? m1 : p1));
+            break;
+          }
+          if (e.decode(st + 1)) {
+            *coef = static_cast<int16_t>(e.decode(&fixed) ? m1 : p1);
+            break;
+          }
+          st += 3;
+          if (++k > se) {
+            e.ct = -1;
+            return;
+          }
+        }
+      }
+    };
+    auto block_at = [&](Component& c, int by, int bx) {
+      return &c.coef[(static_cast<size_t>(by) * c.bw + bx) * 64];
+    };
+    auto decode_block = [&](int i, int16_t* blk) {
+      if (!progressive) {
+        int v;
+        if (!dc_diff(i, &v)) return false;
+        last_dc[i] = (last_dc[i] + v) & 0xFFFF;
+        blk[0] = static_cast<int16_t>(last_dc[i]);
+        return ac_first(i, blk, 1, 63, 0);
+      }
+      if (ss == 0 && ah == 0) {
+        int v;
+        if (!dc_diff(i, &v)) return false;
+        last_dc[i] += v;
+        blk[0] = static_cast<int16_t>(static_cast<int>(static_cast<unsigned>(last_dc[i]) << al));
+        return true;
+      }
+      if (ss == 0) {
+        if (e.decode(&fixed)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+        return true;
+      }
+      if (ah == 0) return ac_first(i, blk, ss, se, al);
+      ac_refine(i, blk);
+      return e.ct != -1;
+    };
+    const bool dc_refine = progressive && ss == 0 && ah != 0;
+    long to_go = restart;
+    for (long m = 0; m < mcus; ++m) {
+      if (restart) {
+        if (to_go == 0) {
+          arith_restart(e, &next_rst);
+          reset_stats();
+          e.restart();
+          to_go = restart;
+        }
+        --to_go;
+      }
+      last_good = ns == 1 ? static_cast<int>(m / per_row) / sc[0]->v
+                          : static_cast<int>(m / per_row);
+      if (e.ct == -1 && !dc_refine) continue;
+      if (ns == 1) {
+        int by = static_cast<int>(m / per_row), bx = static_cast<int>(m % per_row);
+        decode_block(0, block_at(*sc[0], by, bx));
+        continue;
+      }
+      int my = static_cast<int>(m / per_row), mx = static_cast<int>(m % per_row);
+      bool ok = true;
+      for (int i = 0; i < ns && ok; ++i) {
+        Component& c = *sc[i];
+        for (int y = 0; y < c.v && ok; ++y)
+          for (int x = 0; x < c.h && ok; ++x)
+            ok = decode_block(i, block_at(c, my * c.v + y, mx * c.h + x));
+      }
+    }
+    if (e.marker) {
+      pos = static_cast<size_t>(e.p - data) - 2;
+    } else {
+      pos = static_cast<size_t>(e.p - data);
+    }
+  }
+
+  // jdmarker.c read_restart_marker with jpeg_resync_to_restart, over the
+  // arithmetic decoder's bytes
+  void arith_restart(Arith& e, int* next_rst) {
+    auto next_marker = [&]() {
+      for (;;) {
+        int c = e.get_byte();
+        while (c != 0xFF) c = e.get_byte();
+        do c = e.get_byte();
+        while (c == 0xFF);
+        if (c != 0) {
+          e.marker = c;
+          return;
+        }
+      }
+    };
+    if (!e.marker) next_marker();
+    const int desired = *next_rst;
+    if (e.marker != 0xD0 + desired) {
+      for (;;) {
+        const int action = resync_action(e.marker, desired);
+        if (action == 1) {
+          e.marker = 0;
+          break;
+        }
+        if (action == 3) break;
+        next_marker();
+      }
+    } else {
+      e.marker = 0;
+    }
+    *next_rst = (*next_rst + 1) & 7;
+  }
+
   // resume header parsing at the marker that ended the segment (its 0xFF
   // is the byte before its code)
   void resume(const Bits& bits) {
@@ -508,6 +982,34 @@ struct Decoder {
     } else {
       pos = static_cast<size_t>(bits.p - data);
     }
+  }
+
+  // jdhuff.c process_restart: what is left of the segment discarded, RSTn
+  // read (resynchronised as jpeg_resync_to_restart does), and the data
+  // flagged sufficient again unless a marker was left unread
+  void huff_restart(Bits& bits, int* next_rst) {
+    bits.reset();
+    auto next_marker = [&]() {
+      while (bits.marker < 0) {
+        if (bits.p >= bits.end) fail(kTruncated, "image file is truncated");
+        if (*bits.p++ != 0xFF) continue;
+        while (bits.p < bits.end && *bits.p == 0xFF) ++bits.p;
+        if (bits.p >= bits.end) fail(kTruncated, "image file is truncated");
+        if (*bits.p) bits.marker = *bits.p;
+        ++bits.p;
+      }
+    };
+    next_marker();
+    const int desired = *next_rst;
+    for (;;) {
+      const int action = bits.marker == 0xD0 + desired ? 1 : resync_action(bits.marker, desired);
+      if (action == 1) bits.marker = -1;
+      if (action != 2) break;
+      bits.marker = -1;
+      next_marker();
+    }
+    *next_rst = (desired + 1) & 7;
+    if (bits.marker < 0) bits.insufficient = false;
   }
 
   // libjpeg discards what is left of the segment and reads RSTn
@@ -580,7 +1082,7 @@ struct Decoder {
           const uint16_t* up = row - w;
           const int* df = &diff[i][static_cast<size_t>(yy) * rw];
           if (first[i]) {
-            row[0] = static_cast<uint16_t>((df[0] + (1 << (7 - al))) & 0xFFFF);
+            row[0] = static_cast<uint16_t>((df[0] + (1 << (precision - 1 - al))) & 0xFFFF);
             for (int x = 1; x < w; ++x)
               row[x] = static_cast<uint16_t>((df[x] + row[x - 1]) & 0xFFFF);
             first[i] = false;
@@ -684,6 +1186,13 @@ struct Decoder {
   }
 
   void parse() {
+    try {
+      parse_markers();
+    } catch (const Finished&) {
+    }
+  }
+
+  void parse_markers() {
     if (size < 2 || data[0] != 0xFF || data[1] != 0xD8) fail(kCorrupt, "not a JPEG file");
     pos = 2;
     bool scanned = false;
@@ -699,6 +1208,9 @@ struct Decoder {
           break;
         case 0xDB:
           read_dqt();
+          break;
+        case 0xCC:
+          read_dac();
           break;
         case 0xDD: {
           int len;
@@ -716,16 +1228,18 @@ struct Decoder {
           return;
         case 0xD8:
           fail(kCorrupt, "unexpected SOI marker");
-        case 0xDC:
-          fail(kCorrupt, "DNL marker is not supported");
         default:
           if (m >= 0xD0 && m <= 0xD7) break;  // a stray RSTn: libjpeg skips it
           if (m == 0x01) break;                // TEM has no length
           if ((m & 0xF0) == 0xE0) {
             read_app(m);
-          } else {
+          } else if (m == 0xFE || m == 0xDC) {  // COM; DNL, which libjpeg ignores
             int len;
             segment(&len);
+          } else {
+            // JPG, DHP, EXP, JPGn and RESn: JERR_SOF_UNSUPPORTED,
+            // JERR_UNKNOWN_MARKER
+            fail(kBroken, "broken data stream when reading image file");
           }
           break;
       }
@@ -743,27 +1257,34 @@ struct Decoder {
   bool ycck_source() const { return ncomp == 4 && adobe && adobe_transform != 0; }
 };
 
-// jidctint.c jpeg_idct_islow, with its range-limit table
-constexpr int kConstBits = 13, kPass1Bits = 2;
+// jidctint.c jpeg_idct_islow, with its range-limit table, for 12-bit
+// samples (PASS1_BITS 1, as libjpeg-turbo's 12-bit build); 8-bit samples
+// take libjpeg-turbo's SIMD build of it (idct_islow_simd)
+constexpr int kConstBits = 13;
 constexpr int64_t F0298 = 2446, F0390 = 3196, F0541 = 4433, F0765 = 6270, F0899 = 7373,
                   F1175 = 9633, F1501 = 12299, F1847 = 15137, F1961 = 16069, F2053 = 16819,
                   F2562 = 20995, F3072 = 25172;
 
-struct RangeLimit {
-  uint8_t t[1024];
-  RangeLimit() {
-    for (int i = 0; i < 1024; ++i) {
-      int v = i < 512 ? i : i - 1024;
-      v += 128;
-      t[i] = static_cast<uint8_t>(v < 0 ? 0 : v > 255 ? 255 : v);
+// jdmaster.c prepare_range_limit_table as the IDCT indexes it: x modulo 4N
+// read as signed, plus CENTERJSAMPLE, clamped (N = MAXJSAMPLE + 1 = 4096)
+struct RangeLimit12 {
+  static constexpr int N = 1 << 12, kMask = 4 * N - 1;
+  uint16_t t[4 * N];
+  RangeLimit12() {
+    for (int i = 0; i < 4 * N; ++i) {
+      int v = (i < 2 * N ? i : i - 4 * N) + N / 2;
+      t[i] = static_cast<uint16_t>(v < 0 ? 0 : v > N - 1 ? N - 1 : v);
     }
   }
 };
-const RangeLimit kRange;
+const RangeLimit12 kRange12;
 
 inline int64_t descale(int64_t x, int n) { return (x + (int64_t(1) << (n - 1))) >> n; }
 
-void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out, int stride) {
+void idct_islow12(const int16_t* in, const uint16_t* q, uint16_t* out, int stride) {
+  constexpr int kPass1Bits = 1;
+  const auto& range = kRange12.t;
+  constexpr int kMask = RangeLimit12::kMask;
   int ws[64];
   for (int c = 0; c < 8; ++c) {
     const int16_t* ip = in + c;
@@ -816,10 +1337,10 @@ void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out, int stride) 
   const int sh = kConstBits + kPass1Bits + 3;
   for (int r = 0; r < 8; ++r) {
     const int* w = ws + r * 8;
-    uint8_t* o = out + static_cast<size_t>(r) * stride;
+    uint16_t* o = out + static_cast<size_t>(r) * stride;
     if (!w[1] && !w[2] && !w[3] && !w[4] && !w[5] && !w[6] && !w[7]) {
-      uint8_t v = kRange.t[static_cast<int>(descale(w[0], kPass1Bits + 3)) & 1023];
-      std::memset(o, v, 8);
+      uint16_t v = range[static_cast<int>(descale(w[0], kPass1Bits + 3)) & kMask];
+      for (int k = 0; k < 8; ++k) o[k] = v;
       continue;
     }
     int64_t z2 = w[2], z3 = w[6];
@@ -851,14 +1372,108 @@ void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out, int stride) 
     tmp1 += z2 + z4;
     tmp2 += z2 + z3;
     tmp3 += z1 + z4;
-    o[0] = kRange.t[static_cast<int>(descale(t10 + tmp3, sh)) & 1023];
-    o[7] = kRange.t[static_cast<int>(descale(t10 - tmp3, sh)) & 1023];
-    o[1] = kRange.t[static_cast<int>(descale(t11 + tmp2, sh)) & 1023];
-    o[6] = kRange.t[static_cast<int>(descale(t11 - tmp2, sh)) & 1023];
-    o[2] = kRange.t[static_cast<int>(descale(t12 + tmp1, sh)) & 1023];
-    o[5] = kRange.t[static_cast<int>(descale(t12 - tmp1, sh)) & 1023];
-    o[3] = kRange.t[static_cast<int>(descale(t13 + tmp0, sh)) & 1023];
-    o[4] = kRange.t[static_cast<int>(descale(t13 - tmp0, sh)) & 1023];
+    o[0] = range[static_cast<int>(descale(t10 + tmp3, sh)) & kMask];
+    o[7] = range[static_cast<int>(descale(t10 - tmp3, sh)) & kMask];
+    o[1] = range[static_cast<int>(descale(t11 + tmp2, sh)) & kMask];
+    o[6] = range[static_cast<int>(descale(t11 - tmp2, sh)) & kMask];
+    o[2] = range[static_cast<int>(descale(t12 + tmp1, sh)) & kMask];
+    o[5] = range[static_cast<int>(descale(t12 - tmp1, sh)) & kMask];
+    o[3] = range[static_cast<int>(descale(t13 + tmp0, sh)) & kMask];
+    o[4] = range[static_cast<int>(descale(t13 - tmp0, sh)) & kMask];
+  }
+}
+
+// libjpeg-turbo's x86 SIMD build of the same inverse DCT (jidctint-sse2 /
+// -avx2, which libjpeg-turbo uses for 8-bit samples on hosts that have
+// them): jidctint.c's arithmetic in 16-bit lanes. It equals jidctint.c
+// wherever the values fit; past that the dequantization and the butterflies'
+// 16-bit sums wrap, each pass's results saturate to 16 bits, the samples to
+// [0, 255], and a block whose AC rows are all zero takes the DC path with a
+// 16-bit shift.
+inline int16_t wrap16(int64_t v) { return static_cast<int16_t>(static_cast<uint16_t>(v & 0xFFFF)); }
+inline int16_t sat16(int32_t v) {
+  return static_cast<int16_t>(v < -32768 ? -32768 : v > 32767 ? 32767 : v);
+}
+inline int32_t wrap32(uint32_t v) { return static_cast<int32_t>(v); }
+// pmaddwd: a0 b0 + a1 b1, the sum in 32 wrapping bits
+inline int32_t madd(int16_t a0, int32_t b0, int16_t a1, int32_t b1) {
+  return wrap32(static_cast<uint32_t>(a0 * b0) + static_cast<uint32_t>(a1 * b1));
+}
+
+// One 1-D pass over in[0..7] (16-bit), descaled by `shift` into 32 bits.
+void simd_pass(const int16_t* in, int shift, int32_t* out) {
+  const int32_t tmp3 = madd(in[2], F0541 + F0765, in[6], F0541);
+  const int32_t tmp2 = madd(in[2], F0541, in[6], F0541 - F1847);
+  const int32_t tmp0 = static_cast<int32_t>(wrap16(in[0] + in[4])) * (1 << kConstBits);
+  const int32_t tmp1 = static_cast<int32_t>(wrap16(in[0] - in[4])) * (1 << kConstBits);
+  const uint32_t t10 = static_cast<uint32_t>(tmp0) + static_cast<uint32_t>(tmp3),
+                 t13 = static_cast<uint32_t>(tmp0) - static_cast<uint32_t>(tmp3),
+                 t11 = static_cast<uint32_t>(tmp1) + static_cast<uint32_t>(tmp2),
+                 t12 = static_cast<uint32_t>(tmp1) - static_cast<uint32_t>(tmp2);
+  const int16_t z3 = wrap16(in[7] + in[3]), z4 = wrap16(in[5] + in[1]);
+  const int32_t zz3 = madd(z3, F1175 - F1961, z4, F1175);
+  const int32_t zz4 = madd(z3, F1175, z4, F1175 - F0390);
+  const uint32_t o0 = static_cast<uint32_t>(madd(in[7], F0298 - F0899, in[1], -F0899)) +
+                      static_cast<uint32_t>(zz3);
+  const uint32_t o3 = static_cast<uint32_t>(madd(in[7], -F0899, in[1], F1501 - F0899)) +
+                      static_cast<uint32_t>(zz4);
+  const uint32_t o1 = static_cast<uint32_t>(madd(in[5], F2053 - F2562, in[3], -F2562)) +
+                      static_cast<uint32_t>(zz4);
+  const uint32_t o2 = static_cast<uint32_t>(madd(in[5], -F2562, in[3], F3072 - F2562)) +
+                      static_cast<uint32_t>(zz3);
+  const uint32_t round = 1u << (shift - 1);
+  auto desc = [&](uint32_t v) { return wrap32(v + round) >> shift; };
+  out[0] = desc(t10 + o3);
+  out[7] = desc(t10 - o3);
+  out[1] = desc(t11 + o2);
+  out[6] = desc(t11 - o2);
+  out[2] = desc(t12 + o1);
+  out[5] = desc(t12 - o1);
+  out[3] = desc(t13 + o0);
+  out[4] = desc(t13 - o0);
+}
+
+void idct_islow_simd(const int16_t* in, const uint16_t* q, uint8_t* out, int stride) {
+  constexpr int kPass1Bits = 2;
+  int16_t ws[64];
+  bool ac = false;
+  for (int k = 8; k < 64 && !ac; ++k) ac = in[k] != 0;
+  if (!ac) {
+    for (int c = 0; c < 8; ++c) {
+      const int16_t v = wrap16(static_cast<int32_t>(wrap16(in[c] * q[c])) * (1 << kPass1Bits));
+      for (int r = 0; r < 8; ++r) ws[r * 8 + c] = v;
+    }
+  } else {
+    for (int c = 0; c < 8; ++c) {
+      const int16_t* ip = in + c;
+      if (!ip[8] && !ip[16] && !ip[24] && !ip[32] && !ip[40] && !ip[48] && !ip[56]) {
+        // what the full pass gives a column of one value: 4 x, saturated
+        const int16_t v = sat16(static_cast<int32_t>(wrap16(ip[0] * q[c])) * (1 << kPass1Bits));
+        for (int r = 0; r < 8; ++r) ws[r * 8 + c] = v;
+        continue;
+      }
+      int16_t col[8];
+      int32_t res[8];
+      for (int r = 0; r < 8; ++r) col[r] = wrap16(in[r * 8 + c] * q[r * 8 + c]);
+      simd_pass(col, kConstBits - kPass1Bits, res);
+      for (int r = 0; r < 8; ++r) ws[r * 8 + c] = sat16(res[r]);
+    }
+  }
+  auto sample = [](int32_t v) {
+    v = sat16(v);
+    return static_cast<uint8_t>((v < -128 ? -128 : v > 127 ? 127 : v) + 128);
+  };
+  for (int r = 0; r < 8; ++r) {
+    const int16_t* w = ws + r * 8;
+    uint8_t* o = out + static_cast<size_t>(r) * stride;
+    if (!w[1] && !w[2] && !w[3] && !w[4] && !w[5] && !w[6] && !w[7]) {
+      // what the full pass gives a row of one value
+      std::memset(o, sample((w[0] + 16) >> 5), 8);
+      continue;
+    }
+    int32_t res[8];
+    simd_pass(w, kConstBits + kPass1Bits + 3, res);
+    for (int x = 0; x < 8; ++x) o[x] = sample(res[x]);
   }
 }
 
@@ -947,8 +1562,9 @@ struct Image {
   int width = 0, height = 0, channels = 0;
 };
 
-Image header(const uint8_t* data, long n) {
+Image header(const uint8_t* data, long n, bool pil, int* precision = nullptr) {
   Decoder d{data, static_cast<size_t>(n)};
+  d.pil = pil;
   // parse up to the frame header only, as PIL's JPEG reader opens a file
   if (n < 2 || data[0] != 0xFF || data[1] != 0xD8) fail(kCorrupt, "not a JPEG file");
   d.pos = 2;
@@ -966,17 +1582,179 @@ Image header(const uint8_t* data, long n) {
       d.segment(&len);
     }
   }
+  if (precision) *precision = d.precision;
   return Image{d.width, d.height, d.ncomp};
 }
 
-void decode(const uint8_t* data, long n, uint8_t* out, int colour) {
-  Decoder d{data, static_cast<size_t>(n)};
+// jdcoefct.c decompress_smooth_data (libjpeg-turbo's 5x5 window): in a
+// progressive frame whose AC coefficients 1-9 are not all coded to full
+// precision, each block's still-zero ones are estimated from the DC values
+// of the 24 blocks around it (and with none of them coded at all, the DC
+// too), before the inverse DCT.
+bool smoothing_ok(const Decoder& d) {
+  static const int kQ[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+  if (!d.progressive) return false;
+  bool useful = false;
+  for (int ci = 0; ci < d.ncomp; ++ci) {
+    const Component& c = d.comp[ci];
+    if (!c.latched) return false;
+    for (int k = 0; k < 10; ++k)
+      if (c.quant[kQ[k]] == 0) return false;
+    if (c.coef_bits[0] < 0) return false;
+    for (int k = 1; k < 10; ++k)
+      if (c.coef_bits[k] != 0) useful = true;
+  }
+  return useful;
+}
+
+void smooth_block(const int* bits, bool change_dc, const uint16_t* q, const int dcv[25],
+                  int16_t* ws) {
+  const int64_t Q00 = q[0], Q01 = q[1], Q10 = q[8], Q20 = q[16], Q11 = q[9], Q02 = q[2],
+                Q03 = q[3], Q12 = q[10], Q21 = q[17], Q30 = q[24];
+  const int DC01 = dcv[0], DC02 = dcv[1], DC03 = dcv[2], DC04 = dcv[3], DC05 = dcv[4],
+            DC06 = dcv[5], DC07 = dcv[6], DC08 = dcv[7], DC09 = dcv[8], DC10 = dcv[9],
+            DC11 = dcv[10], DC12 = dcv[11], DC13 = dcv[12], DC14 = dcv[13], DC15 = dcv[14],
+            DC16 = dcv[15], DC17 = dcv[16], DC18 = dcv[17], DC19 = dcv[18], DC20 = dcv[19],
+            DC21 = dcv[20], DC22 = dcv[21], DC23 = dcv[22], DC24 = dcv[23], DC25 = dcv[24];
+  auto estimate = [&](int k, int pos, int64_t qk, int64_t num) {
+    const int al = bits[k];
+    if (al == 0 || ws[pos] != 0) return;
+    int pred;
+    if (num >= 0) {
+      pred = static_cast<int>(((qk << 7) + num) / (qk << 8));
+      if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+    } else {
+      pred = static_cast<int>(((qk << 7) - num) / (qk << 8));
+      if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      pred = -pred;
+    }
+    ws[pos] = static_cast<int16_t>(pred);
+  };
+  estimate(1, 1, Q01, Q00 * (change_dc ?
+      (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 - 13 * DC09 + 3 * DC10 -
+       3 * DC11 + 38 * DC12 - 38 * DC14 + 3 * DC15 - 3 * DC16 + 13 * DC17 - 13 * DC19 +
+       3 * DC20 - DC21 - DC22 + DC24 + DC25) :
+      (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15)));
+  estimate(2, 8, Q10, Q00 * (change_dc ?
+      (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 + 13 * DC07 + 38 * DC08 +
+       13 * DC09 - DC10 + DC16 - 13 * DC17 - 38 * DC18 - 13 * DC19 + DC20 + DC21 +
+       3 * DC22 + 3 * DC23 + 3 * DC24 + DC25) :
+      (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23)));
+  estimate(3, 16, Q20, Q00 * (change_dc ?
+      (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 - 14 * DC13 - 5 * DC14 +
+       2 * DC17 + 7 * DC18 + 2 * DC19 + DC23) :
+      (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23)));
+  estimate(4, 9, Q11, Q00 * (change_dc ?
+      (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 + 9 * DC19 + DC21 - DC25) :
+      (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 + DC22 - DC24 + DC04 - DC06 +
+       10 * DC07 - 10 * DC09)));
+  estimate(5, 2, Q02, Q00 * (change_dc ?
+      (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 - 14 * DC13 + 7 * DC14 + DC15 +
+       2 * DC17 - 5 * DC18 + 2 * DC19) :
+      (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15)));
+  if (!change_dc) return;
+  estimate(6, 3, Q03, Q00 * (DC07 - DC09 + 2 * DC12 - 2 * DC14 + DC17 - DC19));
+  estimate(7, 10, Q12, Q00 * (DC07 - 3 * DC08 + DC09 - DC17 + 3 * DC18 - DC19));
+  estimate(8, 17, Q21, Q00 * (DC07 - DC09 - 3 * DC12 + 3 * DC14 + DC17 - DC19));
+  estimate(9, 24, Q30, Q00 * (DC07 + 2 * DC08 + DC09 - DC17 - 2 * DC18 - DC19));
+  const int64_t num = Q00 * (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 -
+      6 * DC06 + 6 * DC07 + 42 * DC08 + 6 * DC09 - 6 * DC10 - 8 * DC11 + 42 * DC12 +
+      152 * DC13 + 42 * DC14 - 8 * DC15 - 6 * DC16 + 6 * DC17 + 42 * DC18 + 6 * DC19 -
+      6 * DC20 - 2 * DC21 - 6 * DC22 - 8 * DC23 - 6 * DC24 - 2 * DC25);
+  int pred = static_cast<int>(((Q00 << 7) + (num >= 0 ? num : -num)) / (Q00 << 8));
+  ws[0] = static_cast<int16_t>(num >= 0 ? pred : -pred);
+}
+
+// One component's blocks through decompress_smooth_data's sliding DC
+// registers (the columns clamped at the right edge), then `idct`.
+template <typename Sample, typename Idct>
+void smooth_component(const Decoder& d, const Component& c, Sample* plane, int stride,
+                      Idct idct) {
+  const int rows = std::min(c.bh, (c.dh + 7) / 8), cols = std::min(c.bw, (c.dw + 7) / 8);
+  const int last_col = c.wblocks - 1, hb = c.hblocks;
+  int prev_latch[10];
+  for (int k = 1; k < 10; ++k) prev_latch[k] = d.scans > 1 ? c.prev_bits[k] : -1;
+  auto dc_at = [&](int by, int bx) {
+    return static_cast<int>(c.coef[(static_cast<size_t>(by) * c.bw + bx) * 64]);
+  };
+  int16_t ws[64];
+  for (int by = 0; by < rows; ++by) {
+    const int imcu = by / c.v;
+    const int* bits = imcu > d.last_good ? prev_latch : c.coef_bits;
+    bool change_dc = true;
+    for (int k = 1; k < 10; ++k) change_dc = change_dc && bits[k] == -1;
+    // the block row's place as jdcoefct.c reckons it from its iMCU row's
+    // count of block rows (past the last real row in an iMCU row that is
+    // not the last, the MCU's dummy row)
+    const int block_rows = imcu + 1 < d.mcuy ? c.v : (hb % c.v ? hb % c.v : c.v);
+    const int row = imcu * block_rows + by % c.v, nrows = block_rows * d.mcuy;
+    const int prev = row > 0 ? by - 1 : by;
+    const int pprev = row > 1 ? by - 2 : prev;
+    const int next = row < nrows - 1 ? by + 1 : by;
+    const int nnext = row < nrows - 2 ? by + 2 : next;
+    const int rr[5] = {pprev, prev, by, next, nnext};
+    int reg[5][5];
+    for (int r = 0; r < 5; ++r)
+      for (int k = 0; k < 5; ++k) reg[r][k] = dc_at(rr[r], 0);
+    for (int bx = 0; bx < cols; ++bx) {
+      std::memcpy(ws, &c.coef[(static_cast<size_t>(by) * c.bw + bx) * 64], sizeof(ws));
+      if (bx == 0 && bx < last_col)
+        for (int r = 0; r < 5; ++r) reg[r][3] = dc_at(rr[r], bx + 1);
+      for (int r = 0; r < 5; ++r) reg[r][4] = dc_at(rr[r], std::min(bx + 2, last_col));
+      int dcv[25];
+      for (int r = 0; r < 5; ++r)
+        for (int k = 0; k < 5; ++k) dcv[r * 5 + k] = reg[r][k];
+      smooth_block(bits, change_dc, c.quant, dcv, ws);
+      idct(ws, c.quant, plane + static_cast<size_t>(by) * 8 * stride + bx * 8, stride);
+      for (int r = 0; r < 5; ++r)
+        for (int k = 0; k < 4; ++k) reg[r][k] = reg[r][k + 1];
+    }
+  }
+}
+
+// A 12-bit frame of one component (libtiff's "I;12" greyscale) -> u16
+void decode12(Decoder& d, uint16_t* out) {
+  Component& c = d.comp[0];
+  if (d.ncomp != 1) fail(kBroken, "a 12-bit JPEG of more than one component");
+  if (!c.latched) fail(kCorrupt, "a component with no scan");
+  const int w = d.width, h = d.height, stride = c.bw * 8;
+  if (d.lossless) {
+    for (int y = 0; y < h; ++y)
+      for (int x = 0; x < w; ++x)
+        out[static_cast<size_t>(y) * w + x] =
+            static_cast<uint16_t>((c.lossless[static_cast<size_t>(y) * c.dw + x] << c.al) & 0xFFF);
+    return;
+  }
+  std::vector<uint16_t> plane(static_cast<size_t>(stride) * c.bh * 8);
+  int rows = std::min(c.bh, (c.dh + 7) / 8), cols = std::min(c.bw, (c.dw + 7) / 8);
+  if (smoothing_ok(d)) {
+    smooth_component(d, c, plane.data(), stride, idct_islow12);
+  } else {
+    for (int by = 0; by < rows; ++by)
+      for (int bx = 0; bx < cols; ++bx)
+        idct_islow12(&c.coef[(static_cast<size_t>(by) * c.bw + bx) * 64], c.quant,
+                     &plane[static_cast<size_t>(by) * 8 * stride + bx * 8], stride);
+  }
+  for (int y = 0; y < h; ++y)
+    std::memcpy(out + static_cast<size_t>(y) * w, &plane[static_cast<size_t>(y) * stride],
+                sizeof(uint16_t) * w);
+}
+
+void decode(const uint8_t* data, long n, uint8_t* out, int colour, bool pil,
+            long out_size = 0) {
+  Decoder d{data, static_cast<size_t>(n), pil ? kWindow : 0};
+  d.pil = pil;
   d.parse();
+  if (d.have_frame && d.precision == 12) {
+    decode12(d, reinterpret_cast<uint16_t*>(out));
+    return;
+  }
   if (!d.have_frame) fail(kCorrupt, "JPEG without a frame header");
   const int w = d.width, h = d.height, nc = d.ncomp;
   if (colour == kInfer && d.lossless && (d.ncomp == 3 ? !d.rgb_source() : d.ycck_source()))
     fail(kBroken, "broken data stream when reading image file");  // JERR_CONVERSION_NOTIMPL
   std::vector<std::vector<uint8_t>> full(nc);
+  const bool smooth = !d.lossless && smoothing_ok(d);
   for (int ci = 0; ci < nc; ++ci) {
     Component& c = d.comp[ci];
     if (!c.latched) fail(kCorrupt, "a component with no scan");
@@ -992,11 +1770,26 @@ void decode(const uint8_t* data, long n, uint8_t* out, int colour) {
     } else {
       // blocks past the component's own rows and columns are never read
       int rows = std::min(c.bh, (c.dh + 7) / 8), cols = std::min(c.bw, (c.dw + 7) / 8);
-      for (int by = 0; by < rows; ++by)
-        for (int bx = 0; bx < cols; ++bx)
-          idct_islow(&c.coef[(static_cast<size_t>(by) * c.bw + bx) * 64], c.quant,
-                     &plane[static_cast<size_t>(by) * 8 * stride + bx * 8], stride);
+      if (smooth) {
+        smooth_component(d, c, plane.data(), stride, idct_islow_simd);
+      } else {
+        for (int by = 0; by < rows; ++by)
+          for (int bx = 0; bx < cols; ++bx)
+            idct_islow_simd(&c.coef[(static_cast<size_t>(by) * c.bw + bx) * 64], c.quant,
+                            &plane[static_cast<size_t>(by) * 8 * stride + bx * 8], stride);
+      }
       std::vector<int16_t>().swap(c.coef);
+    }
+    if (colour == kPlanes) {
+      // raw_data_out: the component's blocks (width_in_blocks x
+      // height_in_blocks), the MCU's dummy blocks left out
+      const int pw = c.wblocks * 8, ph = c.hblocks * 8;
+      if (static_cast<long>(pw) * ph > out_size) fail(kBadArgs, "planes buffer too small");
+      for (int y = 0; y < ph; ++y)
+        std::memcpy(out + static_cast<size_t>(y) * pw, &plane[static_cast<size_t>(y) * stride], pw);
+      out += static_cast<size_t>(pw) * ph;
+      out_size -= static_cast<long>(pw) * ph;
+      continue;
     }
     if (nc == 1) {
       upsample(c, plane.data(), d.hmax, d.vmax, w, h, out, !d.lossless);
@@ -1005,6 +1798,7 @@ void decode(const uint8_t* data, long n, uint8_t* out, int colour) {
     full[ci].resize(static_cast<size_t>(w) * h);
     upsample(c, plane.data(), d.hmax, d.vmax, w, h, full[ci].data(), !d.lossless);
   }
+  if (colour == kPlanes) return;
   const size_t npx = static_cast<size_t>(w) * h;
   const uint8_t* p[4] = {full[0].data(), full[1].data(), full[2].data(),
                          nc == 4 ? full[3].data() : nullptr};
@@ -1032,13 +1826,15 @@ void decode(const uint8_t* data, long n, uint8_t* out, int colour) {
 
 extern "C" {
 
-// The image's size and components (1 grey, 3 colour, 4 CMYK), as PIL's
-// JPEG reader opens the file. Returns 0 or a negative Status;
-// jpeg_dec_error() says why.
-int jpeg_dec_info(const uint8_t* data, long n, int* width, int* height, int* channels) {
-  if (!data || n < 0 || !width || !height || !channels) return kBadArgs;
+// The image's size, components (1 grey, 3 colour, 4 CMYK) and sample
+// precision, as PIL's JPEG reader opens the file (`pil`) or as libjpeg
+// reads a TIFF's strip for libtiff (8 or 12 bits). Returns 0 or a negative
+// Status; jpeg_dec_error() says why.
+int jpeg_dec_info(const uint8_t* data, long n, int* width, int* height, int* channels,
+                  int* precision, int pil) {
+  if (!data || n < 0 || !width || !height || !channels || !precision) return kBadArgs;
   try {
-    Image im = header(data, n);
+    Image im = header(data, n, pil != 0, precision);
     *width = im.width;
     *height = im.height;
     *channels = im.channels;
@@ -1049,15 +1845,43 @@ int jpeg_dec_info(const uint8_t* data, long n, int* width, int* height, int* cha
   }
 }
 
-// Decode into `out`, (height, width, channels) u8 as jpeg_dec_info gave
-// them (`out_size` bytes), colour as `colour` (a Colour) asks. Returns 0 or
-// a negative Status.
-int jpeg_dec_decode(const uint8_t* data, long n, uint8_t* out, long out_size, int colour) {
+// Decode into `out`, (height, width, channels) samples as jpeg_dec_info
+// gave them (`out_size` bytes: u8, or u16 for a 12-bit frame of one
+// component), colour as `colour` (a Colour) asks. With `pil`, PIL's JPEG
+// reader: its SOF checks, and an arithmetic-coded scan that reads past what
+// it has handed libjpeg (64 KB more at each suspension of the marker
+// reader) fails as it fails there. Returns 0 or a negative Status.
+int jpeg_dec_decode(const uint8_t* data, long n, uint8_t* out, long out_size, int colour,
+                    int pil) {
   if (!data || n < 0 || !out || colour < kInfer || colour > kYCbCr) return kBadArgs;
   try {
-    Image im = header(data, n);
-    if (out_size != static_cast<long>(im.width) * im.height * im.channels) return kBadArgs;
-    decode(data, n, out, colour);
+    int precision = 8;
+    Image im = header(data, n, pil != 0, &precision);
+    if (out_size != static_cast<long>(im.width) * im.height * im.channels * (precision > 8 ? 2 : 1))
+      return kBadArgs;
+    decode(data, n, out, colour, pil != 0);
+    return kOk;
+  } catch (const Failure& f) {
+    t_error = f.what;
+    return f.code;
+  } catch (const std::bad_alloc&) {
+    t_error = "out of memory";
+    return kCorrupt;
+  }
+}
+
+// Each component's samples of an 8-bit DCT frame as libjpeg's raw_data_out
+// gives them to libtiff's old-style JPEG codec: component by component,
+// (height_in_blocks * 8) rows of (width_in_blocks * 8) u8, the blocks'
+// inverse DCT as they are, into `out` (`out_size` bytes). Returns 0 or a
+// negative Status.
+int jpeg_dec_planes(const uint8_t* data, long n, uint8_t* out, long out_size) {
+  if (!data || n < 0 || !out || out_size < 0) return kBadArgs;
+  try {
+    int precision = 8;
+    header(data, n, false, &precision);
+    if (precision != 8) fail(kBroken, "old-style JPEG of other than 8 bits");
+    decode(data, n, out, kPlanes, false, out_size);
     return kOk;
   } catch (const Failure& f) {
     t_error = f.what;

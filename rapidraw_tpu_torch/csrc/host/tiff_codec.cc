@@ -2,7 +2,9 @@
 // (TIFF 6.0 section 13, MSB-first codes of 9 to 12 bits with the early
 // code-width change, ClearCode 256, EndOfInformation 257), the old-style
 // LZW libtiff still reads (LZWDecodeCompat: LSB-first codes, the width
-// changing one code later) and PackBits (section 9). Deflate and LZMA go
+// changing one code later), PackBits (section 9) and ThunderScan (4-bit
+// grey, libtiff's tif_thunder.c: runs, 2- and 3-bit deltas and raw
+// pixels, each row exactly as wide as the image). Deflate and LZMA go
 // through Python's zlib and lzma.
 //
 // Build: g++ -O2 -shared -fPIC -std=c++17, at first use, by
@@ -201,6 +203,74 @@ long tiff_packbits_decode(const uint8_t* src, long n, uint8_t* out, long cap) {
     }
   }
   return w;
+}
+
+// Decode one ThunderScan strip of `rows` rows of `width` 4-bit pixels into
+// `out` (rows of (width + 1) / 2 bytes) as ThunderDecodeRow does. Returns
+// 0, -1 for a row whose codes give too many or too few pixels (libtiff's
+// "Not enough data" / "Too much data"), -2 for bad arguments.
+int tiff_thunder_decode(const uint8_t* src, long n, uint8_t* out, int width, int rows) {
+  if (!src || !out || n < 0 || width <= 0 || rows < 0) return -2;
+  static const int kTwo[4] = {0, 1, 0, -1};
+  static const int kThree[8] = {0, 1, 2, 3, 0, -3, -2, -1};
+  const long stride = (static_cast<long>(width) + 1) / 2;
+  const uint8_t* bp = src;
+  long cc = n;
+  for (int r = 0; r < rows; ++r) {
+    uint8_t* op = out + stride * r;
+    unsigned lastpixel = 0;
+    long npixels = 0;
+    const long maxpixels = width;
+    auto setpixel = [&](unsigned v) {
+      lastpixel = v & 0xF;
+      if (npixels < maxpixels) {
+        if (npixels++ & 1) {
+          *op++ |= static_cast<uint8_t>(lastpixel);
+        } else {
+          op[0] = static_cast<uint8_t>(lastpixel << 4);
+        }
+      }
+    };
+    while (cc > 0 && npixels < maxpixels) {
+      int c = *bp++;
+      --cc;
+      int delta;
+      switch (c & 0xC0) {
+        case 0x00: {  // a run of the last pixel, c & 0x3F long
+          int k = c & 0x3F;
+          if (npixels & 1) {
+            op[0] |= static_cast<uint8_t>(lastpixel);
+            lastpixel = *op++;
+            ++npixels;
+            --k;
+          } else {
+            lastpixel |= lastpixel << 4;
+          }
+          npixels += k;
+          if (npixels <= maxpixels) {
+            for (; k > 0; k -= 2) *op++ = static_cast<uint8_t>(lastpixel);
+          }
+          if (k == -1) *--op &= 0xF0;
+          lastpixel &= 0xF;
+          break;
+        }
+        case 0x40:  // three 2-bit deltas, 2 = skip
+          if ((delta = (c >> 4) & 3) != 2) setpixel(lastpixel + kTwo[delta]);
+          if ((delta = (c >> 2) & 3) != 2) setpixel(lastpixel + kTwo[delta]);
+          if ((delta = c & 3) != 2) setpixel(lastpixel + kTwo[delta]);
+          break;
+        case 0x80:  // two 3-bit deltas, 4 = skip
+          if ((delta = (c >> 3) & 7) != 4) setpixel(lastpixel + kThree[delta]);
+          if ((delta = c & 7) != 4) setpixel(lastpixel + kThree[delta]);
+          break;
+        default:  // a raw pixel
+          setpixel(static_cast<unsigned>(c));
+          break;
+      }
+    }
+    if (npixels != maxpixels) return -1;
+  }
+  return 0;
 }
 
 }  // extern "C"

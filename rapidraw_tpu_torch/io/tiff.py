@@ -5,17 +5,21 @@ loader reads it (PIL for 8-bit pixels, its own strip reader or cv2 for
 PIL reads an uncompressed frame with its own raw decoder and every other
 frame through libtiff; this reader follows each:
 
-  * codecs: none, LZW (and the old LSB-first LZW libtiff still reads) and
-    PackBits (csrc/host/tiff_codec.cc), Deflate (zlib), LZMA (Python's
-    lzma), CCITT Modified Huffman, T.4 1-D and 2-D and T.6
+  * codecs: none, LZW (and the old LSB-first LZW libtiff still reads),
+    PackBits and ThunderScan (csrc/host/tiff_codec.cc), Deflate (zlib),
+    LZMA (Python's lzma), ZSTD (csrc/host/zstd_dec.cc: the first frame of
+    each chunk, as tif_zstd.c's one ZSTD_decompressStream loop reads it),
+    CCITT Modified Huffman, RLE-W, T.4 1-D and 2-D and T.6
     (csrc/host/ccitt_dec.cc) and JPEG (each strip or tile a JPEG stream
-    after the JPEGTables, csrc/host/jpeg_dec.cc: YCbCr converted to RGB as
-    libtiff's JPEGCOLORMODE_RGB asks, any other photometric as stored);
-    FillOrder 2; Predictor 2 at 8, 16 and 32 bits and 3 (floating point);
-    strips and tiles; chunky and planar samples;
-  * samples: 1, 2, 4, 8 and 16 bits, signed 8 and 16 bits, 32-bit integer
-    and floating point, as PIL's TiffImagePlugin.OPEN_INFO maps them to a
-    mode (io/exif_tags.OPEN_MODES), in PIL's own unpacking, quirks kept: a
+    after the JPEGTables, csrc/host/jpeg_dec.cc, Huffman- or
+    arithmetic-coded, 8- or 12-bit: YCbCr converted to RGB as libtiff's
+    JPEGCOLORMODE_RGB asks, any other photometric as stored); FillOrder 2;
+    Predictor 2 at 8, 16 and 32 bits and 3 (floating point) after LZW,
+    Deflate, LZMA and ZSTD; strips and tiles; chunky and planar samples;
+  * samples: 1, 2, 4, 8, 12 (PIL's "I;12") and 16 bits, signed 8 and 16
+    bits, 32-bit integer and floating point, as PIL's
+    TiffImagePlugin.OPEN_INFO maps them to a mode
+    (io/exif_tags.OPEN_MODES), in PIL's own unpacking, quirks kept: a
     big-endian compressed file's "I;16BS", "I;32BS" and "F;32BF" samples
     come back byte-swapped (libtiff hands PIL native order), an
     uncompressed planar file reads each plane with the one-letter raw mode
@@ -34,11 +38,14 @@ a compressed file, what cv2's IMREAD_UNCHANGED gives (chunky 16-bit RGB).
 
 The first directory is read by io/exif.py's `tiff_first_ifd`: a file whose
 first frame PIL would not open raises `image_decode.Unidentified`, as
-`Image.open` fails. What PIL decodes and this reader does not yet (ZSTD,
-old-style JPEG, SGILog, ThunderScan, WebP and 16-bit-padded RLE codecs,
-12-bit samples, a YCbCr frame with a predictor and subsampling, cv2's read
-of a compressed planar 16-bit RGB file) raises NotImplementedError naming
-ROADMAP A.10d-b.
+`Image.open` fails. What PIL's libtiff opens but cannot decode (WebP, which
+it is built without; SGILog, which libtiff takes only under a LogLuv or
+LogL photometric that PIL does not open) raises OSError as PIL does.
+Old-style JPEG (compression 6) is io/tiff_photometric.py's `ojpeg`; the
+layouts of it no file has needed yet raise NotImplementedError naming
+ROADMAP A.10d-c. cv2's read of a compressed planar 16-bit RGB file, which
+is not a function of the file's bytes, raises NotImplementedError naming
+ROADMAP's Known differences.
 """
 
 from __future__ import annotations
@@ -50,19 +57,20 @@ import numpy as np
 
 from rapidraw_tpu_torch.io.exif import tiff_first_ifd
 
-NONE, CCITT_RLE, CCITT_T4, CCITT_T6, LZW, JPEG, ADOBE_DEFLATE = 1, 2, 3, 4, 5, 7, 8
+NONE, CCITT_RLE, CCITT_T4, CCITT_T6, LZW, OJPEG, JPEG, ADOBE_DEFLATE = 1, 2, 3, 4, 5, 6, 7, 8
 PACKBITS, DEFLATE, LZMA = 32773, 32946, 34925
-_CODECS = {NONE, CCITT_RLE, CCITT_T4, CCITT_T6, LZW, JPEG, ADOBE_DEFLATE, PACKBITS, DEFLATE, LZMA}
-_CCITT = {CCITT_RLE, CCITT_T4, CCITT_T6}
-_PREDICTED = {LZW, ADOBE_DEFLATE, DEFLATE, LZMA}  # the codecs libtiff runs a predictor after
+CCITT_RLEW, THUNDERSCAN, SGILOG, SGILOG24, ZSTD, WEBP = 32771, 32809, 34676, 34677, 50000, 50001
+_CODECS = {NONE, CCITT_RLE, CCITT_T4, CCITT_T6, LZW, JPEG, ADOBE_DEFLATE, PACKBITS, DEFLATE, LZMA,
+           CCITT_RLEW, THUNDERSCAN, ZSTD}  # and OJPEG, which io/tiff_photometric.py reads
+_CCITT = {CCITT_RLE, CCITT_T4, CCITT_T6, CCITT_RLEW}
+# the codecs libtiff runs a predictor after
+_PREDICTED = {LZW, ADOBE_DEFLATE, DEFLATE, LZMA, ZSTD}
+# the codecs cv2 5.0's libtiff reads a 16-bit RGB frame with (no ZSTD, WebP or
+# old-style JPEG; CCITT, ThunderScan and SGILog fail at 16 bits)
+_CV2_CODECS = {LZW, ADOBE_DEFLATE, DEFLATE, PACKBITS}
 # PIL's raw modes that libtiff's native-order samples are read with unrenamed
 _SWAPPED = {"I;16BS", "I;32BS", "F;32BF"}
 REVERSED = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
-
-
-def _deferred(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"rapidraw_tpu_torch does not decode {what} yet (ROADMAP A.10d-b)")
 
 
 def _codec():
@@ -73,6 +81,9 @@ def _codec():
         for fn in (lib.tiff_lzw_decode, lib.tiff_lzw_decode_compat, lib.tiff_packbits_decode):
             fn.restype = ctypes.c_long
             fn.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_long]
+        lib.tiff_thunder_decode.restype = ctypes.c_int
+        lib.tiff_thunder_decode.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_void_p,
+                                            ctypes.c_int, ctypes.c_int]
         lib._rr_typed = True
     return lib
 
@@ -84,7 +95,19 @@ def _ccitt():
     if not getattr(lib, "_rr_typed", False):
         lib.ccitt_decode.restype = ctypes.c_int
         lib.ccitt_decode.argtypes = [ctypes.c_char_p, ctypes.c_long] + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_long]
+        lib._rr_typed = True
+    return lib
+
+
+def _zstd():
+    from rapidraw_tpu_torch.native import host_library
+
+    lib = host_library("zstd_dec")
+    if not getattr(lib, "_rr_typed", False):
+        lib.zstd_decode_first.restype = ctypes.c_long
+        lib.zstd_decode_first.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_void_p,
+                                          ctypes.c_long]
         lib._rr_typed = True
     return lib
 
@@ -96,9 +119,11 @@ def _tuple(v) -> tuple:
 
 
 def _decompress(chunk: bytes, compression: int, size: int, width: int = 0, rows: int = 0,
-                t4options: int = 0) -> np.ndarray:
+                t4options: int = 0, offset: int = 0) -> np.ndarray:
     """One strip or tile -> `size` bytes (short data raises OSError); a
-    CCITT chunk -> `rows` packed rows of `width` pixels."""
+    CCITT chunk -> `rows` packed rows of `width` pixels (`offset`: where the
+    chunk lies in the file, which RLE-W aligns its rows to), a ThunderScan
+    one -> `rows` rows of `width` 4-bit pixels."""
     if compression == NONE:
         out = np.frombuffer(chunk[:size], np.uint8)
     elif compression in (DEFLATE, ADOBE_DEFLATE):
@@ -113,12 +138,23 @@ def _decompress(chunk: bytes, compression: int, size: int, width: int = 0, rows:
             out = np.frombuffer(lzma.LZMADecompressor().decompress(chunk, size), np.uint8)
         except lzma.LZMAError as e:
             raise OSError(f"bad LZMA data in TIFF: {e}") from e
+    elif compression == ZSTD:
+        out = np.empty(size, np.uint8)
+        n = _zstd().zstd_decode_first(chunk, len(chunk), out.ctypes.data, size)
+        if n < 0:
+            raise OSError(f"Error in ZSTD_decompressStream() (code {n})")
+        if n < size:  # libtiff: "Not enough data"
+            raise OSError("image file is truncated (ZSTD strip or tile too short)")
     elif compression in _CCITT:
         out = np.empty(size, np.uint8)
         rc = _ccitt().ccitt_decode(chunk, len(chunk), width, rows, compression, t4options,
-                                   out.ctypes.data)
+                                   out.ctypes.data, offset)
         if rc < 0:
             raise OSError(f"corrupt CCITT data in TIFF (code {rc})")
+    elif compression == THUNDERSCAN:
+        out = np.zeros(size, np.uint8)
+        if _codec().tiff_thunder_decode(chunk, len(chunk), out.ctypes.data, width, rows):
+            raise OSError("ThunderScan data gives too many or too few pixels in a row")
     else:
         buf = np.empty(size, np.uint8)
         lib = _codec()
@@ -136,6 +172,34 @@ def _decompress(chunk: bytes, compression: int, size: int, width: int = 0, rows:
     if out.size < size:
         raise OSError("image file is truncated (TIFF strip or tile too short)")
     return out
+
+
+def check_codec(f: "Frame") -> None:
+    """What libtiff refuses before it decodes a strip or tile (PIL then
+    raises OSError): codecs PIL's libtiff has no decoder for or that need
+    other samples, predictors the samples cannot take."""
+    c, bits = f.compression, f.bits
+    if c == WEBP:
+        raise OSError("WEBP compression support is not configured")
+    if c in (SGILOG, SGILOG24):  # PIL opens these with no LogLuv or LogL photometric
+        raise OSError(f"Inappropriate photometric interpretation {f.photo} for SGILog "
+                      "compression")
+    if c not in _CODECS:
+        raise OSError(f"TIFF compression {c} is not supported")
+    if c in _CCITT and bits != 1:
+        raise OSError("Bits/sample must be 1 for Group 3/4 encoding/decoding")
+    if c == THUNDERSCAN and bits != 4:
+        raise OSError("Thunder decoder only supports 4 bits per sample")
+    if c == THUNDERSCAN and 322 in f.tags and 324 in f.tags:
+        raise OSError("ThunderScan tiles are not supported")
+    if c in _PREDICTED:
+        if f.predictor not in (1, 2, 3):
+            raise OSError(f"Predictor {f.predictor} is not supported")
+        if f.predictor == 2 and bits not in (8, 16, 32):
+            raise OSError(f"horizontal differencing is not supported with {bits}-bit "
+                          "samples")
+        if f.predictor == 3 and f.sample_format[0] != 3:
+            raise OSError("floating point predictor needs floating point samples")
 
 
 class Frame:
@@ -221,27 +285,22 @@ class Frame:
         floats as the sample format says; a JPEG frame's components as its
         colour mode gives them."""
         bits = self.bits
-        if len(set(self.bps)) != 1 or bits not in (1, 2, 4, 8, 16, 32):
-            raise _deferred(f"TIFF samples of {self.bps} bits")
-        if self.compression not in _CODECS:
-            raise _deferred(f"TIFF compression {self.compression}")
-        if self.compression in _PREDICTED:
-            if self.predictor not in (1, 2, 3):
-                raise OSError(f"Predictor {self.predictor} is not supported")
-            if self.predictor == 2 and bits < 8:
-                raise OSError(f"horizontal differencing is not supported with {bits}-bit "
-                              "samples")
-            if self.predictor == 3 and self.sample_format[0] != 3:
-                raise OSError("floating point predictor needs floating point samples")
+        if len(set(self.bps)) != 1 or bits not in (1, 2, 4, 8, 12, 16, 32):
+            raise OSError(f"TIFF samples of {self.bps} bits")
+        check_codec(self)
+        if self.compression == JPEG and bits not in (8, 12):
+            raise OSError(f"JPEG-compressed TIFF of {bits}-bit samples")
         planes = self.spp if self.planar == 2 else 1
         per = 1 if self.planar == 2 else self.spp
         if self.compression == JPEG:
-            dtype = np.uint8
+            dtype = np.uint16 if bits == 12 else np.uint8
         elif bits == 32:
             dtype = {1: np.uint32, 2: np.int32, 3: np.float32}.get(self.sample_format[0],
                                                                    np.uint32)
         elif bits == 16:
             dtype = np.int16 if self.sample_format[0] == 2 else np.uint16
+        elif bits == 12:
+            dtype = np.uint16
         else:
             dtype = np.uint8
         out = np.empty((planes, self.height, self.width, per), dtype)
@@ -254,7 +313,7 @@ class Frame:
             else:
                 row_bytes = (tw * per * bits + 7) // 8
                 raw = _decompress(chunk, self.compression, rows * row_bytes, tw, rows,
-                                  int(self.tags.get(292, 0)))
+                                  int(self.tags.get(292, 0)), off)
                 block = self._unpack(raw, rows, row_bytes, tw, per, bits, dtype)
             nx = min(tw, self.width - x0)
             out[p, y0:y0 + keep, x0:x0 + nx] = block[:keep, :nx]
@@ -286,14 +345,21 @@ class Frame:
             bad = any(f != (1, 1) for f in factors)
         if bad:
             raise OSError("improper JPEG sampling factors in a JPEG-compressed TIFF")
-        px = jpeg.jpeg_components(chunk, jpeg.YCBCR if rgb else jpeg.RAW)
+        if jpeg.frame_info(chunk, pil=False)[3] != self.bits:
+            raise OSError("Improper JPEG data precision")
+        px = jpeg.jpeg_components(chunk, jpeg.YCBCR if rgb else jpeg.RAW, pil=False)
         px = px.reshape(px.shape[0], px.shape[1], -1)
         if px.shape[2] != per:
             raise OSError("JPEG strip or tile with the wrong number of components")
         if px.shape[0] > rows or px.shape[1] > tw:
             raise OSError("JPEG strip or tile size exceeds expected dimensions")
+        if self.bits == 12 and px.shape[1] * px.shape[2] % 2:
+            # tif_jpeg.c packs 12-bit samples in pairs and never writes the
+            # last sample of an odd row (PIL reads whatever its buffer held)
+            px = px.copy()
+            px[:, -1, -1] = 0
         if px.shape[:2] != (rows, tw):  # libtiff warns and leaves the rest
-            full = np.zeros((rows, tw, per), np.uint8)
+            full = np.zeros((rows, tw, per), px.dtype)
             full[:px.shape[0], :px.shape[1]] = px
             px = full
         return px
@@ -306,16 +372,21 @@ class Frame:
         if bits >= 16:
             file_dt = np.dtype(dtype).newbyteorder(self.endian)
             px = rowsb.view(file_dt).astype(dtype).reshape(rows, tw, per)
+        elif bits == 12:  # PIL's "I;12": pairs of samples in three bytes, MSB first
+            b = np.zeros((rows, 3 * (-(-tw * per // 2))), np.uint16)
+            b[:, :row_bytes] = rowsb
+            hi = (b[:, 0::3] << 4) | (b[:, 1::3] >> 4)
+            lo = ((b[:, 1::3] & 15) << 8) | b[:, 2::3]
+            px = np.stack([hi, lo], -1).reshape(rows, -1)[:, :tw * per].reshape(rows, tw, per)
         elif bits == 8:
             px = rowsb.reshape(rows, tw, per)
         else:
             shifts = np.arange(8 - bits, -1, -bits, dtype=np.uint8)
             px = ((rowsb[:, :, None] >> shifts) & ((1 << bits) - 1)).reshape(rows, -1)
             px = px[:, :tw * per].reshape(rows, tw, per)
-        if predict == 2:
+        if predict == 2:  # sums modulo 2^bits, as the samples' own type wraps
             udt = {8: np.uint8, 16: np.uint16, 32: np.uint32}[bits]
-            acc = np.cumsum(px.view(udt).astype(np.uint64), axis=1)
-            px = (acc & ((1 << bits) - 1)).astype(udt).view(px.dtype)
+            px = np.cumsum(px.view(udt), axis=1, dtype=udt).view(px.dtype)
         return px
 
 
@@ -362,6 +433,10 @@ def _decode_tiff(data) -> tuple[np.ndarray, str]:
     from rapidraw_tpu_torch.io import tiff_photometric as photometric
 
     f = Frame(data)
+    if f.compression == OJPEG:
+        return photometric.ojpeg(f, data)
+    if f.compression != NONE:
+        check_codec(f)
     if f.photo == 6 and f.spp != 3 and f.compression != NONE:
         raise OSError("libtiff reads YCbCr only with three samples")
     if f.photo == 6 and f.mode == "RGB" and not (f.compression == JPEG and f.planar == 1):
@@ -394,7 +469,7 @@ def _pil_mode(f: Frame, px: np.ndarray) -> tuple[np.ndarray, str]:
     photo, bits, mode, raw = f.photo, f.bits, f.mode, f.rawmode
     if mode in ("1", "L", "I;16", "I;16B"):
         g = px[..., 0]
-        if bits == 16:  # "I;16" for both zero senses; convert() clamps to 8 bits
+        if bits in (12, 16):  # "I;16" for both zero senses; convert() clamps to 8 bits
             return g.astype(np.uint16), mode
         g8 = (g * _GREY_SCALE[bits]).astype(np.uint8)
         if photo == 0:  # the "I" raw modes: zero is white
@@ -430,7 +505,7 @@ def _pil_mode(f: Frame, px: np.ndarray) -> tuple[np.ndarray, str]:
         pal = np.zeros((256, 3), np.uint8)
         pal[:n] = (cmap.reshape(3, n).T // 256).astype(np.uint8)
         return pal[px[..., 0]], "RGB"
-    raise _deferred(f"TIFF mode {mode} (raw mode {raw})")
+    raise OSError(f"TIFF mode {mode} (raw mode {raw}) that PIL's decoder cannot unpack")
 
 
 def decode_tiff_rgb(data) -> np.ndarray:
@@ -458,13 +533,15 @@ def read_tiff16_rgb(data) -> np.ndarray | None:
         if len(raw) != f.height * f.width * 6:
             return None
         return np.frombuffer(raw, f.endian + "u2").reshape(f.height, f.width, 3)
-    if (f.photo != 2 or f.compression not in _CODECS - _CCITT - {JPEG, LZMA}
-            or f.predictor not in (1, 2)):
+    if f.photo != 2 or f.compression not in _CV2_CODECS or f.predictor not in (1, 2):
         return None
     if f.planar == 2:
         # cv2 reads each plane's strip into a chunky strip buffer and leaves
         # the rest of the buffer as it was: reads of one file differ
-        raise _deferred("cv2's read of a compressed planar 16-bit RGB TIFF")
+        raise NotImplementedError(
+            "rapidraw_tpu_torch does not read a compressed planar 16-bit RGB TIFF as cv2 "
+            "does: cv2's read is not a function of the file's bytes (ROADMAP Known "
+            "differences, cv2 planar reads)")
     # cv2 turns the pixels by IFD0's Orientation 2-4 and fails to read the
     # file at 5-8 (None: the JAX package then reads it through PIL)
     orientation = f.tags.get(274, 1)

@@ -65,6 +65,7 @@ def fixtures() -> dict[str, bytes]:
     pal_img.save(buf, "GIF", transparency=int(idx[40, 70]), optimize=False)
     out["transparent.gif"] = buf.getvalue()
     out.update(variants())
+    out.update(variants_b())
     return out
 
 
@@ -94,6 +95,59 @@ def variants() -> dict[str, bytes]:
         {258: (3, [8, 8, 8]), 259: (3, [5]), 262: (3, [6]), 277: (3, [3]), 530: (3, [2, 2])})
     out["lab.tif"] = save(Image.frombytes("LAB", (64, 48), rgb.tobytes()), "TIFF",
                           compression="tiff_adobe_deflate")
+    return out
+
+
+# Annex K's tables at quality 85 (libjpeg's scaling)
+K_LUMA = [16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13, 16, 24, 40,
+          57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62, 18, 22, 37, 56, 68, 109, 103, 77, 24, 35,
+          55, 64, 81, 104, 113, 92, 49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112,
+          100, 103, 99]
+K_CHROMA = [17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99, 24, 26, 56, 99, 99,
+            99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99] + [99] * 32
+
+
+def q85(table: list) -> np.ndarray:
+    return np.clip((np.asarray(table) * 30 + 50) // 100, 1, 255)
+
+
+def variants_b() -> dict[str, bytes]:
+    import chip_smoke
+    from chip_smoke import tiff_chunks as make_tiff, ycbcr_blocks
+    from tests.test_torch_ldr import lzw_encode
+    from tests.test_torch_ldr_variants_b import (arith_jpeg, coefficients, pack12, _hdiff,
+                                                 _jpeg12, _thunder, ojpeg_file)
+
+    w = chip_smoke.LDR_B_WIDTH
+    rgb = (chip_smoke.ldr_rgb16(16, w, 24) >> 8).astype(np.uint8)
+    quant = [q85(K_LUMA), q85(K_CHROMA)]
+    samp = [(2, 2), (1, 1), (1, 1)]
+    co = coefficients(rgb, samp, quant)
+    mcus, yblocks = w // 16, (w // 8) * 2
+    out = {"arith_seq.jpg": arith_jpeg(co, w, 16, samp, quant, restart=mcus)}
+    script = [((0, 1, 2), 0, 0, 0, 1, mcus), ((0,), 1, 5, 0, 2, yblocks),
+              ((1,), 1, 63, 0, 1, mcus), ((2,), 1, 63, 0, 1, mcus),
+              ((0,), 6, 63, 0, 2, yblocks), ((0,), 1, 63, 2, 1, yblocks),
+              ((1,), 1, 63, 1, 0, mcus), ((2,), 1, 63, 1, 0, mcus),
+              ((0,), 1, 63, 1, 0, yblocks), ((0, 1, 2), 0, 0, 1, 0, mcus)]
+    out["arith_prog.jpg"] = arith_jpeg(co, w, 16, samp, quant, scans=script, progressive=True)
+    out["zstd_pred2.tif"] = save(Image.fromarray(np.ascontiguousarray(rgb[:8])), "TIFF",
+                                 compression="zstd", tiffinfo={317: 2, 278: 8})
+    small = (chip_smoke.ldr_rgb16(48, 64, 25) >> 8).astype(np.uint8)
+    out["rlew.tif"] = save(Image.fromarray(small[..., 1] > 120), "TIFF",
+                           compression="tiff_raw_16")
+    out["thunder.tif"] = _thunder(48, 64, rows=16)
+    grey12 = small[..., 0].astype(np.uint16) * 16 + small[..., 1] // 16
+    out["twelve.tif"] = make_tiff(64, 48, [lzw_encode(pack12(grey12))],
+                                  {258: (3, [12]), 259: (3, [5]), 262: (3, [1]), 277: (3, [1])})
+    out["jpeg12.tif"] = make_tiff(64, 48, [_jpeg12(grey12.astype(np.float64), "prog")],
+                                  {258: (3, [12]), 259: (3, [7]), 262: (3, [1]),
+                                   277: (3, [1])})
+    out["ycbcr_pred.tif"] = make_tiff(64, 48, [lzw_encode(_hdiff(ycbcr_blocks(
+        small[..., 0], small[::2, ::2, 1], small[::2, ::2, 2], 2, 2), 96))],
+        {258: (3, [8, 8, 8]), 259: (3, [5]), 262: (3, [6]), 277: (3, [3]),
+         530: (3, [2, 2]), 317: (3, [2])})
+    out["ojpeg.tif"] = ojpeg_file(48, 64, "4:2:0", "tables", restarts=True, seed=26)
     return out
 
 

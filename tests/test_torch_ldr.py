@@ -5,9 +5,9 @@ io/float_images.py, io/loader.py) against PIL, cv2 and the JAX package.
   fancy upsampling) at every sampling PIL and cv2 write (4:4:4, 4:2:2,
   4:2:0, 4:4:0, 4:1:1), grey, progressive, optimized tables, restart
   markers, odd sizes and 1024 x 1536; truncated files fail where PIL
-  fails; arithmetic coding, the one coding still refused, raises
-  NotImplementedError naming A.10d-b, and a 12-bit or CMYK file reads as
-  PIL reads it (tests/test_torch_ldr_variants.py holds the rest).
+  fails; Huffman data under an arithmetic-coding SOF, and a 12-bit or CMYK
+  file, read as PIL reads them (tests/test_torch_ldr_variants.py and
+  tests/test_torch_ldr_variants_b.py hold the rest).
 - TIFF: files written here (`tiff_bytes`: every compression, predictor,
   strips and tiles, chunky and planar, both byte orders) and by PIL and
   cv2, read as PIL's convert("RGB") and as the JAX package's 16-bit read.
@@ -292,16 +292,22 @@ def _patched(data: bytes, marker: int, offset: int = 0, value: int | None = None
 
 
 def test_refused_jpeg_codings_name_a10c():
-    """Arithmetic coding, the one JPEG coding the port still refuses, names
-    the slice that takes it, A.10d-b; a 12-bit frame is one PIL does not
-    open (UnidentifiedImageError, an OSError), and a CMYK file and a
-    lossless one decode as PIL decodes them."""
+    """Huffman data under an arithmetic-coding SOF (SOF9, SOF10) decodes as
+    libjpeg decodes it for PIL (as QM-coded data), or fails where PIL
+    fails; a 12-bit frame is one PIL does not open (UnidentifiedImageError,
+    an OSError), and a CMYK file and a lossless one decode as PIL decodes
+    them."""
     from PIL import UnidentifiedImageError
 
     base = pil_jpeg(photo(16, 16), quality=85)
     for data in (_patched(base, 0xC9), _patched(base, 0xCA)):
-        with pytest.raises(NotImplementedError, match="A.10d-b"):
-            jpeg.decode_jpeg(data)
+        try:
+            want = np.asarray(Image.open(io.BytesIO(data)))
+        except OSError:
+            with pytest.raises(OSError):
+                jpeg.decode_jpeg(data)
+        else:
+            assert np.array_equal(jpeg.decode_jpeg(data), want)
     twelve = _patched(base, 0, offset=0, value=12)
     with pytest.raises(UnidentifiedImageError):
         Image.open(io.BytesIO(twelve))
@@ -396,7 +402,8 @@ def test_tiff16_matches_jax(source, tmp_path):
     """The full-depth 16-bit RGB read equals JAX's read_tiff16_rgb (its strip
     reader, or cv2 for compressed files), None where it is None; compressed
     planar files, which cv2 reads through a strip buffer it does not clear
-    (two reads of one file differ), are refused naming A.10d-b."""
+    (two reads of one file differ), are refused naming ROADMAP's Known
+    differences."""
     rng = np.random.default_rng(9)
     a16 = rng.integers(0, 65536, (13, 21, 3), dtype=np.uint16)
     files = []
@@ -419,7 +426,7 @@ def test_tiff16_matches_jax(source, tmp_path):
         p = tmp_path / "a.tif"
         p.write_bytes(data)
         if refused:
-            with pytest.raises(NotImplementedError, match="A.10d-b"):
+            with pytest.raises(NotImplementedError, match="Known differences"):
                 tiff.read_tiff16_rgb(data)
             continue
         want, got = jencode.read_tiff16_rgb(p), tiff.read_tiff16_rgb(data)

@@ -857,16 +857,17 @@ def test_unidentified_bytes_raise_oserror():
 
 
 def test_refused_jpeg_and_tiff_name_a10d():
-    """The JPEG codings and TIFF variants the port still refuses name the
-    slice that takes them, A.10d-b: arithmetic coding and ZSTD; a CMYK TIFF
-    decodes as PIL decodes it."""
+    """The JPEG codings and TIFF codecs A.10d-b added read as PIL reads
+    them: Huffman data under SOF9 (decoded as QM-coded data), and LZW data
+    under ZSTD's compression tag (a frame that is not one: PIL's class);
+    a CMYK TIFF decodes as PIL decodes it."""
     from rapidraw_tpu_torch.io import jpeg, tiff
 
     base = pil_bytes(Image.fromarray(photo(16, 16)[..., :3]), "JPEG", quality=85)
     at = base.index(b"\xff\xc0")
     arith = base[:at + 1] + b"\xc9" + base[at + 2:]
-    with pytest.raises(NotImplementedError, match="A.10d-b"):
-        jpeg.decode_jpeg(arith)
+    assert_like_pil(arith)
+    assert np.array_equal(jpeg.decode_jpeg(arith), np.asarray(Image.open(io.BytesIO(arith))))
     buf = io.BytesIO()
     Image.new("CMYK", (8, 8), (10, 20, 30, 40)).save(buf, "TIFF")
     want = np.asarray(Image.open(io.BytesIO(buf.getvalue())).convert("RGB"))
@@ -876,8 +877,11 @@ def test_refused_jpeg_and_tiff_name_a10d():
     zstd = bytearray(buf.getvalue())
     at = bytes(zstd).index(struct.pack("<HHI", 259, 3, 1))
     struct.pack_into("<H", zstd, at + 8, 50000)
-    with pytest.raises(NotImplementedError, match="A.10d-b"):
+    with pytest.raises(OSError):
+        Image.open(io.BytesIO(bytes(zstd))).load()
+    with pytest.raises(OSError):
         tiff.decode_tiff_rgb(bytes(zstd))
+    assert_like_pil(bytes(zstd))
 
 
 # ---- load_image against JAX -----------------------------------------------------------
